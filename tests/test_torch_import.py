@@ -1,0 +1,185 @@
+"""The port's package boundary: ``repro_torch`` and ``chip_smoke.py`` never
+touch JAX or the reference package, the device is explicit, and a CUDA
+entry never falls back to the CPU."""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.device import resolve_device
+from repro_torch.kernels.tree_predict import tree_predict as tp
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(ROOT, "src")
+PORT = os.path.join(SRC, "repro_torch")
+
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+
+
+def _port_modules() -> list[str]:
+    return sorted(
+        m.name
+        for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")
+    )
+
+
+def test_port_modules_exist():
+    mods = _port_modules()
+    for name in (
+        "repro_torch.device",
+        "repro_torch.convert",
+        "repro_torch.core.bregman",
+        "repro_torch.core.compressed_predict",
+        "repro_torch.kernels.build",
+        "repro_torch.kernels.tree_predict.tree_predict",
+        "repro_torch.kernels.tree_predict.ref",
+        "repro_torch.store.arena",
+        "repro_torch.store.runtime",
+        "repro_torch.serving.server",
+        "repro_torch.serving.engines",
+    ):
+        assert name in mods
+
+
+def test_importing_every_module_leaves_jax_and_repro_out():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print(repr(bad))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=env, check=True, timeout=300,
+    )
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+@pytest.mark.parametrize("where", ["package", "chip_smoke"])
+def test_no_jax_or_reference_import_in_source(where):
+    if where == "chip_smoke":
+        paths = [os.path.join(ROOT, "chip_smoke.py")]
+    else:
+        paths = [
+            os.path.join(d, f)
+            for d, _, files in os.walk(PORT) for f in files
+            if f.endswith((".py", ".cu"))
+        ]
+    assert paths
+    for path in paths:
+        with open(path) as fh:
+            text = fh.read()
+        assert not FORBIDDEN.search(text), path
+
+
+def test_chip_smoke_fails_without_the_repo(tmp_path):
+    """A directory holding only ``chip_smoke.py`` has no port to import:
+    the script exits non-zero and prints no result."""
+    lone = tmp_path / "chip_smoke.py"
+    with open(os.path.join(ROOT, "chip_smoke.py")) as fh:
+        lone.write_text(fh.read())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, str(lone)], capture_output=True, text=True,
+        cwd=tmp_path, env=env, timeout=300,
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_resolve_device_cpu_and_unknown():
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_resolve_device_cuda_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        resolve_device()
+
+
+def test_from_forest_default_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from conftest import random_forest
+
+    from repro_torch.convert import forest_from_arrays
+    from repro_torch.serving import ForestServer
+
+    f = random_forest(seed=1, n_trees=3, max_depth=3)
+    forest = forest_from_arrays(f.trees, f.meta, f.fit_values)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ForestServer.from_forest(forest)
+
+
+def test_kernel_launches_refuse_cpu_tensors():
+    """The CUDA launch functions never run a CPU tensor (no silent plain
+    fallback), and count nothing when they refuse."""
+    xb = torch.zeros((4, 2), dtype=torch.int32)
+    seg = torch.zeros(4, dtype=torch.int32)
+    code = torch.zeros((8, 3), dtype=torch.float32)
+    tseg = torch.zeros(8, dtype=torch.int32)
+    rng_ = torch.zeros(1, dtype=torch.int32)
+    tp.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        tp._launch_seg_packed(
+            xb, seg, code, code, tseg, rng_, rng_, 1, 2, 0, 8, 4
+        )
+    with pytest.raises(ValueError, match="CUDA"):
+        tp._launch_seg_simple(
+            xb, seg, tseg, code.int(), code.int(), code,
+            code.bool(), 1, 0, 8, 4,
+        )
+    assert tp.LAUNCHES == {"seg_packed": 0, "seg_simple": 0}
+
+
+def test_entries_need_a_tensor_to_pick_the_device():
+    xb = np.zeros((4, 2), np.int32)
+    heap = np.zeros((2, 3), np.int32)
+    with pytest.raises(TypeError, match="torch.Tensor"):
+        tp.forest_predict_agg_segmented(
+            xb, np.zeros(4, np.int32), np.zeros(2, np.int32), heap, heap,
+            heap.astype(np.float32), heap.astype(bool), max_depth=1,
+        )
+
+
+def test_build_library_path_tracks_source_and_flags():
+    from repro_torch.kernels import build
+
+    path = build.library_path("tree_predict")
+    assert path.parent == build.BUILD_DIR
+    assert path.name.startswith("libtree_predict-") and path.suffix == ".so"
+    assert build.library_path("tree_predict") == path  # deterministic
+    assert build.BUILD_DIR.parts[-2:] == ("build", "kernels")
+
+
+def test_every_c_entry_is_declared_and_every_launch_is_counted():
+    """The ctypes declarations name exactly the ``extern "C"`` functions of
+    the CUDA source, and each launch function bumps its own counter."""
+    import inspect
+
+    src = os.path.join(
+        PORT, "kernels", "tree_predict", "csrc", "tree_predict.cu"
+    )
+    with open(src) as fh:
+        text = fh.read()
+    c_entries = set(re.findall(r"^(?:int|const char\*) (tp_\w+)\(", text, re.M))
+    assert c_entries == set(tp._SIGNATURES)
+    for fn, key in ((tp._launch_seg_packed, "seg_packed"),
+                    (tp._launch_seg_simple, "seg_simple")):
+        body = inspect.getsource(fn)
+        assert body.count("LAUNCHES[") == 1
+        assert f'LAUNCHES["{key}"] += 1' in body
