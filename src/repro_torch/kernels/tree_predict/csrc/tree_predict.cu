@@ -1,5 +1,6 @@
-// Segmented tree-predict kernels for Hopper (sm_90a), with a plain C
-// interface for ctypes.  Two engines share one kernel template:
+// Tree-predict kernels for Hopper (sm_90a), with a plain C interface for
+// ctypes.  Four kernels; K1-K3 share one aggregating template, K4 writes
+// every (tree, row) leaf:
 //
 //   K1 (tp_seg_packed) replaces
 //     src/repro/kernels/tree_predict/tree_predict.py:
@@ -10,30 +11,46 @@
 //     _tree_predict_agg_seg_kernel
 //     separate feature / threshold / is_internal tables, every chunk,
 //     masks tree_id < T as well as the segment ids.
+//   K3 (tp_agg) replaces
+//     src/repro/kernels/tree_predict/tree_predict.py:
+//     _tree_predict_agg_kernel
+//     K2's tables and loop with the segment test compiled out: every tree
+//     below T counts for every row.
+//   K4 (tp_per_tree) replaces
+//     src/repro/kernels/tree_predict/tree_predict.py:
+//     _tree_predict_kernel
+//     the unaggregated (T, N) leaf fit of every (tree, row) pair.
 //
-// What they compute: per row, the vote counts (N, C) or the fit sum (N,)
-// over the trees whose segment id equals the row's, each tree walked
-// `max_depth` levels of its heap (node i -> children 2i+1 / 2i+2).
+// What they compute: each tree walked `max_depth` levels of its heap
+// (node i -> children 2i+1 / 2i+2); an index at or past the heap width h
+// reads as a leaf with fit 0, as the TPU kernels read their zero-padded
+// heaps.  K1-K3 then reduce per row to vote counts (N, C) or a fit sum
+// (N,), over the trees whose segment id equals the row's (K1, K2) or over
+// all trees (K3); K4 stores each leaf.
 //
 // What bounds them on this card: a walk is a chain of dependent loads (the
 // node decides which node comes next), so a (tree, row) pair costs
 // max_depth load latencies and moves a few bytes per level.  The tables
 // are small next to L2 (100 trees at depth 8: 100 * 511 * 8 B = 0.4 MB) and
 // are re-read by every row block, so the kernels are bound by load latency
-// and the number of pairs in flight, not by HBM bytes or arithmetic.
+// and the number of pairs in flight, not by HBM bytes or arithmetic.  K4
+// also writes 4 * T * N bytes, coalesced along rows.
 //
 // What the design does about it: the TPU kernels gathered nodes with
 // two-level one-hot matrix products because VMEM gathers are slow; here a
 // node is ONE indexed load through the read-only cache (__ldg), for any
 // heap depth (nothing is staged in shared memory, so deep heaps need no
-// second path).  A CTA covers the fixed row block
+// second path).  A K1-K3 CTA covers the fixed row block
 // [blockIdx.x * block_obs, (blockIdx.x + 1) * block_obs) and runs a pair
 // per thread, block_obs consecutive rows of ONE tree per warp-run, so a
 // warp's top-level node loads hit the same address.  Each pair writes its
 // masked leaf to shared memory; after a barrier one thread per row folds
 // the chunk's block_trees values in tree order into the row's output, so
-// sums are deterministic (no float atomics) and votes are exact.
-// Making it fast (shared-memory staging of chunks, more CTAs per row
+// sums are deterministic (no float atomics) and votes are exact.  A K4 CTA
+// covers block_obs rows of block_trees trees, a row per thread, one tree
+// after another, so each store of a warp is one contiguous run of a row
+// of the output.
+// Making them fast (shared-memory staging of chunks, more CTAs per row
 // block at small N) is later work; this version is the right one.
 
 #include <cuda_runtime.h>
@@ -95,10 +112,26 @@ struct SimpleNodes {
   }
 };
 
-// One CTA per row block.  chunk_lo == nullptr means every chunk
-// [0, n_chunks).  n_trees masks tree ids past the real trees (K2); K1
-// passes T_pad, whose padding trees carry segment -1.
+// The leaf one (tree, row) pair reaches: `max_depth` levels from the root.
 template <class Nodes>
+__device__ __forceinline__ float walk(const Nodes& nodes, int64_t base,
+                                      const int* __restrict__ x, int d,
+                                      int max_depth) {
+  int64_t idx = 0;
+  for (int level = 0; level < max_depth; ++level) {
+    int feat, thr;
+    if (!nodes.node(base, idx, feat, thr)) break;  // leaf: stays put
+    feat = min(max(feat, 0), d - 1);
+    idx = (__ldg(x + feat) <= thr) ? 2 * idx + 1 : 2 * idx + 2;
+  }
+  return nodes.leaf(base, idx);
+}
+
+// One CTA per row block.  chunk_lo == nullptr means every chunk
+// [0, n_chunks).  n_trees masks tree ids past the real trees (K2, K3); K1
+// passes T_pad, whose padding trees carry segment -1.  kSegmented = false
+// (K3) compiles the segment test out; obs_seg / tree_seg are then unread.
+template <class Nodes, bool kSegmented>
 __global__ void seg_agg_kernel(Nodes nodes, const int* __restrict__ xb,
                                const int* __restrict__ obs_seg,
                                const int* __restrict__ tree_seg,
@@ -127,17 +160,10 @@ __global__ void seg_agg_kernel(Nodes nodes, const int* __restrict__ xb,
       const int tree = ci * block_trees + t;
       float v = 0.0f;
       int cls = -1;
-      if (row < n && tree < n_trees && tree_seg[tree] == obs_seg[row]) {
-        const int64_t base = static_cast<int64_t>(tree) * nodes.h;
-        const int* x = xb + static_cast<int64_t>(row) * d;
-        int64_t idx = 0;
-        for (int level = 0; level < max_depth; ++level) {
-          int feat, thr;
-          if (!nodes.node(base, idx, feat, thr)) break;  // leaf: stays put
-          feat = min(max(feat, 0), d - 1);
-          idx = (__ldg(x + feat) <= thr) ? 2 * idx + 1 : 2 * idx + 2;
-        }
-        v = nodes.leaf(base, idx);
+      if (row < n && tree < n_trees &&
+          (!kSegmented || tree_seg[tree] == obs_seg[row])) {
+        v = walk(nodes, static_cast<int64_t>(tree) * nodes.h,
+                 xb + static_cast<int64_t>(row) * d, d, max_depth);
         cls = __float2int_rz(v);  // astype(int32): truncate toward zero
       }
       if (n_classes > 0) {
@@ -169,7 +195,30 @@ __global__ void seg_agg_kernel(Nodes nodes, const int* __restrict__ xb,
 constexpr int kMaxThreads = 1024;
 constexpr int kDefaultSmem = 48 * 1024;
 
-template <class Nodes>
+// K4: a CTA covers block_obs rows of the tree blocks blockIdx.y,
+// blockIdx.y + gridDim.y, ... (gridDim.y is capped at 65,535).
+__global__ void per_tree_kernel(SimpleNodes nodes, const int* __restrict__ xb,
+                                float* __restrict__ out, int n, int d,
+                                int n_trees, int max_depth, int block_trees,
+                                int block_obs) {
+  const int n_tree_blocks = (n_trees + block_trees - 1) / block_trees;
+  const int row0 = blockIdx.x * block_obs;
+  for (int r = threadIdx.x; r < block_obs; r += blockDim.x) {
+    const int row = row0 + r;
+    if (row >= n) break;
+    const int* x = xb + static_cast<int64_t>(row) * d;
+    for (int tb = blockIdx.y; tb < n_tree_blocks; tb += gridDim.y) {
+      const int t_end = min(n_trees, (tb + 1) * block_trees);
+      for (int tree = tb * block_trees; tree < t_end; ++tree) {
+        out[static_cast<int64_t>(tree) * n + row] =
+            walk(nodes, static_cast<int64_t>(tree) * nodes.h, x, d,
+                 max_depth);
+      }
+    }
+  }
+}
+
+template <class Nodes, bool kSegmented>
 int launch(Nodes nodes, const int* xb, const int* obs_seg,
            const int* tree_seg, const int* chunk_lo, const int* chunk_hi,
            float* out, int n, int d, int n_trees, int n_chunks,
@@ -181,12 +230,13 @@ int launch(Nodes nodes, const int* xb, const int* obs_seg,
   const size_t smem = static_cast<size_t>(pairs) * sizeof(float);
   if (smem > kDefaultSmem) {
     cudaError_t e = cudaFuncSetAttribute(
-        seg_agg_kernel<Nodes>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        seg_agg_kernel<Nodes, kSegmented>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int grid = (n + block_obs - 1) / block_obs;
-  seg_agg_kernel<Nodes><<<grid, threads, smem, stream>>>(
+  seg_agg_kernel<Nodes, kSegmented><<<grid, threads, smem, stream>>>(
       nodes, xb, obs_seg, tree_seg, chunk_lo, chunk_hi, out, n, d, n_trees,
       n_chunks, max_depth, n_classes, block_trees, block_obs);
   return static_cast<int>(cudaGetLastError());
@@ -204,9 +254,10 @@ int tp_seg_packed(const int* xb, const int* obs_seg, const float* code,
                   int h, int max_depth, int tb2, int n_classes,
                   int block_trees, int block_obs, void* stream) {
   PackedNodes nodes{code, fit, static_cast<int64_t>(h), tb2};
-  return launch(nodes, xb, obs_seg, tree_seg, chunk_lo, chunk_hi, out, n, d,
-                t_pad, t_pad / block_trees, max_depth, n_classes,
-                block_trees, block_obs, static_cast<cudaStream_t>(stream));
+  return launch<PackedNodes, true>(
+      nodes, xb, obs_seg, tree_seg, chunk_lo, chunk_hi, out, n, d, t_pad,
+      t_pad / block_trees, max_depth, n_classes, block_trees, block_obs,
+      static_cast<cudaStream_t>(stream));
 }
 
 // K2.  feature / threshold (t, h) i32, fit (t, h) f32, is_internal (t, h)
@@ -218,9 +269,40 @@ int tp_seg_simple(const int* xb, const int* obs_seg, const int* tree_seg,
                   int block_trees, int block_obs, void* stream) {
   SimpleNodes nodes{feature, threshold, fit, is_internal,
                     static_cast<int64_t>(h)};
-  return launch(nodes, xb, obs_seg, tree_seg, nullptr, nullptr, out, n, d, t,
-                (t + block_trees - 1) / block_trees, max_depth, n_classes,
-                block_trees, block_obs, static_cast<cudaStream_t>(stream));
+  return launch<SimpleNodes, true>(
+      nodes, xb, obs_seg, tree_seg, nullptr, nullptr, out, n, d, t,
+      (t + block_trees - 1) / block_trees, max_depth, n_classes,
+      block_trees, block_obs, static_cast<cudaStream_t>(stream));
+}
+
+// K3.  feature / threshold (t, h) i32, fit (t, h) f32, is_internal (t, h)
+// bool bytes; out zeroed (n, C) or (n,).
+int tp_agg(const int* xb, const int* feature, const int* threshold,
+           const float* fit, const unsigned char* is_internal, float* out,
+           int n, int d, int t, int h, int max_depth, int n_classes,
+           int block_trees, int block_obs, void* stream) {
+  SimpleNodes nodes{feature, threshold, fit, is_internal,
+                    static_cast<int64_t>(h)};
+  return launch<SimpleNodes, false>(
+      nodes, xb, nullptr, nullptr, nullptr, nullptr, out, n, d, t,
+      (t + block_trees - 1) / block_trees, max_depth, n_classes,
+      block_trees, block_obs, static_cast<cudaStream_t>(stream));
+}
+
+// K4.  The same tables; out (t, n) f32, every element written.
+int tp_per_tree(const int* xb, const int* feature, const int* threshold,
+                const float* fit, const unsigned char* is_internal,
+                float* out, int n, int d, int t, int h, int max_depth,
+                int block_trees, int block_obs, void* stream) {
+  SimpleNodes nodes{feature, threshold, fit, is_internal,
+                    static_cast<int64_t>(h)};
+  const int threads = block_obs < kMaxThreads ? block_obs : kMaxThreads;
+  const int n_tree_blocks = (t + block_trees - 1) / block_trees;
+  const dim3 grid((n + block_obs - 1) / block_obs,
+                  n_tree_blocks < 65535 ? n_tree_blocks : 65535);
+  per_tree_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      nodes, xb, out, n, d, t, max_depth, block_trees, block_obs);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* tp_error_string(int code) {

@@ -1,5 +1,6 @@
-"""Segmented batched random-forest inference — the port of
-``repro.kernels.tree_predict.tree_predict``'s serving engines.
+"""Batched random-forest inference — the port of
+``repro.kernels.tree_predict.tree_predict``: the segmented serving engines
+(K1, K2) and the whole-forest entries (K3, K4).
 
 Layout: trees in heap form (node i -> children 2i+1 / 2i+2), so traversal
 is pure arithmetic + indexed loads, no pointers.  Trees and observations
@@ -8,7 +9,7 @@ when the ids match: many users' forests pack into ONE tree axis and one
 launch serves a mixed batch.  Per row the result is the (N, C) vote
 counts (classification) or the (N,) fit sum (regression).
 
-Two engines, as in the reference (``engine=`` on the wrapper):
+Two segmented engines, as in the reference (``engine=`` on the wrapper):
 
 * ``"pipelined"`` — K1, ``forest_predict_agg_segmented_packed``: fused
   node attributes (``(feature * TB + threshold) * 2 + is_internal`` as one
@@ -18,14 +19,27 @@ Two engines, as in the reference (``engine=`` on the wrapper):
 * ``"simple"`` — K2, the unfused oracle over separate feature / threshold
   / is_internal tables, every tree chunk, masking ``tree_id < T`` as well.
 
+Two whole-forest entries, no segments:
+
+* ``forest_predict_agg`` — K3: per row the (N, C) votes or (N,) fit sum
+  over every tree (``ops.predict_forest_kernel``);
+* ``forest_predict`` — K4: the unaggregated (T, N) leaf fit of every
+  (tree, row) pair (``ops.predict_forest_kernel_per_tree``).
+
+Every kernel reads a heap index at or past the heap width ``H`` (a
+``max_depth`` deeper than the heap) as feature 0, threshold 0, not
+internal, fit 0 — what the Pallas kernels read from their zero-padded
+heaps — and so do the plain versions.  The ``ref`` twins clamp instead,
+as the reference's jnp oracles do.
+
 Dispatch is by the tensors' device.  An entry takes numpy arrays or
 tensors; the device of its tensor arguments (which must agree, and at
 least one must be a tensor) selects the path, and numpy arguments move
 there.  On the CPU the entry runs the kernel's plain PyTorch version
-(``_seg_packed_plain`` / ``_seg_simple_plain``, built on the ``ref``
-twins).  On a CUDA device it launches the hand-written Hopper kernel in
-``csrc/tree_predict.cu`` or raises — it never falls back to the plain
-version.  ``LAUNCHES`` counts the CUDA launches of each kernel, so a run
+(``_seg_packed_plain``, ``_seg_simple_plain``, ``_agg_plain_unseg``,
+``_per_tree_plain``).  On a CUDA device it launches the hand-written
+Hopper kernel in ``csrc/tree_predict.cu`` or raises — it never falls back
+to the plain version.  ``LAUNCHES`` counts the CUDA launches of each kernel, so a run
 can show that it went through them.  The reference's ``interpret=``
 keyword has no meaning here and is dropped.
 
@@ -42,7 +56,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .ref import _one_hot_votes, forest_predict_reference
+from .ref import _one_hot_votes
 
 _F32_EXACT_INT = 1 << 24  # float32 has a 24-bit significand
 
@@ -50,13 +64,15 @@ _F32_EXACT_INT = 1 << 24  # float32 has a 24-bit significand
 _MAX_SMEM_BYTES = 232448
 
 #: CUDA launches of each kernel since the last reset.
-LAUNCHES = {"seg_packed": 0, "seg_simple": 0}
+LAUNCHES = {"seg_packed": 0, "seg_simple": 0, "agg": 0, "per_tree": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "tp_seg_packed": ([_P] * 8 + [_I] * 9 + [_P], _I),
     "tp_seg_simple": ([_P] * 8 + [_I] * 8 + [_P], _I),
+    "tp_agg": ([_P] * 6 + [_I] * 8 + [_P], _I),
+    "tp_per_tree": ([_P] * 6 + [_I] * 7 + [_P], _I),
     "tp_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -168,12 +184,41 @@ def segment_chunk_ranges(
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch versions of the two kernels
+# Plain PyTorch versions of the kernels
 # ---------------------------------------------------------------------------
 
 #: Plain versions walk trees in slices of about this many (tree, row,
 #: class) cells, so their (T, N) intermediates stay bounded.
 _PLAIN_CELLS = 1 << 26
+
+
+def _per_tree_plain(
+    xb, feature, threshold, fit, is_internal, max_depth: int,
+    block_trees: int = 8, block_obs: int = 256,
+) -> torch.Tensor:
+    """Plain version of K4: the (T, N) leaf fit of every (tree, row) pair.
+    An index at or past the heap width reads feature 0, threshold 0, not
+    internal and fit 0 (one zero column appended to each heap), where the
+    ``ref`` twin clamps to the last slot.  The block sizes do not change
+    the result; they are taken so the plain version and the launch share
+    one signature."""
+    n, d = xb.shape
+    t, h = feature.shape
+
+    def padded(a):
+        return torch.cat([a, a.new_zeros((t, 1))], dim=1)
+
+    feature, threshold, fit = padded(feature), padded(threshold), padded(fit)
+    inter = padded(is_internal.to(torch.bool))
+    xb_t = xb.T.contiguous()  # (d, N)
+    idx = torch.zeros((t, n), dtype=torch.int64, device=xb.device)
+    for _ in range(max_depth):
+        at = idx.clamp(max=h)
+        fe = torch.gather(feature, 1, at).to(torch.int64).clamp(0, d - 1)
+        go_left = torch.gather(xb_t, 0, fe) <= torch.gather(threshold, 1, at)
+        child = torch.where(go_left, 2 * idx + 1, 2 * idx + 2)
+        idx = torch.where(torch.gather(inter, 1, at), child, idx)
+    return torch.gather(fit, 1, idx.clamp(max=h))
 
 
 def _agg_plain(
@@ -184,7 +229,8 @@ def _agg_plain(
     """Masked aggregate in the kernels' own summation order: per chunk of
     ``block_trees`` trees, the masked leaves summed in tree order, then
     the chunk sums added to the row's total chunk by chunk.  Trees at or
-    past ``n_trees`` never contribute (K2's ``tree_id < T`` mask).
+    past ``n_trees`` never contribute (K2's and K3's ``tree_id < T``
+    mask); ``obs_seg = tree_seg = None`` drops the segment mask (K3).
     ``chunk_ranges = (chunk_lo, chunk_hi, block_obs)`` limits each row
     block to its chunks, as K1 does."""
     t = feature.shape[0]
@@ -197,19 +243,19 @@ def _agg_plain(
     step = block_trees * max(1, _PLAIN_CELLS // max(block_trees * n * c_out, 1))
     for lo in range(0, t, step):
         hi = min(lo + step, t)
-        leaf = forest_predict_reference(
+        leaf = _per_tree_plain(
             xb, feature[lo:hi], threshold[lo:hi], fit[lo:hi],
             is_internal[lo:hi], max_depth,
         )  # (S, N)
         ids = torch.arange(lo, hi, device=xb.device)
-        valid = (tree_seg[lo:hi, None] == obs_seg[None, :]) & (
-            ids < n_trees
-        )[:, None]
+        valid = (ids < n_trees)[:, None].expand(hi - lo, n)
+        if tree_seg is not None:
+            valid = valid & (tree_seg[lo:hi, None] == obs_seg[None, :])
         if chunk_ranges is not None:
             c_lo, c_hi, bo = chunk_ranges
             block = torch.arange(n, device=xb.device) // bo
             chunk = (ids // block_trees)[:, None]
-            valid &= (chunk >= c_lo[block][None, :]) & (
+            valid = valid & (chunk >= c_lo[block][None, :]) & (
                 chunk < c_hi[block][None, :]
             )
         if n_classes > 0:  # integer-valued counts: any order is exact
@@ -263,6 +309,19 @@ def _seg_simple_plain(
     )
 
 
+def _agg_plain_unseg(
+    xb, feature, threshold, fit, is_internal, max_depth: int,
+    n_classes: int = 0, block_trees: int = 8, block_obs: int = 256,
+) -> torch.Tensor:
+    """Plain version of K3 on the same tensors: every tree, no segments.
+    ``block_obs`` does not change the result; it is taken so the plain
+    version and the launch share one signature."""
+    return _agg_plain(
+        xb, None, None, feature, threshold, fit, is_internal, max_depth,
+        n_classes, block_trees, feature.shape[0],
+    )
+
+
 # ---------------------------------------------------------------------------
 # CUDA launches
 # ---------------------------------------------------------------------------
@@ -286,16 +345,21 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch_config(n: int, block_trees: int, block_obs: int) -> None:
+def _grid_config(n: int, block_trees: int, block_obs: int) -> None:
     if block_trees < 1 or block_obs < 1:
         raise ValueError("block_trees and block_obs must be positive")
+    if n >= 1 << 31:
+        raise ValueError(f"{n} rows do not fit the kernels' int32 row index")
+
+
+def _launch_config(n: int, block_trees: int, block_obs: int) -> None:
+    """Grid checks plus the shared-memory pair buffer of K1-K3."""
+    _grid_config(n, block_trees, block_obs)
     if block_trees * block_obs * 4 > _MAX_SMEM_BYTES:
         raise ValueError(
             f"block_trees * block_obs = {block_trees * block_obs} pairs "
             "need more shared memory than a Hopper CTA has"
         )
-    if n >= 1 << 31:
-        raise ValueError(f"{n} rows do not fit the kernels' int32 row index")
 
 
 def _raise_on(err: int, fn: str) -> None:
@@ -381,6 +445,73 @@ def _launch_seg_simple(
         )
     _raise_on(err, "tp_seg_simple")
     LAUNCHES["seg_simple"] += 1
+    return out
+
+
+def _check_heaps(xb, feature, threshold, fit, is_internal, dev):
+    n, d = xb.shape
+    t, h = feature.shape
+    _check("xb", xb, torch.int32, (n, d), dev)
+    _check("feature", feature, torch.int32, (t, h), dev)
+    _check("threshold", threshold, torch.int32, (t, h), dev)
+    _check("fit", fit, torch.float32, (t, h), dev)
+    _check("is_internal", is_internal, torch.bool, (t, h), dev)
+
+
+def _launch_agg(
+    xb, feature, threshold, fit, is_internal, max_depth: int,
+    n_classes: int = 0, block_trees: int = 8, block_obs: int = 256,
+) -> torch.Tensor:
+    """Launch K3 on the card: one CTA per block of ``block_obs`` rows,
+    every chunk of ``block_trees`` trees, no segment test."""
+    dev = feature.device
+    if dev.type != "cuda":
+        raise ValueError(f"K3 launches on a CUDA device, got {dev}")
+    n, d = xb.shape
+    t, h = feature.shape
+    _check_heaps(xb, feature, threshold, fit, is_internal, dev)
+    _launch_config(n, block_trees, block_obs)
+    out = torch.zeros(
+        (n, n_classes) if n_classes > 0 else (n,), dtype=torch.float32,
+        device=dev,
+    )
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.tp_agg(
+            xb.data_ptr(), feature.data_ptr(), threshold.data_ptr(),
+            fit.data_ptr(), is_internal.data_ptr(), out.data_ptr(), n, d, t,
+            h, max_depth, n_classes, block_trees, block_obs,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(err, "tp_agg")
+    LAUNCHES["agg"] += 1
+    return out
+
+
+def _launch_per_tree(
+    xb, feature, threshold, fit, is_internal, max_depth: int,
+    block_trees: int = 8, block_obs: int = 256,
+) -> torch.Tensor:
+    """Launch K4 on the card: a CTA per block of ``block_obs`` rows and
+    ``block_trees`` trees, a row per thread, writing (T, N) along rows."""
+    dev = feature.device
+    if dev.type != "cuda":
+        raise ValueError(f"K4 launches on a CUDA device, got {dev}")
+    n, d = xb.shape
+    t, h = feature.shape
+    _check_heaps(xb, feature, threshold, fit, is_internal, dev)
+    _grid_config(n, block_trees, block_obs)
+    out = torch.empty((t, n), dtype=torch.float32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.tp_per_tree(
+            xb.data_ptr(), feature.data_ptr(), threshold.data_ptr(),
+            fit.data_ptr(), is_internal.data_ptr(), out.data_ptr(), n, d, t,
+            h, max_depth, block_trees, block_obs,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(err, "tp_per_tree")
+    LAUNCHES["per_tree"] += 1
     return out
 
 
@@ -582,4 +713,75 @@ def forest_predict_agg_segmented(
     return _forest_predict_agg_segmented_simple(
         xb, obs_seg, tree_seg, feature, threshold, fit, is_internal,
         max_depth, n_classes, block_trees, block_obs, dev,
+    )
+
+
+def _forest_inputs(xb, feature, threshold, fit, is_internal, max_depth):
+    """Shared checks of the whole-forest entries (K3, K4): the device,
+    the reference's 2**24 guards, and the inputs moved there."""
+    dev = _device_of(xb, feature, threshold, fit, is_internal)
+    _validate_f32_exact(
+        max_depth, xb.shape[1], feature=feature, threshold=threshold, xb=xb
+    )
+    args = (
+        _on(xb, torch.int32, dev),
+        _on(feature, torch.int32, dev),
+        _on(threshold, torch.int32, dev),
+        _on(fit, torch.float32, dev),
+        _on(is_internal, torch.bool, dev),
+    )
+    return dev, args
+
+
+def forest_predict(
+    xb,  # (N, d) int32
+    feature,  # (T, H) int32
+    threshold,  # (T, H) int32
+    fit,  # (T, H) float32
+    is_internal,  # (T, H) bool
+    max_depth: int,
+    block_trees: int = 8,
+    block_obs: int = 256,
+) -> torch.Tensor:
+    """Returns (T, N) per-(tree, obs) leaf fits (K4) on the arguments'
+    device."""
+    dev, args = _forest_inputs(
+        xb, feature, threshold, fit, is_internal, max_depth
+    )
+    t, n = feature.shape[0], xb.shape[0]
+    if n == 0 or t == 0:
+        return torch.zeros((t, n), dtype=torch.float32, device=dev)
+    run = _per_tree_plain if dev.type == "cpu" else _launch_per_tree
+    return run(*args, max_depth, min(block_trees, t), min(block_obs, n))
+
+
+def forest_predict_agg(
+    xb,  # (N, d) int32
+    feature,  # (T, H) int32
+    threshold,  # (T, H) int32
+    fit,  # (T, H) float32 (class ids for classification)
+    is_internal,  # (T, H) bool
+    max_depth: int,
+    n_classes: int = 0,
+    block_trees: int = 8,
+    block_obs: int = 256,
+) -> torch.Tensor:
+    """Whole-forest entry with in-kernel ensemble aggregation (K3).
+
+    Returns (N,) summed leaf fits when ``n_classes == 0`` (regression;
+    divide by T for the ensemble mean) or (N, C) per-class vote counts
+    otherwise, on the arguments' device.  Sums run per chunk of
+    ``block_trees`` trees in tree order, then chunk by chunk."""
+    dev, args = _forest_inputs(
+        xb, feature, threshold, fit, is_internal, max_depth
+    )
+    if n_classes > 0 and n_classes >= _F32_EXACT_INT:
+        raise ValueError("n_classes >= 2**24 overflows float32 vote counts")
+    t, n = feature.shape[0], xb.shape[0]
+    if n == 0 or t == 0:
+        shape = (n, n_classes) if n_classes > 0 else (n,)
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+    run = _agg_plain_unseg if dev.type == "cpu" else _launch_agg
+    return run(
+        *args, max_depth, n_classes, min(block_trees, t), min(block_obs, n)
     )

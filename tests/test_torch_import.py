@@ -43,6 +43,14 @@ def test_port_modules_exist():
         "repro_torch.store.runtime",
         "repro_torch.serving.server",
         "repro_torch.serving.engines",
+        "repro_torch.data.tabular",
+        "repro_torch.forest.binning",
+        "repro_torch.forest.cart",
+        "repro_torch.forest.forest",
+        "repro_torch.forest.baselines",
+        "repro_torch.forest.compare",
+        "repro_torch.core.lossy",
+        "repro_torch.kernels.tree_predict.ops",
     ):
         assert name in mods
 
@@ -125,6 +133,29 @@ def test_from_forest_default_device_raises_without_a_card():
         ForestServer.from_forest(forest)
 
 
+def test_forest_entries_default_to_cuda_and_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from repro_torch.data.tabular import TabularSpec, make_dataset
+    from repro_torch.forest import (
+        fit_binner,
+        per_tree_predictions,
+        predict_forest,
+        train_forest,
+    )
+    from repro_torch.kernels.tree_predict import ops
+
+    x, y, cat = make_dataset(TabularSpec("t", 60, 3, "classification"))
+    binner = fit_binner(x, n_bins=8, categorical=cat)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_forest(x, y, binner, n_trees=2, max_depth=2)
+    model = train_forest(x, y, binner, n_trees=2, max_depth=2, device="cpu")
+    for fn in (predict_forest, per_tree_predictions,
+               ops.predict_forest_kernel, ops.predict_forest_kernel_per_tree):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(model, x)
+
+
 def test_kernel_launches_refuse_cpu_tensors():
     """The CUDA launch functions never run a CPU tensor (no silent plain
     fallback), and count nothing when they refuse."""
@@ -143,7 +174,13 @@ def test_kernel_launches_refuse_cpu_tensors():
             xb, seg, tseg, code.int(), code.int(), code,
             code.bool(), 1, 0, 8, 4,
         )
-    assert tp.LAUNCHES == {"seg_packed": 0, "seg_simple": 0}
+    heap = code.int()
+    for launch in (tp._launch_agg, tp._launch_per_tree):
+        with pytest.raises(ValueError, match="CUDA"):
+            launch(xb, heap, heap, code, code.bool(), 1)
+    assert tp.LAUNCHES == {
+        "seg_packed": 0, "seg_simple": 0, "agg": 0, "per_tree": 0
+    }
 
 
 def test_entries_need_a_tensor_to_pick_the_device():
@@ -178,8 +215,11 @@ def test_every_c_entry_is_declared_and_every_launch_is_counted():
         text = fh.read()
     c_entries = set(re.findall(r"^(?:int|const char\*) (tp_\w+)\(", text, re.M))
     assert c_entries == set(tp._SIGNATURES)
+    assert {"tp_agg", "tp_per_tree"} <= c_entries
     for fn, key in ((tp._launch_seg_packed, "seg_packed"),
-                    (tp._launch_seg_simple, "seg_simple")):
+                    (tp._launch_seg_simple, "seg_simple"),
+                    (tp._launch_agg, "agg"),
+                    (tp._launch_per_tree, "per_tree")):
         body = inspect.getsource(fn)
         assert body.count("LAUNCHES[") == 1
         assert f'LAUNCHES["{key}"] += 1' in body

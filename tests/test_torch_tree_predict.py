@@ -1,4 +1,4 @@
-"""K1 / K2 plain versions and the ref twins against the JAX reference.
+"""K1-K4 plain versions and the ref twins against the JAX reference.
 
 The reference runs as its own tests run it: the Pallas kernels with
 ``interpret=True`` and the jnp oracles in ``ref.py``.  The port runs on
@@ -174,7 +174,7 @@ def test_ref_twins_match_jnp_oracles(task):
     )
 
 
-@pytest.mark.parametrize("kernel", ["packed", "simple"])
+@pytest.mark.parametrize("kernel", ["packed", "simple", "agg"])
 def test_plain_versions_sum_in_chunk_order(kernel):
     """The plain versions repeat the kernels' summation order: per chunk
     the masked leaves in tree order, then chunk sums row by row.  Check it
@@ -193,7 +193,18 @@ def test_plain_versions_sum_in_chunk_order(kernel):
             s = s + leaf[t]
         want = want + s
     T = torch.as_tensor
-    if kernel == "simple":
+    if kernel == "agg":
+        leaf = per_tree.astype(np.float32)  # K3: every tree, no segments
+        want = np.zeros(xb.shape[0], np.float32)
+        for lo in range(0, len(tseg), bt):
+            s = np.zeros(xb.shape[0], np.float32)
+            for t in range(lo, min(lo + bt, len(tseg))):
+                s = s + leaf[t]
+            want = want + s
+        got = tp._agg_plain_unseg(
+            T(xb), T(feat), T(thr), T(fit), T(inter), 4, 0, bt, 16
+        )
+    elif kernel == "simple":
         got = tp._seg_simple_plain(
             T(xb), T(oseg), T(tseg), T(feat), T(thr), T(fit), T(inter), 4,
             0, bt, 16,
@@ -320,3 +331,124 @@ def test_packed_entry_honours_given_chunk_ranges(task):
     )
     check(got, want, c)
     assert not got[8:16].any()
+
+
+@pytest.mark.parametrize("negative", [False, True])
+@pytest.mark.parametrize("task", ["classification", "regression"])
+def test_whole_forest_entries_match_reference_kernels(task, negative):
+    """K3 (``forest_predict_agg``) and K4 (``forest_predict``): 11 trees in
+    blocks of 4 (a padding tile), out-of-range class ids, and (with
+    ``negative``) negative and too-large features and negative thresholds,
+    against the interpret-mode kernels and the jnp oracles."""
+    xb, _, _, feat, thr, fit, inter, c = case(
+        101 + negative, task, 4, negative=negative
+    )
+    J = [jnp.asarray(a) for a in (xb, feat, thr, fit, inter)]
+    kw = dict(block_trees=4, block_obs=16)
+    want = jtp.forest_predict_agg(*J, 4, n_classes=c, interpret=True, **kw)
+    got = tp.forest_predict_agg(
+        torch.as_tensor(xb), feat, thr, fit, inter, 4, n_classes=c, **kw
+    )
+    check(got, want, c)
+    check(got, jref.forest_predict_agg_reference(*J, 4, n_classes=c), c)
+    per_tree = tp.forest_predict(torch.as_tensor(xb), feat, thr, fit, inter,
+                                 4, **kw)
+    np.testing.assert_array_equal(
+        per_tree.numpy(), np.asarray(jtp.forest_predict(*J, 4, interpret=True,
+                                                        **kw))
+    )
+    np.testing.assert_array_equal(
+        per_tree.numpy(), np.asarray(jref.forest_predict_reference(*J, 4))
+    )
+
+
+def test_whole_forest_entries_f32_guards_match_reference():
+    """K3 and K4 raise the reference's 2**24 errors at the same inputs."""
+    xb, _, _, feat, thr, fit, inter, _ = case(111, "regression", 3, t=2)
+    ok = thr.copy()
+    ok[0, 0] = 2**24 - 1
+    bad = thr.copy()
+    bad[0, 0] = 2**24
+    big_x = xb.copy()
+    big_x[0, 0] = -(2**24)
+    for port, ref in (
+        (tp.forest_predict_agg, jtp.forest_predict_agg),
+        (tp.forest_predict, jtp.forest_predict),
+    ):
+        def run(mod_fn, is_port, thr_=thr, depth=3, xb_=xb, **kw):
+            if is_port:
+                return mod_fn(torch.as_tensor(xb_), feat, thr_, fit, inter,
+                              depth, **kw)
+            return mod_fn(jnp.asarray(xb_), jnp.asarray(feat),
+                          jnp.asarray(thr_), jnp.asarray(fit),
+                          jnp.asarray(inter), depth, interpret=True, **kw)
+
+        np.testing.assert_allclose(
+            run(port, True, ok).numpy(), np.asarray(run(ref, False, ok)),
+            **TOL,
+        )
+        for fn, is_port in ((port, True), (ref, False)):
+            with pytest.raises(ValueError, match="2\\*\\*24"):
+                run(fn, is_port, bad)
+            with pytest.raises(ValueError, match="xb contains values"):
+                run(fn, is_port, xb_=big_x)
+            with pytest.raises(ValueError, match="heap nodes"):
+                run(fn, is_port, depth=30)
+    for fn, is_port in ((tp.forest_predict_agg, True),
+                        (jtp.forest_predict_agg, False)):
+        x = torch.as_tensor(xb) if is_port else jnp.asarray(xb)
+        extra = {} if is_port else {"interpret": True}
+        with pytest.raises(ValueError, match="n_classes"):
+            fn(x, feat, thr, fit, inter, 3, n_classes=2**24, **extra)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4"])
+@pytest.mark.parametrize("task", ["classification", "regression"])
+def test_walks_past_the_heap_read_zero(kernel, task):
+    """With ``max_depth`` two levels deeper than the heap and internal
+    nodes on its last level, walks leave the heap.  The Pallas kernels then
+    read zero words (feature 0, threshold 0, not internal, fit 0) from their
+    zero-padded heaps; the plain versions read the same.  Regression fits
+    are multiples of 1/4 below 2**10, so every sum is exact and the
+    comparison is array-equal in any summation order."""
+    depth = 3
+    rng = np.random.default_rng(121)
+    t, n, d, nb = 10, 40, 5, 9
+    h = (1 << (depth + 1)) - 1
+    feat = rng.integers(0, d, (t, h)).astype(np.int32)
+    thr = rng.integers(0, nb, (t, h)).astype(np.int32)
+    inter = rng.random((t, h)) < 0.9  # the last level too: walks leave
+    c = 3 if task == "classification" else 0
+    if c:
+        fit = rng.integers(-1, c + 1, (t, h)).astype(np.float32)
+    else:
+        fit = (rng.integers(-400, 400, (t, h)) / 4).astype(np.float32)
+    xb = rng.integers(0, nb, (n, d)).astype(np.int32)
+    oseg = rng.integers(0, 2, n).astype(np.int32)
+    tseg = np.sort(rng.integers(0, 2, t)).astype(np.int32)
+    deep = depth + 2
+    J = [jnp.asarray(a) for a in (xb, feat, thr, fit, inter)]
+    X = torch.as_tensor(xb)
+    kw = dict(block_trees=4, block_obs=16)
+    if kernel == "K4":
+        want = jtp.forest_predict(*J, deep, interpret=True, **kw)
+        got = tp.forest_predict(X, feat, thr, fit, inter, deep, **kw)
+        # the walk left the heap: some leaves read the zero fit there
+        clamped = jref.forest_predict_reference(*J, deep)
+        assert not np.array_equal(np.asarray(want), np.asarray(clamped))
+    elif kernel == "K3":
+        want = jtp.forest_predict_agg(*J, deep, n_classes=c, interpret=True,
+                                      **kw)
+        got = tp.forest_predict_agg(X, feat, thr, fit, inter, deep,
+                                    n_classes=c, **kw)
+    else:
+        engine = "pipelined" if kernel == "K1" else "simple"
+        want = jtp.forest_predict_agg_segmented(
+            J[0], oseg, tseg, *J[1:], deep, n_classes=c, interpret=True,
+            engine=engine, **kw,
+        )
+        got = tp.forest_predict_agg_segmented(
+            X, oseg, tseg, feat, thr, fit, inter, deep, n_classes=c,
+            engine=engine, **kw,
+        )
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
