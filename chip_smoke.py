@@ -45,12 +45,31 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    plain version at its main path's shapes and at the large phase-3 shape;
    then, on the host clock, warm serving ms per 1,024-row batch and its
    stages (plan lookup, pack lookup, the K1 run with its upload and copy
-   back, finalize), with K1's share of the batch.
+   back, finalize), with K1's share of the batch;
+8. LM serving (``launch/serve.py``'s path): K7 (``fa_forward``) against
+   its plain version ``_flash_plain`` in float32 and bf16, head_dim 32 /
+   64 / 128, a window of 64, ragged S (200, 2,049) and S != T; then
+   qwen3-4b at full width and depth (36 layers, d_model 2,560, bf16,
+   random weights from seed 0) — ``make_prefill_step(cfg,
+   use_flash=True)`` over 4 seeded prompts of 2,048 tokens with
+   ``max_len`` 2,080 (a warm-up prefill, then the timed one) and 32 greedy
+   ``make_decode_step`` steps; K7's count is reset before and read after
+   each prefill and must equal the 36 layers; the whole-model checks
+   (flash against dense prefill, decode after prefill(S) against
+   prefill(S + 1)) in float32 with the same weights and in bf16, on the
+   main path's weights and prompts and on two more seeds of both
+   (``phase_lm_checks``); K7 against its plain version at the main path's
+   layer-0 inputs, timed beside ``scaled_dot_product_attention``; one line
+   with prefill seconds and tokens/s, decode ms per step and tokens/s,
+   peak device memory and K7's share of the prefill.
 
 Votes must be equal; regression sums are held at rtol = atol = 1e-5 (the
-reference's own serving tolerance); on the card every kernel equals its
-plain version bit for bit.  The line before the last is one JSON object
-``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
+reference's own serving tolerance); on the card K1-K4 equal their plain
+versions bit for bit, and K7 is held to its plain version at the
+reference's float32 flash tolerance (2e-5) and, in bf16, at one bf16 ulp
+(rtol 2**-7, atol 2e-5).  The line before
+the last is one JSON object ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -97,6 +116,54 @@ K4 = {
     "source": "src/repro_torch/kernels/tree_predict/csrc/tree_predict.cu",
     "replaces": "src/repro/kernels/tree_predict/tree_predict.py:158",
 }
+
+K7 = {
+    "name": "flash",
+    "route": "cuda",
+    "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+    "replaces": "src/repro/kernels/flash_attention/flash_attention.py:29",
+}
+
+# LM serving (phase 8): qwen3-4b at full width and depth, bf16, random
+# weights from seed 0; 4 seeded prompts of 2,048 tokens, then greedy decode.
+LM_ARCH = "qwen3-4b"
+LM_SHAPE = (36, 2560, "bfloat16")  # layers, d_model, dtype: uncut
+LM_BATCH = 4
+LM_PROMPT = 2048
+LM_MAX_LEN = 2080
+LM_DECODE_STEPS = 32
+# dense tensor-core bf16 peak (NVIDIA's data sheet), the rate bf16
+# attention is counted at; float32 attention at CUDA_CORE_OPS_PER_S
+BF16_OPS_PER_S = 989e12
+# K7 against its plain version, (atol, rtol): both compute in float32 and
+# differ only in summation order, so float32 holds at the reference's own
+# 2e-5 (tests/test_kernels.py); in bf16 each side then rounds its float32
+# result once, which puts them at most one bf16 ulp apart (<= 2**-7 of the
+# value), plus the float32 gap
+FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-5, 2**-7)}
+# whole-model checks (phase_lm_checks), for each seed of weights and
+# prompts in LM_CHECK_SEEDS (0 is the main path's): float32 with the same
+# weights, at full width and depth, holds the paths together at 1e-4
+# relative L2; the bf16 paths differ by bf16's own rounding over 36 layers
+# (each sits ~2 % from the float32 run), bounded at 1.5x that floor
+LM_CHECK_SEEDS = (0, 1, 2)
+F32_MODEL_REL_L2 = 1e-4
+BF16_MODEL_REL_L2 = 3e-2
+DECODE_RTOL = DECODE_ATOL = 5e-2  # tests/test_system.py:49
+
+# (name, BH, S, T, hd, dtype, window): K7 against _flash_plain
+FLASH_PARITY_CASES = [
+    ("f32-hd128", 8, 256, 256, 128, torch.float32, None),
+    ("bf16-hd128", 8, 256, 256, 128, torch.bfloat16, None),
+    ("f32-hd64", 8, 512, 512, 64, torch.float32, None),
+    ("bf16-hd64-window64", 8, 512, 512, 64, torch.bfloat16, 64),
+    ("f32-hd32-window64", 8, 512, 512, 32, torch.float32, 64),
+    ("bf16-hd32", 8, 256, 256, 32, torch.bfloat16, None),
+    ("f32-ragged-s200", 8, 200, 200, 128, torch.float32, None),
+    ("bf16-ragged-s2049", 4, 2049, 2049, 128, torch.bfloat16, None),
+    ("f32-s1000-t2048", 4, 1000, 2048, 128, torch.float32, None),
+    ("f32-s2048-t1000", 4, 2048, 1000, 64, torch.float32, None),
+]
 
 # Table 1's Liberty configuration (benchmarks/table1_liberty.py, full
 # mode), cut from 1,000 trees to TRAIN_TREES for the run's time limit.
@@ -842,6 +909,326 @@ def kernel_entry(kern, launch, plain, parts, launches, per_task_args, errs,
     return entry
 
 
+# ---------------------------------------------------------------------------
+# the LM serving path (phase 8)
+# ---------------------------------------------------------------------------
+
+def close_err(got: torch.Tensor, want: torch.Tensor, tol) -> float:
+    """The kernel's output must be finite and within ``tol`` = (atol,
+    rtol) of its plain version's; returns the max abs difference."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{tuple(got.shape)} {got.dtype} != "
+                             f"{tuple(want.shape)} {want.dtype}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("kernel output has non-finite values")
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    atol, rtol = tol
+    if not torch.allclose(g, w, rtol=rtol, atol=atol):
+        raise AssertionError(f"kernel differs from its plain version: {err} "
+                             f"> {tol}")
+    return err
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def flash_bound(q, k, causal=True, window=None) -> tuple[float, str, dict]:
+    """Least time for K7's work on these inputs: q, k, v read once and the
+    output written once at HBM rate, against the two products' flops (an
+    FMA, 2 flops, per kept (row, column) pair per head-dim element each) at
+    the tensor cores' bf16 peak (the CUDA cores' for float32)."""
+    bh, s, hd = q.shape
+    t = k.shape[1]
+    rows = torch.arange(s)[:, None]
+    cols = torch.arange(t)[None, :]
+    keep = torch.ones((s, t), dtype=torch.bool)
+    if causal:
+        keep &= rows >= cols
+    if window is not None:
+        keep &= rows - cols < window
+    pairs = bh * int(keep.sum())
+    ops = 4 * hd * pairs
+    nbytes = q.element_size() * hd * bh * (2 * s + 2 * t)
+    peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else CUDA_CORE_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    work = {"bytes": nbytes, "flops": ops, "kept_pairs": pairs}
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes", work
+    return t_ops * 1e3, "operations", work
+
+
+def phase_flash_parity(dev, errs):
+    """K7 against ``_flash_plain`` on the same CUDA inputs at every case of
+    FLASH_PARITY_CASES: float32 and bf16, head_dim 32 / 64 / 128, a
+    window of 64, ragged S (200, 2,049) and S != T."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for name, bh, s, t, hd, dtype, window in FLASH_PARITY_CASES:
+        q, k, v = (torch.randn((bh, n, hd), generator=gen, device=dev).to(dtype)
+                   for n in (s, t, t))
+        got = fa._launch_flash(q, k, v, True, window)
+        torch.cuda.synchronize()
+        err = close_err(got, fa._flash_plain(q, k, v, True, window),
+                        FLASH_TOL[dtype])
+        errs.append(err)
+        log(json.dumps({"parity": K7["name"], "case": name,
+                        "out": list(got.shape), "max_abs_err": err,
+                        "tol": FLASH_TOL[dtype]}))
+
+
+def lm_flash_args(cfg, params, tokens):
+    """The (BH, S, hd) q, k, v the main path hands K7 at layer 0."""
+    from repro_torch.kernels.flash_attention.ops import bh_layout
+    from repro_torch.models.attention import _project_qkv
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.model import _positions, embed_inputs
+
+    x = embed_inputs(cfg, params, tokens)
+    h = rms_norm(x, params.layers[0].norm1, cfg.rms_eps)
+    q, k, v = _project_qkv(params.layers[0].attn, cfg, h,
+                           _positions(*tokens.shape, tokens.device))
+    return bh_layout(q, k, v)
+
+
+def phase_lm(dev):
+    """Phase 8, the main path: qwen3-4b at full width and depth in bf16,
+    ``make_prefill_step(cfg, use_flash=True)`` over 4 x 2,048 prompts with
+    ``max_len`` 2,080 (a warm-up prefill first, then the timed one), then
+    32 greedy ``make_decode_step`` steps.  K7's count must rise by exactly
+    one launch per layer per prefill and not at all in decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import init_params
+
+    cfg = get_config(LM_ARCH)
+    assert (cfg.n_layers, cfg.d_model, cfg.dtype) == LM_SHAPE, cfg
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    host = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           generator=host).to(dev)
+    prefill_step = make_prefill_step(cfg, use_flash=True)
+    decode = make_decode_step(cfg)
+
+    fa.reset_launches()
+    _, warm_cache = prefill_step(params, tokens, max_len=LM_MAX_LEN)  # warm-up
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash"] == cfg.n_layers, fa.LAUNCHES
+
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = prefill_step(params, tokens, max_len=LM_MAX_LEN)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    assert fa.LAUNCHES["flash"] == cfg.n_layers, fa.LAUNCHES
+    assert logits.shape == (LM_BATCH, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all()), "prefill logits not finite"
+    tok = logits.argmax(-1)
+    out = [tok]
+    t0 = time.perf_counter()
+    for _ in range(LM_DECODE_STEPS):
+        logits, cache = decode(params, tok, cache)
+        tok = logits.argmax(-1)
+        out.append(tok)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    assert launches["flash"] == cfg.n_layers, launches
+    assert bool(torch.isfinite(logits).all()), "decode logits not finite"
+    assert int(cache["pos"].min()) == int(cache["pos"].max()) == (
+        LM_PROMPT + LM_DECODE_STEPS
+    )
+    gen = torch.stack(out, 1)
+    assert gen.shape == (LM_BATCH, LM_DECODE_STEPS + 1)
+    assert 0 <= int(gen.min()) and int(gen.max()) < cfg.vocab_size
+    # profiled decode steps at position S, from the warm-up's cache (the
+    # main path's cache is full)
+    profile = decode_profile(lambda: decode(params, tok, warm_cache))
+    del warm_cache
+    profile["device_busy_share"] = (
+        profile["device_ms_per_step"] * LM_DECODE_STEPS / (t_decode * 1e3)
+    )
+    row = {
+        "lm": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+        "params": cfg.n_params(), "dtype": cfg.dtype, "batch": LM_BATCH,
+        "prompt": LM_PROMPT, "max_len": LM_MAX_LEN, "init_s": init_s,
+        "prefill_s": t_prefill,
+        "prefill_tok_s": LM_BATCH * LM_PROMPT / t_prefill,
+        "decode_steps": LM_DECODE_STEPS,
+        "decode_ms_per_step": t_decode / LM_DECODE_STEPS * 1e3,
+        "decode_tok_s": LM_BATCH * LM_DECODE_STEPS / t_decode,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+        "flash_launches_per_prefill": launches["flash"],
+        "sample_tokens": gen[0, :8].tolist(),
+        "decode_profile": profile,
+    }
+    return cfg, params, tokens, launches, row
+
+
+def decode_profile(step, steps: int = 2) -> dict:
+    """``torch.profiler`` over ``steps`` decode steps: summed device kernel
+    ms and kernel launches per step, and the host ms per step under the
+    profiler (which slows the host; ``phase_lm`` divides the device ms by
+    the unprofiled step time for the device's busy share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    device_us = launches = 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            device_us += e.self_device_time_total
+        if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
+                     "cudaLaunchKernelExC"):
+            launches += e.count
+    return {"profiled_host_ms_per_step": host_ms,
+            "device_ms_per_step": device_us / 1e3 / steps,
+            "launches_per_step": launches / steps}
+
+
+def model_pair_checks(cfg, params, tokens, nxt):
+    """Flash against dense prefill, and decode after prefill(S) against
+    prefill(S + 1)'s last logits, for one set of weights."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+
+    flash = make_prefill_step(cfg, use_flash=True)
+    dense = make_prefill_step(cfg, use_flash=False)
+    lf, cache = flash(params, tokens, max_len=LM_MAX_LEN)
+    ld, _ = dense(params, tokens, max_len=LM_MAX_LEN)
+    l1, _ = make_decode_step(cfg)(params, nxt, cache)
+    del cache
+    l2, _ = flash(params, torch.cat([tokens, nxt[:, None]], 1),
+                  max_len=LM_MAX_LEN)
+    for name, t in (("flash", lf), ("dense", ld), ("decode", l1),
+                    ("prefill S+1", l2)):
+        assert bool(torch.isfinite(t).all()), f"{name} logits not finite"
+    return {
+        "flash_vs_dense_rel_l2": rel_l2(lf, ld),
+        "decode_vs_prefill_rel_l2": rel_l2(l1, l2),
+        "decode_vs_prefill_max_abs": float((l1.float() - l2.float()).abs().max()),
+        "decode_vs_prefill_allclose_5e-2": bool(torch.allclose(
+            l1.float(), l2.float(), rtol=DECODE_RTOL, atol=DECODE_ATOL)),
+    }, lf, ld
+
+
+def seed_checks(dev, cfg, params, tokens, nxt):
+    """The whole-model checks for one set of weights and prompts.  In
+    float32 (the same weights upcast, so only rounding differs) the flash
+    and dense prefills agree to F32_MODEL_REL_L2 and decode after
+    prefill(S) matches prefill(S + 1) at rtol = atol = 5e-2 and
+    F32_MODEL_REL_L2.  In bf16, the served precision, the same differences
+    are read beside each path's distance from the float32 run (bf16's
+    rounding floor over 36 layers)."""
+    import dataclasses
+
+    from repro_torch.models import TransformerLM
+
+    bf16, bf_flash, bf_dense = model_pair_checks(cfg, params, tokens, nxt)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = TransformerLM(cfg32, dev)
+    with torch.no_grad():
+        for p32, p in zip(params32.parameters(), params.parameters()):
+            p32.copy_(p.float())
+    f32, f_flash, _ = model_pair_checks(cfg32, params32, tokens, nxt)
+    del params32
+    torch.cuda.empty_cache()
+    bf16["flash_vs_f32_rel_l2"] = rel_l2(bf_flash, f_flash)
+    bf16["dense_vs_f32_rel_l2"] = rel_l2(bf_dense, f_flash)
+    return {"float32": f32, "bfloat16": bf16}
+
+
+def phase_lm_checks(dev, cfg, params, tokens):
+    """``seed_checks`` on the main path's weights and prompts (seed 0) and
+    on fresh weights and prompts for each further seed of LM_CHECK_SEEDS;
+    every seed's float32 differences must be within F32_MODEL_REL_L2 (and
+    the decode allclose), its bf16 differences within BF16_MODEL_REL_L2."""
+    from repro_torch.models import init_params
+
+    readings = {}
+    for seed in LM_CHECK_SEEDS:
+        host = torch.Generator().manual_seed(2 + 100 * seed)
+        nxt = torch.randint(0, cfg.vocab_size, (LM_BATCH,),
+                            generator=host).to(dev)
+        if seed == 0:
+            readings[seed] = seed_checks(dev, cfg, params, tokens, nxt)
+            continue
+        p = init_params(cfg, seed=seed, device=dev)
+        tok = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=host).to(dev)
+        readings[seed] = seed_checks(dev, cfg, p, tok, nxt)
+        del p, tok
+        torch.cuda.empty_cache()
+    row = {"lm_checks": cfg.name, "seeds": readings,
+           "bounds": {"float32_rel_l2": F32_MODEL_REL_L2,
+                      "bfloat16_rel_l2": BF16_MODEL_REL_L2,
+                      "decode_rtol_atol": DECODE_RTOL}}
+    log(json.dumps(row))
+    for seed, r in readings.items():
+        f32, bf16 = r["float32"], r["bfloat16"]
+        assert f32["flash_vs_dense_rel_l2"] <= F32_MODEL_REL_L2, (seed, f32)
+        assert f32["decode_vs_prefill_rel_l2"] <= F32_MODEL_REL_L2, (seed, f32)
+        assert f32["decode_vs_prefill_allclose_5e-2"], (seed, f32)
+        assert bf16["flash_vs_dense_rel_l2"] <= BF16_MODEL_REL_L2, (seed, bf16)
+        assert bf16["decode_vs_prefill_rel_l2"] <= BF16_MODEL_REL_L2, (seed,
+                                                                     bf16)
+    return row
+
+
+def flash_entry(launches, main_args, errs, prefill_s):
+    """K7's entry of the ``{"kernels": [...]}`` line, at the main path's
+    layer-0 inputs (BH = 128, S = 2,048, hd = 128, bf16), with
+    ``scaled_dot_product_attention`` on the same tensors as the yardstick
+    (the port never calls it)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    q, k, v = main_args
+    got = fa._launch_flash(q, k, v, True, None)
+    torch.cuda.synchronize()
+    err = close_err(got, fa._flash_plain(q, k, v, True, None),
+                    FLASH_TOL[q.dtype])
+    errs.append(err)
+    log(json.dumps({"parity": K7["name"], "case": "main-path-layer0",
+                    "out": list(got.shape), "max_abs_err": err,
+                    "tol": FLASH_TOL[q.dtype]}))
+    bms, by, work = flash_bound(q, k)
+    ms = time_ms(lambda: fa._launch_flash(q, k, v, True, None))
+    entry = dict(K7)
+    entry.update({
+        "launches": launches["flash"],
+        "max_abs_err": max(errs),
+        "ms": ms,
+        "plain_ms": time_ms(lambda: fa._flash_plain(q, k, v, True, None)),
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True)),
+        "library_note": "torch.nn.functional.scaled_dot_product_attention"
+                        "(is_causal=True), timed only",
+        "timed_at": "one prefill layer of qwen3-4b: BH=128, S=T=2048, "
+                    "hd=128, bf16, causal",
+        "work": work,
+        "share_of_prefill": ms * launches["flash"] / (prefill_s * 1e3),
+    })
+    return entry
+
+
 def main() -> None:
     dev = phase_environment()
     phase_build()
@@ -912,6 +1299,19 @@ def main() -> None:
             "k1_share_of_batch": kernel_ms / med["total"],
         }))
     clock["times"] = time.perf_counter()
+
+    flash_errs = []
+    phase_flash_parity(dev, flash_errs)
+    cfg, params, tokens, lm_launches, lm_row = phase_lm(dev)
+    lm_row["checks"] = phase_lm_checks(dev, cfg, params, tokens)
+    entry = flash_entry(lm_launches, lm_flash_args(cfg, params, tokens),
+                        flash_errs, lm_row["prefill_s"])
+    out.append(entry)
+    lm_row["k7_ms"] = entry["ms"]
+    lm_row["k7_share_of_prefill"] = entry["share_of_prefill"]
+    log(json.dumps({k: v for k, v in lm_row.items() if k != "checks"}))
+    del params
+    clock["lm"] = time.perf_counter()
     marks = list(clock.items())
     log(json.dumps({"phase_s": {b[0]: b[1] - a[1]
                                 for a, b in zip(marks, marks[1:])}}))

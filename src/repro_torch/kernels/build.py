@@ -28,6 +28,7 @@ BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
 #: Source of each kernel library, by name.
 SOURCES = {
     "tree_predict": _PKG / "tree_predict" / "csrc" / "tree_predict.cu",
+    "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
 }
 
 NVCC_FLAGS = (

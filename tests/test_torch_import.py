@@ -51,6 +51,18 @@ def test_port_modules_exist():
         "repro_torch.forest.compare",
         "repro_torch.core.lossy",
         "repro_torch.kernels.tree_predict.ops",
+        "repro_torch.configs",
+        "repro_torch.configs.base",
+        "repro_torch.configs.registry",
+        "repro_torch.models",
+        "repro_torch.models.layers",
+        "repro_torch.models.attention",
+        "repro_torch.models.model",
+        "repro_torch.kernels.flash_attention.ref",
+        "repro_torch.kernels.flash_attention.flash_attention",
+        "repro_torch.kernels.flash_attention.ops",
+        "repro_torch.launch.steps",
+        "repro_torch.launch.serve",
     ):
         assert name in mods
 
@@ -223,3 +235,61 @@ def test_every_c_entry_is_declared_and_every_launch_is_counted():
         body = inspect.getsource(fn)
         assert body.count("LAUNCHES[") == 1
         assert f'LAUNCHES["{key}"] += 1' in body
+
+
+def test_flash_c_entries_are_declared_and_its_launch_is_counted():
+    """``flash_attention.cu``'s ``extern "C"`` functions are exactly the
+    ctypes declarations, and ``_launch_flash`` bumps its counter once."""
+    import inspect
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    src = os.path.join(
+        PORT, "kernels", "flash_attention", "csrc", "flash_attention.cu"
+    )
+    assert build.SOURCES["flash_attention"] == build.Path(src)
+    with open(src) as fh:
+        text = fh.read()
+    c_entries = set(re.findall(r"^(?:int|const char\*) (fa_\w+)\(", text, re.M))
+    assert c_entries == set(fa._SIGNATURES) == {"fa_forward", "fa_error_string"}
+    body = inspect.getsource(fa._launch_flash)
+    assert body.count("LAUNCHES[") == 1
+    assert 'LAUNCHES["flash"] += 1' in body
+
+
+def test_flash_launch_refuses_cpu_tensors():
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    q = torch.zeros((2, 16, 32))
+    fa.reset_launches()
+    with pytest.raises(ValueError, match="CUDA"):
+        fa._launch_flash(q, q, q)
+    assert fa.LAUNCHES == {"flash": 0}
+
+
+def test_lm_entries_default_to_cuda_and_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    import inspect
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_arrays
+    from repro_torch.launch import serve
+    from repro_torch.models import init_cache, init_params
+
+    cfg = get_config("qwen3-4b").smoke()
+    assert inspect.signature(init_params).parameters["device"].default == "cuda"
+    assert inspect.signature(init_cache).parameters["device"].default == "cuda"
+    assert inspect.signature(
+        lm_params_from_arrays).parameters["device"].default == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "qwen3-4b", "--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm_params_from_arrays(cfg, {}, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm_params_from_arrays(cfg, {})
