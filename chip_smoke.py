@@ -61,13 +61,37 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    (``phase_lm_checks``); K7 against its plain version at the main path's
    layer-0 inputs, timed beside ``scaled_dot_product_attention``; one line
    with prefill seconds and tokens/s, decode ms per step and tokens/s,
-   peak device memory and K7's share of the prefill.
+   peak device memory and K7's share of the prefill;
+9. RWKV6 serving and the §7 quantizer: K8 (``wkv6_forward``) against its
+   plain version ``_wkv6_plain`` at head_dim 16 / 32 / 64, S 64 / 70 /
+   128 / 2,049, chunk 16 / 32 / 64, zero and non-zero initial states, the
+   model's decays and extreme ones; K6 (``quantize_forward``) through
+   ``quantize_tensor`` against ``_quantize_plain`` bit for bit at 2 / 4 /
+   8 / 12 bits, without dither and with seeds 0, 7, -1 and 2**31 - 1,
+   n < 256 and ragged n, float32 and bf16, each within the §7 bound; then
+   rwkv6-1.6b at full width and depth (24 layers, d_model 2,048, 32 heads
+   of 64, bf16, random weights from seed 0) — ``make_prefill_step(cfg,
+   use_flash=True)`` over 4 seeded prompts of 2,048 tokens with
+   ``max_len`` 2,080 (a warm-up prefill, then the timed one; K8's count
+   must equal the 24 layers after each) and 32 greedy decode steps; the
+   whole-model checks with u perturbed from the seed (K8 against the
+   reference-branch prefill ``wkv_chunked``, logits and every layer's
+   cache, and decode after prefill(S) against prefill(S + 1)) in float32
+   at 1e-4 relative L2 and in bf16 within 1.5x bf16's own floor, on seeds
+   0-2 (``phase_rwkv_checks``); K6 through ``quantize_tensor`` at 8 bits,
+   without and with dither, over every 2-D weight of the served model
+   (``LAUNCHES["quantize"]`` equal to the number of tensors per pass),
+   each within its §7 bound, and bit for bit at the largest; K8 and K6
+   timed beside their plain versions; one line with prefill seconds and
+   tokens/s, K8's share of the prefill, decode ms per step and tokens/s
+   and peak device memory.
 
 Votes must be equal; regression sums are held at rtol = atol = 1e-5 (the
 reference's own serving tolerance); on the card K1-K4 equal their plain
 versions bit for bit, and K7 is held to its plain version at the
 reference's float32 flash tolerance (2e-5) and, in bf16, at one bf16 ulp
-(rtol 2**-7, atol 2e-5).  The line before
+(rtol 2**-7, atol 2e-5); K8 at the reference's float32 WKV6 tolerance
+(1e-4), K6 bit for bit.  The line before
 the last is one JSON object ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -123,6 +147,18 @@ K7 = {
     "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
     "replaces": "src/repro/kernels/flash_attention/flash_attention.py:29",
 }
+K8 = {
+    "name": "wkv6",
+    "route": "cuda",
+    "source": "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
+    "replaces": "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:26",
+}
+K6 = {
+    "name": "quantize",
+    "route": "cuda",
+    "source": "src/repro_torch/kernels/quantize/csrc/quantize.cu",
+    "replaces": "src/repro/kernels/quantize/quantize.py:20",
+}
 
 # LM serving (phase 8): qwen3-4b at full width and depth, bf16, random
 # weights from seed 0; 4 seeded prompts of 2,048 tokens, then greedy decode.
@@ -150,6 +186,50 @@ LM_CHECK_SEEDS = (0, 1, 2)
 F32_MODEL_REL_L2 = 1e-4
 BF16_MODEL_REL_L2 = 3e-2
 DECODE_RTOL = DECODE_ATOL = 5e-2  # tests/test_system.py:49
+
+# RWKV6 serving (phase 9): rwkv6-1.6b at full width and depth, bf16,
+# random weights from seed 0; 4 seeded prompts of 2,048 tokens, then greedy
+# decode.  Prefill runs the WKV6 recurrence through K8.
+RWKV_ARCH = "rwkv6-1.6b"
+RWKV_SHAPE = (24, 2048, "bfloat16")  # layers, d_model, dtype: uncut
+RWKV_BATCH = 4
+RWKV_PROMPT = 2048
+RWKV_MAX_LEN = 2080
+RWKV_DECODE_STEPS = 32
+RWKV_CHECK_SEEDS = (0, 1, 2)
+# K8 against _wkv6_plain: both float32, other summation orders; the
+# reference's own float32 tolerance for its kernel (tests/test_kernels.py)
+WKV_TOL = (1e-4, 1e-4)
+# whole-model checks (phase_rwkv_checks), with u perturbed from the seed:
+# float32 (the same weights upcast) holds the K8 and reference-branch
+# prefills and decode-after-prefill together at 1e-4 relative L2.  In
+# bf16 the two paths round their y to bf16 after other float32 sums and
+# then take 24 layers of bf16 matmuls: their gap is held to 1.5x the
+# witness, bf16's own rounding floor on the same weights, read in the same
+# run as each bf16 path's distance from the float32 K8 run (phase 8's 3e-2
+# is that factor over the floor it measured on qwen3-4b)
+RWKV_F32_REL_L2 = 1e-4
+RWKV_BF16_OVER_FLOOR = 1.5
+# (name, BH, S, hd, chunk, initial state, decays): K8 against _wkv6_plain;
+# chunk None calls the launch directly (S not a multiple of any chunk);
+# decays "model" draw log w from U(-6, -4) (the model's w0 = -5 gives
+# w ~ 0.9933), "extreme" from U(-6, 2.5) (tests/test_perf_paths.py)
+WKV_PARITY_CASES = [
+    ("hd64-s128-c64-zero-model", 8, 128, 64, 64, "zero", "model"),
+    ("hd64-s2049-ragged-state-model", 8, 2049, 64, None, "state", "model"),
+    ("hd64-s64-c16-state-extreme", 8, 64, 64, 16, "state", "extreme"),
+    ("hd32-s128-c32-state-extreme", 8, 128, 32, 32, "state", "extreme"),
+    ("hd32-s70-ragged-zero-extreme", 8, 70, 32, None, "zero", "extreme"),
+    ("hd16-s64-c16-state-model", 8, 64, 16, 16, "state", "model"),
+    ("hd16-s2049-ragged-zero-extreme", 4, 2049, 16, None, "zero", "extreme"),
+]
+# K6 against _quantize_plain, bit for bit: (shape, dtype) x bits x dither
+QUANT_SHAPES = [((200,), torch.float32), ((100003,), torch.bfloat16),
+                ((517, 389), torch.float32), ((2048, 7168), torch.bfloat16)]
+QUANT_BITS = (2, 4, 8, 12)
+QUANT_DITHERS = ((False, 0), (True, 0), (True, 7), (True, -1),
+                 (True, 2**31 - 1))
+QUANT_MODEL_BITS = 8
 
 # (name, BH, S, T, hd, dtype, window): K7 against _flash_plain
 FLASH_PARITY_CASES = [
@@ -1229,6 +1309,477 @@ def flash_entry(launches, main_args, errs, prefill_s):
     return entry
 
 
+# ---------------------------------------------------------------------------
+# RWKV6 serving through K8, and the §7 quantizer K6 (phase 9)
+# ---------------------------------------------------------------------------
+
+def wkv_inputs(dev, gen, bh, s, hd, init, decay):
+    """Seeded K8 inputs: r, k, v ~ N(0, 1); w = exp(-exp(log w)) with
+    log w ~ U(-6, -4) ("model") or U(-6, 2.5) ("extreme"); u ~ 0.1 N(0, 1);
+    the initial state zero or ~ 0.1 N(0, 1)."""
+    r, k, v = (torch.randn((bh, s, hd), generator=gen, device=dev)
+               for _ in range(3))
+    hi = -4.0 if decay == "model" else 2.5
+    logw = torch.rand((bh, s, hd), generator=gen, device=dev) * (hi + 6) - 6
+    w = torch.exp(-torch.exp(logw))
+    u = 0.1 * torch.randn((bh, hd), generator=gen, device=dev)
+    s0 = torch.zeros((bh, hd, hd), device=dev)
+    if init == "state":
+        s0 = 0.1 * torch.randn((bh, hd, hd), generator=gen, device=dev)
+    return r, k, v, w, u, s0
+
+
+def wkv_err(got, want) -> float:
+    """K8's (y, final state) within WKV_TOL of the plain version's."""
+    return max(close_err(g, w, WKV_TOL) for g, w in zip(got, want))
+
+
+def wkv_bound(args) -> tuple[float, str, dict]:
+    """Least time for K8's work: r, k, v, w and u read once, the initial
+    state read once, y and the final state written once (float32) at HBM
+    rate, against the flops WKV6 needs at the CUDA cores' float32 peak:
+    per step, 5 per state element (an FMA for r . S, a product and an FMA
+    for the decayed update) and 5 per head-dim element for the u bonus,
+    which factors out as v_j * sum_i r_i u_i k_i."""
+    bh, s, hd = args[0].shape
+    nbytes = 4 * (5 * bh * s * hd + bh * hd + 2 * bh * hd * hd)
+    flops = bh * s * (5 * hd * hd + 5 * hd)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / CUDA_CORE_OPS_PER_S
+    work = {"bytes": nbytes, "flops": flops}
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes", work
+    return t_ops * 1e3, "operations", work
+
+
+def phase_wkv_parity(dev, errs):
+    """K8 against ``_wkv6_plain`` on the same CUDA inputs at every case of
+    WKV_PARITY_CASES: head_dim 16 / 32 / 64, S 64 / 70 / 128 / 2,049,
+    chunk 16 / 32 / 64 through ``wkv6_scan`` (and the ragged S straight
+    through the launch), zero and non-zero initial states, the model's
+    decays and the extreme ones."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as ws
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for name, bh, s, hd, chunk, init, decay in WKV_PARITY_CASES:
+        args = wkv_inputs(dev, gen, bh, s, hd, init, decay)
+        if chunk is None:
+            got = ws._launch_wkv6(*args)
+        else:
+            got = ws.wkv6_scan(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        err = wkv_err(got, ws._wkv6_plain(*args))
+        errs.append(err)
+        log(json.dumps({"parity": K8["name"], "case": name,
+                        "out": list(got[0].shape), "max_abs_err": err,
+                        "tol": WKV_TOL}))
+
+
+def equal_err(got, want) -> float:
+    """K6's (q, recon) must equal the plain version's bit for bit."""
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError("K6 differs from its plain version")
+    return 0.0
+
+
+def section7(x, recon, step, dither) -> float:
+    """|recon - x| against the §7 bound, step / 2 (step with dither), plus
+    float32 rounding slack (step * 2**-10 + 2**-22 * max |x|); returns the
+    largest error as a share of the bound."""
+    xf = x.float()
+    err = float((recon - xf).abs().max())
+    bound = ((step if dither else step / 2) * (1 + 2**-10)
+             + 2**-22 * float(xf.abs().max()))
+    if not err <= bound:
+        raise AssertionError(f"§7 bound broken: {err} > {bound}")
+    return err / bound if bound else 0.0
+
+
+def phase_quant_parity(dev):
+    """``quantize_tensor`` on the card (K6) against ``_quantize_plain`` on
+    the same tiles, bit for bit, at every (shape, dtype) of QUANT_SHAPES x
+    QUANT_BITS x QUANT_DITHERS (n < 256, n not a multiple of 256, float32
+    and bf16), each within its §7 bound.  Returns the errors (0.0)."""
+    from repro_torch.kernels.quantize import quantize as qz
+    from repro_torch.kernels.quantize.ops import quantize_tensor, tiles
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    errs = []
+    for shape, dtype in QUANT_SHAPES:
+        x = (3 * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+        n = x.numel()
+        worst = 0.0
+        for bits in QUANT_BITS:
+            for dither, seed in QUANT_DITHERS:
+                q, recon, (lo, step) = quantize_tensor(x, bits, dither, seed)
+                torch.cuda.synchronize()
+                pq, precon = qz._quantize_plain(tiles(x), lo, step, 1 << bits,
+                                                dither, seed)
+                errs.append(equal_err(
+                    (q.reshape(-1), recon.reshape(-1)),
+                    (pq.reshape(-1)[:n], precon.reshape(-1)[:n])))
+                worst = max(worst, section7(x, recon, step, dither))
+        log(json.dumps({"parity": K6["name"], "shape": list(shape),
+                        "dtype": str(dtype), "bits": list(QUANT_BITS),
+                        "dithers": [list(d) for d in QUANT_DITHERS],
+                        "max_abs_err": 0.0,
+                        "section7_err_over_bound": worst}))
+    return errs
+
+
+def perturb_u(params, seed, dev):
+    """Set every layer's bonus u (0 at init) to 0.1 N(0, 1) from ``seed``,
+    so the checks see the u term; returns the values it replaced."""
+    gen = torch.Generator(device=dev).manual_seed(1000 + seed)
+    saved = []
+    with torch.no_grad():
+        for blk in params.layers:
+            u = blk.attn.u
+            saved.append(u.clone())
+            u.copy_(0.1 * torch.randn(u.shape, generator=gen, device=dev))
+    return saved
+
+
+def phase_rwkv(dev):
+    """Phase 9, the main path: rwkv6-1.6b at full width and depth in bf16,
+    ``make_prefill_step(cfg, use_flash=True)`` over 4 x 2,048 prompts with
+    ``max_len`` 2,080 (a warm-up prefill first, then the timed one), then
+    32 greedy ``make_decode_step`` steps.  K8's count must rise by exactly
+    one launch per layer per prefill and not at all in decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as ws
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import init_params
+
+    cfg = get_config(RWKV_ARCH)
+    assert (cfg.n_layers, cfg.d_model, cfg.dtype) == RWKV_SHAPE, cfg
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    host = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (RWKV_BATCH, RWKV_PROMPT),
+                           generator=host).to(dev)
+    prefill_step = make_prefill_step(cfg, use_flash=True)
+    decode = make_decode_step(cfg)
+
+    ws.reset_launches()
+    _, warm_cache = prefill_step(params, tokens, max_len=RWKV_MAX_LEN)
+    torch.cuda.synchronize()
+    assert ws.LAUNCHES["wkv6"] == cfg.n_layers, ws.LAUNCHES
+
+    ws.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = prefill_step(params, tokens, max_len=RWKV_MAX_LEN)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    assert ws.LAUNCHES["wkv6"] == cfg.n_layers, ws.LAUNCHES
+    assert logits.shape == (RWKV_BATCH, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all()), "prefill logits not finite"
+    tok = logits.argmax(-1)
+    out = [tok]
+    t0 = time.perf_counter()
+    for _ in range(RWKV_DECODE_STEPS):
+        logits, cache = decode(params, tok, cache)
+        tok = logits.argmax(-1)
+        out.append(tok)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    launches = dict(ws.LAUNCHES)
+    assert launches["wkv6"] == cfg.n_layers, launches
+    assert bool(torch.isfinite(logits).all()), "decode logits not finite"
+    assert int(cache["pos"].min()) == int(cache["pos"].max()) == (
+        RWKV_PROMPT + RWKV_DECODE_STEPS
+    )
+    gen = torch.stack(out, 1)
+    assert gen.shape == (RWKV_BATCH, RWKV_DECODE_STEPS + 1)
+    assert 0 <= int(gen.min()) and int(gen.max()) < cfg.vocab_size
+    profile = decode_profile(lambda: decode(params, tok, warm_cache))
+    del warm_cache
+    profile["device_busy_share"] = (
+        profile["device_ms_per_step"] * RWKV_DECODE_STEPS / (t_decode * 1e3)
+    )
+    row = {
+        "rwkv6": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": cfg.n_heads, "head_dim": cfg.head_dim_, "d_ff": cfg.d_ff,
+        "vocab": cfg.vocab_size, "dtype": cfg.dtype, "batch": RWKV_BATCH,
+        "prompt": RWKV_PROMPT, "max_len": RWKV_MAX_LEN, "init_s": init_s,
+        "prefill_s": t_prefill,
+        "prefill_tok_s": RWKV_BATCH * RWKV_PROMPT / t_prefill,
+        "decode_steps": RWKV_DECODE_STEPS,
+        "decode_ms_per_step": t_decode / RWKV_DECODE_STEPS * 1e3,
+        "decode_tok_s": RWKV_BATCH * RWKV_DECODE_STEPS / t_decode,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+        "wkv6_launches_per_prefill": launches["wkv6"],
+        "sample_tokens": gen[0, :8].tolist(),
+        "decode_profile": profile,
+    }
+    return cfg, params, tokens, launches, row
+
+
+def rwkv_pair_checks(cfg, params, tokens, nxt):
+    """The K8 prefill against the reference-branch prefill
+    (``use_flash=False``: ``wkv_chunked`` at S = 2,048), logits and every
+    layer's cache, and decode after prefill(S) against prefill(S + 1)'s
+    last logits, for one set of weights."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+
+    k8 = make_prefill_step(cfg, use_flash=True)
+    ref = make_prefill_step(cfg, use_flash=False)
+    lk, ck = k8(params, tokens, max_len=RWKV_MAX_LEN)
+    lr, cr = ref(params, tokens, max_len=RWKV_MAX_LEN)
+    cache_err = max(
+        rel_l2(a[key], b[key])
+        for a, b in zip(ck["layers"], cr["layers"])
+        for key in ("state", "x_prev_tm", "x_prev_cm")
+    )
+    del cr
+    l1, _ = make_decode_step(cfg)(params, nxt, ck)
+    del ck
+    l2, _ = k8(params, torch.cat([tokens, nxt[:, None]], 1),
+               max_len=RWKV_MAX_LEN)
+    for name, t in (("k8", lk), ("reference", lr), ("decode", l1),
+                    ("prefill S+1", l2)):
+        assert bool(torch.isfinite(t).all()), f"{name} logits not finite"
+    return {
+        "k8_vs_reference_rel_l2": rel_l2(lk, lr),
+        "k8_vs_reference_cache_rel_l2": cache_err,
+        "decode_vs_prefill_rel_l2": rel_l2(l1, l2),
+        "decode_vs_prefill_max_abs": float(
+            (l1.float() - l2.float()).abs().max()),
+    }, (lk, lr, l1, l2)
+
+
+def rwkv_seed_checks(dev, cfg, params, tokens, nxt):
+    """``rwkv_pair_checks`` in bf16 and in float32 (the same weights
+    upcast).  The bf16 witness: the reference branch's distance from the
+    float32 K8 prefill (for the prefill comparison) and the bf16
+    prefill(S + 1)'s distance from its float32 run (for decode)."""
+    import dataclasses
+
+    from repro_torch.models import TransformerLM
+
+    bf16, (bk, br, bd, bs1) = rwkv_pair_checks(cfg, params, tokens, nxt)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = TransformerLM(cfg32, dev)
+    with torch.no_grad():
+        for p32, p in zip(params32.parameters(), params.parameters()):
+            p32.copy_(p.float())
+    f32, (fk, _, _, fs1) = rwkv_pair_checks(cfg32, params32, tokens, nxt)
+    del params32
+    torch.cuda.empty_cache()
+    bf16["k8_vs_f32_rel_l2"] = rel_l2(bk, fk)
+    bf16["reference_vs_f32_rel_l2"] = rel_l2(br, fk)
+    bf16["prefill_s1_vs_f32_rel_l2"] = rel_l2(bs1, fs1)
+    bf16["decode_vs_f32_rel_l2"] = rel_l2(bd, fs1)
+    return {"float32": f32, "bfloat16": bf16}
+
+
+def phase_rwkv_checks(dev, cfg, params, tokens):
+    """``rwkv_seed_checks`` on the main path's weights (seed 0) and on
+    fresh weights and prompts for seeds 1 and 2, every time with u
+    perturbed from the seed (``perturb_u``; the old u is put back).
+    Float32 differences must be within
+    RWKV_F32_REL_L2; bf16 differences within RWKV_BF16_OVER_FLOOR times
+    their witness."""
+    from repro_torch.models import init_params
+
+    readings = {}
+    for seed in RWKV_CHECK_SEEDS:
+        host = torch.Generator().manual_seed(2 + 100 * seed)
+        nxt = torch.randint(0, cfg.vocab_size, (RWKV_BATCH,),
+                            generator=host).to(dev)
+        if seed == 0:
+            p, tok = params, tokens
+        else:
+            p = init_params(cfg, seed=seed, device=dev)
+            tok = torch.randint(0, cfg.vocab_size, (RWKV_BATCH, RWKV_PROMPT),
+                                generator=host).to(dev)
+        saved = perturb_u(p, seed, dev)
+        readings[seed] = rwkv_seed_checks(dev, cfg, p, tok, nxt)
+        with torch.no_grad():
+            for blk, u in zip(p.layers, saved):
+                blk.attn.u.copy_(u)
+        del p, tok
+        torch.cuda.empty_cache()
+    row = {"rwkv6_checks": cfg.name, "seeds": readings,
+           "bounds": {"float32_rel_l2": RWKV_F32_REL_L2,
+                      "bfloat16_over_witness": RWKV_BF16_OVER_FLOOR}}
+    log(json.dumps(row))
+    for seed, r in readings.items():
+        f32, bf16 = r["float32"], r["bfloat16"]
+        for key in ("k8_vs_reference_rel_l2", "k8_vs_reference_cache_rel_l2",
+                    "decode_vs_prefill_rel_l2"):
+            assert f32[key] <= RWKV_F32_REL_L2, (seed, key, f32)
+        witness = bf16["reference_vs_f32_rel_l2"]
+        assert bf16["k8_vs_reference_rel_l2"] <= (
+            RWKV_BF16_OVER_FLOOR * witness), (seed, bf16)
+        assert bf16["decode_vs_prefill_rel_l2"] <= (
+            RWKV_BF16_OVER_FLOOR * bf16["prefill_s1_vs_f32_rel_l2"]), (seed,
+                                                                      bf16)
+    return row
+
+
+def phase_quant_model(params):
+    """K6 through its entry point over the served model: ``quantize_tensor``
+    at QUANT_MODEL_BITS bits, without and with dither (seed 0), over every
+    2-D parameter of the rwkv6-1.6b in bf16; each within its §7 bound.
+    ``LAUNCHES["quantize"]`` is reset before each pass and must equal the
+    number of tensors after it.  Returns the line, the launches of both
+    passes, and the largest and a channel-mix-sized weight."""
+    from repro_torch.kernels.quantize import quantize as qz
+    from repro_torch.kernels.quantize.ops import quantize_tensor
+
+    weights = [(n, p) for n, p in params.named_parameters() if p.dim() == 2]
+    passes = {}
+    launches = 0
+    for dither in (False, True):
+        qz.reset_launches()
+        t0 = time.perf_counter()
+        worst = 0.0
+        elems = 0
+        for _, w in weights:
+            _, recon, (_, step) = quantize_tensor(w, QUANT_MODEL_BITS, dither,
+                                                  0)
+            worst = max(worst, section7(w, recon, step, dither))
+            elems += w.numel()
+            del recon
+        torch.cuda.synchronize()
+        assert qz.LAUNCHES["quantize"] == len(weights), qz.LAUNCHES
+        launches += qz.LAUNCHES["quantize"]
+        passes["dither" if dither else "plain"] = {
+            "tensors": len(weights), "elements": elems,
+            "launches": qz.LAUNCHES["quantize"],
+            "host_s": time.perf_counter() - t0,
+            "section7_err_over_bound": worst,
+        }
+    largest = max(weights, key=lambda nw: nw[1].numel())
+    mlp = params.layers[0].mlp.w_k
+    row = {"quantize_model": RWKV_ARCH, "bits": QUANT_MODEL_BITS,
+           "largest": [largest[0], list(largest[1].shape)], "passes": passes}
+    return row, launches, largest[1], mlp
+
+
+def rwkv_wkv_args(cfg, params, tokens):
+    """The (BH, S, hd) r, k, v, w, u and zero state the main path hands K8
+    at layer 0."""
+    from repro_torch.kernels.rwkv6_scan.ops import bh_layout
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.model import embed_inputs
+    from repro_torch.models.rwkv6 import _mix_inputs
+
+    x = embed_inputs(cfg, params, tokens)
+    h = rms_norm(x, params.layers[0].norm1, cfg.rms_eps)
+    b, _, d = h.shape
+    hd = cfg.head_dim_
+    attn = params.layers[0].attn
+    x_prev = torch.zeros((b, d), dtype=h.dtype, device=h.device)
+    r, k, v, _, w = _mix_inputs(attn, cfg, h, x_prev)
+    state = torch.zeros((b, cfg.n_heads, hd, hd), device=h.device)
+    return bh_layout(r, k, v, w, attn.u, state)
+
+
+def wkv6_entry(launches, main_args, errs, prefill_s):
+    """K8's entry of the ``{"kernels": [...]}`` line, at the main path's
+    layer-0 inputs (BH = 128, S = 2,048, hd = 64, float32).  No single
+    PyTorch call computes the WKV6 recurrence."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as ws
+
+    got = ws._launch_wkv6(*main_args)
+    torch.cuda.synchronize()
+    err = wkv_err(got, ws._wkv6_plain(*main_args))
+    errs.append(err)
+    log(json.dumps({"parity": K8["name"], "case": "main-path-layer0",
+                    "out": list(got[0].shape), "max_abs_err": err,
+                    "tol": WKV_TOL}))
+    bms, by, work = wkv_bound(main_args)
+    ms = time_ms(lambda: ws._launch_wkv6(*main_args))
+    entry = dict(K8)
+    entry.update({
+        "launches": launches["wkv6"],
+        "max_abs_err": max(errs),
+        "ms": ms,
+        "plain_ms": time_ms(lambda: ws._wkv6_plain(*main_args)),
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the WKV6 "
+                        "recurrence",
+        "timed_at": "one prefill layer of rwkv6-1.6b: BH=128, S=2048, "
+                    "hd=64, float32",
+        "work": work,
+        "share_of_prefill": ms * launches["wkv6"] / (prefill_s * 1e3),
+    })
+    return entry
+
+
+def quant_bound(x, dither) -> tuple[float, str, dict]:
+    """Least time for K6's work: x read once, q (int32) and recon (float32)
+    written once, at HBM rate, against 9 operations per element (10 more
+    for the dither's hash) at the CUDA cores' rate."""
+    n = x.numel()
+    nbytes = n * (x.element_size() + 8)
+    ops = n * (9 + (11 if dither else 0))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS_PER_S
+    work = {"bytes": nbytes, "ops": ops, "elements": n}
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes", work
+    return t_ops * 1e3, "operations", work
+
+
+def quant_entry(launches, largest, mlp, errs):
+    """K6's entry of the ``{"kernels": [...]}`` line: held against its
+    plain version at the served model's largest weight (without and with
+    dither), and timed there without dither; also timed at a channel-mix
+    weight (2,048 x 7,168)."""
+    from repro_torch.kernels.quantize import quantize as qz
+    from repro_torch.kernels.quantize.ops import tiles
+
+    def args_of(w):
+        flat = w.reshape(-1)
+        lo, hi = float(flat.min()), float(flat.max())
+        n_levels = 1 << QUANT_MODEL_BITS
+        return tiles(w), lo, max((hi - lo) / n_levels, 1e-30), n_levels
+
+    x2, lo, step, n_levels = args_of(largest)
+    for dither in (False, True):
+        got = qz._launch_quantize(x2, lo, step, n_levels, dither, 0)
+        torch.cuda.synchronize()
+        errs.append(equal_err(got, qz._quantize_plain(x2, lo, step, n_levels,
+                                                      dither, 0)))
+        del got
+    log(json.dumps({"parity": K6["name"], "case": "main-path-largest",
+                    "out": list(x2.shape), "max_abs_err": 0.0}))
+    bms, by, work = quant_bound(x2, False)
+    entry = dict(K6)
+    entry.update({
+        "launches": launches,
+        "max_abs_err": max(errs),
+        "ms": time_ms(lambda: qz._launch_quantize(x2, lo, step, n_levels)),
+        "plain_ms": time_ms(lambda: qz._quantize_plain(x2, lo, step,
+                                                      n_levels)),
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": None,
+        "library_note": "torch.quantize_per_tensor rounds instead of "
+                        "flooring, has no dither and returns uint8: not the "
+                        "same function",
+        "timed_at": f"the largest weight of rwkv6-1.6b, "
+                    f"{list(largest.shape)} bf16, {QUANT_MODEL_BITS} bits, "
+                    "no dither",
+        "work": work,
+    })
+    m2, mlo, mstep, _ = args_of(mlp)
+    mbms, mby, _ = quant_bound(m2, False)
+    entry["channel_mix_weight"] = {
+        "shape": list(mlp.shape),
+        "ms": time_ms(lambda: qz._launch_quantize(m2, mlo, mstep, n_levels)),
+        "plain_ms": time_ms(lambda: qz._quantize_plain(m2, mlo, mstep,
+                                                      n_levels)),
+        "bound_ms": mbms, "bound_by": mby,
+    }
+    return entry
+
+
 def main() -> None:
     dev = phase_environment()
     phase_build()
@@ -1311,7 +1862,26 @@ def main() -> None:
     lm_row["k7_share_of_prefill"] = entry["share_of_prefill"]
     log(json.dumps({k: v for k, v in lm_row.items() if k != "checks"}))
     del params
+    torch.cuda.empty_cache()
     clock["lm"] = time.perf_counter()
+
+    wkv_errs = []
+    phase_wkv_parity(dev, wkv_errs)
+    quant_errs = phase_quant_parity(dev)
+    rcfg, rparams, rtokens, wkv_launches, rwkv_row = phase_rwkv(dev)
+    rwkv_row["checks"] = phase_rwkv_checks(dev, rcfg, rparams, rtokens)
+    quant_row, quant_launches, largest, mlp = phase_quant_model(rparams)
+    log(json.dumps(quant_row))
+    k8 = wkv6_entry(wkv_launches, rwkv_wkv_args(rcfg, rparams, rtokens),
+                    wkv_errs, rwkv_row["prefill_s"])
+    k6 = quant_entry(quant_launches, largest, mlp, quant_errs)
+    out += [k8, k6]
+    rwkv_row["k8_ms"] = k8["ms"]
+    rwkv_row["k8_share_of_prefill"] = k8["share_of_prefill"]
+    log(json.dumps({k: v for k, v in rwkv_row.items() if k != "checks"}))
+    del rparams, largest, mlp
+    torch.cuda.empty_cache()
+    clock["rwkv6"] = time.perf_counter()
     marks = list(clock.items())
     log(json.dumps({"phase_s": {b[0]: b[1] - a[1]
                                 for a, b in zip(marks, marks[1:])}}))

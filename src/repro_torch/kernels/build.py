@@ -29,6 +29,8 @@ BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
 SOURCES = {
     "tree_predict": _PKG / "tree_predict" / "csrc" / "tree_predict.cu",
     "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
+    "rwkv6_scan": _PKG / "rwkv6_scan" / "csrc" / "rwkv6_scan.cu",
+    "quantize": _PKG / "quantize" / "csrc" / "quantize.cu",
 }
 
 NVCC_FLAGS = (

@@ -4,11 +4,16 @@ port of ``repro.launch.serve``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \
         --smoke --device cpu --temperature 0
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+        --smoke --device cpu --temperature 0
+
 Prefill goes through ``make_prefill_step(cfg, use_flash=True)``, so the
-prompt's attention runs the flash kernel (K7) on a card and its plain
-version on the CPU; decode steps follow one token at a time.  Sampling
-draws from an explicit ``torch.Generator``; ``--temperature 0`` is greedy.
-The device defaults to ``cuda`` and raises without a card.
+prompt runs the hand-written kernels on a card and their plain versions on
+the CPU: the flash kernel (K7) for the dense GQA archs' attention, the
+WKV6 kernel (K8) for RWKV6's recurrence.  Decode steps follow one token at
+a time.  Sampling draws from an explicit ``torch.Generator``;
+``--temperature 0`` is greedy.  The device defaults to ``cuda`` and raises
+without a card.
 """
 from __future__ import annotations
 

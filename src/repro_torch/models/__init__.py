@@ -1,5 +1,5 @@
-"""repro_torch.models — the decoder-only LM, dense-GQA subset (the port of
-``repro.models``)."""
+"""repro_torch.models — the decoder-only LM, dense-GQA and RWKV6 subset
+(the port of ``repro.models``)."""
 
 from .model import (
     TransformerLM,

@@ -1,4 +1,5 @@
-"""TransformerLM, dense-GQA subset — the port of ``repro.models.model``.
+"""TransformerLM, dense-GQA and RWKV6 subset — the port of
+``repro.models.model``.
 
 Parameters live in ``nn.Module``s: ``TransformerLM`` holds the embedding,
 the final norm, the untied head and an ``nn.ModuleList`` of ``Block``s
@@ -11,8 +12,13 @@ so a test calls both packages the same way.  The decode cache is
 
 This slice serves the dense GQA family (qwen3, qwen2.5, starcoder2,
 deepseek-7b, and the musicgen / internvl2 backbones behind their frontend
-stubs).  MLA, MoE, RWKV6 and the Hymba hybrid, ``remat``, ``loss_fn`` and
-``mtp_loss`` raise ``NotImplementedError`` naming their ROADMAP item.
+stubs) and RWKV6 (``Block`` then holds ``RWKV6TimeMix`` and
+``ChannelMix``; its per-layer cache is ``{"state", "x_prev_tm",
+"x_prev_cm"}``).  ``use_flash=True`` sends the prompt through the
+hand-written kernels: flash attention (K7) for GQA, the WKV6 recurrence
+(K8) for RWKV6.  MLA, MoE and the Hymba hybrid, ``remat``, ``loss_fn``
+and ``mtp_loss`` raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -34,6 +40,18 @@ from .attention import (
     init_kv_cache,
 )
 from .layers import rms_norm, swiglu
+from .rwkv6 import (
+    ChannelMix,
+    RWKV6TimeMix,
+    channel_mix_decode,
+    channel_mix_train,
+    init_channel_mix,
+    init_rwkv6,
+    init_rwkv6_cache,
+    rwkv6_decode,
+    rwkv6_prefill,
+    rwkv6_train,
+)
 
 __all__ = [
     "Block",
@@ -53,7 +71,6 @@ __all__ = [
 
 _UNPORTED_ATTN = {
     "mla": "MLA attention (models/mla.py)",
-    "rwkv6": "RWKV6 time mixing (models/rwkv6.py, kernel K8)",
     "hymba": "the Hymba attention + SSM hybrid (models/ssm.py)",
 }
 
@@ -67,7 +84,7 @@ def _not_ported(what: str) -> NotImplementedError:
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.attn_type in _UNPORTED_ATTN:
         raise _not_ported(_UNPORTED_ATTN[cfg.attn_type])
-    if cfg.attn_type != "gqa":
+    if cfg.attn_type not in ("gqa", "rwkv6"):
         raise ValueError(cfg.attn_type)
     if cfg.mlp_type == "moe":
         raise _not_ported("the MoE MLP (models/moe.py)")
@@ -99,15 +116,20 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """One decoder layer: pre-norm attention, pre-norm MLP."""
+    """One decoder layer: pre-norm attention (RWKV6: time-mix), pre-norm
+    MLP (RWKV6: channel-mix)."""
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
         d = cfg.d_model
         self.norm1 = _param((d,), dtype, device)
         self.norm2 = _param((d,), dtype, device)
-        self.attn = Attention(cfg, dtype, device)
-        self.mlp = MLP(cfg, dtype, device)
+        if cfg.attn_type == "rwkv6":
+            self.attn = RWKV6TimeMix(cfg, dtype, device)
+            self.mlp = ChannelMix(cfg, dtype, device)
+        else:
+            self.attn = Attention(cfg, dtype, device)
+            self.mlp = MLP(cfg, dtype, device)
 
 
 class TransformerLM(nn.Module):
@@ -143,7 +165,8 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                 device="cuda") -> TransformerLM:
     """A ``TransformerLM`` drawn from an explicit ``torch.Generator`` on the
     target device, at the reference's scales (normal * d_in**-0.5, the
-    embedding * 0.02, unit norms, zero biases), not its bits.  Raises
+    embedding * 0.02, unit norms, zero biases; RWKV6's own in
+    ``rwkv6.init_rwkv6``), not its bits.  Raises
     ``RuntimeError`` for CUDA on a host without a card."""
     params = TransformerLM(cfg, device)
     gen = torch.Generator(device=params.device).manual_seed(seed)
@@ -155,6 +178,10 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     for blk in params.layers:
         blk.norm1.fill_(1.0)
         blk.norm2.fill_(1.0)
+        if cfg.attn_type == "rwkv6":
+            init_rwkv6(blk.attn, cfg, gen)
+            init_channel_mix(blk.mlp, cfg, gen)
+            continue
         init_attention(blk.attn, cfg, gen)
         mlp = blk.mlp
         mlp.w1.normal_(0.0, d**-0.5, generator=gen)
@@ -171,6 +198,9 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 # ---------------------------------------------------------------------------
 def _block_train(cfg: ModelConfig, p: Block, x, positions, use_flash: bool):
     h = rms_norm(x, p.norm1, cfg.rms_eps)
+    if cfg.attn_type == "rwkv6":
+        x = x + rwkv6_train(p.attn, cfg, h, positions, use_flash)
+        return x + channel_mix_train(p.mlp, rms_norm(x, p.norm2, cfg.rms_eps))
     x = x + attention_train(p.attn, cfg, h, positions, use_flash)
     h = rms_norm(x, p.norm2, cfg.rms_eps)
     return x + p.mlp(h)
@@ -179,6 +209,12 @@ def _block_train(cfg: ModelConfig, p: Block, x, positions, use_flash: bool):
 def _block_prefill(cfg: ModelConfig, p: Block, x, positions, max_len: int,
                    use_flash: bool):
     h = rms_norm(x, p.norm1, cfg.rms_eps)
+    if cfg.attn_type == "rwkv6":
+        a, cache = rwkv6_prefill(p.attn, cfg, h, use_flash)
+        x = x + a
+        h = rms_norm(x, p.norm2, cfg.rms_eps)
+        cache["x_prev_cm"] = h[:, -1, :]
+        return x + channel_mix_train(p.mlp, h), cache
     a, cache = attention_prefill(p.attn, cfg, h, positions, max_len,
                                  use_flash)
     x = x + a
@@ -187,8 +223,16 @@ def _block_prefill(cfg: ModelConfig, p: Block, x, positions, max_len: int,
 
 
 def _block_decode(cfg: ModelConfig, p: Block, x, cache, position):
-    """One-token step. cache: this layer's cache, updated in place."""
+    """One-token step. cache: this layer's cache (GQA: updated in place;
+    RWKV6: a new dict of new tensors)."""
     h = rms_norm(x, p.norm1, cfg.rms_eps)
+    if cfg.attn_type == "rwkv6":
+        a, state, xprev = rwkv6_decode(p.attn, cfg, h, cache)
+        x = x + a
+        h = rms_norm(x, p.norm2, cfg.rms_eps)
+        m, xprev_cm = channel_mix_decode(p.mlp, h, cache["x_prev_cm"])
+        return x + m, {"state": state, "x_prev_tm": xprev,
+                       "x_prev_cm": xprev_cm}
     a, cache = attention_decode(p.attn, cfg, h, cache, position)
     x = x + a
     h = rms_norm(x, p.norm2, cfg.rms_eps)
@@ -308,17 +352,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     _check_supported(cfg)
     dev = resolve_device(device)
     dtype = _dtype(cfg)
+    if cfg.attn_type == "rwkv6":
+        layers = [init_rwkv6_cache(cfg, batch, dtype, dev)
+                  for _ in range(cfg.n_layers)]
+    else:
+        layers = [init_kv_cache(cfg, batch, max_len, dtype, dev)
+                  for _ in range(cfg.n_layers)]
     return {
-        "layers": [init_kv_cache(cfg, batch, max_len, dtype, dev)
-                   for _ in range(cfg.n_layers)],
+        "layers": layers,
         "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
     }
 
 
 def decode_step(cfg: ModelConfig, params: TransformerLM, tokens, cache):
-    """tokens (B,) current token ids -> (logits (B,V), new cache).  The
+    """tokens (B,) current token ids -> (logits (B,V), new cache).  GQA
     layers' key / value buffers are written in place and shared with the
-    returned cache; ``pos`` is a new tensor."""
+    returned cache; RWKV6 layers get new tensors; ``pos`` is a new
+    tensor."""
     _check_supported(cfg)
     position = cache["pos"]
     x = F.embedding(_tokens(params, tokens)[:, None], params.embed)

@@ -63,6 +63,13 @@ def test_port_modules_exist():
         "repro_torch.kernels.flash_attention.ops",
         "repro_torch.launch.steps",
         "repro_torch.launch.serve",
+        "repro_torch.models.rwkv6",
+        "repro_torch.kernels.rwkv6_scan.ref",
+        "repro_torch.kernels.rwkv6_scan.rwkv6_scan",
+        "repro_torch.kernels.rwkv6_scan.ops",
+        "repro_torch.kernels.quantize.ref",
+        "repro_torch.kernels.quantize.quantize",
+        "repro_torch.kernels.quantize.ops",
     ):
         assert name in mods
 
@@ -256,6 +263,36 @@ def test_flash_c_entries_are_declared_and_its_launch_is_counted():
     body = inspect.getsource(fa._launch_flash)
     assert body.count("LAUNCHES[") == 1
     assert 'LAUNCHES["flash"] += 1' in body
+
+
+@pytest.mark.parametrize("name,prefix,key", [
+    ("rwkv6_scan", "wkv6", "wkv6"),
+    ("quantize", "quantize", "quantize"),
+])
+def test_wkv6_and_quantize_c_entries_are_declared_and_launches_counted(
+        name, prefix, key):
+    """``rwkv6_scan.cu`` (K8) and ``quantize.cu`` (K6): the ``extern "C"``
+    functions are exactly the ctypes declarations, the source is in
+    ``build.SOURCES``, and the launch function bumps its counter once."""
+    import importlib
+    import inspect
+
+    from repro_torch.kernels import build
+
+    mod = importlib.import_module(f"repro_torch.kernels.{name}.{name}")
+    src = os.path.join(PORT, "kernels", name, "csrc", f"{name}.cu")
+    assert build.SOURCES[name] == build.Path(src)
+    with open(src) as fh:
+        text = fh.read()
+    c_entries = set(re.findall(
+        rf"^(?:int|const char\*) ({prefix}_\w+)\(", text, re.M))
+    assert c_entries == set(mod._SIGNATURES) == {
+        f"{prefix}_forward", f"{prefix}_error_string"}
+    launch = getattr(mod, f"_launch_{prefix}")
+    body = inspect.getsource(launch)
+    assert body.count("LAUNCHES[") == 1
+    assert f'LAUNCHES["{key}"] += 1' in body
+    assert set(mod.LAUNCHES) == {key}
 
 
 def test_flash_launch_refuses_cpu_tensors():
