@@ -27,7 +27,7 @@ Phases, in order; any failure propagates and the exit code is non-zero:
 5. training path (the paper's pipeline): for each task, the Liberty
    shape of Table 1 (``liberty_cls`` / ``liberty_reg``: 50,999 rows, 32
    variables of which 16 categorical, 64 bins, depth 12, heaps of 8,191
-   nodes; 100 trees where the paper has 1,000) —
+   nodes; 50 trees where the paper has 1,000) —
    ``train_forest(device="cuda")``; ``predict_forest`` against
    ``predict_forest_kernel`` (K3) and ``per_tree_predictions`` against
    ``predict_forest_kernel_per_tree`` (K4); ``to_compact_forest`` ->
@@ -37,10 +37,13 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    (``subsample_trees``, ``quantize_fits``) recompressed.  K3 / K4 launch
    counts are read around this phase and must be positive; then each is
    held against its plain version at the shapes the phase gave it;
-6. training on the card against training on the CPU, same seed, a small
-   forest at the Liberty width: classification trees equal; regression
-   trees equal up to tie flips whose float64 gains differ by <= 1e-5
-   relative (``forest.compare.first_divergence``);
+6. one seed, one forest: phase 5's Liberty regression forest trained
+   again on the card from its seed has equal heap arrays and compresses
+   to the same bytes (the regression histograms add in a fixed order);
+   then training on the card against training on the CPU, same seed, a
+   small forest at the Liberty width: classification trees equal;
+   regression trees equal up to tie flips whose float64 gains differ by
+   <= 1e-5 relative (``forest.compare.first_divergence``);
 7. times: CUDA events, median of 25 after warm-up — each kernel and its
    plain version at its main path's shapes and at the large phase-3 shape;
    then, on the host clock, warm serving ms per 1,024-row batch and its
@@ -84,14 +87,29 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    each within its §7 bound, and bit for bit at the largest; K8 and K6
    timed beside their plain versions; one line with prefill seconds and
    tokens/s, K8's share of the prefill, decode ms per step and tokens/s
-   and peak device memory.
+   and peak device memory;
+10. the fleet store (the subscriber scenario): (a) ``build_store`` of
+   ``benchmarks/store_bench.py``'s 100-user fleets on the card and on the
+   CPU — RFT1 bytes equal, and ``ForestStore.from_bytes`` of them
+   re-serializes to them on both; (b) a 1,000-user classification fleet
+   (~12,000 trees) and the 100-user regression fleet, each served 256
+   ragged requests of 256 rows through ``ForestServer(store,
+   device="cuda").serve`` with ``pipelined`` (K1), ``simple`` (K2) and
+   ``sharded`` (K5) over ``devices=["cuda:0"]`` and ``["cuda:0"] * 4``,
+   every request held against ``predict_compressed`` on the CPU, and
+   ``serve_safe`` with one user's delta corrupted (that user
+   quarantined, the others unchanged); (c) K1, K2 and K5 launch counts
+   read around (b), positive, with 4 K1 launches per S = 4 batch; (d) K5
+   against its plain version at the S = 1 and S = 4 inputs; (e) the
+   builds' seconds, each engine's cold and warm batch with its stages,
+   K1's share, and K5 at S = 1 and 4, in one ``{"fleet": ...}`` line.
 
 Votes must be equal; regression sums are held at rtol = atol = 1e-5 (the
 reference's own serving tolerance); on the card K1-K4 equal their plain
 versions bit for bit, and K7 is held to its plain version at the
 reference's float32 flash tolerance (2e-5) and, in bf16, at one bf16 ulp
 (rtol 2**-7, atol 2e-5); K8 at the reference's float32 WKV6 tolerance
-(1e-4), K6 bit for bit.  The line before
+(1e-4), K6 bit for bit, K5 bit for bit.  The line before
 the last is one JSON object ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -139,6 +157,13 @@ K4 = {
     "route": "cuda",
     "source": "src/repro_torch/kernels/tree_predict/csrc/tree_predict.cu",
     "replaces": "src/repro/kernels/tree_predict/tree_predict.py:158",
+}
+
+K5 = {
+    "name": "seg_sharded",
+    "route": "cuda",
+    "source": "src/repro_torch/kernels/tree_predict/csrc/tree_predict.cu",
+    "replaces": "src/repro/kernels/tree_predict/ops.py:145",
 }
 
 K7 = {
@@ -245,10 +270,34 @@ FLASH_PARITY_CASES = [
     ("f32-s2048-t1000", 4, 2048, 1000, 64, torch.float32, None),
 ]
 
+# Fleet serving (phase 10): the subscriber scenario — one ForestStore per
+# task (one shared codebook, one delta per user) serving ragged mixed-user
+# batches.  benchmarks/store_bench.py's 100-user fleets (depth 6, 8
+# features) for the RFT1 round trip; for serving, a 1,000-user
+# classification fleet (~12,000 trees, inside the arena's default
+# 16,384-tree capacity) and the 100-user regression fleet, each sent 256
+# requests of 256 rows (65,536 rows) of make_request_batch(seed=1).
+FLEET_BENCH_USERS = 100
+FLEET_SERVE_USERS = {"classification": 1000, "regression": 100}
+FLEET_REQUESTS = 256
+FLEET_ROWS = 256
+# store_total_bytes of those 100-user fleets in BENCH_store.json: a
+# reference run of an older commit, printed as a witness, not a gate
+BENCH_STORE_BYTES = {"classification": 201586, "regression": 237396}
+# (label, shards on the one card or None for the session default, engine)
+FLEET_ENGINES = (
+    ("pipelined", None, "pipelined"),
+    ("simple", None, "simple"),
+    ("sharded_s1", 1, "sharded"),
+    ("sharded_s4", 4, "sharded"),
+)
+
 # Table 1's Liberty configuration (benchmarks/table1_liberty.py, full
-# mode), cut from 1,000 trees to TRAIN_TREES for the run's time limit.
+# mode), cut from 1,000 trees to TRAIN_TREES for the run's time limit
+# (100 until the fleet phase and the second regression training and
+# compression of phase 6 brought the run near 600 s).
 LIBERTY = {"classification": "liberty_cls", "regression": "liberty_reg"}
-TRAIN_TREES = 100
+TRAIN_TREES = 50
 TRAIN_DEPTH = 12
 TRAIN_BINS = 64
 # card-vs-CPU training: a small forest at the Liberty width
@@ -764,8 +813,8 @@ def compress_on_card_and_cpu(forest, dev, what):
 
 def phase_training(dev):
     """The paper's pipeline on the card for each task (module docstring,
-    phase 5).  Returns {task: (model, x)} and the K3 / K4 launch counts of
-    this phase."""
+    phase 5).  Returns {task: (model, x)}, the K3 / K4 launch counts of
+    this phase and {task: compressed bytes}."""
     from repro_torch.core import decompress_forest, predict_compressed
     from repro_torch.forest import (
         per_tree_predictions,
@@ -776,7 +825,7 @@ def phase_training(dev):
     from repro_torch.kernels.tree_predict import ops
     from repro_torch.kernels.tree_predict import tree_predict as tp
 
-    models = {}
+    models, blobs = {}, {}
     tp.reset_launches()
     for task in LIBERTY:
         spec, x, y, binner = liberty(task)
@@ -827,11 +876,12 @@ def phase_training(dev):
             row["lossy"] = lossy_knobs(forest, comp, xb, k4, dev)
         log(json.dumps(row))
         models[task] = (model, x)
+        blobs[task] = comp.to_bytes()
     launches = dict(tp.LAUNCHES)
     log(f"training-path launches: {json.dumps(launches)}")
     for name in (K3["name"], K4["name"]):
         assert launches[name] > 0, f"kernel {name} was not launched on the training path"
-    return models, launches
+    return models, launches, blobs
 
 
 def lossy_knobs(forest, comp, xb, per_tree, dev):
@@ -926,6 +976,34 @@ def phase_train_card_vs_cpu(dev):
                 flips.append({"tree": t, **div})
         row.update(trees_equal=SMALL["trees"] - len(flips), tie_flips=flips)
         log(json.dumps(row))
+
+
+def phase_train_again(dev, model, blob):
+    """One seed, one forest (module docstring, phase 6): the Liberty
+    regression forest of phase 5 trained again on the card from its seed
+    has equal heap arrays and compresses to the same bytes."""
+    from repro_torch.core import compress_forest
+    from repro_torch.forest import to_compact_forest, train_forest
+
+    spec, x, y, binner = liberty("regression")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = train_forest(
+        x, y, binner, n_trees=TRAIN_TREES, max_depth=TRAIN_DEPTH,
+        task="regression", n_classes=spec.n_classes, seed=0, device=dev,
+    )
+    train_s = time.perf_counter() - t0
+    for f in ("feature", "threshold", "node_fit", "is_internal", "node_count"):
+        assert np.array_equal(getattr(again, f), getattr(model, f)), (
+            f"regression {f} differs between two trainings from one seed"
+        )
+    t0 = time.perf_counter()
+    comp = compress_forest(to_compact_forest(again), device=dev)
+    compress_s = time.perf_counter() - t0
+    assert comp.to_bytes() == blob, "compressed bytes differ between trainings"
+    log(json.dumps({"train_again": "regression", "trees": TRAIN_TREES,
+                    "heaps_equal": True, "bytes_equal": len(blob),
+                    "train_s": train_s, "card_compress_s": compress_s}))
 
 
 def forest_args(model, x, dev):
@@ -1780,6 +1858,277 @@ def quant_entry(launches, largest, mlp, errs):
     return entry
 
 
+# ---------------------------------------------------------------------------
+# the fleet store's main path (phase 10)
+# ---------------------------------------------------------------------------
+
+def phase_fleet_store(dev):
+    """RFT1 round trip (module docstring, phase 10a): each 100-user fleet
+    built on the card and on the CPU serializes to the same bytes, and
+    each store loaded from them serializes back to them.  Returns {task:
+    card store} and the rows logged."""
+    from repro_torch.store import ForestStore, build_store, make_synthetic_fleet
+
+    stores, rows = {}, {}
+    for task in LIBERTY:
+        fleet = make_synthetic_fleet(FLEET_BENCH_USERS, task, seed=0)
+        t0 = time.perf_counter()
+        card = build_store(fleet, device=dev)
+        t1 = time.perf_counter()
+        cpu = build_store(fleet, device="cpu")
+        t2 = time.perf_counter()
+        blob = card.to_bytes()
+        assert blob == cpu.to_bytes(), f"{task}: card and CPU RFT1 differ"
+        for where in (dev, "cpu"):
+            back = ForestStore.from_bytes(blob, device=where)
+            assert back.to_bytes() == blob, f"{task}: RFT1 round trip"
+        rep = card.size_report()
+        rows[task] = {
+            "fleet_store": task, "users": rep["n_users"],
+            "trees": sum(card.n_trees(u) for u in card.user_ids),
+            "rft1_bytes": len(blob),
+            "store_total_bytes": rep["total_bytes"],
+            "bench_store_json_total_bytes": BENCH_STORE_BYTES[task],
+            "card_build_s": t1 - t0, "cpu_build_s": t2 - t1,
+        }
+        log(json.dumps(rows[task]))
+        stores[task] = card
+    return stores, rows
+
+
+def fleet_session(store, dev, shards):
+    from repro_torch.serving import ForestServer
+
+    devices = None if shards is None else [dev] * shards
+    return ForestServer(store, device=dev, devices=devices)
+
+
+def check_fleet(task, requests, preds, want, what):
+    assert len(preds) == len(want) == len(requests), what
+    for (u, _), got, ref in zip(requests, preds, want):
+        check_pred(task, got, ref, f"{what}: user {u}")
+
+
+def phase_fleet_serving(dev, bench_stores):
+    """The fleet's main path (module docstring, phase 10b-c): every engine
+    serves 65,536 ragged rows of 256 requests, held against
+    ``predict_compressed`` on the CPU; ``serve_safe`` quarantines one
+    corrupted user.  Launch counts are set to 0 before and read after.
+    Returns {task: (store, requests, want)}, the launch counts, the build
+    rows and the S = 4 session's K5 inputs per task."""
+    from repro_torch.kernels.tree_predict import tree_predict as tp
+    from repro_torch.runtime.chaos import poison_user
+    from repro_torch.serving import ForestServer
+    from repro_torch.store import (
+        ForestStore,
+        build_store,
+        make_request_batch,
+        make_synthetic_fleet,
+    )
+
+    build_rows = {}
+    fleets = {}
+    for task, n_users in FLEET_SERVE_USERS.items():
+        if n_users == FLEET_BENCH_USERS:
+            fleets[task] = bench_stores[task]
+            continue
+        fleet = make_synthetic_fleet(n_users, task, seed=0)
+        t0 = time.perf_counter()
+        fleets[task] = build_store(fleet, device=dev)
+        build_rows[task] = {"users": n_users,
+                            "build_s": time.perf_counter() - t0}
+        del fleet
+    out = {}
+    tp.reset_launches()
+    for task, store in fleets.items():
+        requests = make_request_batch(store, FLEET_REQUESTS, FLEET_ROWS, seed=1)
+        oracle = ForestStore.from_bytes(store.to_bytes(), device="cpu")
+        want = [oracle.predict(u, x) for u, x in requests]
+        row = {"fleet_serving": task, "users": len(store.user_ids),
+               "trees": sum(store.n_trees(u) for u in store.user_ids),
+               "requests": len(requests),
+               "rows": sum(len(x) for _, x in requests),
+               "distinct_users": len({u for u, _ in requests})}
+        default = fleet_session(store, dev, None)
+        plan = default.plan(requests)
+        assert plan.engine.name == "pipelined", plan.engine
+        for label, shards, engine in FLEET_ENGINES:
+            server = default if shards is None else fleet_session(
+                store, dev, shards)
+            before = dict(tp.LAUNCHES)
+            preds = server.serve(requests, engine=engine)
+            check_fleet(task, requests, preds, want, f"{task} {label}")
+            if label == "sharded_s4":
+                k1 = tp.LAUNCHES["seg_packed"] - before["seg_packed"]
+                k5 = tp.LAUNCHES["seg_sharded"] - before["seg_sharded"]
+                assert (k1, k5) == (4, 1), (k1, k5)
+                auto = server.plan(requests)
+                row["cost_model_4_devices"] = [auto.engine.name,
+                                               auto.engine.reason]
+        row["engines_match_predict_compressed"] = [e for e, *_ in FLEET_ENGINES]
+        # serve_safe: one corrupted delta is quarantined, the rest unchanged
+        safe = ForestStore.from_bytes(store.to_bytes(), device=dev)
+        bad = requests[0][0]
+        poison_user(safe, bad)
+        statuses = ForestServer(safe, device=dev).serve_safe(requests)
+        for (u, _), st, ref in zip(requests, statuses, want):
+            if u == bad:
+                assert st.status == "quarantined" and st.prediction is None
+            else:
+                assert st.status == "ok" and not st.degraded, (u, st.status)
+                check_pred(task, st.prediction, ref, f"{task} serve_safe {u}")
+        row["serve_safe_quarantined"] = bad
+        log(json.dumps(row))
+        out[task] = (store, requests, want)
+    launches = dict(tp.LAUNCHES)
+    log(f"fleet-path launches: {json.dumps(launches)}")
+    for name in (K1["name"], K2["name"], K5["name"]):
+        assert launches[name] > 0, f"kernel {name} was not launched on the fleet path"
+    return out, launches, build_rows
+
+
+def fleet_kernel_args(server, requests, engine):
+    """The inputs one batch of ``requests`` gives ``engine``: K1's
+    (``pipelined``) or K5's (``sharded``, one list per argument)."""
+    from repro_torch.kernels.tree_predict import tree_predict as tp
+    from repro_torch.serving.pack import concat_rows
+
+    dev = server.device
+    store = server.store
+    c = store.shared.n_classes if store.shared.task == "classification" else 0
+    plan = server.plan(requests, engine=engine)
+    pack = server._gathered_pack(plan)
+    xb = concat_rows([x for _, x in requests])[plan.order]
+
+    def T(a, where=dev):
+        return tp._on(a, torch.int32, where)
+
+    if plan.engine.name == "pipelined":
+        return plan, (T(xb), T(plan.oseg_s), pack.code, pack.fit,
+                      T(pack.tree_seg), T(pack.chunk_lo), T(pack.chunk_hi),
+                      pack.max_depth, store.arena.tb2, c,
+                      plan.engine.block_trees, pack.block_obs)
+    devs = pack.devices
+    return plan, ([T(xb, d) for d in devs], [T(plan.oseg_s, d) for d in devs],
+                  list(pack.code), list(pack.fit),
+                  [T(a, d) for a, d in zip(pack.tree_seg, devs)],
+                  [T(a, d) for a, d in zip(pack.chunk_lo, devs)],
+                  [T(a, d) for a, d in zip(pack.chunk_hi, devs)],
+                  pack.max_depth, store.arena.tb2, c,
+                  plan.engine.block_trees, pack.block_obs)
+
+
+def fleet_batch_times(dev, store, requests, label, shards, engine):
+    """Cold (a store freshly loaded from its bytes: decode, fuse, upload,
+    then serve) and warm (median of REPS after warm-up) host ms of one
+    batch, with the warm batch's stages."""
+    from repro_torch.serving import engines
+    from repro_torch.serving.pack import concat_rows
+    from repro_torch.store import ForestStore
+
+    cold_store = ForestStore.from_bytes(store.to_bytes(), device=dev)
+    server = fleet_session(cold_store, dev, shards)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server.serve(requests, engine=engine)
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    server.serve(requests, engine=engine)
+    xs = [x for _, x in requests]
+    stages = {k: [] for k in ("plan", "pack", "run", "finalize", "total")}
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        server.serve(requests, engine=engine)
+        t1 = time.perf_counter()
+        plan = server.plan(requests, engine=engine)
+        t2 = time.perf_counter()
+        xb = concat_rows(xs)
+        if engine == "simple":
+            pack = None
+            t3 = time.perf_counter()
+            total = engines.run_simple(cold_store, plan, xb)
+        else:
+            pack = server._gathered_pack(plan)
+            t3 = time.perf_counter()
+            run = (engines.run_pipelined if engine == "pipelined"
+                   else engines.run_sharded)
+            total = run(cold_store, plan, pack, xb)
+        t4 = time.perf_counter()
+        server._finalize(plan, total)
+        t5 = time.perf_counter()
+        for k, dt in zip(stages, (t2 - t1, t3 - t2, t4 - t3, t5 - t4,
+                                  t1 - t0)):
+            stages[k].append(dt * 1e3)
+    med = {k: float(np.median(v)) for k, v in stages.items()}
+    rows = sum(len(x) for x in xs)
+    return {
+        "engine": label, "cold_ms": cold_ms,
+        "cold_rows_per_s": rows / cold_ms * 1e3,
+        "warm_ms": med["total"], "warm_rows_per_s": rows / med["total"] * 1e3,
+        "stage_ms": {k: med[k] for k in ("plan", "pack", "run", "finalize")},
+    }
+
+
+def fleet_entry(served, launches, build_rows, fleet_rows):
+    """K5's entry of the ``{"kernels": [...]}`` line and the ``{"fleet":
+    ...}`` line: K5 against its plain version at the S = 1 and S = 4
+    sessions' inputs (both tasks), timed beside K1 at the same batch;
+    then every engine's cold and warm batch."""
+    from repro_torch.kernels.tree_predict import tree_predict as tp
+
+    errs, per_task, fleet = [], {}, {"build": {**build_rows}, "store": fleet_rows}
+    for task, (store, requests, _want) in served.items():
+        dev = store.device
+        plan1, k1_args = fleet_kernel_args(fleet_session(store, dev, None),
+                                           requests, "pipelined")
+        bms, by, work = bound(k1_parts(k1_args))
+        k1_ms = time_ms(lambda: tp._launch_seg_packed(*k1_args))
+        times = {}
+        for shards in (1, 4):
+            _plan, args = fleet_kernel_args(
+                fleet_session(store, dev, shards), requests, "sharded")
+            got = tp._launch_seg_sharded(*args)
+            torch.cuda.synchronize()
+            errs.append(max_abs_err(got, tp._seg_sharded_plain(*args)))
+            times[shards] = {
+                "ms": time_ms(lambda: tp._launch_seg_sharded(*args)),
+                "plain_ms": time_ms(lambda: tp._seg_sharded_plain(*args),
+                                    reps=3),
+            }
+        per_task[task] = {
+            "shape": {"rows": plan1.n_rows, "trees": int(plan1.seg_trees.sum()),
+                      "users": plan1.n_users, "t_pad": plan1.t_pad},
+            "ms_s1": times[1]["ms"], "ms_s4": times[4]["ms"],
+            "plain_ms_s1": times[1]["plain_ms"],
+            "plain_ms_s4": times[4]["plain_ms"],
+            "k1_ms": k1_ms, "bound_ms": bms, "bound_by": by, "work": work,
+        }
+        engines_rows = [fleet_batch_times(dev, store, requests, label, shards,
+                                          engine)
+                        for label, shards, engine in FLEET_ENGINES]
+        pipelined = engines_rows[0]
+        fleet[task] = {"engines": engines_rows, "k1_ms": k1_ms,
+                       "k1_share_of_warm_batch": k1_ms / pipelined["warm_ms"],
+                       "k5_ms_s1": times[1]["ms"], "k5_ms_s4": times[4]["ms"]}
+    main = per_task["classification"]
+    entry = dict(K5)
+    entry.update({
+        "launches": launches[K5["name"]],
+        "k1_launches_per_s4_batch": 4,
+        "max_abs_err": max(errs),
+        "ms": main["ms_s4"], "plain_ms": main["plain_ms_s4"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes a tree traversal",
+        "route_note": "no kernel of its own: K1 (tp_seg_packed) per tree "
+                      "shard on each device, then an ordered sum",
+        "timed_at": "one 65,536-row fleet batch at S = 4 shards on one card, "
+                    "classification (1,000 users); bound: K1's for the same "
+                    "rows and trees",
+        "main_path": per_task,
+    })
+    return entry, fleet
+
+
 def main() -> None:
     dev = phase_environment()
     phase_build()
@@ -1791,8 +2140,9 @@ def main() -> None:
     clock["parity"] = time.perf_counter()
     servers, serve_launches = phase_main_path(dev)
     clock["serving"] = time.perf_counter()
-    models, train_launches = phase_training(dev)
+    models, train_launches, train_blobs = phase_training(dev)
     clock["training"] = time.perf_counter()
+    phase_train_again(dev, models["regression"][0], train_blobs["regression"])
     phase_train_card_vs_cpu(dev)
     clock["card_vs_cpu"] = time.perf_counter()
 
@@ -1882,6 +2232,16 @@ def main() -> None:
     del rparams, largest, mlp
     torch.cuda.empty_cache()
     clock["rwkv6"] = time.perf_counter()
+
+    bench_stores, fleet_rows = phase_fleet_store(dev)
+    served, fleet_launches, build_rows = phase_fleet_serving(dev, bench_stores)
+    k5, fleet = fleet_entry(served, fleet_launches, build_rows, fleet_rows)
+    for entry in out:
+        if entry["name"] in (K1["name"], K2["name"]):
+            entry["fleet_launches"] = fleet_launches[entry["name"]]
+    out.append(k5)
+    log(json.dumps({"fleet": fleet}))
+    clock["fleet"] = time.perf_counter()
     marks = list(clock.items())
     log(json.dumps({"phase_s": {b[0]: b[1] - a[1]
                                 for a, b in zip(marks, marks[1:])}}))

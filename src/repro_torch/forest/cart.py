@@ -17,10 +17,17 @@ tree with its PRNG key; here the caller passes them (``node_scores``), so
 a test can feed both packages the same draws.
 
 Sums: classification statistics are integer-valued and exact in any
-order.  Regression sums of ``w * y`` and ``w * y^2`` are float32 and, on a
-card, accumulate with atomics in no fixed order; near-tied splits can then
-resolve differently from run to run (``tests/test_torch_forest.py`` and
-``chip_smoke.py`` bound the gain gap at such nodes).
+order, so they accumulate with ``index_add_``.  Regression sums of
+``w * y`` and ``w * y^2`` are float32, where the order of the adds
+shows in the last bits; ``fixed_order_sums`` adds each histogram bin's
+values in ascending order of value, so the sums depend only on which
+values fall in which bin — not on the order of the rows, nor on the
+order atomics would land in on a card — and one seed grows one forest
+from call to call on every device.  The card and the CPU still add the
+partials of other steps (cumulative sums along the bins) in their own
+orders, so a card-grown tree can part from a CPU-grown one at a
+near-tied split (``tests/test_torch_forest.py`` and ``chip_smoke.py``
+bound the gain gap at such nodes).
 """
 from __future__ import annotations
 
@@ -29,6 +36,47 @@ from dataclasses import dataclass
 import torch
 
 _NEG = -1e30
+
+
+def fixed_order_sums(idx: torch.Tensor, vals: torch.Tensor,
+                     size: int) -> torch.Tensor:
+    """``out[i]`` = the sum of the float32 ``vals`` whose ``idx`` is ``i``
+    (``size`` bins), each bin's values added in ascending order of value.
+
+    One sort of 64-bit keys (bin in the high word, the value's bits in
+    an order-preserving form in the low word) puts every bin's values in
+    that order; equal keys are equal values, so the order is fixed by the
+    multiset of (bin, value) pairs alone.  ``segment_reduce`` then adds
+    each run of one bin in a fixed pattern: the sums are the same bits
+    whatever the order of the inputs, from call to call."""
+    if size >= 1 << 31:
+        raise ValueError(f"{size} histogram bins do not fit the sort key")
+    bits = vals.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    # negative floats reverse their order; positive ones sort above them
+    ordered = torch.where(
+        bits >= 0x80000000, bits ^ 0xFFFFFFFF, bits | 0x80000000
+    )
+    key, perm = torch.sort((idx << 32) | ordered)
+    bins, counts = torch.unique_consecutive(key >> 32, return_counts=True)
+    out = torch.zeros(size, dtype=vals.dtype, device=vals.device)
+    out[bins] = torch.segment_reduce(vals[perm], "sum", lengths=counts)
+    return out
+
+
+def _regression_hist(stats, active, base, col, size: int) -> torch.Tensor:
+    """(size, 3) histogram of ``[w, w * y, w * y^2]`` over the rows that
+    are active at this level and drawn (w > 0; the others add zeros).
+    The counts are integers, exact in any order; the float sums go
+    through ``fixed_order_sums``."""
+    s, n, k = stats.shape
+    d = col.shape[1]
+    keep = torch.nonzero((active & (stats[..., 0] > 0)).reshape(-1))[:, 0]
+    idx = (base.reshape(-1)[keep][:, None] + col[keep % n]).reshape(-1)
+    src = stats.reshape(s * n, k)[keep].repeat_interleave(d, dim=0)
+    counts = torch.zeros(size, dtype=stats.dtype, device=stats.device)
+    counts.index_add_(0, idx, src[:, 0])
+    sums = [fixed_order_sums(idx, src[:, j], size) for j in range(1, k)]
+    return torch.stack([counts, *sums], -1)
 
 
 @dataclass(frozen=True)
@@ -110,14 +158,18 @@ def grow_tree(
 
         # ---- histograms: (S, n_nodes, d, B) counts and (.., C) sums -------
         base = (tree_ids * n_nodes + relc) * (d * b)  # (S, n)
-        idx = (base[:, :, None] + col[None]).reshape(-1)
-        src = torch.where(active[..., None], stats, 0.0)
-        src = src[:, :, None, :].expand(s, n, d, 1 + c).reshape(-1, 1 + c)
-        hist = torch.zeros((s * n_nodes * d * b, 1 + c), dtype=f32, device=dev)
-        hist.index_add_(0, idx, src)
+        size = s * n_nodes * d * b
+        if cfg.task == "regression":
+            hist = _regression_hist(stats, active, base, col, size)
+        else:  # integer counts: exact in any order
+            idx = (base[:, :, None] + col[None]).reshape(-1)
+            src = torch.where(active[..., None], stats, 0.0)
+            src = src[:, :, None, :].expand(s, n, d, 1 + c).reshape(-1, 1 + c)
+            hist = torch.zeros((size, 1 + c), dtype=f32, device=dev)
+            hist.index_add_(0, idx, src)
+            del idx, src
         hist = hist.reshape(s, n_nodes, d, b, 1 + c)
         cnt, ysum = hist[..., 0], hist[..., 1:]
-        del idx, src
 
         # ---- node totals & fits -------------------------------------------
         cnt_node = cnt[:, :, 0, :].sum(-1)  # (S, n_nodes)

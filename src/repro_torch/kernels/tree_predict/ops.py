@@ -1,16 +1,19 @@
-"""ForestModel-level prediction through the whole-forest kernels — the
-port of the single-device half of ``repro.kernels.tree_predict.ops``.
+"""ForestModel-level prediction through the whole-forest kernels, plus the
+multi-device sharded entry for the segmented serving kernel — the port of
+``repro.kernels.tree_predict.ops``.
 
-Both entries take ``device`` (default ``"cuda"``; raises without a card,
-``"cpu"`` runs the kernels' plain versions) where the reference takes
-``interpret``.  The reference's sharded segmented entry is not ported
-yet."""
+The model-level entries take ``device`` (default ``"cuda"``; raises
+without a card, ``"cpu"`` runs the kernels' plain versions) where the
+reference takes ``interpret``.  The sharded entry (K5) takes the explicit
+device list it shards over (``devices``) where the reference shards over
+the devices JAX sees."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ...device import resolve_device
+from ...device import resolve_device, resolve_devices
+from . import tree_predict as tp
 from .tree_predict import forest_predict, forest_predict_agg
 
 
@@ -65,3 +68,126 @@ def predict_forest_kernel_per_tree(
     return forest_predict(
         xb, feature, threshold, fit, inter, max_depth=model.cfg.max_depth,
     ).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Sharded ragged tree axis (K5)
+# ---------------------------------------------------------------------------
+
+def partition_segments_by_load(
+    seg_trees: np.ndarray, n_shards: int
+) -> list[list[int]]:
+    """Greedy bin-pack of segment (user) ids onto ``n_shards`` devices by
+    per-segment tree count: heaviest segment first onto the least-loaded
+    shard.  Returns one list of segment ids per shard (possibly empty)."""
+    seg_trees = np.asarray(seg_trees, np.int64)
+    shards: list[list[int]] = [[] for _ in range(n_shards)]
+    loads = np.zeros(n_shards, np.int64)
+    for s in np.argsort(-seg_trees, kind="stable"):
+        k = int(np.argmin(loads))
+        shards[k].append(int(s))
+        loads[k] += int(seg_trees[s])
+    return shards
+
+
+def estimate_shard_speedup(seg_trees: np.ndarray, n_shards: int) -> float:
+    """Predicted sharded-engine speedup for a batch: total tree load over
+    the heaviest shard's load under the greedy bin-pack (1.0 = one user
+    dominates and sharding buys nothing; ``n_shards`` = perfectly even).
+    The serving session's engine cost model compares this against its
+    minimum-speedup threshold instead of blindly sharding on any
+    multi-device host."""
+    seg_trees = np.asarray(seg_trees, np.int64)
+    total = int(seg_trees.sum())
+    if total == 0 or n_shards <= 1:
+        return 1.0
+    shards = partition_segments_by_load(seg_trees, n_shards)
+    max_load = max(
+        (sum(int(seg_trees[s]) for s in shard) for shard in shards if shard),
+        default=total,
+    )
+    return total / max(max_load, 1)
+
+
+def forest_predict_agg_segmented_sharded(
+    xb,  # (N, d) int32, replicated
+    obs_seg,  # (N,) int32, replicated
+    code,  # (S, T_pad, H) float32 fused tiles: one tree shard per device
+    fit,  # (S, T_pad, H) float32
+    tree_seg,  # (S, T_pad) int32, -1 marks padding trees
+    chunk_lo,  # (S, ceil(N / block_obs)) int32 per-shard chunk ranges
+    chunk_hi,  # (S, ceil(N / block_obs)) int32
+    max_depth: int,
+    tb2: int,
+    n_classes: int = 0,
+    block_trees: int = 8,
+    block_obs: int = 128,
+    devices=None,
+) -> torch.Tensor:
+    """Multi-device ragged serving (K5): the tree axis is SHARDED across
+    devices (shard ``s`` on ``devices[s]``, load-balanced by
+    ``partition_segments_by_load``), observations are replicated, each
+    device accumulates partial votes/sums over its own trees through K1,
+    and the (N, C) partials are summed on ``devices[0]`` in shard order —
+    the reference's ``psum``, in a fixed order.
+
+    ``code`` / ``fit`` are a stacked (S, T_pad, H) array or a sequence of
+    S (T_pad, H) tensors (each may already lie on its shard's device).
+    ``devices`` defaults to every visible CUDA device when ``code`` lies
+    on a card, else to ``code``'s one device; it may name one device more
+    than once.  On CPU devices each shard runs K1's plain version; on
+    CUDA devices K1 launches or the call raises.
+
+    Vote counts stay integer-exact under the reduction (float32 holds
+    integers exactly below 2**24), so classification results are
+    bit-exact against the single-device engines."""
+    s = len(code)
+    if devices is None:
+        devices = resolve_devices(tp._device_of(*code))
+    else:
+        devices = tuple(resolve_device(d) for d in devices)
+    if s > len(devices):
+        raise ValueError(f"{s} tree shards but only {len(devices)} devices")
+    n, d = xb.shape
+    # same guards as the single-device packed entry: out-of-range values
+    # must raise, as they do in the reference
+    if n_classes > 0 and n_classes >= tp._F32_EXACT_INT:
+        raise ValueError("n_classes >= 2**24 overflows float32 vote counts")
+    arrays = {"xb": xb} if isinstance(xb, np.ndarray) else {}
+    tp._validate_f32_exact(max_depth, d, **arrays)
+    for c in code:
+        if c.shape[0] % block_trees != 0 or c.shape[0] == 0:
+            raise ValueError(
+                f"T_pad={c.shape[0]} must be a positive multiple of "
+                f"block_trees={block_trees}"
+            )
+    devices = devices[:s]
+    if len({dev.type for dev in devices}) > 1:
+        raise ValueError("shard devices must all be CPU or all be CUDA")
+    if n == 0:
+        shape = (0, n_classes) if n_classes > 0 else (0,)
+        return torch.zeros(shape, dtype=torch.float32, device=devices[0])
+    replicated = {}
+    for dev in dict.fromkeys(devices):
+        replicated[dev] = (
+            tp._on(xb, torch.int32, dev),
+            tp._on(obs_seg, torch.int32, dev).reshape(-1),
+        )
+
+    def shard(a, dtype):
+        return [tp._on(a[i], dtype, dev) for i, dev in enumerate(devices)]
+
+    args = (
+        [replicated[dev][0] for dev in devices],
+        [replicated[dev][1] for dev in devices],
+        shard(code, torch.float32), shard(fit, torch.float32),
+        shard(tree_seg, torch.int32), shard(chunk_lo, torch.int32),
+        shard(chunk_hi, torch.int32),
+    )
+    run = (
+        tp._seg_sharded_plain if devices[0].type == "cpu"
+        else tp._launch_seg_sharded
+    )
+    return run(
+        *args, max_depth, int(tb2), n_classes, block_trees, min(block_obs, n)
+    )

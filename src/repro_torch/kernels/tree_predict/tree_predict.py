@@ -19,6 +19,11 @@ Two segmented engines, as in the reference (``engine=`` on the wrapper):
 * ``"simple"`` — K2, the unfused oracle over separate feature / threshold
   / is_internal tables, every tree chunk, masking ``tree_id < T`` as well.
 
+K5, the sharded engine (``ops.forest_predict_agg_segmented_sharded``),
+has no kernel of its own: K1 per tree shard on each device of a list,
+then the shards' partials summed in shard order (``_launch_seg_sharded``,
+plain version ``_seg_sharded_plain``).
+
 Two whole-forest entries, no segments:
 
 * ``forest_predict_agg`` — K3: per row the (N, C) votes or (N,) fit sum
@@ -36,10 +41,10 @@ Dispatch is by the tensors' device.  An entry takes numpy arrays or
 tensors; the device of its tensor arguments (which must agree, and at
 least one must be a tensor) selects the path, and numpy arguments move
 there.  On the CPU the entry runs the kernel's plain PyTorch version
-(``_seg_packed_plain``, ``_seg_simple_plain``, ``_agg_plain_unseg``,
-``_per_tree_plain``).  On a CUDA device it launches the hand-written
-Hopper kernel in ``csrc/tree_predict.cu`` or raises — it never falls back
-to the plain version.  ``LAUNCHES`` counts the CUDA launches of each kernel, so a run
+(``_seg_packed_plain``, ``_seg_simple_plain``, ``_seg_sharded_plain``,
+``_agg_plain_unseg``, ``_per_tree_plain``).  On a CUDA device it launches
+the hand-written Hopper kernel in ``csrc/tree_predict.cu`` or raises — it
+never falls back to the plain version.  ``LAUNCHES`` counts the CUDA launches of each kernel, so a run
 can show that it went through them.  The reference's ``interpret=``
 keyword has no meaning here and is dropped.
 
@@ -64,7 +69,10 @@ _F32_EXACT_INT = 1 << 24  # float32 has a 24-bit significand
 _MAX_SMEM_BYTES = 232448
 
 #: CUDA launches of each kernel since the last reset.
-LAUNCHES = {"seg_packed": 0, "seg_simple": 0, "agg": 0, "per_tree": 0}
+LAUNCHES = {
+    "seg_packed": 0, "seg_simple": 0, "agg": 0, "per_tree": 0,
+    "seg_sharded": 0,
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -322,6 +330,33 @@ def _agg_plain_unseg(
     )
 
 
+def _sum_shards(parts) -> torch.Tensor:
+    """K5's reduction (the reference's ``psum``) in a fixed order: the
+    shards' (N, C) partials summed on the first shard's device, shard 0
+    first."""
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part.to(total.device)
+    return total
+
+
+def _seg_sharded_plain(
+    xb, obs_seg, code, fit, tree_seg, chunk_lo, chunk_hi, max_depth: int,
+    tb2: int, n_classes: int = 0, block_trees: int = 8,
+    block_obs: int = 128,
+) -> torch.Tensor:
+    """Plain version of K5: every argument but the scalars is a sequence
+    with one tensor per shard (rows and their segment ids replicated
+    onto each shard's device); K1's plain version per shard, then the
+    same ordered sum."""
+    return _sum_shards([
+        _seg_packed_plain(*shard, max_depth, tb2, n_classes, block_trees,
+                          block_obs)
+        for shard in zip(xb, obs_seg, code, fit, tree_seg, chunk_lo,
+                         chunk_hi)
+    ])
+
+
 # ---------------------------------------------------------------------------
 # CUDA launches
 # ---------------------------------------------------------------------------
@@ -512,6 +547,30 @@ def _launch_per_tree(
         )
     _raise_on(err, "tp_per_tree")
     LAUNCHES["per_tree"] += 1
+    return out
+
+
+def _launch_seg_sharded(
+    xb, obs_seg, code, fit, tree_seg, chunk_lo, chunk_hi, max_depth: int,
+    tb2: int, n_classes: int = 0, block_trees: int = 8,
+    block_obs: int = 128,
+) -> torch.Tensor:
+    """K5 on the cards: K1 launched on each shard's CUDA device over that
+    shard's trees against the replicated rows, then the partials summed
+    on the first shard's device in shard order.  Arguments as in
+    ``_seg_sharded_plain``; every shard's tensors must lie on one CUDA
+    device."""
+    for c in code:
+        if c.device.type != "cuda":
+            raise ValueError(f"K5 launches on CUDA devices, got {c.device}")
+    parts = [
+        _launch_seg_packed(*shard, max_depth, tb2, n_classes, block_trees,
+                           block_obs)
+        for shard in zip(xb, obs_seg, code, fit, tree_seg, chunk_lo,
+                         chunk_hi)
+    ]
+    out = _sum_shards(parts)
+    LAUNCHES["seg_sharded"] += 1
     return out
 
 

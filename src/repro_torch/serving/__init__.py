@@ -5,7 +5,8 @@
 ``TileArena``, the decoded ``TileCache``, and a cross-batch plan cache,
 and splits every request batch into a plan/execute IR —
 
-    server = ForestServer.from_forest(comp, device="cuda")
+    server = ForestServer(store, device="cuda")   # fleet ForestStore
+    server = ForestServer.from_forest(comp, device="cuda")  # one forest
     plan = server.plan(requests)          # grouping + cost-model engine
     preds = server.execute(plan, X)       # pack -> gather -> kernel ->
                                           # finalize

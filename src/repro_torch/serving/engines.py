@@ -6,12 +6,12 @@ request order — the server's finalize step turns that into per-request
 predictions.  Kernels run on the store's device (``store.device``): the
 Hopper kernels on a card, their plain PyTorch versions on the CPU.
 
-The pipelined engine splits into ``build_pipelined_pack`` (arena ensure +
-device index-gather + chunk ranges — the part ``PlanCache`` memoizes
-across batches) and ``run_pipelined`` (the K1 launch, paid per batch).
-``run_simple`` is the host-pack path kept as the differential oracle and
-the fallback (K2).  The sharded engine waits for its slice (ROADMAP
-Queue 1 item 11).
+The pipelined and sharded engines split into ``build_*_pack`` (arena
+ensure + device index-gather + chunk ranges — the part ``PlanCache``
+memoizes across batches) and ``run_*`` (the kernel launches, paid per
+batch): K1 once, or K5 — K1 on each device of the session's list over
+its tree shard, then one ordered sum.  ``run_simple`` is the host-pack
+path kept as the differential oracle and the fallback (K2).
 """
 from __future__ import annotations
 
@@ -22,11 +22,6 @@ import torch
 
 from .pack import pack_host_tiles
 from .plan import ServePlan
-
-_SHARDED = (
-    "the sharded engine is not ported yet: ROADMAP Queue 1 item 11 "
-    "(K1 on each card plus an NCCL all_reduce)"
-)
 
 
 def _n_classes(store) -> int:
@@ -46,6 +41,21 @@ class PipelinedPack(NamedTuple):
     chunk_lo: np.ndarray  # (ceil(N / block_obs),) int32
     chunk_hi: np.ndarray
     block_obs: int  # block_obs AFTER the min(N) clamp
+
+
+class ShardedPack(NamedTuple):
+    """Per-device gathers + ranges for the sharded engine.  Where the
+    reference stacks the shards into one (S_dev, T_pad, H) array, the port
+    keeps one tensor per shard, each on its own device."""
+
+    code: list  # S_dev x (T_pad, H) f32, shard s on devices[s]
+    fit: list
+    tree_seg: np.ndarray  # (S_dev, T_pad) int32
+    chunk_lo: np.ndarray  # (S_dev, G) int32
+    chunk_hi: np.ndarray
+    max_depth: int
+    block_obs: int
+    devices: tuple  # the session's device list, one per shard
 
 
 def _request_order(out: torch.Tensor, plan: ServePlan) -> np.ndarray:
@@ -189,14 +199,70 @@ def run_pipelined(
 
 
 # ---------------------------------------------------------------------------
-# sharded — the next multi-device slice
+# sharded — tree axis partitioned across devices + one ordered sum (K5)
 # ---------------------------------------------------------------------------
 
-def build_sharded_pack(store, plan: ServePlan):
-    """Per-device gathers for the sharded engine — not ported yet."""
-    raise NotImplementedError(_SHARDED)
+def build_sharded_pack(store, plan: ServePlan, devices) -> ShardedPack:
+    """Per-device gathers under one shared width: admit the WHOLE batch
+    before any per-shard gather (a later shard's cold admission may grow
+    the arena heap width, which would leave earlier shards' gathered
+    arrays at a stale narrower width), bin-pack users by tree count, then
+    gather each shard with GLOBAL segment ids and move it to its device
+    (``devices``, the session's list)."""
+    from ..kernels.tree_predict.ops import partition_segments_by_load
+    from ..kernels.tree_predict.tree_predict import segment_chunk_ranges
+
+    bt = plan.engine.block_trees
+    devices = tuple(devices)
+    n_dev = len(devices)
+    store.arena_ensure(list(plan.users), bt)
+    shards = partition_segments_by_load(plan.seg_trees, n_dev)
+    # per-shard users ascend by segment id: sorted rows keep ranges tight
+    shards = [sorted(s) for s in shards]
+    t_pad = max(
+        max(
+            (-(-int(plan.seg_trees[s].sum()) // bt) * bt
+             for s in map(np.asarray, shards) if len(s)),
+            default=bt,
+        ),
+        bt,
+    )
+    bo = min(plan.engine.block_obs, plan.n_rows)
+    codes, fits, tsegs, los, his = [], [], [], [], []
+    max_depth = 0
+    for shard, dev in zip(shards, devices):
+        shard_users = [plan.users[s] for s in shard]
+        code, fit, tseg, _, max_depth = store.arena_pack(
+            shard_users, bt, pad_to=t_pad, seg_ids=shard
+        )
+        lo, hi = segment_chunk_ranges(plan.oseg_s, tseg, bt, bo)
+        codes.append(code.to(dev))
+        fits.append(fit.to(dev))
+        tsegs.append(tseg)
+        los.append(lo)
+        his.append(hi)
+    return ShardedPack(
+        codes, fits, np.stack(tsegs), np.stack(los), np.stack(his),
+        max_depth, bo, devices,
+    )
 
 
-def run_sharded(store, plan: ServePlan, pack, xb: np.ndarray):
-    """Per-device K1 partials + one all-reduce — not ported yet."""
-    raise NotImplementedError(_SHARDED)
+def run_sharded(
+    store, plan: ServePlan, pack: ShardedPack, xb: np.ndarray
+) -> np.ndarray:
+    """K1 on each device over its shard, then the partials summed on the
+    first device in shard order (K5).  Returns the aggregate in request
+    order."""
+    from ..kernels.tree_predict.ops import (
+        forest_predict_agg_segmented_sharded,
+    )
+
+    xb_s = np.ascontiguousarray(xb[plan.order])
+    out = forest_predict_agg_segmented_sharded(
+        xb_s, plan.oseg_s, pack.code, pack.fit, pack.tree_seg,
+        pack.chunk_lo, pack.chunk_hi, pack.max_depth, store.arena.tb2,
+        n_classes=_n_classes(store),
+        block_trees=plan.engine.block_trees, block_obs=pack.block_obs,
+        devices=pack.devices,
+    )
+    return _request_order(out, plan)

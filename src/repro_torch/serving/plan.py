@@ -24,6 +24,14 @@ ENGINE_BLOCKS = {
     "sharded": (8, 128),
 }
 
+#: Sharding only pays when the greedy bin-pack spreads the batch's trees
+#: reasonably evenly — below this predicted speedup the collective plus
+#: replicated-batch overhead wins and the cost model stays single-device.
+MIN_SHARD_SPEEDUP = 1.3
+
+#: Tree totals below this aren't worth a cross-device collective.
+MIN_SHARD_TREES = 64
+
 @dataclass(frozen=True)
 class EngineChoice:
     """A resolved serving engine: name + block sizes.  ``reason`` records
@@ -72,12 +80,15 @@ def choose_engine(
     engine: str | None = None,
     block_trees: int | None = None,
     block_obs: int | None = None,
+    n_devices: int = 1,
 ) -> EngineChoice:
     """Resolve the engine for a batch.  ``engine=None`` asks the cost
     model: ``simple`` when the store schema cannot use the fused arena,
-    else ``pipelined`` (the session's one device).  Explicit names are
-    validated but honoured (the escape hatch the legacy string kwargs
-    become); ``sharded`` then fails at execute time until it is ported."""
+    ``sharded`` when >1 device AND the greedy bin-pack predicts at least
+    ``MIN_SHARD_SPEEDUP`` over one device, else ``pipelined``.  Explicit
+    names are validated but honoured (the escape hatch the legacy string
+    kwargs become).  ``n_devices`` is the length of the session's device
+    list (the reference counts the devices JAX sees)."""
     if engine is not None:
         if engine not in ENGINE_BLOCKS:
             raise ValueError(f"unknown serving engine {engine!r}")
@@ -92,10 +103,32 @@ def choose_engine(
         engine = "simple"
         reason = "store schema cannot pack the fused arena layout"
     else:
-        # a session is given ONE device in this slice, so the cost model
-        # never picks "sharded"; the multi-device bin-pack comes back with
-        # the sharded engine (ROADMAP Queue 1 item 11)
-        engine, reason = "pipelined", "single device"
+        n_dev = n_devices
+        total_trees = int(np.asarray(seg_trees).sum())
+        if n_dev <= 1:
+            engine, reason = "pipelined", "single device"
+        elif total_trees < MIN_SHARD_TREES:
+            engine = "pipelined"
+            reason = (
+                f"{total_trees} trees below the {MIN_SHARD_TREES}-tree "
+                "sharding floor"
+            )
+        else:
+            from ..kernels.tree_predict.ops import estimate_shard_speedup
+
+            speedup = estimate_shard_speedup(seg_trees, n_dev)
+            if speedup >= MIN_SHARD_SPEEDUP:
+                engine = "sharded"
+                reason = (
+                    f"{n_dev} devices, predicted {speedup:.2f}x from the "
+                    "tree bin-pack"
+                )
+            else:
+                engine = "pipelined"
+                reason = (
+                    f"shard load imbalance (predicted {speedup:.2f}x < "
+                    f"{MIN_SHARD_SPEEDUP}x)"
+                )
     bt_default, bo_default = ENGINE_BLOCKS[engine]
     return EngineChoice(
         engine,
@@ -112,8 +145,10 @@ def build_plan(
     engine: str | None = None,
     block_trees: int | None = None,
     block_obs: int | None = None,
+    n_devices: int = 1,
 ) -> ServePlan:
-    """Compile a batch signature into a ``ServePlan`` (pure host work)."""
+    """Compile a batch signature into a ``ServePlan`` (pure host work).
+    ``n_devices`` is the length of the session's device list."""
     request_users = tuple(request_users)
     row_counts = tuple(int(n) for n in row_counts)
     users, _seg_of, obs_seg, row_slices, order, oseg_s = batch_layout(
@@ -126,6 +161,7 @@ def build_plan(
     choice = choose_engine(
         store, seg_trees, n_rows,
         engine=engine, block_trees=block_trees, block_obs=block_obs,
+        n_devices=n_devices,
     )
     t = int(seg_trees.sum())
     t_pad = max(

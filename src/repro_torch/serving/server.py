@@ -33,10 +33,11 @@ of failing it.  ``stats()["health"]`` surfaces the quarantine set,
 failure counters, and the store's recluster-journal state.
 
 Port notes: the session runs on one explicit device (``device``, default
-``"cuda"``; ``"cpu"`` runs the kernels' plain PyTorch versions) and never
-moves to another.  The reference's ``interpret=`` keyword is dropped.  In
-this slice only the one-user ``SingleForestStore`` can be built; the fleet
-``ForestStore`` comes with ROADMAP Queue 1 item 5.
+``"cuda"``; ``"cpu"`` runs the kernels' plain PyTorch versions), where its
+store and arena live.  The sharded engine spreads a batch's trees over the
+session's device list (``devices``: by default every visible CUDA device
+on a card, else the one device; a list may name one device more than
+once).  The reference's ``interpret=`` keyword is dropped.
 """
 from __future__ import annotations
 
@@ -49,7 +50,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, resolve_devices
 from ..store.runtime import ForestStore, TileCache, make_schema_arena
 from . import engines
 from .cache import PlanCache
@@ -178,6 +179,7 @@ class ForestServer:
         retry_backoff_s: float = 0.01,
         repairer: "Callable[[str], bool] | None" = None,
         device: str | torch.device = "cuda",
+        devices=None,
     ) -> None:
         self.device = resolve_device(device)
         if store.device != self.device:
@@ -185,6 +187,8 @@ class ForestServer:
                 f"store lives on {store.device}, session asked for "
                 f"{self.device}; build the store on the session's device"
             )
+        # the devices the sharded engine spreads a batch's trees over
+        self.devices = resolve_devices(self.device, devices)
         self.store = store
         self.plan_cache = PlanCache(plan_cache_size)
         self.engine_counts: Counter[str] = Counter()
@@ -271,6 +275,7 @@ class ForestServer:
             plan = build_plan(
                 self.store, request_users, row_counts,
                 engine=engine, block_trees=block_trees, block_obs=block_obs,
+                n_devices=len(self.devices),
             )
             self.plan_cache.put_plan(key, token, plan)
         return plan
@@ -397,11 +402,10 @@ class ForestServer:
             # must still count as an access for its users' runs
             arena.touch_users(plan.users)
             return pack
-        build = (
-            engines.build_pipelined_pack if plan.engine.name == "pipelined"
-            else engines.build_sharded_pack
-        )
-        pack = build(self.store, plan)
+        if plan.engine.name == "pipelined":
+            pack = engines.build_pipelined_pack(self.store, plan)
+        else:
+            pack = engines.build_sharded_pack(self.store, plan, self.devices)
         # token read AFTER building: cold admissions inside the gather
         # assign run tokens, and the entry must be valid for the arena
         # as-left

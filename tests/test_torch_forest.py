@@ -286,3 +286,53 @@ def test_train_forest_as_accurate_as_reference(task):
         for s in seeds
     ])
     assert abs(got - want) <= 0.02, (got, want)
+
+
+def test_regression_histogram_sums_do_not_depend_on_row_order():
+    """F1: the regression histogram's float32 sums come out bit-identical
+    whatever the order of their rows (the card would add them with
+    atomics in no fixed order), and within float32 rounding of a float64
+    sum."""
+    from repro_torch.forest.cart import fixed_order_sums
+
+    rng = np.random.default_rng(0)
+    idx = torch.as_tensor(rng.integers(0, 50, 5000))
+    vals = torch.as_tensor(
+        rng.normal(size=5000) * 10.0 ** rng.integers(-3, 4, 5000),
+        dtype=torch.float32,
+    )
+    vals[::97] = 0.0
+    vals[1::97] = -0.0
+    want = fixed_order_sums(idx, vals, 64)
+    for seed in range(3):
+        perm = torch.as_tensor(np.random.default_rng(seed).permutation(5000))
+        got = fixed_order_sums(idx[perm], vals[perm], 64)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    exact = np.zeros(64)
+    np.add.at(exact, idx.numpy(), vals.double().numpy())
+    scale = np.zeros(64)
+    np.add.at(scale, idx.numpy(), np.abs(vals.double().numpy()))
+    assert np.all(np.abs(want.double().numpy() - exact) <= 1e-6 * scale)
+    assert not want[50:].any()
+
+
+def test_regression_tree_does_not_depend_on_row_order():
+    """F1: permuting the rows (and with them every node's rows) grows the
+    same regression trees, bit for bit, through the histogram helper the
+    card uses."""
+    x, y, cat, binner = dataset("regression")
+    n, d = x.shape
+    weights, scores = reference_draws(SEED, 4, n, DEPTH, d)
+    xb = torch.as_tensor(binner.transform(x))
+    y_enc = encode_targets(y, "regression", 0, "cpu")
+    cfg = model_from_arrays(ref_forest.train_forest(
+        x, y, binner, n_trees=1, max_depth=DEPTH, task="regression",
+        seed=SEED,
+    )).cfg
+    w = torch.tensor(weights)
+    want = grow_tree(xb, y_enc, w, torch.tensor(scores), cfg)
+    perm = torch.as_tensor(np.random.default_rng(1).permutation(n))
+    got = grow_tree(xb[perm], y_enc[perm], w[:, perm], torch.tensor(scores),
+                    cfg)
+    for field, a, b in zip(HEAP_FIELDS, got, want):
+        assert torch.equal(a, b), field

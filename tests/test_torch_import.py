@@ -70,6 +70,11 @@ def test_port_modules_exist():
         "repro_torch.kernels.quantize.ref",
         "repro_torch.kernels.quantize.quantize",
         "repro_torch.kernels.quantize.ops",
+        "repro_torch.store.codebook",
+        "repro_torch.store.delta",
+        "repro_torch.store.lifecycle",
+        "repro_torch.launch.serve_store",
+        "repro_torch.launch.serve_forest",
     ):
         assert name in mods
 
@@ -175,6 +180,17 @@ def test_forest_entries_default_to_cuda_and_raise_without_a_card():
             fn(model, x)
 
 
+@pytest.mark.parametrize("driver", ["serve_store", "serve_forest"])
+def test_serving_drivers_default_to_cuda_and_raise_without_a_card(driver):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.launch.{driver}")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main([])
+
+
 def test_kernel_launches_refuse_cpu_tensors():
     """The CUDA launch functions never run a CPU tensor (no silent plain
     fallback), and count nothing when they refuse."""
@@ -197,8 +213,14 @@ def test_kernel_launches_refuse_cpu_tensors():
     for launch in (tp._launch_agg, tp._launch_per_tree):
         with pytest.raises(ValueError, match="CUDA"):
             launch(xb, heap, heap, code, code.bool(), 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        tp._launch_seg_sharded(
+            [xb] * 2, [seg] * 2, [code] * 2, [code] * 2, [tseg] * 2,
+            [rng_] * 2, [rng_] * 2, 1, 2, 0, 8, 4,
+        )
     assert tp.LAUNCHES == {
-        "seg_packed": 0, "seg_simple": 0, "agg": 0, "per_tree": 0
+        "seg_packed": 0, "seg_simple": 0, "agg": 0, "per_tree": 0,
+        "seg_sharded": 0,
     }
 
 
@@ -238,7 +260,8 @@ def test_every_c_entry_is_declared_and_every_launch_is_counted():
     for fn, key in ((tp._launch_seg_packed, "seg_packed"),
                     (tp._launch_seg_simple, "seg_simple"),
                     (tp._launch_agg, "agg"),
-                    (tp._launch_per_tree, "per_tree")):
+                    (tp._launch_per_tree, "per_tree"),
+                    (tp._launch_seg_sharded, "seg_sharded")):
         body = inspect.getsource(fn)
         assert body.count("LAUNCHES[") == 1
         assert f'LAUNCHES["{key}"] += 1' in body

@@ -1,7 +1,10 @@
-"""Single-forest serving in the port against the JAX reference session and
-``predict_compressed``: engines, multi-request batches, the plan cache,
-arena eviction, ``serve_safe`` degradation, and the parts that wait for
-later slices.  The port runs with ``device="cpu"``; the reference with
+"""Serving in the port against the JAX reference session and
+``predict_compressed``: single-forest sessions (engines, multi-request
+batches, the plan cache, arena eviction, ``serve_safe`` degradation), the
+fleet session over a ``ForestStore`` (the reference's
+``tests/test_serving.py`` and the ``serve_safe`` cases of
+``tests/test_chaos.py``, ported), and the parts that wait for later
+slices.  The port runs with ``device="cpu"``; the reference with
 ``interpret=True``."""
 import functools
 import types
@@ -19,10 +22,15 @@ from repro.store.arena import TileArena as RefArena
 from repro_torch.convert import compressed_from_bytes, forest_from_arrays
 from repro_torch.core.compressed_predict import predict_compressed
 from repro_torch.core.forest_codec import compress_forest
-from repro_torch.runtime.chaos import TransientError, TransientFaults
+from repro_torch.core.lossy import LossyConfig
+from repro_torch.runtime.chaos import (
+    TransientError,
+    TransientFaults,
+    poison_user,
+)
 from repro_torch.serving import ForestServer, SingleForestStore
 from repro_torch.serving.plan import choose_engine
-from repro_torch.store import ForestStore, TileArena, build_store
+from repro_torch.store import TileArena, build_store, make_synthetic_fleet
 
 CPU = "cpu"
 
@@ -51,7 +59,7 @@ def rows(seed, n=48, d=5):
     return np.random.default_rng(seed).integers(0, 16, (n, d)).astype(np.int32)
 
 
-@pytest.mark.parametrize("engine", [None, "pipelined", "simple"])
+@pytest.mark.parametrize("engine", [None, "pipelined", "simple", "sharded"])
 @pytest.mark.parametrize("task", ["classification", "regression"])
 def test_from_forest_matches_reference_and_oracle(task, engine):
     _f, ref_comp, comp = forest_pair(task)
@@ -218,14 +226,22 @@ def test_single_forest_store_errors():
 
 
 def test_parts_of_later_slices_raise_not_implemented():
-    _f, _ref, comp = forest_pair("classification")
-    server = ForestServer.from_forest(comp, device=CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        server.predict(rows(12), engine="sharded")
-    for make in (lambda: ForestStore(None), lambda: build_store({}),
-                 lambda: ForestStore.from_bytes(b"")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            make()
+    """What still waits: the codebook lifecycle's recluster and migration
+    (ROADMAP Queue 1 item 7), and the durable tier, residency and
+    streaming builds (item 8)."""
+    import repro_torch.store as store_pkg
+
+    for name in ("recluster", "resume_recluster", "migrate_user",
+                 "migrate_users", "extend_codebook_from_forests",
+                 "RemapTable", "MigrationJournal", "ReclusterResult"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+            getattr(store_pkg, name)
+    for name in ("DurableStore", "attach_auto_repair", "attach_residency",
+                 "ResidencyManager", "build_store_streaming"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+            getattr(store_pkg, name)
+    with pytest.raises(AttributeError):
+        store_pkg.no_such_name  # noqa: B018
 
 
 def test_engine_choice_matches_reference_on_one_device():
@@ -251,3 +267,376 @@ def test_server_rejects_a_store_on_another_device():
     store.device = torch.device("meta")
     with pytest.raises(ValueError, match="store lives on"):
         ForestServer(store, device=CPU)
+
+
+# ---------------------------------------------------------------------------
+# the fleet session (the reference's tests/test_serving.py, ported)
+# ---------------------------------------------------------------------------
+
+
+def small_fleet(task="classification", n_users=6, seed=0):
+    return make_synthetic_fleet(
+        n_users, task=task, n_trees=(4, 8), max_depth=4, seed=seed
+    )
+
+
+def fleet_requests(store, rng, n_requests=6, n_rows=20):
+    users = store.user_ids
+    d = store.shared.n_features
+    return [
+        (users[i % len(users)],
+         rng.integers(0, 12, (n_rows, d)).astype(np.int32))
+        for i in range(n_requests)
+    ]
+
+
+def assert_matches_store(store, requests, preds, task):
+    for (u, x), p in zip(requests, preds):
+        assert_matches(p, store.predict(u, x), task)
+
+
+def test_plan_fields_and_signature(rng):
+    store = build_store(small_fleet(n_users=4), device=CPU)
+    server = ForestServer(store, device=CPU)
+    u = store.user_ids
+    requests = [(u[1], rng.integers(0, 12, (9, 8)).astype(np.int32)),
+                (u[0], rng.integers(0, 12, (5, 8)).astype(np.int32)),
+                (u[1], rng.integers(0, 12, (3, 8)).astype(np.int32))]
+    plan = server.plan(requests)
+    assert plan.users == (u[1], u[0])  # first-appearance order
+    assert plan.row_counts == (9, 5, 3)
+    assert plan.n_rows == 17
+    assert plan.row_slices == (slice(0, 9), slice(9, 14), slice(14, 17))
+    assert plan.engine.name == "pipelined" and plan.engine.reason
+    assert plan.t_pad % plan.engine.block_trees == 0
+    hash(plan.signature)
+
+
+def test_plan_from_row_counts_only(rng):
+    store = build_store(small_fleet(n_users=3), device=CPU)
+    server = ForestServer(store, device=CPU)
+    u = store.user_ids
+    x = rng.integers(0, 12, (7, 8)).astype(np.int32)
+    assert server.plan([(u[0], x), (u[1], x)]) is server.plan(
+        [(u[0], 7), (u[1], 7)]
+    )
+
+
+def test_plan_memoized_until_store_changes(rng):
+    fleet = small_fleet(n_users=3)
+    store = build_store(fleet, device=CPU)
+    server = ForestServer(store, device=CPU)
+    reqs = fleet_requests(store, rng, 3)
+    p1 = server.plan(reqs)
+    assert server.plan(reqs) is p1
+    assert server.plan_cache.plan_hits == 1
+    store.add_user(store.user_ids[0], fleet[store.user_ids[0]])
+    assert server.plan(reqs) is not p1
+    assert server.plan_cache.invalidations >= 1
+
+
+def test_cost_model_simple_when_no_arena(rng):
+    store = build_store(small_fleet(n_users=3), device=CPU)
+    store.arena = None  # a schema-incompatible store
+    server = ForestServer(store, device=CPU)
+    reqs = fleet_requests(store, rng, 3)
+    plan = server.plan(reqs)
+    assert plan.engine.name == "simple"
+    preds = server.execute(plan, [x for _, x in reqs])
+    assert_matches_store(store, reqs, preds, "classification")
+    for engine in ("pipelined", "sharded"):
+        with pytest.raises(ValueError, match="fused tile arena"):
+            server.plan(reqs, engine=engine)
+    with pytest.raises(ValueError, match="engine"):
+        server.plan(reqs, engine="nope")
+
+
+def test_pack_cache_reused_for_fresh_rows(rng):
+    store = build_store(small_fleet(n_users=4), device=CPU)
+    server = ForestServer(store, device=CPU)
+    u = store.user_ids
+    shape = ((u[0], 11), (u[2], 6))
+    server.serve([(v, rng.integers(0, 12, (n, 8)).astype(np.int32))
+                  for v, n in shape])
+    reqs2 = [(v, rng.integers(0, 12, (n, 8)).astype(np.int32))
+             for v, n in shape]
+    preds = server.serve(reqs2)
+    assert server.plan_cache.pack_hits >= 1
+    assert_matches_store(store, reqs2, preds, "classification")
+
+
+@pytest.mark.parametrize("engine", ["pipelined", "simple", "sharded"])
+def test_empty_and_zero_row_requests(rng, engine):
+    store = build_store(small_fleet(n_users=3), device=CPU)
+    server = ForestServer(store, device=CPU, devices=[CPU] * 2)
+    assert server.serve([]) == []
+    u = store.user_ids
+    x = rng.integers(0, 12, (10, 8)).astype(np.int32)
+    empty = np.zeros((0, 8), np.int32)
+    preds = server.serve([(u[0], x), (u[1], empty), (u[2], x)],
+                         engine=engine)
+    assert preds[1].shape == (0,)
+    assert np.array_equal(preds[0], store.predict(u[0], x))
+    assert np.array_equal(preds[2], store.predict(u[2], x))
+    only_empty = server.serve([(u[1], empty)], engine=engine)
+    assert only_empty[0].shape == (0,)
+
+
+def test_execute_validates_rows_and_rejects_stale_plans(rng):
+    fleet = small_fleet(n_users=2)
+    store = build_store(fleet, device=CPU)
+    server = ForestServer(store, device=CPU)
+    u = store.user_ids
+    x = rng.integers(0, 12, (8, 8)).astype(np.int32)
+    plan = server.plan([(u[0], x)])
+    with pytest.raises(ValueError, match="rows"):
+        server.execute(plan, [x[:5]])
+    with pytest.raises(ValueError, match="requests"):
+        server.execute(plan, [x, x])
+    store.add_user(u[0], fleet[u[0]])
+    with pytest.raises(ValueError, match="stale"):
+        server.execute(plan, [x])
+
+
+@pytest.mark.parametrize("engine", ["pipelined", "sharded"])
+def test_arena_eviction_invalidates_cached_pack(rng, engine):
+    store = build_store(small_fleet(n_users=4), device=CPU)
+    server = ForestServer(store, device=CPU, devices=[CPU] * 2)
+    u = store.user_ids
+    x = rng.integers(0, 12, (9, 8)).astype(np.int32)
+    reqs = [(u[0], x), (u[1], x)]
+    server.serve(reqs, engine=engine)
+    epoch0 = store.arena.epoch
+    store.arena.invalidate(u[0])
+    assert store.arena.epoch > epoch0
+    preds = server.serve(reqs, engine=engine)  # re-gathered, not stale
+    assert server.plan_cache.invalidations >= 1
+    assert_matches_store(store, reqs, preds, "classification")
+
+
+def test_cold_admission_of_unrelated_users_keeps_pack(rng):
+    store = build_store(small_fleet(n_users=6), device=CPU)
+    server = ForestServer(store, device=CPU)
+    u = store.user_ids
+    x = rng.integers(0, 12, (7, 8)).astype(np.int32)
+    reqs_a = [(u[0], x), (u[1], x)]
+    server.serve(reqs_a)
+    misses0 = server.plan_cache.pack_misses
+    hits0 = server.plan_cache.pack_hits
+    server.serve([(u[4], x), (u[5], x)])  # unrelated cold admissions
+    preds = server.serve(reqs_a)
+    assert server.plan_cache.pack_misses == misses0 + 1
+    assert server.plan_cache.pack_hits == hits0 + 1
+    assert_matches_store(store, reqs_a, preds, "classification")
+
+
+def test_eviction_invalidates_only_affected_users_packs(rng):
+    store = build_store(small_fleet(n_users=6), device=CPU)
+    server = ForestServer(store, device=CPU)
+    u = store.user_ids
+    x = rng.integers(0, 12, (7, 8)).astype(np.int32)
+    reqs_a = [(u[0], x), (u[1], x)]
+    reqs_b = [(u[2], x), (u[3], x)]
+    server.serve(reqs_a)
+    server.serve(reqs_b)
+    inval0 = server.plan_cache.invalidations
+    hits0 = server.plan_cache.pack_hits
+    store.arena.invalidate(u[0])
+    preds_b = server.serve(reqs_b)  # untouched: pack hit
+    preds_a = server.serve(reqs_a)  # touched: re-gathered
+    assert server.plan_cache.pack_hits == hits0 + 1
+    assert server.plan_cache.invalidations == inval0 + 1
+    assert_matches_store(store, reqs_a, preds_a, "classification")
+    assert_matches_store(store, reqs_b, preds_b, "classification")
+
+
+@pytest.mark.parametrize("engine", ["pipelined", "simple", "sharded"])
+def test_reregistration_serves_new_forest(rng, engine):
+    store = build_store(small_fleet(n_users=3), device=CPU)
+    server = ForestServer(store, device=CPU, devices=[CPU] * 2)
+    u0 = store.user_ids[0]
+    x = rng.integers(0, 12, (25, 8)).astype(np.int32)
+    before = server.serve([(u0, x)], engine=engine)[0]
+    other = small_fleet(n_users=3, seed=9)
+    store.add_user(u0, other[list(other)[0]])
+    preds = server.serve([(u0, x)], engine=engine)
+    assert np.array_equal(preds[0], store.predict(u0, x))
+    assert not np.array_equal(preds[0], before)
+
+
+def test_pack_hits_on_repeated_batch(rng):
+    store = build_store(small_fleet(n_users=4), device=CPU)
+    server = ForestServer(store, device=CPU)
+    reqs = fleet_requests(store, rng, 4)
+    for _ in range(3):
+        server.serve(reqs)
+    stats = server.plan_cache.stats()
+    assert stats["pack_hits"] >= 2 and stats["plan_hits"] >= 2
+    assert stats["pack_hit_rate"] > 0
+
+
+def test_lossy_store_serves_on_its_grid(rng):
+    bits = 5
+    store = build_store(small_fleet("regression", n_users=5),
+                        lossy=LossyConfig(fit_bits=bits), device=CPU)
+    rep = store.size_report()["lossy"]
+    assert rep["fit_bits"] == bits and rep["grid_levels"] == 1 << bits
+    assert len(store.shared.fleet_fit_values) <= 1 << bits
+    assert rep["max_abs_error"] <= rep["max_error_bound"] + 1e-12
+    assert rep["distortion_bound"] == pytest.approx(rep["step"] ** 2 / 12.0)
+    server = ForestServer(store, device=CPU)
+    reqs = fleet_requests(store, rng, 3)
+    assert_matches_store(store, reqs, server.serve(reqs), "regression")
+    assert server.stats()["lossy"] == rep
+    lossless = build_store(small_fleet("regression", n_users=5), device=CPU)
+    assert lossless.size_report()["lossy"] is None
+    assert len(store.shared.fleet_fit_values) < len(
+        lossless.shared.fleet_fit_values
+    )
+    with pytest.raises(ValueError, match="regression"):
+        build_store(small_fleet(n_users=2), lossy=LossyConfig(4), device=CPU)
+
+
+def test_fleet_stats_match_reference(rng):
+    """The fleet session's ``stats()`` carries the drift summary; its
+    sections equal the reference session's after the same batches."""
+    from repro.store import build_store as ref_build_store
+    from repro.store import make_synthetic_fleet as ref_fleet
+
+    store = build_store(small_fleet(n_users=4), device=CPU)
+    ref_store = ref_build_store(ref_fleet(
+        4, task="classification", n_trees=(4, 8), max_depth=4, seed=0
+    ))
+    server = ForestServer(store, device=CPU)
+    ref_server = RefServer(ref_store, interpret=True)
+    reqs = fleet_requests(store, rng, 4)
+    for _ in range(2):
+        server.serve(reqs)
+        ref_server.serve(reqs)
+    got, want = server.stats(), ref_server.stats()
+    assert got.keys() == want.keys()
+    for key in ("store", "tile_cache", "arena", "plan_cache",
+                "engine_counts", "lossy", "residency"):
+        assert got[key] == want[key], key
+    assert got["store"]["codebook_generation"] == 1
+    assert got["store"]["fallback_user_fraction"] == 0.0
+    assert got["health"]["n_quarantined"] == 0
+    assert got["health"]["journal"] is None
+
+
+def test_tile_cache_per_user_counters_reset_on_reregistration(rng):
+    store = build_store(small_fleet(n_users=3), device=CPU)
+    server = ForestServer(store, device=CPU)
+    user = store.user_ids[0]
+    reqs = fleet_requests(store, rng, 3)
+    reqs = [(user, reqs[0][1])] + reqs
+    server.serve(reqs)
+    server.serve(reqs)
+    before = store.cache.stats()["per_user"][user]
+    assert before["hits"] + before["misses"] > 0
+    store.add_delta(user, store.delta(user))  # re-register
+    assert user not in store.cache.stats()["per_user"]
+    server.serve(reqs)
+    kept = store.cache.stats()["per_user"][user]
+    assert kept["misses"] > 0
+    store.cache.invalidate_user(user, reset_stats=False)
+    assert store.cache.stats()["per_user"][user] == kept
+
+
+def test_arena_epoch_tracks_structural_changes(rng):
+    store = build_store(small_fleet(n_users=3), device=CPU)
+    server = ForestServer(store, device=CPU)
+    arena = store.arena
+    e0 = arena.epoch
+    server.serve(fleet_requests(store, rng, 2))
+    e1 = arena.epoch
+    assert e1 > e0
+    server.serve(fleet_requests(store, rng, 2))
+    assert arena.epoch == e1
+
+
+# ---------------------------------------------------------------------------
+# serve_safe over a fleet (the reference's tests/test_chaos.py, ported)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def fleet_server(rng):
+    fleet = make_synthetic_fleet(n_users=4, d=5, n_bins=12, seed=11)
+    store = build_store(fleet, device=CPU)
+    server = ForestServer(store, retry_backoff_s=0.0, device=CPU)
+    reqs = [(u, rng.integers(0, 12, (8, 5)).astype(np.int32))
+            for u in store.user_ids]
+    return store, server, reqs
+
+
+@pytest.mark.parametrize("engine", [None, "simple", "sharded"])
+def test_quarantine_isolates_bad_user(fleet_server, engine):
+    store, server, reqs = fleet_server
+    want = server.serve(reqs)
+    bad = store.user_ids[1]
+    poison_user(store, bad)
+    statuses = server.serve_safe(reqs, engine=engine)
+    assert [s.user_id for s in statuses] == [u for u, _ in reqs]
+    for (u, _), st, w in zip(reqs, statuses, want):
+        if u == bad:
+            assert st.status == "quarantined" and st.prediction is None
+            assert "IntegrityError" in st.detail
+        else:
+            assert st.status == "ok"
+            assert np.array_equal(st.prediction, w)
+
+
+def test_quarantine_sticky_released_and_counted(fleet_server):
+    store, server, reqs = fleet_server
+    bad = store.user_ids[0]
+    healthy = store.delta(bad)
+    poison_user(store, bad)
+    server.serve_safe(reqs)
+    n = server.integrity_failures
+    server.serve_safe(reqs)  # quarantined: not re-probed
+    assert server.integrity_failures == n
+    assert server.quarantined_users == [bad]
+    h = server.stats()["health"]
+    assert h["n_quarantined"] == 1 and h["quarantined"][bad]["kind"] == (
+        "integrity"
+    )
+    drift = server.stats()["store"]
+    assert drift["n_excluded_users"] == 1
+    assert drift["n_users"] == len(store.user_ids) - 1
+    store.add_delta(bad, healthy)  # repair bumps the user version
+    statuses = server.serve_safe(reqs)
+    assert statuses[0].status == "ok" and server.quarantined_users == []
+    assert np.array_equal(statuses[0].prediction,
+                          store.predict(bad, reqs[0][1]))
+
+
+def test_transient_admission_retry_then_success(fleet_server):
+    store, server, reqs = fleet_server
+    for u in store.user_ids:
+        store.arena.invalidate(u)
+    store.arena.admission_fault = TransientFaults(fail_first=2)
+    statuses = server.serve_safe(reqs, engine="pipelined")
+    assert server.transient_retries == 2 and server.degraded_batches == 0
+    assert all(s.status == "ok" and not s.degraded for s in statuses)
+
+
+@pytest.mark.parametrize("engine", ["pipelined", "sharded"])
+def test_retries_exhausted_degrade_to_simple(fleet_server, engine):
+    store, server, reqs = fleet_server
+    want = server.serve(reqs, engine="simple")
+    for u in store.user_ids:
+        store.arena.invalidate(u)
+    store.arena.admission_fault = TransientFaults(fail_first=10**6)
+    statuses = server.serve_safe(reqs, engine=engine)
+    assert server.degraded_batches == 1
+    assert server.engine_counts["simple"] == 2
+    assert all(s.status == "ok" and s.degraded for s in statuses)
+    for st, w in zip(statuses, want):
+        assert np.array_equal(st.prediction, w)
+
+
+def test_serve_safe_empty_batch_and_unknown_user(fleet_server):
+    _store, server, _reqs = fleet_server
+    assert server.serve_safe([]) == []
+    with pytest.raises(KeyError):
+        server.serve_safe([("nobody", np.zeros((1, 5), np.int32))])
