@@ -49,9 +49,12 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    then, on the host clock, warm serving ms per 1,024-row batch and its
    stages (plan lookup, pack lookup, the K1 run with its upload and copy
    back, finalize), with K1's share of the batch;
-8. LM serving (``launch/serve.py``'s path): K7 (``fa_forward``) against
-   its plain version ``_flash_plain`` in float32 and bf16, head_dim 32 /
-   64 / 128, a window of 64, ragged S (200, 2,049) and S != T; then
+8. LM serving (``launch/serve.py``'s path): K7 (``fa_forward``; bf16 on
+   the tensor cores, float32 on the CUDA cores) against its plain version
+   ``_flash_plain`` in float32 and bf16, head_dim 32 / 64 / 128, windows
+   of 64, 100 and 256, ragged S (200, 2,049) and T (1,500), S != T both
+   ways (with a window, rows that keep no key), and grouped KV heads
+   (n_rep 2 and 4); then
    qwen3-4b at full width and depth (36 layers, d_model 2,560, bf16,
    random weights from seed 0) — ``make_prefill_step(cfg,
    use_flash=True)`` over 4 seeded prompts of 2,048 tokens with
@@ -62,7 +65,9 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    prefill(S + 1)) in float32 with the same weights and in bf16, on the
    main path's weights and prompts and on two more seeds of both
    (``phase_lm_checks``); K7 against its plain version at the main path's
-   layer-0 inputs, timed beside ``scaled_dot_product_attention``; one line
+   layer-0 inputs (32 KV heads read for 128 query heads), timed beside
+   ``scaled_dot_product_attention``, its float32 route and the layout
+   copies around it, with the compiler's register and spill report; one line
    with prefill seconds and tokens/s, decode ms per step and tokens/s,
    peak device memory and K7's share of the prefill;
 9. RWKV6 serving and the §7 quantizer: K8 (``wkv6_forward``) against its
@@ -256,18 +261,30 @@ QUANT_DITHERS = ((False, 0), (True, 0), (True, 7), (True, -1),
                  (True, 2**31 - 1))
 QUANT_MODEL_BITS = 8
 
-# (name, BH, S, T, hd, dtype, window): K7 against _flash_plain
+# (name, BH, S, T, hd, dtype, window, n_rep): K7 against _flash_plain;
+# n_rep > 1 goes through _flash_attention_grouped with BH / n_rep KV heads
 FLASH_PARITY_CASES = [
-    ("f32-hd128", 8, 256, 256, 128, torch.float32, None),
-    ("bf16-hd128", 8, 256, 256, 128, torch.bfloat16, None),
-    ("f32-hd64", 8, 512, 512, 64, torch.float32, None),
-    ("bf16-hd64-window64", 8, 512, 512, 64, torch.bfloat16, 64),
-    ("f32-hd32-window64", 8, 512, 512, 32, torch.float32, 64),
-    ("bf16-hd32", 8, 256, 256, 32, torch.bfloat16, None),
-    ("f32-ragged-s200", 8, 200, 200, 128, torch.float32, None),
-    ("bf16-ragged-s2049", 4, 2049, 2049, 128, torch.bfloat16, None),
-    ("f32-s1000-t2048", 4, 1000, 2048, 128, torch.float32, None),
-    ("f32-s2048-t1000", 4, 2048, 1000, 64, torch.float32, None),
+    ("f32-hd128", 8, 256, 256, 128, torch.float32, None, 1),
+    ("bf16-hd128", 8, 256, 256, 128, torch.bfloat16, None, 1),
+    ("f32-hd64", 8, 512, 512, 64, torch.float32, None, 1),
+    ("bf16-hd64-window64", 8, 512, 512, 64, torch.bfloat16, 64, 1),
+    ("f32-hd32-window64", 8, 512, 512, 32, torch.float32, 64, 1),
+    ("bf16-hd32", 8, 256, 256, 32, torch.bfloat16, None, 1),
+    ("f32-ragged-s200", 8, 200, 200, 128, torch.float32, None, 1),
+    ("bf16-ragged-s2049", 4, 2049, 2049, 128, torch.bfloat16, None, 1),
+    ("f32-s1000-t2048", 4, 1000, 2048, 128, torch.float32, None, 1),
+    ("f32-s2048-t1000", 4, 2048, 1000, 64, torch.float32, None, 1),
+    ("bf16-s1000-t2048", 4, 1000, 2048, 128, torch.bfloat16, None, 1),
+    ("bf16-s2048-t1000", 4, 2048, 1000, 128, torch.bfloat16, None, 1),
+    ("bf16-ragged-t1500", 4, 1024, 1500, 64, torch.bfloat16, None, 1),
+    ("bf16-hd128-window256", 4, 1024, 1024, 128, torch.bfloat16, 256, 1),
+    ("bf16-grouped-nrep2", 8, 512, 512, 128, torch.bfloat16, None, 2),
+    ("bf16-grouped-nrep4-window100", 8, 512, 512, 64, torch.bfloat16, 100,
+     4),
+    ("f32-grouped-nrep4", 8, 256, 256, 128, torch.float32, None, 4),
+    # rows 1,063 on keep no key (S >= T + window): 0 on every route
+    ("bf16-s2048-t1000-window64", 4, 2048, 1000, 64, torch.bfloat16, 64, 1),
+    ("f32-s2048-t1000-window64", 4, 2048, 1000, 128, torch.float32, 64, 1),
 ]
 
 # Fleet serving (phase 10): the subscriber scenario — one ForestStore per
@@ -1094,12 +1111,13 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def flash_bound(q, k, causal=True, window=None) -> tuple[float, str, dict]:
-    """Least time for K7's work on these inputs: q, k, v read once and the
-    output written once at HBM rate, against the two products' flops (an
-    FMA, 2 flops, per kept (row, column) pair per head-dim element each) at
-    the tensor cores' bf16 peak (the CUDA cores' for float32)."""
+    """Least time for K7's work on these inputs: q, k, v read once (k and
+    v hold BH / n_rep heads) and the output written once at HBM rate,
+    against the two products' flops (an FMA, 2 flops, per kept (row,
+    column) pair per head-dim element each) at the tensor cores' bf16 peak
+    (the CUDA cores' for float32)."""
     bh, s, hd = q.shape
-    t = k.shape[1]
+    bkv, t = k.shape[:2]
     rows = torch.arange(s)[:, None]
     cols = torch.arange(t)[None, :]
     keep = torch.ones((s, t), dtype=torch.bool)
@@ -1109,7 +1127,7 @@ def flash_bound(q, k, causal=True, window=None) -> tuple[float, str, dict]:
         keep &= rows - cols < window
     pairs = bh * int(keep.sum())
     ops = 4 * hd * pairs
-    nbytes = q.element_size() * hd * bh * (2 * s + 2 * t)
+    nbytes = q.element_size() * hd * (2 * bh * s + 2 * bkv * t)
     peak = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else CUDA_CORE_OPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
     work = {"bytes": nbytes, "flops": ops, "kept_pairs": pairs}
@@ -1120,36 +1138,42 @@ def flash_bound(q, k, causal=True, window=None) -> tuple[float, str, dict]:
 
 def phase_flash_parity(dev, errs):
     """K7 against ``_flash_plain`` on the same CUDA inputs at every case of
-    FLASH_PARITY_CASES: float32 and bf16, head_dim 32 / 64 / 128, a
-    window of 64, ragged S (200, 2,049) and S != T."""
+    FLASH_PARITY_CASES: float32 and bf16, head_dim 32 / 64 / 128, windows
+    of 64, 100 and 256, ragged S (200, 2,049) and T (1,500), S != T both
+    ways (with a window, rows that keep no key), and grouped KV heads
+    (n_rep 2 and 4) through ``_flash_attention_grouped``."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
 
     gen = torch.Generator(device=dev).manual_seed(7)
-    for name, bh, s, t, hd, dtype, window in FLASH_PARITY_CASES:
-        q, k, v = (torch.randn((bh, n, hd), generator=gen, device=dev).to(dtype)
-                   for n in (s, t, t))
-        got = fa._launch_flash(q, k, v, True, window)
+    for name, bh, s, t, hd, dtype, window, n_rep in FLASH_PARITY_CASES:
+        q, k, v = (torch.randn((n, ln, hd), generator=gen,
+                               device=dev).to(dtype)
+                   for n, ln in ((bh, s), (bh // n_rep, t), (bh // n_rep, t)))
+        if n_rep > 1:
+            got = fa._flash_attention_grouped(q, k, v, n_rep, True, window)
+        else:
+            got = fa._launch_flash(q, k, v, True, window)
         torch.cuda.synchronize()
-        err = close_err(got, fa._flash_plain(q, k, v, True, window),
+        err = close_err(got, fa._flash_plain(q, k, v, True, window,
+                                             n_rep=n_rep),
                         FLASH_TOL[dtype])
         errs.append(err)
         log(json.dumps({"parity": K7["name"], "case": name,
-                        "out": list(got.shape), "max_abs_err": err,
-                        "tol": FLASH_TOL[dtype]}))
+                        "out": list(got.shape), "n_rep": n_rep,
+                        "max_abs_err": err, "tol": FLASH_TOL[dtype]}))
 
 
 def lm_flash_args(cfg, params, tokens):
-    """The (BH, S, hd) q, k, v the main path hands K7 at layer 0."""
-    from repro_torch.kernels.flash_attention.ops import bh_layout
+    """The main path's attention inputs at layer 0 in the model's layout:
+    q (B, S, H, hd), k and v (B, S, KV, hd)."""
     from repro_torch.models.attention import _project_qkv
     from repro_torch.models.layers import rms_norm
     from repro_torch.models.model import _positions, embed_inputs
 
     x = embed_inputs(cfg, params, tokens)
     h = rms_norm(x, params.layers[0].norm1, cfg.rms_eps)
-    q, k, v = _project_qkv(params.layers[0].attn, cfg, h,
-                           _positions(*tokens.shape, tokens.device))
-    return bh_layout(q, k, v)
+    return _project_qkv(params.layers[0].attn, cfg, h,
+                        _positions(*tokens.shape, tokens.device))
 
 
 def phase_lm(dev):
@@ -1348,39 +1372,84 @@ def phase_lm_checks(dev, cfg, params, tokens):
     return row
 
 
+def ptxas_report(lib: str, kernel: str) -> dict | None:
+    """Registers, stack and spills that ``-Xptxas -v`` reported in this
+    run's build of ``lib`` for the entry whose mangled name holds
+    ``kernel``; None when the library was not built in this run."""
+    import re
+
+    from repro_torch.kernels import build
+
+    text = build.build_logs.get(lib)
+    if text is None:
+        return None
+    entry = text[text.index(kernel):] if kernel in text else ""
+    nums = {}
+    for key, pat in (("stack_bytes", r"(\d+) bytes stack frame"),
+                     ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                     ("spill_load_bytes", r"(\d+) bytes spill loads"),
+                     ("registers", r"Used (\d+) registers"),
+                     ("static_smem_bytes", r"(\d+) bytes smem")):
+        m = re.search(pat, entry.split("Compiling entry")[0])
+        nums[key] = int(m.group(1)) if m else 0
+    return nums
+
+
 def flash_entry(launches, main_args, errs, prefill_s):
     """K7's entry of the ``{"kernels": [...]}`` line, at the main path's
-    layer-0 inputs (BH = 128, S = 2,048, hd = 128, bf16), with
-    ``scaled_dot_product_attention`` on the same tensors as the yardstick
-    (the port never calls it)."""
+    layer-0 inputs (BH = 128 query heads over 32 KV heads, n_rep 4, S =
+    2,048, hd = 128, bf16) through the grouped call the model makes, with
+    ``scaled_dot_product_attention`` on the KV heads repeated as the
+    yardstick (the port never calls it), the float32 route at the same
+    shape, and the layout copies ``ops.flash_attention`` makes around K7."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ops import bh_layout
 
-    q, k, v = main_args
-    got = fa._launch_flash(q, k, v, True, None)
+    q4, k4, v4 = main_args
+    b, s, h, hd = q4.shape
+    q, k, v, n_rep = bh_layout(q4, k4, v4)
+    got = fa._flash_attention_grouped(q, k, v, n_rep, True, None)
     torch.cuda.synchronize()
-    err = close_err(got, fa._flash_plain(q, k, v, True, None),
+    err = close_err(got, fa._flash_plain(q, k, v, True, None, n_rep=n_rep),
                     FLASH_TOL[q.dtype])
     errs.append(err)
     log(json.dumps({"parity": K7["name"], "case": "main-path-layer0",
-                    "out": list(got.shape), "max_abs_err": err,
-                    "tol": FLASH_TOL[q.dtype]}))
+                    "out": list(got.shape), "n_rep": n_rep,
+                    "max_abs_err": err, "tol": FLASH_TOL[q.dtype]}))
     bms, by, work = flash_bound(q, k)
-    ms = time_ms(lambda: fa._launch_flash(q, k, v, True, None))
+    ms = time_ms(lambda: fa._launch_flash(q, k, v, True, None, n_rep))
+    kr, vr = k.repeat_interleave(n_rep, 0), v.repeat_interleave(n_rep, 0)
+    qf, kf, vf = q.float(), k.float(), v.float()
     entry = dict(K7)
     entry.update({
         "launches": launches["flash"],
         "max_abs_err": max(errs),
         "ms": ms,
-        "plain_ms": time_ms(lambda: fa._flash_plain(q, k, v, True, None)),
+        "plain_ms": time_ms(lambda: fa._flash_plain(q, k, v, True, None,
+                                                    n_rep=n_rep)),
         "bound_ms": bms, "bound_by": by,
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q[None], k[None], v[None], is_causal=True)),
+            q[None], kr[None], vr[None], is_causal=True)),
         "library_note": "torch.nn.functional.scaled_dot_product_attention"
-                        "(is_causal=True), timed only",
-        "timed_at": "one prefill layer of qwen3-4b: BH=128, S=T=2048, "
-                    "hd=128, bf16, causal",
+                        "(is_causal=True) on the KV heads repeated, timed "
+                        "only",
+        "timed_at": "one prefill layer of qwen3-4b: BH=128 (32 KV heads, "
+                    "n_rep 4), S=T=2048, hd=128, bf16, causal",
+        "bf16_route": "wgmma (tensor cores), TMA into a K/V ring, P split "
+                      "into bf16 high and low parts, S of tile i issued with "
+                      "P V of tile i - 1, warpgroups taking turns",
+        "tc_config": fa.tc_config(hd),
+        "ptxas_bf16": ptxas_report("flash_attention",
+                                   f"flash_tc_kernelILi{hd}"),
+        "f32_route_ms": time_ms(lambda: fa._launch_flash(
+            qf, kf, vf, True, None, n_rep)),
+        "layout_ms": {
+            "q_k_v_heads_first": time_ms(lambda: bh_layout(q4, k4, v4)),
+            "out_tokens_first": time_ms(lambda: got.reshape(
+                b, h, s, hd).transpose(1, 2).reshape(b, s, h * hd)),
+        },
         "work": work,
         "share_of_prefill": ms * launches["flash"] / (prefill_s * 1e3),
     })

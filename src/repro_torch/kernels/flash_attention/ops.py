@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from .flash_attention import flash_attention_bh
+from .flash_attention import _flash_attention_grouped
 from .ref import mha_reference
 
 __all__ = ["bh_layout", "flash_attention", "flash_attention_reference"]
@@ -24,25 +24,26 @@ def flash_attention(
     causal: bool = True,
     window: int | None = None,
 ) -> torch.Tensor:
-    """Returns (B, S, H, hd).  KV heads are repeated to H (GQA) before K7,
-    as the reference does; K7 runs on the tensors' device (the plain
-    version on the CPU)."""
+    """Returns (B, S, H, hd).  K7 reads each KV head for its H / KV query
+    heads (GQA) itself, so the KV heads are not repeated as the reference
+    repeats them; K7 runs on the tensors' device (the plain version on the
+    CPU)."""
     b, s, h, hd = q.shape
-    out = flash_attention_bh(*bh_layout(q, k, v), causal=causal,
-                             window=window)
+    out = _flash_attention_grouped(*bh_layout(q, k, v), causal=causal,
+                                   window=window)
     return out.reshape(b, h, s, hd).transpose(1, 2)
 
 
 def bh_layout(q, k, v):
-    """The (BH, S, hd) / (BH, T, hd) contiguous tensors ``flash_attention``
-    hands to K7: heads moved next to the batch, KV heads repeated."""
+    """What ``flash_attention`` hands to K7: the contiguous (B * H, S, hd)
+    q and (B * KV, T, hd) k, v (heads moved next to the batch, KV heads
+    not repeated), and n_rep = H / KV."""
     b, s, h, hd = q.shape
-    t = k.shape[1]
-    n_rep = h // k.shape[2]
+    t, kv = k.shape[1], k.shape[2]
     qt = q.transpose(1, 2).reshape(b * h, s, hd)
-    kt = _heads_first(k, n_rep).reshape(b * h, t, hd)
-    vt = _heads_first(v, n_rep).reshape(b * h, t, hd)
-    return qt, kt, vt
+    kt = k.transpose(1, 2).reshape(b * kv, t, hd)
+    vt = v.transpose(1, 2).reshape(b * kv, t, hd)
+    return qt, kt, vt, h // kv
 
 
 def flash_attention_reference(q, k, v, causal=True, window=None):

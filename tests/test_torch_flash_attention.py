@@ -163,3 +163,145 @@ def test_cpu_dispatch_runs_the_plain_version_and_counts_no_launch():
         flash_attention_bh(q.numpy(), k, v)
     with pytest.raises(ValueError, match="different devices"):
         flash_attention_bh(q, k.to("meta"), v)
+
+
+@pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_grouped_kv_heads_equal_repeated_ones(n_rep, dtype):
+    """Query head b reads KV head b // n_rep: bit-equal to repeating each
+    KV head n_rep times, as the reference's wrapper does."""
+    bh, s, hd = 8, 96, 32
+    (_, (q, k, v)) = _inputs(n_rep, [(bh, s, hd), (bh // n_rep, s, hd),
+                                     (bh // n_rep, s, hd)], dtype)
+    got = fa._flash_plain(q, k, v, True, 16, n_rep=n_rep)
+    want = fa._flash_plain(q, k.repeat_interleave(n_rep, 0),
+                           v.repeat_interleave(n_rep, 0), True, 16)
+    assert torch.equal(got, want)
+    assert torch.equal(fa._flash_attention_grouped(q, k, v, n_rep, True, 16),
+                       want)
+
+
+@pytest.mark.parametrize("kv", [1, 2, 8])
+def test_gqa_wrapper_hands_the_kernel_unrepeated_kv(kv, monkeypatch):
+    """``flash_attention`` gives K7 the (B * KV, T, hd) KV heads and
+    n_rep = H / KV; nothing repeats them."""
+    b, s, t, h, hd = 2, 64, 80, 8, 32
+    (_, (q, k, v)) = _inputs(3, [(b, s, h, hd), (b, t, kv, hd),
+                                 (b, t, kv, hd)], "float32")
+    calls = []
+    plain = fa._flash_plain
+
+    def capture(q, k, v, causal, window, **kw):
+        calls.append((q, k, v, kw))
+        return plain(q, k, v, causal, window, **kw)
+
+    monkeypatch.setattr(fa, "_flash_plain", capture)
+    got = flash_attention(q, k, v, causal=True)
+    (cq, ck, cv, kw), = calls
+    assert tuple(cq.shape) == (b * h, s, hd)
+    assert tuple(ck.shape) == tuple(cv.shape) == (b * kv, t, hd)
+    assert kw == {"n_rep": h // kv}
+    assert torch.equal(ck, k.transpose(1, 2).reshape(b * kv, t, hd))
+    assert torch.equal(cv, v.transpose(1, 2).reshape(b * kv, t, hd))
+    assert got.shape == (b, s, h, hd)
+
+
+def _split_p_flash(q, k, v, causal, window, n_rep=1, split=True,
+                   block_q=128, block_k=128):
+    """The bf16 tensor-core route's arithmetic on the CPU: its 128 x 128
+    tiles, float32 scores of the bf16 inputs, the float32 online softmax
+    with l summing float32 p, and P V as p_hi V + p_lo V with p_hi =
+    bf16(p), p_lo = bf16(p - p_hi), each product exact in float32 (bf16
+    times bf16) and summed in float32, and 0 for a row that keeps no key.
+    ``split=False`` rounds p once."""
+    bh, s, hd = q.shape
+    t = k.shape[1]
+    heads = torch.arange(bh) // n_rep
+    pad = (0, 0, 0, -t % block_k)  # zero keys and values past T
+    k = torch.nn.functional.pad(k.index_select(0, heads).float(), pad)
+    v = torch.nn.functional.pad(v.index_select(0, heads).float(), pad)
+    qf = q.float()
+    rows = torch.arange(s)[:, None]
+    q_start = (rows // block_q) * block_q
+    m = torch.full((bh, s, 1), -1e30)
+    l = torch.zeros((bh, s, 1))
+    acc = torch.zeros((bh, s, hd))
+    for k0 in range(0, t, block_k):
+        run = torch.ones((s, 1), dtype=torch.bool)
+        if causal:
+            run &= k0 <= q_start + block_q - 1
+        if window is not None:
+            run &= q_start - (k0 + block_k - 1) < window
+        cols = k0 + torch.arange(block_k)[None, :]
+        kb, vb = k[:, k0:k0 + block_k], v[:, k0:k0 + block_k]
+        sc = torch.matmul(qf, kb.transpose(1, 2)) * hd**-0.5
+        keep = cols < t
+        if causal:
+            keep = keep & (rows >= cols)
+        if window is not None:
+            keep = keep & (rows - cols < window)
+        sc = torch.where(keep, sc, -1e30)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        p = torch.exp(sc - m_new)
+        alpha = torch.exp(m - m_new)
+        p_hi = p.to(torch.bfloat16).float()
+        pv = torch.matmul(p_hi, vb)
+        if split:
+            pv = pv + torch.matmul((p - p_hi).to(torch.bfloat16).float(), vb)
+        m = torch.where(run, m_new, m)
+        l = torch.where(run, alpha * l + p.sum(-1, keepdim=True), l)
+        acc = torch.where(run, acc * alpha + pv, acc)
+    out = torch.where(m == -1e30, 0.0, acc / torch.clamp(l, min=1e-30))
+    return out.to(q.dtype)
+
+
+#: chip_smoke.py's bf16 parity shapes at small BH: (BH, S, T, hd, window,
+#: n_rep)
+SPLIT_P_CASES = [
+    (2, 256, 256, 128, None, 1), (2, 512, 512, 64, 64, 1),
+    (2, 256, 256, 32, None, 1), (1, 2049, 2049, 128, None, 1),
+    (1, 1000, 2048, 128, None, 1), (1, 2048, 1000, 128, None, 1),
+    (2, 1024, 1500, 64, None, 1), (2, 1024, 1024, 128, 256, 1),
+    (4, 512, 512, 128, None, 2), (4, 512, 512, 64, 100, 4),
+    (1, 2048, 1000, 64, 64, 1),
+]
+
+
+@pytest.mark.parametrize("bh,s,t,hd,window,n_rep", SPLIT_P_CASES)
+def test_split_p_meets_the_cards_bf16_tolerance(bh, s, t, hd, window,
+                                               n_rep):
+    """The tensor-core route's split P, rehearsed on the CPU, is within
+    chip_smoke.py's bf16 tolerance of ``_flash_plain`` (rtol 2**-7, atol
+    2e-5, both rounded to bf16); at the first shape P rounded once to bf16
+    is not."""
+    (_, (q, k, v)) = _inputs(bh * s + t + hd, [
+        (bh, s, hd), (bh // n_rep, t, hd), (bh // n_rep, t, hd)], "bfloat16")
+    want = fa._flash_plain(q, k, v, True, window, n_rep=n_rep).float()
+    got = _split_p_flash(q, k, v, True, window, n_rep).float()
+    assert bool(torch.isfinite(got).all())
+    assert torch.allclose(got, want, rtol=2**-7, atol=2e-5), float(
+        (got - want).abs().max())
+    if (bh, s, t, hd) == SPLIT_P_CASES[0][:4]:
+        once = _split_p_flash(q, k, v, True, window, n_rep, split=False)
+        assert not torch.allclose(once.float(), want, rtol=2**-7, atol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("block_q,block_k", [
+    (64, 64), (128, 128), (32, 64), (64, 128),
+])
+def test_rows_that_keep_no_key_are_zero_at_any_tiling(block_q, block_k,
+                                                      causal):
+    """S = 256 over T = 128 with a window of 16: rows 143 on keep no key
+    (r - c < 16 needs c > r - 16 >= T - 1).  They are 0 whatever the tiles
+    (the float32 route's 64 x 64, the bf16 route's 128 x 128); the rows
+    that keep keys meet the interpret-mode kernel, left-aligned."""
+    (jq, jk, jv), (q, k, v) = _inputs(13, [(2, 256, 32), (2, 128, 32),
+                                           (2, 128, 32)], "float32")
+    got = fa._flash_plain(q, k, v, causal, 16, block_q, block_k)
+    assert torch.equal(got[:, 143:], torch.zeros_like(got[:, 143:]))
+    assert bool(got[:, :143].abs().amax(-1).gt(0).all())
+    _close(got, flash_attention_bh(q, k, v, causal, 16), TOL["float32"])
+    want = ref_flash_bh(jq, jk, jv, causal=causal, window=16, interpret=True)
+    _close(got[:, :143], np.asarray(want, np.float32)[:, :143],
+           TOL["float32"])

@@ -269,7 +269,9 @@ def test_every_c_entry_is_declared_and_every_launch_is_counted():
 
 def test_flash_c_entries_are_declared_and_its_launch_is_counted():
     """``flash_attention.cu``'s ``extern "C"`` functions are exactly the
-    ctypes declarations, and ``_launch_flash`` bumps its counter once."""
+    ctypes declarations, each (``fa_forward`` among them) declares as many
+    ctypes arguments as its C prototype has parameters, and
+    ``_launch_flash`` bumps its counter once."""
     import inspect
 
     from repro_torch.kernels import build
@@ -282,7 +284,12 @@ def test_flash_c_entries_are_declared_and_its_launch_is_counted():
     with open(src) as fh:
         text = fh.read()
     c_entries = set(re.findall(r"^(?:int|const char\*) (fa_\w+)\(", text, re.M))
-    assert c_entries == set(fa._SIGNATURES) == {"fa_forward", "fa_error_string"}
+    assert c_entries == set(fa._SIGNATURES) == {
+        "fa_forward", "fa_tc_config", "fa_error_string"}
+    for name in c_entries:
+        params = re.search(rf"^(?:int|const char\*) {name}\(([^)]*)\)",
+                           text, re.M).group(1)
+        assert len(fa._SIGNATURES[name][0]) == len(params.split(",")), name
     body = inspect.getsource(fa._launch_flash)
     assert body.count("LAUNCHES[") == 1
     assert 'LAUNCHES["flash"] += 1' in body
