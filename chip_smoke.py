@@ -73,7 +73,10 @@ Phases, in order; any failure propagates and the exit code is non-zero:
 9. RWKV6 serving and the §7 quantizer: K8 (``wkv6_forward``) against its
    plain version ``_wkv6_plain`` at head_dim 16 / 32 / 64, S 64 / 70 /
    128 / 2,049, chunk 16 / 32 / 64, zero and non-zero initial states, the
-   model's decays and extreme ones; K6 (``quantize_forward``) through
+   model's decays and extreme ones, on the (BH, S, hd) float32 layout, and
+   on the model's (B, S, H, hd) layout against ``_wkv6_model_plain``: bf16
+   and float32 r / k / v, H > 1, S 1 / 33 / 70 / 300 / 2,049; K6
+   (``quantize_forward``) through
    ``quantize_tensor`` against ``_quantize_plain`` bit for bit at 2 / 4 /
    8 / 12 bits, without dither and with seeds 0, 7, -1 and 2**31 - 1,
    n < 256 and ragged n, float32 and bf16, each within the §7 bound; then
@@ -81,7 +84,9 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    of 64, bf16, random weights from seed 0) — ``make_prefill_step(cfg,
    use_flash=True)`` over 4 seeded prompts of 2,048 tokens with
    ``max_len`` 2,080 (a warm-up prefill, then the timed one; K8's count
-   must equal the 24 layers after each) and 32 greedy decode steps; the
+   must equal the 24 layers after each, and in the warm-up every launch
+   must get the model's own (B, S, H, hd) bf16 tensors) and 32 greedy
+   decode steps; the
    whole-model checks with u perturbed from the seed (K8 against the
    reference-branch prefill ``wkv_chunked``, logits and every layer's
    cache, and decode after prefill(S) against prefill(S + 1)) in float32
@@ -90,7 +95,11 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    without and with dither, over every 2-D weight of the served model
    (``LAUNCHES["quantize"]`` equal to the number of tensors per pass),
    each within its §7 bound, and bit for bit at the largest; K8 and K6
-   timed beside their plain versions; one line with prefill seconds and
+   timed beside their plain versions (K8 at the main path's launch and at
+   the same work folded to (BH, S, hd) float32, each with its own bound
+   and median / min / max; ``ops.wkv6`` whole, its peak memory above its
+   inputs, and the ``bh_layout`` copies it no longer makes; the library's
+   tiling and the ``-Xptxas -v`` report); one line with prefill seconds and
    tokens/s, K8's share of the prefill, decode ms per step and tokens/s
    and peak device memory;
 10. the fleet store (the subscriber scenario): (a) ``build_store`` of
@@ -252,6 +261,25 @@ WKV_PARITY_CASES = [
     ("hd32-s70-ragged-zero-extreme", 8, 70, 32, None, "zero", "extreme"),
     ("hd16-s64-c16-state-model", 8, 64, 16, 16, "state", "model"),
     ("hd16-s2049-ragged-zero-extreme", 4, 2049, 16, None, "zero", "extreme"),
+]
+# (name, B, S, H, hd, r/k/v dtype, initial state, decays): K8 on the model's
+# (B, S, H, hd) layout, as ops.wkv6 hands it over, against
+# _wkv6_model_plain (which upcasts the same bf16 values exactly)
+WKV_MODEL_PARITY_CASES = [
+    ("model-bf16-b2-h4-hd64-s300-state-extreme", 2, 300, 4, 64,
+     torch.bfloat16, "state", "extreme"),
+    ("model-bf16-b2-h3-hd64-s2049-zero-model", 2, 2049, 3, 64,
+     torch.bfloat16, "zero", "model"),
+    ("model-f32-b2-h4-hd64-s128-state-model", 2, 128, 4, 64, torch.float32,
+     "state", "model"),
+    ("model-f32-b3-h2-hd64-s70-state-extreme", 3, 70, 2, 64, torch.float32,
+     "state", "extreme"),
+    ("model-bf16-b3-h2-hd32-s70-state-extreme", 3, 70, 2, 32, torch.bfloat16,
+     "state", "extreme"),
+    ("model-f32-b2-h5-hd16-s33-state-extreme", 2, 33, 5, 16, torch.float32,
+     "state", "extreme"),
+    ("model-bf16-b1-h2-hd64-s1-state-model", 1, 1, 2, 64, torch.bfloat16,
+     "state", "model"),
 ]
 # K6 against _quantize_plain, bit for bit: (shape, dtype) x bits x dither
 QUANT_SHAPES = [((200,), torch.float32), ((100003,), torch.bfloat16),
@@ -563,9 +591,15 @@ def bound(parts) -> tuple[float, str, dict]:
 
 def time_ms(fn, reps: int = REPS) -> float:
     """Median device ms of ``fn`` over ``reps`` CUDA-event-timed calls,
-    after warm-up.  A spin kernel before each start event lets the host
-    enqueue the call while the card is busy, so host-side wrapper work
-    does not show as device time."""
+    after warm-up (``time_stats``)."""
+    return time_stats(fn, reps)["median"]
+
+
+def time_stats(fn, reps: int = REPS) -> dict:
+    """Median, min and max device ms of ``fn`` over ``reps``
+    CUDA-event-timed calls, after warm-up.  A spin kernel before each start
+    event lets the host enqueue the call while the card is busy, so
+    host-side wrapper work does not show as device time."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -579,7 +613,8 @@ def time_ms(fn, reps: int = REPS) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    return {"median": float(np.median(times)), "min": float(min(times)),
+            "max": float(max(times))}
 
 
 # ---------------------------------------------------------------------------
@@ -1476,21 +1511,42 @@ def wkv_inputs(dev, gen, bh, s, hd, init, decay):
     return r, k, v, w, u, s0
 
 
+def wkv_model_inputs(dev, gen, b, s, h, hd, dtype, init, decay):
+    """``wkv_inputs`` on the model's layout: r, k, v (B, S, H, hd) in
+    ``dtype``, w (B, S, H, hd) float32, u (H, hd) and the state
+    (B, H, hd, hd) float32, all contiguous."""
+    r, k, v, w, u, s0 = wkv_inputs(dev, gen, b * h, s, hd, init, decay)
+
+    def unfold(a):
+        return a.reshape(b, h, s, hd).transpose(1, 2).contiguous()
+
+    r, k, v = (unfold(a).to(dtype) for a in (r, k, v))
+    return (r, k, v, unfold(w), u[:h].contiguous(),
+            s0.reshape(b, h, hd, hd))
+
+
 def wkv_err(got, want) -> float:
     """K8's (y, final state) within WKV_TOL of the plain version's."""
     return max(close_err(g, w, WKV_TOL) for g, w in zip(got, want))
 
 
 def wkv_bound(args) -> tuple[float, str, dict]:
-    """Least time for K8's work: r, k, v, w and u read once, the initial
-    state read once, y and the final state written once (float32) at HBM
-    rate, against the flops WKV6 needs at the CUDA cores' float32 peak:
-    per step, 5 per state element (an FMA for r . S, a product and an FMA
-    for the decayed update) and 5 per head-dim element for the u bonus,
-    which factors out as v_j * sum_i r_i u_i k_i."""
-    bh, s, hd = args[0].shape
-    nbytes = 4 * (5 * bh * s * hd + bh * hd + 2 * bh * hd * hd)
-    flops = bh * s * (5 * hd * hd + 5 * hd)
+    """Least time for K8's work on ``args`` (either layout): r, k, v (in
+    their type), w and u read once, the initial state read once, y and the
+    final state written once (float32) at HBM rate, against the flops WKV6
+    cannot avoid at the CUDA cores' float32 peak: per step, 4 per state
+    element (an FMA for r . S and an FMA for the rank-one update k v^T; the
+    decay's product is one per element per group of steps taken together,
+    so it vanishes as the group grows, as in the chunked form) and 5 per
+    head-dim element for the u bonus, which factors out as
+    v_j * sum_i r_i u_i k_i."""
+    r, _, _, _, u, state = args
+    hd = r.shape[-1]
+    n = r.numel()
+    steps = n // hd  # (b, h, t) triples
+    nbytes = (3 * n * r.element_size() + 4 * n + 4 * n + 4 * u.numel()
+              + 2 * 4 * state.numel())
+    flops = steps * (4 * hd * hd + 5 * hd)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / CUDA_CORE_OPS_PER_S
     work = {"bytes": nbytes, "flops": flops}
     if t_bytes >= t_ops:
@@ -1503,10 +1559,21 @@ def phase_wkv_parity(dev, errs):
     WKV_PARITY_CASES: head_dim 16 / 32 / 64, S 64 / 70 / 128 / 2,049,
     chunk 16 / 32 / 64 through ``wkv6_scan`` (and the ragged S straight
     through the launch), zero and non-zero initial states, the model's
-    decays and the extreme ones."""
+    decays and the extreme ones; and every WKV_MODEL_PARITY_CASES case on
+    the model's layout, through ``wkv6_bh``, against
+    ``_wkv6_model_plain``."""
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan as ws
 
     gen = torch.Generator(device=dev).manual_seed(9)
+    for name, b, s, h, hd, dtype, init, decay in WKV_MODEL_PARITY_CASES:
+        args = wkv_model_inputs(dev, gen, b, s, h, hd, dtype, init, decay)
+        got = ws.wkv6_bh(*args)
+        torch.cuda.synchronize()
+        err = wkv_err(got, ws._wkv6_model_plain(*args))
+        errs.append(err)
+        log(json.dumps({"parity": K8["name"], "case": name,
+                        "out": list(got[0].shape), "max_abs_err": err,
+                        "tol": WKV_TOL}))
     for name, bh, s, hd, chunk, init, decay in WKV_PARITY_CASES:
         args = wkv_inputs(dev, gen, bh, s, hd, init, decay)
         if chunk is None:
@@ -1611,10 +1678,25 @@ def phase_rwkv(dev):
     prefill_step = make_prefill_step(cfg, use_flash=True)
     decode = make_decode_step(cfg)
 
+    # the warm-up prefill also records what each K8 launch is handed: the
+    # model's own (B, S, H, hd) bf16 tensors, not a folded float32 copy
+    launch, handed = ws._launch_wkv6, []
+
+    def spy(r, k, v, w, u, state):
+        handed.append((tuple(r.shape), str(r.dtype), str(w.dtype)))
+        return launch(r, k, v, w, u, state)
+
     ws.reset_launches()
-    _, warm_cache = prefill_step(params, tokens, max_len=RWKV_MAX_LEN)
+    ws._launch_wkv6 = spy
+    try:
+        _, warm_cache = prefill_step(params, tokens, max_len=RWKV_MAX_LEN)
+    finally:
+        ws._launch_wkv6 = launch
     torch.cuda.synchronize()
     assert ws.LAUNCHES["wkv6"] == cfg.n_layers, ws.LAUNCHES
+    model_layout = ((RWKV_BATCH, RWKV_PROMPT, cfg.n_heads, cfg.head_dim_),
+                    "torch.bfloat16", "torch.float32")
+    assert handed == [model_layout] * cfg.n_layers, handed
 
     ws.reset_launches()
     t0 = time.perf_counter()
@@ -1659,6 +1741,9 @@ def phase_rwkv(dev):
         "decode_tok_s": RWKV_BATCH * RWKV_DECODE_STEPS / t_decode,
         "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
         "wkv6_launches_per_prefill": launches["wkv6"],
+        "wkv6_handed": {"r_shape": list(model_layout[0]),
+                        "r_dtype": model_layout[1],
+                        "w_dtype": model_layout[2]},
         "sample_tokens": gen[0, :8].tolist(),
         "decode_profile": profile,
     }
@@ -1809,9 +1894,9 @@ def phase_quant_model(params):
 
 
 def rwkv_wkv_args(cfg, params, tokens):
-    """The (BH, S, hd) r, k, v, w, u and zero state the main path hands K8
-    at layer 0."""
-    from repro_torch.kernels.rwkv6_scan.ops import bh_layout
+    """The r, k, v, w (B, S, H, hd), u (H, hd) and zero state that the main
+    path hands ``ops.wkv6`` at layer 0, as it hands them (bf16 r, k, v and
+    u, float32 w and state)."""
     from repro_torch.models.layers import rms_norm
     from repro_torch.models.model import embed_inputs
     from repro_torch.models.rwkv6 import _mix_inputs
@@ -1824,38 +1909,88 @@ def rwkv_wkv_args(cfg, params, tokens):
     x_prev = torch.zeros((b, d), dtype=h.dtype, device=h.device)
     r, k, v, _, w = _mix_inputs(attn, cfg, h, x_prev)
     state = torch.zeros((b, cfg.n_heads, hd, hd), device=h.device)
-    return bh_layout(r, k, v, w, attn.u, state)
+    return r, k, v, w, attn.u, state
 
 
-def wkv6_entry(launches, main_args, errs, prefill_s):
+def wkv6_entry(launches, ops_args, errs, prefill_s):
     """K8's entry of the ``{"kernels": [...]}`` line, at the main path's
-    layer-0 inputs (BH = 128, S = 2,048, hd = 64, float32).  No single
-    PyTorch call computes the WKV6 recurrence."""
+    layer-0 launch (B 4, S 2,048, H 32, hd 64; bf16 r, k, v in the model's
+    layout, as ``ops.wkv6`` hands them over), and at the same work folded
+    to (BH, S, hd) float32 by ``bh_layout``, as the port ran it before;
+    each with its own bound, and median / min / max over REPS.  Also
+    ``ops.wkv6`` whole (its peak device memory above its inputs must be
+    its outputs', so it copies no input), the ``bh_layout`` copies it no
+    longer makes, the library's tiling and the compiler's report.  No
+    single PyTorch call computes the WKV6 recurrence."""
+    from repro_torch.kernels.rwkv6_scan import ops
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan as ws
 
-    got = ws._launch_wkv6(*main_args)
-    torch.cuda.synchronize()
-    err = wkv_err(got, ws._wkv6_plain(*main_args))
-    errs.append(err)
-    log(json.dumps({"parity": K8["name"], "case": "main-path-layer0",
-                    "out": list(got[0].shape), "max_abs_err": err,
-                    "tol": WKV_TOL}))
+    r, k, v, w, u, state = ops_args
+    main_args = (r, k, v, w, u.float(), state)
+    bh_args = ws.bh_layout(*main_args)
+    for case, args, plain in (("main-path-layer0", main_args,
+                               ws._wkv6_model_plain),
+                              ("main-path-layer0-bh-f32", bh_args,
+                               ws._wkv6_plain)):
+        got = ws._launch_wkv6(*args)
+        torch.cuda.synchronize()
+        err = wkv_err(got, plain(*args))
+        errs.append(err)
+        log(json.dumps({"parity": K8["name"], "case": case,
+                        "out": list(got[0].shape), "max_abs_err": err,
+                        "tol": WKV_TOL}))
+    del got
     bms, by, work = wkv_bound(main_args)
-    ms = time_ms(lambda: ws._launch_wkv6(*main_args))
+    stats = time_stats(lambda: ws._launch_wkv6(*main_args))
+    bh_bms, bh_by, bh_work = wkv_bound(bh_args)
+    bh_stats = time_stats(lambda: ws._launch_wkv6(*bh_args))
+
+    # ops.wkv6 whole: no input copied on the card, so its peak above what
+    # was allocated before is y, the final state and u upcast
+    dev = r.device
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    y, s_final = ops.wkv6(*ops_args)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(dev) - before
+    out_bytes = 4 * (y.numel() + s_final.numel() + u.numel())
+    del y, s_final
+    assert extra <= out_bytes + (1 << 20), (extra, out_bytes)
+
     entry = dict(K8)
     entry.update({
         "launches": launches["wkv6"],
         "max_abs_err": max(errs),
-        "ms": ms,
-        "plain_ms": time_ms(lambda: ws._wkv6_plain(*main_args)),
+        "ms": stats["median"], "ms_min": stats["min"], "ms_max": stats["max"],
+        "plain_ms": time_ms(lambda: ws._wkv6_model_plain(*main_args)),
         "bound_ms": bms, "bound_by": by,
         "library_ms": None,
         "library_note": "no single PyTorch call computes the WKV6 "
                         "recurrence",
-        "timed_at": "one prefill layer of rwkv6-1.6b: BH=128, S=2048, "
-                    "hd=64, float32",
+        "timed_at": "one prefill layer of rwkv6-1.6b: B=4, S=2048, H=32, "
+                    "hd=64, bf16 r/k/v in (B, S, H, hd), float32 w and "
+                    "state, as ops.wkv6 hands them over",
         "work": work,
-        "share_of_prefill": ms * launches["wkv6"] / (prefill_s * 1e3),
+        "bh_f32": {
+            "ms": bh_stats["median"], "ms_min": bh_stats["min"],
+            "ms_max": bh_stats["max"], "bound_ms": bh_bms,
+            "bound_by": bh_by, "work": bh_work,
+            "timed_at": "the same work folded by bh_layout: (BH, S, hd) "
+                        "float32, BH=128",
+        },
+        "ops_wkv6_ms": time_stats(lambda: ops.wkv6(*ops_args)),
+        "ops_wkv6_peak_extra_bytes": extra,
+        "ops_wkv6_out_bytes": out_bytes,
+        "bh_layout_copies_ms": time_stats(lambda: ws.bh_layout(*main_args)),
+        "config": {"bf16": ws.config(64, torch.bfloat16),
+                   "float32": ws.config(64, torch.float32)},
+        "ptxas_report": {
+            "bf16": ptxas_report("rwkv6_scan", "wkv6_kernelILi1ELi64E"),
+            "float32": ptxas_report("rwkv6_scan", "wkv6_kernelILi0ELi64E"),
+        },
+        "share_of_prefill": stats["median"] * launches["wkv6"]
+        / (prefill_s * 1e3),
     })
     return entry
 

@@ -12,7 +12,10 @@ does what the reference does: ``wkv_chunked`` at S >= 64 with S a multiple
 of 16, else ``wkv_scan``, in torch.  With ``use_flash=True`` the prompt's
 recurrence goes through ``kernels.rwkv6_scan.ops.wkv6``: K8 on a card, its
 plain version on the CPU (the reference's model never reaches its Pallas
-kernel; its twins stay here as the comparison).  Decode is one
+kernel; its twins stay here as the comparison).  ``ops.wkv6`` no longer
+folds the layout: K8 reads the (B, S, H, hd) r, k, v (in the model's
+type) and the float32 w and state that ``_mix_inputs`` makes, as they
+are, and writes y contiguous in (B, S, H, hd).  Decode is one
 ``wkv_scan`` step over the (B, H, hd, hd) state, as in the reference.
 
 Simplifications vs the full Finch release (as in the reference): single-

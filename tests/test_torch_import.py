@@ -295,14 +295,16 @@ def test_flash_c_entries_are_declared_and_its_launch_is_counted():
     assert 'LAUNCHES["flash"] += 1' in body
 
 
-@pytest.mark.parametrize("name,prefix,key", [
-    ("rwkv6_scan", "wkv6", "wkv6"),
-    ("quantize", "quantize", "quantize"),
+@pytest.mark.parametrize("name,prefix,key,extra", [
+    ("rwkv6_scan", "wkv6", "wkv6", {"wkv6_config"}),
+    ("quantize", "quantize", "quantize", set()),
 ])
 def test_wkv6_and_quantize_c_entries_are_declared_and_launches_counted(
-        name, prefix, key):
+        name, prefix, key, extra):
     """``rwkv6_scan.cu`` (K8) and ``quantize.cu`` (K6): the ``extern "C"``
-    functions are exactly the ctypes declarations, the source is in
+    functions are exactly the ctypes declarations (K8 also reports its
+    configuration, ``wkv6_config``), each declares as many ctypes
+    arguments as its C prototype has parameters, the source is in
     ``build.SOURCES``, and the launch function bumps its counter once."""
     import importlib
     import inspect
@@ -317,7 +319,11 @@ def test_wkv6_and_quantize_c_entries_are_declared_and_launches_counted(
     c_entries = set(re.findall(
         rf"^(?:int|const char\*) ({prefix}_\w+)\(", text, re.M))
     assert c_entries == set(mod._SIGNATURES) == {
-        f"{prefix}_forward", f"{prefix}_error_string"}
+        f"{prefix}_forward", f"{prefix}_error_string"} | extra
+    for fn in c_entries:
+        params = re.search(rf"^(?:int|const char\*) {fn}\(([^)]*)\)",
+                           text, re.M).group(1)
+        assert len(mod._SIGNATURES[fn][0]) == len(params.split(",")), fn
     launch = getattr(mod, f"_launch_{prefix}")
     body = inspect.getsource(launch)
     assert body.count("LAUNCHES[") == 1

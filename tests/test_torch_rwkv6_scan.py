@@ -192,3 +192,181 @@ def test_launch_refuses_cpu_tensors_and_other_widths():
     assert ws.HEAD_DIMS == (16, 32, 64)
     with pytest.raises(ValueError, match="different devices"):
         ws.wkv6_scan(r, r, r, r, u, s0.to("meta"))
+
+
+# ---------------------------------------------------------------------------
+# K8 on the model's (B, S, H, hd) layout: ops.wkv6 hands it r, k, v in the
+# model's type (bf16 or float32), w and the state float32, as they are
+# ---------------------------------------------------------------------------
+
+MODEL_SHAPES = [(2, 64, 3, 32, 32), (1, 70, 2, 64, 64), (2, 48, 2, 16, 16)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b,s,h,hd,chunk", MODEL_SHAPES)
+def test_ops_wkv6_model_layout_matches_interpret_kernel(b, s, h, hd, chunk,
+                                                        dtype):
+    """``ops.wkv6`` on (B, S, H, hd) r, k, v of the model's type (u too),
+    float32 w and state, against the reference's ``ops.wkv6`` (interpret
+    mode) on the same values; S = 70 is ragged (the reference pads it).
+    y comes back float32 and contiguous in (B, S, H, hd)."""
+    r, k, v, w, u, s0 = _inputs(3 * s + hd, b, s, h, hd)
+    tdt = getattr(torch, dtype)
+    rt, kt, vt, ut = (torch.from_numpy(a).to(tdt) for a in (r, k, v, u))
+    y, sf = wkv6(rt, kt, vt, torch.from_numpy(w), ut, torch.from_numpy(s0),
+                 chunk=chunk)
+    assert y.shape == (b, s, h, hd) and y.dtype == torch.float32
+    assert y.is_contiguous() and sf.shape == (b, h, hd, hd)
+    same = [t.float().numpy() for t in (rt, kt, vt)]
+    yk, sk = ref_wkv6(*(jnp.asarray(a) for a in (*same, w)),
+                      jnp.asarray(ut.float().numpy()), jnp.asarray(s0),
+                      chunk=chunk, interpret=True)
+    _close(y, yk)
+    _close(sf, sk)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_model_layout_twin_is_bh_layout_then_plain(dtype):
+    """``_wkv6_model_plain`` (what ``ops.wkv6`` runs on the CPU) equals
+    ``bh_layout`` -> ``_wkv6_plain`` -> unfold, bit for bit."""
+    b, s, h, hd = 2, 37, 3, 16
+    r, k, v, w, u, s0 = _inputs(11, b, s, h, hd)
+    args = (*(torch.from_numpy(a).to(dtype) for a in (r, k, v)),
+            torch.from_numpy(w), torch.from_numpy(u), torch.from_numpy(s0))
+    y, sf = ws._wkv6_model_plain(*args)
+    yp, sp = ws._wkv6_plain(*ws.bh_layout(*args))
+    assert y.is_contiguous()
+    assert torch.equal(y, yp.reshape(b, h, s, hd).transpose(1, 2))
+    assert torch.equal(sf, sp.reshape(b, h, hd, hd))
+
+
+# chip_smoke.py's K8 tolerance, (atol, rtol), and the row groups a (b, h)'s
+# state is split into (hd / rows per thread: 8 at hd 16, 32 and 64)
+WKV_TOL = (1e-4, 1e-4)
+ROW_GROUPS = 8
+
+
+def _k8_rehearsal(r, k, v, w, u, state):
+    """K8's arithmetic in plain float32 torch on (BH, S, hd): the bonus
+    factored out (a_t = sum_i r_i u_i k_i, added as v_j a_t), steps in
+    pairs over the state before the pair (y_1 = r_1 . S, y_2 = (r_2 w_1)
+    . S + (r_2 . k_1) v_1, S <- (w_1 w_2) S + (k_1 w_2) v_1 + k_2 v_2), a
+    ragged S padded with w = 1, r = k = v = 0, and each y the sum of its
+    ROW_GROUPS partials in group order, then + v a, then + v_1 c."""
+    bh, s, hd = r.shape
+    if s % 2:
+        pad = [torch.zeros((bh, 1, hd)) for _ in range(3)]
+        r, k, v = (torch.cat([a, z], 1) for a, z in zip((r, k, v), pad))
+        w = torch.cat([w, torch.ones((bh, 1, hd))], 1)
+    rows = hd // ROW_GROUPS
+    a = (r * u[:, None] * k).sum(-1)  # (BH, S') bonus of each step
+
+    def partial_sum(x, st):  # sum over row groups, in group order
+        parts = (x[..., None] * st).reshape(bh, ROW_GROUPS, rows, hd).sum(2)
+        y = parts[:, 0]
+        for g in range(1, ROW_GROUPS):
+            y = y + parts[:, g]
+        return y
+
+    ys = []
+    for t in range(0, r.shape[1], 2):
+        r1, r2, k1, k2 = r[:, t], r[:, t + 1], k[:, t], k[:, t + 1]
+        v1, v2, w1, w2 = v[:, t], v[:, t + 1], w[:, t], w[:, t + 1]
+        c = (r2 * k1).sum(-1)
+        ys.append(partial_sum(r1, state) + v1 * a[:, t, None])
+        ys.append(partial_sum(r2 * w1, state) + v2 * a[:, t + 1, None]
+                  + v1 * c[:, None])
+        kv = (k1 * w2)[..., None] * v1[:, None] + k2[..., None] * v2[:, None]
+        state = (w1 * w2)[..., None] * state + kv
+    return torch.stack(ys, 1)[:, :s], state
+
+
+#: chip_smoke.py's WKV_PARITY_CASES without the chunk: (BH, S, hd, initial
+#: state, decays)
+REHEARSAL_CASES = [
+    (8, 128, 64, "zero", "model"), (8, 2049, 64, "state", "model"),
+    (8, 64, 64, "state", "extreme"), (8, 128, 32, "state", "extreme"),
+    (8, 70, 32, "zero", "extreme"), (8, 64, 16, "state", "model"),
+    (4, 2049, 16, "zero", "extreme"),
+]
+
+
+@pytest.mark.parametrize("bh,s,hd,init,decay", REHEARSAL_CASES)
+def test_kernel_arithmetic_meets_the_cards_tolerance(bh, s, hd, init, decay):
+    """K8's arithmetic (factored bonus, step pairs, partials summed by row
+    group), rehearsed in float32 on the CPU at chip_smoke.py's parity
+    inputs, is within WKV_TOL of ``_wkv6_plain``, y and final state; the
+    extreme decays (log w up to 2.5, w near 0) included."""
+    rng = np.random.default_rng(bh * s + hd)
+    r, k, v = (torch.from_numpy(rng.standard_normal((bh, s, hd)).astype(
+        np.float32)) for _ in range(3))
+    hi = -4.0 if decay == "model" else 2.5
+    logw = rng.uniform(-6.0, hi, (bh, s, hd)).astype(np.float32)
+    w = torch.from_numpy(np.exp(-np.exp(logw)).astype(np.float32))
+    u = torch.from_numpy((0.1 * rng.standard_normal((bh, hd))).astype(
+        np.float32))
+    s0 = torch.zeros((bh, hd, hd))
+    if init == "state":
+        s0 = torch.from_numpy((0.1 * rng.standard_normal(
+            (bh, hd, hd))).astype(np.float32))
+    got = _k8_rehearsal(r, k, v, w, u, s0)
+    want = ws._wkv6_plain(r, k, v, w, u, s0)
+    atol, rtol = WKV_TOL
+    for g, wt in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert torch.allclose(g, wt, atol=atol, rtol=rtol), float(
+            (g - wt).abs().max())
+
+
+def _model_args(dtype=torch.bfloat16, b=2, s=8, h=3, hd=16):
+    rkv = [torch.zeros((b, s, h, hd), dtype=dtype) for _ in range(3)]
+    return [*rkv, torch.zeros((b, s, h, hd)), torch.zeros((h, hd)),
+            torch.zeros((b, h, hd, hd))]
+
+
+def _refusals():
+    """(what, change to the model-layout arguments, expected message)."""
+    def swap(i, t):
+        def change(args):
+            args[i] = t
+            return args
+        return change
+
+    def strided(args):  # (B, S, H, hd) as a transposed (B, H, S, hd) view
+        args[0] = torch.zeros((2, 3, 8, 16), dtype=torch.bfloat16
+                              ).transpose(1, 2)
+        return args
+
+    return [
+        ("r-float16", swap(0, torch.zeros((2, 8, 3, 16),
+                                          dtype=torch.float16)), "dtype"),
+        ("k-other-type", swap(1, torch.zeros((2, 8, 3, 16))), "dtype"),
+        ("w-bfloat16", swap(3, torch.zeros((2, 8, 3, 16),
+                                           dtype=torch.bfloat16)), "dtype"),
+        ("u-bfloat16", swap(4, torch.zeros((3, 16), dtype=torch.bfloat16)),
+         "dtype"),
+        ("state-bfloat16", swap(5, torch.zeros((2, 3, 16, 16),
+                                               dtype=torch.bfloat16)),
+         "dtype"),
+        ("r-not-contiguous", strided, "contiguous"),
+        ("v-not-contiguous", swap(2, torch.zeros(
+            (2, 8, 3, 32), dtype=torch.bfloat16)[..., ::2]), "contiguous"),
+        ("u-per-batch-rows", swap(4, torch.zeros((6, 16))), "shape"),
+        ("state-folded", swap(5, torch.zeros((6, 16, 16))), "shape"),
+        ("head-dim-48", lambda a: _model_args(hd=48), "head_dim"),
+        ("on-the-cpu", lambda a: a, "CUDA"),
+    ]
+
+
+@pytest.mark.parametrize("what,change,match", _refusals(),
+                         ids=[c[0] for c in _refusals()])
+def test_launch_refuses_model_layout_tensors_it_does_not_take(what, change,
+                                                              match):
+    """The launch takes the model's tensors as they are or raises before
+    any launch: another type, a view that is not contiguous or another
+    shape is refused, never copied; well-formed CPU tensors are refused
+    for their device."""
+    ws.reset_launches()
+    with pytest.raises(ValueError, match=match):
+        ws._launch_wkv6(*change(_model_args()))
+    assert ws.LAUNCHES == {"wkv6": 0}
