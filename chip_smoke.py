@@ -16,7 +16,13 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    out-of-range class ids, negative features and thresholds (K2-K4),
    depths 8 and 12, 1,021 trees x 65,536 rows in one case, blocks that
    need more than 48 KB of shared memory in another, and ``max_depth``
-   two levels past the heap in two more;
+   two levels past the heap in two more; then K3 and K4 alone on what
+   their tiling introduces: depth 14 (trees partly staged), thresholds
+   >= 2**15 and 40,000 features (the wide node words; x read from global
+   memory), C = 40 (integer vote atomics), one tree, one row, groups of
+   more than 128 trees, T not a multiple of the tree group, K3 chunks of
+   5 trees, 67 features (the x tile's bytes taken from the trees' budget);
+   for these the library's configuration is held equal to its plain twin;
 4. main path: ``ForestServer.from_forest(forest, device="cuda")`` serves a
    seeded synthetic forest (100 trees, depth 8, 8 features, 32 bins) for
    each task through ``predict`` / ``serve`` / ``serve_safe`` and
@@ -45,7 +51,10 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    regression trees equal up to tie flips whose float64 gains differ by
    <= 1e-5 relative (``forest.compare.first_divergence``);
 7. times: CUDA events, median of 25 after warm-up — each kernel and its
-   plain version at its main path's shapes and at the large phase-3 shape;
+   plain version at its main path's shapes and at the large phase-3 shape
+   (K3 and K4 with the configuration the library reports, checked
+   against its plain twin, their record form and ``-Xptxas -v``
+   report);
    then, on the host clock, warm serving ms per 1,024-row batch and its
    stages (plan lookup, pack lookup, the K1 run with its upload and copy
    back, finalize), with K1's share of the batch;
@@ -118,6 +127,11 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    builds' seconds, each engine's cold and warm batch with its stages,
    K1's share, and K5 at S = 1 and 4, in one ``{"fleet": ...}`` line.
 
+``python3 chip_smoke.py --forest-times`` runs only K3 and K4 at the two
+Liberty shapes and the large one (the same command times a parent tree's
+kernels); ``--forest-profile`` adds ``max_depth`` cut to 0, 2, ..., 12
+and a ``torch.profiler`` split of each call by kernel.
+
 Votes must be equal; regression sums are held at rtol = atol = 1e-5 (the
 reference's own serving tolerance); on the card K1-K4 equal their plain
 versions bit for bit, and K7 is held to its plain version at the
@@ -172,6 +186,8 @@ K4 = {
     "source": "src/repro_torch/kernels/tree_predict/csrc/tree_predict.cu",
     "replaces": "src/repro/kernels/tree_predict/tree_predict.py:158",
 }
+#: The kernels a parity case runs when it names them (K3, K4).
+FOREST = ("agg", "per_tree")
 
 K5 = {
     "name": "seg_sharded",
@@ -448,9 +464,11 @@ def k2_inputs(dev, case, rng):
 
 def forest_inputs(dev, case, rng):
     """K3 / K4 inputs: K2's random heaps (negative features and
-    thresholds, out-of-range class ids) without segments."""
+    thresholds, out-of-range class ids) without segments; 8 features and
+    32 bins unless the case sets ``d`` / ``bins``."""
     t, depth, d, nb, c, n = (
-        case["trees"], case["depth"], 8, 32, case["classes"], case["rows"]
+        case["trees"], case["depth"], case.get("d", 8), case.get("bins", 32),
+        case["classes"], case["rows"],
     )
     feature, threshold, is_internal, fit = random_heaps(
         rng, t, depth, d, nb, c, negative=True,
@@ -468,7 +486,8 @@ def forest_inputs(dev, case, rng):
 
 
 def k3_inputs(dev, case, rng):
-    return (*forest_inputs(dev, case, rng), case["classes"], 8, 256)
+    return (*forest_inputs(dev, case, rng), case["classes"],
+            *case.get("k3_blocks", (8, 256)))
 
 
 def k4_inputs(dev, case, rng):
@@ -668,6 +687,51 @@ PARITY_CASES = [
      "rows": 2001, "segs": 3, "sorted": False, "past_heap": True},
     {"name": "reg-d8-past-heap", "classes": 0, "depth": 8, "trees": 99,
      "rows": 2001, "segs": 3, "sorted": False, "past_heap": True},
+    # K3 and K4 only (K1's fused code word cannot hold d = 40,000): what
+    # their tiling introduces.  Depth 14: trees only partly staged
+    {"name": "cls7-d14", "classes": 7, "depth": 14, "trees": 37,
+     "rows": 3001, "kernels": FOREST},
+    {"name": "reg-d14", "classes": 0, "depth": 14, "trees": 37,
+     "rows": 3001, "kernels": FOREST},
+    # thresholds up to 70,000 >= 2**15: the wide records
+    {"name": "cls3-wide-thresholds", "classes": 3, "depth": 10,
+     "trees": 45, "rows": 4001, "bins": 70000, "kernels": FOREST},
+    {"name": "reg-wide-thresholds", "classes": 0, "depth": 10, "trees": 45,
+     "rows": 4001, "bins": 70000, "kernels": FOREST},
+    # 40,000 features: the wide records, x read from global memory; C = 40
+    # counts votes with integer atomics
+    {"name": "cls40-d40000", "classes": 40, "depth": 8, "trees": 17,
+     "rows": 257, "d": 40000, "kernels": FOREST},
+    {"name": "reg-d40000", "classes": 0, "depth": 8, "trees": 17,
+     "rows": 257, "d": 40000, "kernels": FOREST},
+    # one tree; one row
+    {"name": "cls2-t1", "classes": 2, "depth": 12, "trees": 1, "rows": 4099,
+     "kernels": FOREST},
+    {"name": "reg-t1", "classes": 0, "depth": 12, "trees": 1, "rows": 4099,
+     "kernels": FOREST},
+    {"name": "cls7-n1", "classes": 7, "depth": 12, "trees": 203, "rows": 1,
+     "kernels": FOREST},
+    {"name": "reg-n1", "classes": 0, "depth": 12, "trees": 203, "rows": 1,
+     "kernels": FOREST},
+    # groups of more than 128 trees (K3's packed vote counts carry into
+    # its registers every 128 trees)
+    {"name": "cls5-d4-big-groups", "classes": 5, "depth": 4, "trees": 700,
+     "rows": 3001, "kernels": FOREST},
+    {"name": "reg-d4-big-groups", "classes": 0, "depth": 4, "trees": 700,
+     "rows": 3001, "kernels": FOREST},
+    # T not a multiple of the tree group; K3's chunks of 5 trees
+    {"name": "cls7-ragged-groups", "classes": 7, "depth": 10, "trees": 301,
+     "rows": 2003, "kernels": FOREST},
+    {"name": "reg-ragged-groups-bt5", "classes": 0, "depth": 10,
+     "trees": 301, "rows": 2003, "k3_blocks": (5, 256), "kernels": FOREST},
+    # 67 features: the 137,216-byte x tile beside a full tree budget would
+    # pass a CTA's shared memory; it comes out of the trees' budget
+    {"name": "cls2-d67-depth12", "classes": 2, "depth": 12, "trees": 12,
+     "rows": 3001, "d": 67, "kernels": FOREST},
+    {"name": "reg-d67-t96", "classes": 0, "depth": 8, "trees": 96,
+     "rows": 3001, "d": 67, "kernels": FOREST},
+    {"name": "cls3-d67-t96", "classes": 3, "depth": 8, "trees": 96,
+     "rows": 3001, "d": 67, "kernels": FOREST},
 ]
 
 
@@ -693,13 +757,20 @@ def phase_parity(dev, errs):
     large = {}
     for case in PARITY_CASES:
         for kern, launch, plain, _ in kernel_table():
+            if kern["name"] not in case.get("kernels", makers):
+                continue
             args = makers[kern["name"]](dev, case, rng)
             got = launch(*args)
             torch.cuda.synchronize()
             err = max_abs_err(got, plain(*args))
             errs[kern["name"]].append(err)
-            log(json.dumps({"parity": kern["name"], "case": case["name"],
-                            "out": list(got.shape), "max_abs_err": err}))
+            line = {"parity": kern["name"], "case": case["name"],
+                    "out": list(got.shape), "max_abs_err": err}
+            if kern["name"] in FOREST:
+                cfg = forest_config_checked(kern["name"], args)
+                line["config"] = {k: cfg[k] for k in (
+                    "levels", "group", "n_groups", "x_smem", "smem", "walks")}
+            log(json.dumps(line))
             if case["name"] == "cls2-d8-large":
                 large[kern["name"]] = args
     return large
@@ -1092,7 +1163,7 @@ def kernel_entry(kern, launch, plain, parts, launches, per_task_args, errs,
             "shape": {"rows": pt["xb"].shape[0],
                       "trees": int(pt["feature"].shape[0]),
                       "heap": int(pt["feature"].shape[1])},
-            "ms": time_ms(lambda: launch(*args)),
+            "ms": time_ms(bound_launch(kern["name"], launch, args)),
             "plain_ms": time_ms(lambda: plain(*args)),
             "bound_ms": bms, "bound_by": by, "work": work,
         }
@@ -1112,11 +1183,174 @@ def kernel_entry(kern, launch, plain, parts, launches, per_task_args, errs,
         "case": "cls2-d8-large",
         "rows": pt["xb"].shape[0],
         "trees": int(pt["feature"].shape[0]),
-        "ms": time_ms(lambda: launch(*large_args)),
+        "ms": time_ms(bound_launch(kern["name"], launch, large_args)),
         "plain_ms": time_ms(lambda: plain(*large_args), reps=20),
         "bound_ms": bms, "bound_by": by, "work": work,
     }
     return entry
+
+
+def forest_shape_of(name, args):
+    """(t, h, n, d, max_depth, n_classes, per_tree, block_trees, form) of
+    K3 / K4 inputs."""
+    from repro_torch.kernels.tree_predict import tree_predict as tp
+
+    xb, feature, threshold, max_depth = args[0], args[1], args[2], args[5]
+    per_tree = name == K4["name"]
+    c, bt = (0, args[6]) if per_tree else (args[6], args[7])
+    form = tp._record_form(xb.shape[1], int(threshold.abs().max()))
+    return (feature.shape[0], feature.shape[1], xb.shape[0], xb.shape[1],
+            max_depth, c, per_tree, bt, form)
+
+
+def bound_launch(name, launch, args, **kw):
+    """A call of ``launch`` on ``args`` for timing.  K3 and K4 get their
+    record form, as their entry points hand it over: left to the launch,
+    it would read the thresholds' maximum from the card, and that sync
+    would put the wrapper's host time inside the timed window.  A launch
+    that takes no form (the parent tree's, under --forest-times) is
+    called as it is."""
+    import inspect
+
+    if name in FOREST and "form" in inspect.signature(launch).parameters:
+        kw["form"] = forest_shape_of(name, args)[-1]
+    return lambda: launch(*args, **kw)
+
+
+def forest_config_checked(name, args):
+    """The configuration the library reports for these inputs, held equal
+    to its plain twin's at the same resident CTA count."""
+    from repro_torch.kernels.tree_predict import tree_predict as tp
+
+    shape = forest_shape_of(name, args)
+    card = tp.forest_config(*shape)
+    twin = tp._forest_config(*shape, resident=card["resident"])
+    assert card == twin, (name, card, twin)
+    return card
+
+
+def forest_ptxas(cfg) -> dict | None:
+    """``-Xptxas -v``'s registers and spills of the forest_kernel
+    instantiation a configuration runs (form, mode, x in shared memory,
+    walks)."""
+    import re
+
+    from repro_torch.kernels import build
+
+    text = build.build_logs.get("tree_predict")
+    if text is None:
+        return None
+    form = ("NarrowForm", "WideForm")[cfg["form"]]
+    args = (f"{form}ELi{cfg['mode']}ELb{cfg['x_smem']}"
+            f"ELi{cfg['walks']}EE")
+    for name in re.findall(r"Compiling entry function '(\S+)'", text):
+        if "forest_kernel" in name and args in name:
+            return {"entry": name, **ptxas_report("tree_predict", name)}
+    return None
+
+
+def forest_report(name, per_task_args, large_args):
+    """K3's / K4's part of its ``{"kernels"}`` entry: the configuration
+    the library reports at the main path's shapes and at the large parity
+    shape (checked against the plain twin), the record form and the
+    ``-Xptxas -v`` report of the instantiation the classification shape
+    runs."""
+    configs = {task: forest_config_checked(name, a)
+               for task, a in per_task_args.items()}
+    configs["cls2-d8-large"] = forest_config_checked(name, large_args)
+    main_cfg = configs["classification"]
+    return {
+        "config": configs,
+        "record_form": ("narrow: 4-byte node words", "wide: 8-byte node "
+                        "words")[main_cfg["form"]],
+        "ptxas": forest_ptxas(main_cfg),
+        "prologue": "pack_kernel, one launch inside each K3 / K4 call "
+                    "(timed and counted with it)",
+    }
+
+
+def forest_shapes(dev):
+    """K3's and K4's inputs at the two Liberty shapes (phase 5's forests,
+    trained again from seed 0) and at the large parity shape."""
+    from repro_torch.forest import train_forest
+
+    shapes = {}
+    for task in LIBERTY:
+        spec, x, y, binner = liberty(task)
+        model = train_forest(
+            x, y, binner, n_trees=TRAIN_TREES, max_depth=TRAIN_DEPTH,
+            task=task, n_classes=spec.n_classes, seed=0, device=dev,
+        )
+        shapes[task] = forest_args(model, x, dev)
+    large = next(c for c in PARITY_CASES if c["name"] == "cls2-d8-large")
+    shapes["cls2-d8-large"] = {
+        K3["name"]: k3_inputs(dev, large, np.random.default_rng(0)),
+        K4["name"]: k4_inputs(dev, large, np.random.default_rng(0)),
+    }
+    return shapes
+
+
+def forest_times_main(profile: bool) -> None:
+    """``--forest-times``: K3 and K4 alone at ``forest_shapes``, each held
+    against its plain version, median / min / max of REPS calls — the
+    same command runs the parent's tree (only the launch and plain
+    functions are used).  ``--forest-profile`` adds
+    ``forest_depth_profile`` (this tree only)."""
+    from repro_torch.kernels import build
+
+    dev = phase_environment()
+    build.build(["tree_predict"])
+    shapes = forest_shapes(dev)
+    for kern, launch, plain, _ in kernel_table()[2:]:
+        name = kern["name"]
+        for where, args in shapes.items():
+            a = args[name]
+            run = bound_launch(name, launch, a)
+            max_abs_err(run(), plain(*a))
+            log(json.dumps({"forest_times": name, "shape": where,
+                            **time_stats(run)}))
+    if profile:
+        forest_depth_profile(shapes["classification"])
+    print(json.dumps({"ok": True}), flush=True)
+
+
+def forest_depth_profile(args):
+    """--forest-profile: K3 and K4 at the classification Liberty shape with
+    ``max_depth`` cut to 0, 2, ..., 12 (0: the prologue, staging, x tiles
+    and output alone), each held against its plain version."""
+    for kern, launch, plain, _ in kernel_table()[2:]:
+        name = kern["name"]
+        a = list(args[name])
+        for depth in range(0, TRAIN_DEPTH + 1, 2):
+            a[5] = depth
+            run = bound_launch(name, launch, tuple(a))
+            max_abs_err(run(), plain(*a))
+            log(json.dumps({"depth_profile": name, "max_depth": depth,
+                            "ms": time_ms(run)}))
+        log(json.dumps({"kernel_split": name,
+                        **profile_kernels(bound_launch(name, launch,
+                                                       args[name]))}))
+
+
+def profile_kernels(fn, calls: int = 10) -> dict:
+    """Device ms per call of each kernel ``fn`` launches, from
+    ``torch.profiler`` over ``calls`` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "device_time_total", None)
+        if us is None:
+            us = getattr(evt, "cuda_time_total", 0.0)
+        if us:
+            split[evt.key[:60]] = us / calls / 1e3
+    return split
 
 
 # ---------------------------------------------------------------------------
@@ -2364,11 +2598,13 @@ def main() -> None:
             launches, args = train_launches, train_args
             timed_at = (f"one call on the {TRAIN_TREES}-tree Liberty forest, "
                         "classification, all rows")
+        task_args = {task: a[name] for task, a in args.items()}
         out.append(kernel_entry(
-            kern, launch, plain, parts, launches,
-            {task: a[name] for task, a in args.items()}, errs[name],
+            kern, launch, plain, parts, launches, task_args, errs[name],
             timed_at, large[name],
         ))
+        if name in FOREST:
+            out[-1]["forest"] = forest_report(name, task_args, large[name])
 
     from repro_torch.serving import engines
 
@@ -2461,4 +2697,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 1 and sys.argv[1] in ("--forest-times",
+                                             "--forest-profile"):
+        forest_times_main(sys.argv[1] == "--forest-profile")
+    else:
+        main()

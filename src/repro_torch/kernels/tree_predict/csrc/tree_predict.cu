@@ -1,6 +1,6 @@
 // Tree-predict kernels for Hopper (sm_90a), with a plain C interface for
-// ctypes.  Four kernels; K1-K3 share one aggregating template, K4 writes
-// every (tree, row) leaf:
+// ctypes.  K1 and K2 share one aggregating template; K3 and K4 share the
+// whole-forest kernel (forest_kernel):
 //
 //   K1 (tp_seg_packed) replaces
 //     src/repro/kernels/tree_predict/tree_predict.py:
@@ -14,8 +14,7 @@
 //   K3 (tp_agg) replaces
 //     src/repro/kernels/tree_predict/tree_predict.py:
 //     _tree_predict_agg_kernel
-//     K2's tables and loop with the segment test compiled out: every tree
-//     below T counts for every row.
+//     per row the vote counts (N, C) or the fit sum (N,) over every tree.
 //   K4 (tp_per_tree) replaces
 //     src/repro/kernels/tree_predict/tree_predict.py:
 //     _tree_predict_kernel
@@ -28,30 +27,57 @@
 // (N,), over the trees whose segment id equals the row's (K1, K2) or over
 // all trees (K3); K4 stores each leaf.
 //
-// What bounds them on this card: a walk is a chain of dependent loads (the
-// node decides which node comes next), so a (tree, row) pair costs
-// max_depth load latencies and moves a few bytes per level.  The tables
-// are small next to L2 (100 trees at depth 8: 100 * 511 * 8 B = 0.4 MB) and
-// are re-read by every row block, so the kernels are bound by load latency
-// and the number of pairs in flight, not by HBM bytes or arithmetic.  K4
-// also writes 4 * T * N bytes, coalesced along rows.
+// K1 and K2: a CTA covers the fixed row block [blockIdx.x * block_obs,
+// (blockIdx.x + 1) * block_obs) and runs a (tree, row) pair per thread,
+// each node ONE indexed load per table through the read-only cache.  Each
+// pair writes its masked leaf to shared memory; after a barrier one thread
+// per row folds the chunk's block_trees values in tree order into the
+// row's output, so sums are deterministic (no float atomics).
 //
-// What the design does about it: the TPU kernels gathered nodes with
-// two-level one-hot matrix products because VMEM gathers are slow; here a
-// node is ONE indexed load through the read-only cache (__ldg), for any
-// heap depth (nothing is staged in shared memory, so deep heaps need no
-// second path).  A K1-K3 CTA covers the fixed row block
-// [blockIdx.x * block_obs, (blockIdx.x + 1) * block_obs) and runs a pair
-// per thread, block_obs consecutive rows of ONE tree per warp-run, so a
-// warp's top-level node loads hit the same address.  Each pair writes its
-// masked leaf to shared memory; after a barrier one thread per row folds
-// the chunk's block_trees values in tree order into the row's output, so
-// sums are deterministic (no float atomics) and votes are exact.  A K4 CTA
-// covers block_obs rows of block_trees trees, a row per thread, one tree
-// after another, so each store of a warp is one contiguous run of a row
-// of the output.
-// Making them fast (shared-memory staging of chunks, more CTAs per row
-// block at small N) is later work; this version is the right one.
+// K3 and K4, what bounds them: a walk is a chain of dependent loads (the
+// node decides which node comes next).  A warp runs 32 rows, which after
+// the first levels sit on 32 different nodes, so each level is a
+// divergent gather: through L2 (a depth-12 tree is 106 KB in three tables,
+// a CTA's trees more than an SM's L1) up to four sectors of 32 B per walk
+// and level for a few useful bytes, one chain a thread.  They are bound by
+// load latency, instruction issue and sectors per gather, not by HBM
+// bytes; K4's 4 T N output bytes bound it only at large N T.
+//
+// What the design does about it:
+//  - a prologue (pack_kernel) completes each heap: a node below a leaf,
+//    or below a child past the heap, copies that stop's fit, so every
+//    walk takes the same D = min(max_depth, the heap's last level) levels
+//    with no stop test and no bounds test, and its answer is the fit
+//    where it ends.  It keeps only what a walk reads: one word per node
+//    above level D (4 bytes: the clamped feature and the int16 threshold,
+//    where d <= 2**15 and every |threshold| < 2**15; else 8 bytes) and
+//    the fits of the 2**D nodes on level D;
+//  - a CTA owns a group of trees and a range of rows, a fixed assignment
+//    that gives each group CTAs in proportion to its trees and about fills
+//    the resident CTAs once (forest_config: the SM count and the kernel's
+//    occupancy).  It stages the words of its trees' top levels into shared
+//    memory once, one cp.async.bulk per tree under one mbarrier, and walks
+//    them against tiles of rows whose x it copies into shared memory by
+//    cp.async, with an odd row stride (32 rows reading one feature spread
+//    over the banks); the tile's bytes come out of the trees' budget.
+//    Levels below the staged ones read one word per walk with __ldg;
+//    where a tile of x does not fit (d in the thousands) x is read from
+//    global memory;
+//  - each thread walks its row against W = 8 trees at once (4 when 8
+//    would leave more than a quarter of the group's slots idle): each
+//    level issues the W word loads, then the W x loads, then the W
+//    steps, with no branch;
+//  - K4 stores each leaf at out[tree][row]: a warp's store is a contiguous
+//    run of 32 rows of one output row;
+//  - K3 keeps each row's result in registers for its whole group and
+//    writes it once.  Votes for C <= 8 are 8-bit counts packed in one
+//    64-bit register (C > 8: integer atomics per pair); sums run per chunk
+//    of block_trees trees in tree order, the chunk sums added in chunk
+//    order.  With one group the CTA writes the result; with several each
+//    writes its chunk sums to a (n_chunks, N) scratch that fold_kernel adds
+//    in chunk order (groups are then whole chunks), or adds its integer
+//    counts atomically into the output, which count_kernel turns into
+//    floats.  No float atomics.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -127,11 +153,10 @@ __device__ __forceinline__ float walk(const Nodes& nodes, int64_t base,
   return nodes.leaf(base, idx);
 }
 
-// One CTA per row block.  chunk_lo == nullptr means every chunk
-// [0, n_chunks).  n_trees masks tree ids past the real trees (K2, K3); K1
-// passes T_pad, whose padding trees carry segment -1.  kSegmented = false
-// (K3) compiles the segment test out; obs_seg / tree_seg are then unread.
-template <class Nodes, bool kSegmented>
+// K1 and K2: one CTA per row block.  chunk_lo == nullptr means every chunk
+// [0, n_chunks).  n_trees masks tree ids past the real trees (K2); K1
+// passes T_pad, whose padding trees carry segment -1.
+template <class Nodes>
 __global__ void seg_agg_kernel(Nodes nodes, const int* __restrict__ xb,
                                const int* __restrict__ obs_seg,
                                const int* __restrict__ tree_seg,
@@ -160,8 +185,7 @@ __global__ void seg_agg_kernel(Nodes nodes, const int* __restrict__ xb,
       const int tree = ci * block_trees + t;
       float v = 0.0f;
       int cls = -1;
-      if (row < n && tree < n_trees &&
-          (!kSegmented || tree_seg[tree] == obs_seg[row])) {
+      if (row < n && tree < n_trees && tree_seg[tree] == obs_seg[row]) {
         v = walk(nodes, static_cast<int64_t>(tree) * nodes.h,
                  xb + static_cast<int64_t>(row) * d, d, max_depth);
         cls = __float2int_rz(v);  // astype(int32): truncate toward zero
@@ -194,31 +218,9 @@ __global__ void seg_agg_kernel(Nodes nodes, const int* __restrict__ xb,
 
 constexpr int kMaxThreads = 1024;
 constexpr int kDefaultSmem = 48 * 1024;
+constexpr int kMaxSmem = 232448;
 
-// K4: a CTA covers block_obs rows of the tree blocks blockIdx.y,
-// blockIdx.y + gridDim.y, ... (gridDim.y is capped at 65,535).
-__global__ void per_tree_kernel(SimpleNodes nodes, const int* __restrict__ xb,
-                                float* __restrict__ out, int n, int d,
-                                int n_trees, int max_depth, int block_trees,
-                                int block_obs) {
-  const int n_tree_blocks = (n_trees + block_trees - 1) / block_trees;
-  const int row0 = blockIdx.x * block_obs;
-  for (int r = threadIdx.x; r < block_obs; r += blockDim.x) {
-    const int row = row0 + r;
-    if (row >= n) break;
-    const int* x = xb + static_cast<int64_t>(row) * d;
-    for (int tb = blockIdx.y; tb < n_tree_blocks; tb += gridDim.y) {
-      const int t_end = min(n_trees, (tb + 1) * block_trees);
-      for (int tree = tb * block_trees; tree < t_end; ++tree) {
-        out[static_cast<int64_t>(tree) * n + row] =
-            walk(nodes, static_cast<int64_t>(tree) * nodes.h, x, d,
-                 max_depth);
-      }
-    }
-  }
-}
-
-template <class Nodes, bool kSegmented>
+template <class Nodes>
 int launch(Nodes nodes, const int* xb, const int* obs_seg,
            const int* tree_seg, const int* chunk_lo, const int* chunk_hi,
            float* out, int n, int d, int n_trees, int n_chunks,
@@ -230,16 +232,714 @@ int launch(Nodes nodes, const int* xb, const int* obs_seg,
   const size_t smem = static_cast<size_t>(pairs) * sizeof(float);
   if (smem > kDefaultSmem) {
     cudaError_t e = cudaFuncSetAttribute(
-        seg_agg_kernel<Nodes, kSegmented>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        seg_agg_kernel<Nodes>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int grid = (n + block_obs - 1) / block_obs;
-  seg_agg_kernel<Nodes, kSegmented><<<grid, threads, smem, stream>>>(
+  seg_agg_kernel<Nodes><<<grid, threads, smem, stream>>>(
       nodes, xb, obs_seg, tree_seg, chunk_lo, chunk_hi, out, n, d, n_trees,
       n_chunks, max_depth, n_classes, block_trees, block_obs);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// K3 and K4: the whole-forest kernel
+// ---------------------------------------------------------------------------
+
+// Node words of a completed heap (pack_kernel).  Narrow (4 B): threshold
+// << 16 | feature, the feature clamped to [0, d - 1] < 2**15 and the
+// threshold in int16.  Wide (8 B): feature, threshold.  Fits are a float32
+// array beside the words.
+struct NarrowForm {
+  using Word = uint32_t;
+  __device__ __forceinline__ static int feat(Word w) {
+    return static_cast<int>(w & 0xFFFFu);
+  }
+  __device__ __forceinline__ static int thr(Word w) {
+    return static_cast<int>(w) >> 16;  // arithmetic: sign-extends
+  }
+  __device__ __forceinline__ static Word make(int feat, int thr) {
+    return (static_cast<uint32_t>(thr) << 16) | static_cast<uint32_t>(feat);
+  }
+};
+
+struct WideForm {
+  using Word = uint2;
+  __device__ __forceinline__ static int feat(Word w) {
+    return static_cast<int>(w.x);
+  }
+  __device__ __forceinline__ static int thr(Word w) {
+    return static_cast<int>(w.y);
+  }
+  __device__ __forceinline__ static Word make(int feat, int thr) {
+    return make_uint2(static_cast<uint32_t>(feat), static_cast<uint32_t>(thr));
+  }
+};
+
+constexpr int kNarrow = 0;  // record forms
+constexpr int kWide = 1;
+
+// What a forest launch computes.
+constexpr int kPerTree = 0;     // K4: every leaf
+constexpr int kVotes = 1;       // K3, C <= kRegClasses: counts in registers
+constexpr int kVoteAtomic = 2;  // K3, C > kRegClasses: integer atomics
+constexpr int kSum = 3;         // K3, regression
+
+constexpr int kRegClasses = 8;
+
+// The configuration's constants (forest_config), settled on an H100
+// (PERF.md, section 6).
+constexpr int kThreads = 512;          // rows per tile, one per thread
+constexpr int kTreeBytes = 96 * 1024;  // most shared memory for tree tops
+constexpr int kXBytes = 136 * 1024;    // largest x tile kept in shared memory
+constexpr int kMinGroup = 8;           // fewest trees a group stages
+constexpr int kSumLevels = 8;          // K3's sums: one group if these fit
+
+// The launch's configuration, in the order tp_forest_config reports it.
+struct ForestCfg {
+  int form;            // kNarrow / kWide
+  int mode;            // kPerTree / kVotes / kVoteAtomic / kSum
+  int walks;           // walks in flight per thread (4 or 8)
+  int threads;         // rows per tile
+  int depth;           // D: the levels every walk takes
+  int levels;          // staged levels (<= D): words of levels < levels
+  int staged;          // words staged per tree
+  int group;           // trees per group
+  int n_groups;
+  int x_smem;          // 1: the tile's x in shared memory
+  int dpad;            // row stride of the x tile (odd)
+  int smem;            // dynamic shared memory bytes
+  int resident;        // CTAs resident on the card
+  int splits;          // row ranges of a full group
+  int rows_per_split;  // rows of one such range (a multiple of 32)
+  int splits_last;     // row ranges of the last group
+  int rows_last;       // rows of one such range
+  int grid;            // (n_groups - 1) * splits + splits_last CTAs
+  int partials;        // 1: several groups reduce through a second pass
+};
+constexpr int kCfgInts = sizeof(ForestCfg) / sizeof(int);
+
+int round_up(int a, int b) { return (a + b - 1) / b * b; }
+
+int bit_length(int v) {
+  int b = 0;
+  while (v > 0) {
+    ++b;
+    v >>= 1;
+  }
+  return b;
+}
+
+// The levels every walk takes through the completed heap.
+int walk_depth(int h, int max_depth) {
+  const int last = bit_length(h) - 1;  // the heap's last level
+  return max_depth < last ? max_depth : last;
+}
+
+// Per tree in the scratch: words of the 2**depth - 1 nodes above the last
+// level walked, and fits of its 2**depth nodes, each padded to at least 4
+// (16-byte copies).
+int leaf_stride(int depth) { return depth < 2 ? 4 : 1 << depth; }
+
+// Words staged per tree for `levels` <= depth staged levels: the top
+// 2**levels - 1 nodes, as a power of two of at least 4 (at most the
+// stride); and their shared bytes.
+int staged_words(int levels) {
+  return levels == 0 ? 0 : (levels < 2 ? 4 : 1 << levels);
+}
+
+int64_t tree_bytes(int levels, int word) {
+  return static_cast<int64_t>(staged_words(levels)) * word;
+}
+
+// Tiling from the shapes alone (the plain twin is tree_predict.py's
+// _forest_config).
+int forest_tile(int t, int h, int d, int max_depth, int n_classes,
+                int per_tree, int block_trees, int form, ForestCfg* c) {
+  if (t < 1 || h < 1 || d < 1 || max_depth < 0 || block_trees < 1 ||
+      (form != kNarrow && form != kWide))
+    return static_cast<int>(cudaErrorInvalidValue);
+  c->form = form;
+  c->mode = per_tree ? kPerTree
+                     : (n_classes == 0 ? kSum
+                                       : (n_classes <= kRegClasses
+                                              ? kVotes
+                                              : kVoteAtomic));
+  c->threads = kThreads;
+  c->depth = walk_depth(h, max_depth);
+  const int word = form == kNarrow ? 4 : 8;
+  c->dpad = d | 1;
+  // the x tile, when it fits, comes out of the trees' budget
+  const int64_t tile = static_cast<int64_t>(c->threads) * c->dpad * 4;
+  c->x_smem = tile <= kXBytes;
+  const int64_t x_bytes = c->x_smem ? round_up(static_cast<int>(tile), 16) : 0;
+  const int64_t room = kMaxSmem - 16 - x_bytes;
+  const int budget = room < kTreeBytes ? static_cast<int>(room) : kTreeBytes;
+  // votes add up in any order: only sums need groups of whole chunks
+  const int unit = c->mode == kSum ? block_trees : 1;
+  const int t_units = round_up(t, unit);
+  const int g_min = t_units < round_up(kMinGroup, unit)
+                        ? t_units
+                        : round_up(kMinGroup, unit);
+  // the words of the levels walked, not the leaf fits: they would halve
+  // the trees a group stages, for one read a walk
+  int levels = c->depth;
+  // K3's sums run in groups of whole chunks, which leave a small last
+  // group whose CTAs walk many rows for few trees: one group of every
+  // tree, when their top kSumLevels levels fit, beats deeper staging
+  const int floor_levels = levels < kSumLevels ? levels : kSumLevels;
+  const bool one_group =
+      c->mode == kSum && t * tree_bytes(floor_levels, word) <= budget;
+  const int64_t need = one_group ? t : g_min;
+  while (levels > 0 && need * tree_bytes(levels, word) > budget)
+    --levels;
+  c->levels = levels;
+  c->staged = staged_words(levels);
+  const int64_t per_tree_bytes = tree_bytes(levels, word);
+  int g_max = per_tree_bytes
+                  ? static_cast<int>(budget / per_tree_bytes) / unit * unit
+                  : t;
+  if (g_max < unit) g_max = unit;
+  if (g_max >= t) {  // one group (nothing staged: every tree in it)
+    c->group = t;
+    c->n_groups = 1;
+  } else {
+    const int n_groups = (t + g_max - 1) / g_max;
+    c->group = round_up((t + n_groups - 1) / n_groups, unit);
+    c->n_groups = (t + c->group - 1) / c->group;
+  }
+  // 8 walks in flight, unless they leave more than a quarter of a group's
+  // walk slots empty
+  const int slots = round_up(c->group, 8);
+  c->walks = 4 * (slots - c->group) > slots ? 4 : 8;
+  c->partials = !per_tree && c->n_groups > 1;
+  const int64_t smem = 16 + c->group * per_tree_bytes + x_bytes;
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  c->smem = static_cast<int>(smem);
+  return 0;
+}
+
+// Row ranges of `trees` trees when `resident` CTAs share t trees by tree
+// count: (splits, rows per split), rows a multiple of 32.
+void row_ranges(int n, int t, int trees, int resident, int* splits,
+                int* rows) {
+  int64_t want = static_cast<int64_t>(resident) * trees / t;
+  if (want < 1) want = 1;
+  *rows = round_up(static_cast<int>((n + want - 1) / want), 32);
+  *splits = (n + *rows - 1) / *rows;
+}
+
+// Work partition: each group's rows cut into ranges, as many as its share
+// of the trees gives it of the resident CTAs (a last group of fewer trees
+// gets fewer, longer ranges), so the grid about fills the card once.
+void forest_grid(int n, int t, int resident, ForestCfg* c) {
+  c->resident = resident;
+  row_ranges(n, t, c->group, resident, &c->splits, &c->rows_per_split);
+  row_ranges(n, t, t - (c->n_groups - 1) * c->group, resident,
+             &c->splits_last, &c->rows_last);
+  c->grid = (c->n_groups - 1) * c->splits + c->splits_last;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait for the barrier's phase of this parity.  Copies that never land
+// trap, as a launch error, instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t spins = 0;; ++spins) {
+    if (spins == (1u << 26)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+  }
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// to shared memory, completing on bar.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Shapes of one forest launch: lh = the heap's levels (bit_length(h)),
+// depth = walk_depth(h, max_depth), ws = leaf_stride(depth).
+struct ForestShape {
+  int n, d, t, h, lh, depth, ws, max_depth, n_classes, block_trees;
+};
+
+// The shallowest strict ancestor of node j where a walk stops (a leaf, or
+// a node past the heap), or -1.  Deepest first, with no early exit, so
+// the ancestors' loads issue together.
+__device__ __forceinline__ int stop_above(
+    const unsigned char* __restrict__ is_internal, int64_t base, int h,
+    int j) {
+  const int lj = 31 - __clz(j + 1);  // j's level
+  int stop = -1;
+#pragma unroll 4
+  for (int m = 1; m <= lj; ++m) {
+    const int a = ((j + 1) >> m) - 1;
+    if (a >= h || !__ldg(is_internal + base + min(a, h - 1))) stop = a;
+  }
+  return stop;
+}
+
+// The prologue: the completed heap's words of the nodes above level
+// `depth` and fits of the nodes on it, (t, ws) each, from the four (t, h)
+// tables.  A node below a leaf, or below a child past the heap, copies
+// that stop (word 0, the stop's fit; fit 0 past the heap), so a walk that
+// stopped there keeps its answer through any later levels: every walk
+// takes `depth` uniform levels and its answer is the fit where it ends.
+// When max_depth reaches past the heap, an internal node of the heap's
+// last level has fit 0 (its walks leave the heap).
+template <class F>
+__global__ void pack_kernel(const int* __restrict__ feature,
+                            const int* __restrict__ threshold,
+                            const float* __restrict__ fit,
+                            const unsigned char* __restrict__ is_internal,
+                            typename F::Word* __restrict__ words,
+                            float* __restrict__ fits, ForestShape s) {
+  const int64_t total = static_cast<int64_t>(s.t) * s.ws;
+  const int first_leaf = (1 << s.depth) - 1;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       i < total; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t tree = i / s.ws;
+    const int j = static_cast<int>(i - tree * s.ws);
+    const int64_t base = tree * s.h;
+    typename F::Word w = F::make(0, 0);
+    if (j < first_leaf && j < s.h && stop_above(is_internal, base, s.h, j) < 0)
+      w = F::make(min(max(__ldg(feature + base + j), 0), s.d - 1),
+                  __ldg(threshold + base + j));
+    words[i] = w;
+    float f = 0.0f;
+    const int leaf = first_leaf + j;
+    if (j <= first_leaf) {  // the 2**depth nodes of level depth
+      const int stop = stop_above(is_internal, base, s.h, leaf);
+      if (stop >= 0) {
+        if (stop < s.h) f = __ldg(fit + base + stop);
+      } else if (leaf < s.h) {
+        const bool cut = s.depth == s.lh - 1 && s.max_depth >= s.lh &&
+                         __ldg(is_internal + base + leaf);
+        f = cut ? 0.0f : __ldg(fit + base + leaf);
+      }
+    }
+    fits[i] = f;
+  }
+}
+
+// A 4-byte shared-memory load at a 32-bit shared address: one address
+// instruction per x load, where indexing the row's pointer took two.
+// Volatile, so it is never moved above the barrier that publishes the
+// tile.
+__device__ __forceinline__ int lds_int(uint32_t addr) {
+  int v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// One level of W walks: every walk reads its node's word (through
+// `load`), then its row's x at the node's feature, then steps to the child
+// that picks.  No walk stops: past a leaf it walks the leaf's copies.
+template <class F, bool kXSmem, int W, class Load>
+__device__ __forceinline__ void level(int (&idx)[W], Load load, const int* xr,
+                                      const int* __restrict__ xg) {
+  typename F::Word w[W];
+#pragma unroll
+  for (int k = 0; k < W; ++k) w[k] = load(k, idx[k]);
+  int xv[W];
+#pragma unroll
+  for (int k = 0; k < W; ++k)
+    xv[k] = kXSmem ? lds_int(smem_u32(xr) + 4 * F::feat(w[k]))
+                   : __ldg(xg + F::feat(w[k]));
+#pragma unroll
+  for (int k = 0; k < W; ++k)
+    idx[k] = 2 * idx[k] + (xv[k] <= F::thr(w[k]) ? 1 : 2);
+}
+
+// One row tile's x, rows [r0, r0 + rows), into `xs` (row stride dpad):
+// 4-byte cp.async copies, all in flight at once, one commit group per
+// tile.
+__device__ __forceinline__ void load_x_tile(int* xs,
+                                            const int* __restrict__ xb,
+                                            int r0, int rows, int d,
+                                            int dpad) {
+  const int* src = xb + static_cast<int64_t>(r0) * d;
+  const int total = rows * d;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int r = e / d;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     smem_u32(xs + r * dpad + (e - r * d))),
+                 "l"(reinterpret_cast<uint64_t>(src + e))
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// One row against the CTA's trees [t0, t0 + nt), W at a time: K4 stores
+// each leaf; K3 adds its votes or its chunk sums, then writes the row's
+// result (or its partials) once.
+template <class F, int kMode, bool kXSmem, int W>
+__device__ __forceinline__ void walk_row(
+    const typename F::Word* sw,
+    const typename F::Word* __restrict__ words,
+    const float* __restrict__ fits, const int* xr,
+    const int* __restrict__ xg, float* __restrict__ out,
+    float* __restrict__ partial, const ForestShape& s, const ForestCfg& c,
+    int t0, int nt, int row) {
+  const int first_leaf = (1 << s.depth) - 1;
+  float total = 0.0f;  // kSum: chunk sums added in chunk order
+  float chunk = 0.0f;  // kSum: the open chunk's leaves in tree order
+  int votes[kRegClasses];  // kVotes: the row's counts
+#pragma unroll
+  for (int k = 0; k < kRegClasses; ++k) votes[k] = 0;
+  // kVotes: 8-bit counts of class k at bits 8k, added into votes every
+  // 128 trees (W divides 128)
+  uint64_t packed = 0;
+  auto unpack = [&]() {
+#pragma unroll
+    for (int k = 0; k < kRegClasses; ++k)
+      votes[k] += static_cast<int>((packed >> (8 * k)) & 0xFFu);
+    packed = 0;
+  };
+
+  for (int tt = 0; tt < nt; tt += W) {
+    // walk k takes tree tt + k; past the group's last tree it repeats that
+    // tree and its leaf is dropped
+    int local[W];
+    int idx[W];
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      local[k] = min(tt + k, nt - 1);
+      idx[k] = 0;
+    }
+    const typename F::Word* tops[W];  // each walk's staged tree
+#pragma unroll
+    for (int k = 0; k < W; ++k) tops[k] = sw + local[k] * c.staged;
+    int lv = 0;
+    for (; lv < c.levels; ++lv)  // from the staged tops
+      level<F, kXSmem>(
+          idx, [&](int k, int i) { return tops[k][i]; }, xr, xg);
+    for (; lv < s.depth; ++lv)
+      level<F, kXSmem>(
+          idx,
+          [&](int k, int i) {
+            return __ldg(words + static_cast<int64_t>(t0 + local[k]) * s.ws +
+                         i);
+          },
+          xr, xg);
+    float leaves[W];
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const int leaf = idx[k] - first_leaf;
+      leaves[k] =
+          __ldg(fits + static_cast<int64_t>(t0 + local[k]) * s.ws + leaf);
+    }
+    // the leaves, in tree order
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      if (tt + k >= nt) break;
+      const int tree = t0 + tt + k;
+      const float leaf = leaves[k];
+      if (kMode == kPerTree) {
+        out[static_cast<int64_t>(tree) * s.n + row] = leaf;
+      } else if (kMode == kSum) {
+        if (tree % s.block_trees == 0 && tree != t0) {
+          if (c.partials)
+            partial[static_cast<int64_t>(tree / s.block_trees - 1) * s.n +
+                    row] = chunk;
+          else
+            total += chunk;
+          chunk = 0.0f;
+        }
+        chunk += leaf;
+      } else {
+        const int cls = __float2int_rz(leaf);  // astype(int32)
+        if (cls >= 0 && cls < s.n_classes) {
+          if (kMode == kVotes)
+            packed += uint64_t{1} << (8 * cls);
+          else
+            atomicAdd(reinterpret_cast<int*>(out) +
+                          static_cast<int64_t>(row) * s.n_classes + cls,
+                      1);
+        }
+      }
+    }
+    if (kMode == kVotes && ((tt + W) & 127) == 0) unpack();
+  }
+  if (kMode == kVotes) unpack();
+  if (kMode == kSum) {
+    const int last = t0 + nt - 1;
+    if (c.partials)
+      partial[static_cast<int64_t>(last / s.block_trees) * s.n + row] =
+          chunk;
+    else
+      out[row] = total + chunk;
+  } else if (kMode == kVotes) {
+    float* o = out + static_cast<int64_t>(row) * s.n_classes;
+#pragma unroll
+    for (int v = 0; v < kRegClasses; ++v) {
+      if (v >= s.n_classes) break;
+      if (!c.partials)
+        o[v] = static_cast<float>(votes[v]);
+      else if (votes[v])
+        atomicAdd(reinterpret_cast<int*>(o) + v, votes[v]);
+    }
+  }
+}
+
+// One CTA: the trees of one group against one range of rows (forest_grid),
+// a row per thread, W trees at a time.
+template <class F, int kMode, bool kXSmem, int W>
+__global__ void __launch_bounds__(kThreads)
+    forest_kernel(const typename F::Word* __restrict__ words,
+                  const float* __restrict__ fits,
+                  const int* __restrict__ xb, float* __restrict__ out,
+                  float* __restrict__ partial, ForestShape s, ForestCfg c) {
+  using Word = typename F::Word;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Word* sw = reinterpret_cast<Word*>(smem + 16);
+  int* xs = reinterpret_cast<int*>(sw + c.group * c.staged);
+  const uint32_t bar = smem_u32(smem);
+  // CTAs [0, (n_groups - 1) * splits) take the full groups, the rest the
+  // last group
+  const int full = (c.n_groups - 1) * c.splits;
+  const bool last = static_cast<int>(blockIdx.x) >= full;
+  const int g = last ? c.n_groups - 1 : blockIdx.x / c.splits;
+  const int split = last ? blockIdx.x - full : blockIdx.x % c.splits;
+  const int rows_per = last ? c.rows_last : c.rows_per_split;
+  const int t0 = g * c.group;
+  const int nt = min(c.group, s.t - t0);
+  const int row_lo = split * rows_per;
+  const int row_hi = min(s.n, row_lo + rows_per);
+
+  if (threadIdx.x == 0 && c.staged > 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    const uint32_t wbytes = c.staged * sizeof(Word);
+    mbar_expect_tx(bar, wbytes * nt);
+    for (int i = 0; i < nt; ++i)
+      bulk_load(smem_u32(sw + i * c.staged),
+                words + static_cast<int64_t>(t0 + i) * s.ws, wbytes, bar);
+  }
+  __syncthreads();  // the barrier is initialised before anyone waits on it
+  bool staged = c.staged == 0;
+  if (kXSmem)
+    load_x_tile(xs, xb, row_lo, min(c.threads, row_hi - row_lo), s.d,
+                c.dpad);
+
+  for (int r0 = row_lo; r0 < row_hi; r0 += c.threads) {
+    const int rows = min(c.threads, row_hi - r0);
+    const int next = r0 + c.threads;
+    if (kXSmem) {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();  // every thread's copies of this tile have landed
+    }
+    if (!staged) {
+      mbar_wait(bar, 0);
+      staged = true;
+    }
+    if (static_cast<int>(threadIdx.x) < rows) {
+      const int row = r0 + threadIdx.x;
+      walk_row<F, kMode, kXSmem, W>(sw, words, fits,
+                                 xs + threadIdx.x * c.dpad,
+                                 xb + static_cast<int64_t>(row) * s.d, out,
+                                 partial, s, c, t0, nt, row);
+    }
+    // the next tile overwrites this one once its walks are done
+    if (kXSmem && next < row_hi) {
+      __syncthreads();
+      load_x_tile(xs, xb, next, min(c.threads, row_hi - next), s.d, c.dpad);
+    }
+  }
+}
+
+// Several groups, regression: out[row] = the chunk sums in chunk order.
+__global__ void fold_kernel(const float* __restrict__ partial,
+                            float* __restrict__ out, int n, int n_chunks) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n) return;
+  float total = 0.0f;
+  for (int k = 0; k < n_chunks; ++k)
+    total += partial[static_cast<int64_t>(k) * n + row];
+  out[row] = total;
+}
+
+// Integer vote counts, added atomically in place, to float32.
+__global__ void count_kernel(float* __restrict__ out, int64_t size) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       i < size; i += static_cast<int64_t>(gridDim.x) * blockDim.x)
+    out[i] = static_cast<float>(reinterpret_cast<const int*>(out)[i]);
+}
+
+template <class F, int kMode, bool kXSmem, int W>
+int forest_occupancy(const ForestCfg& c, int* per_sm) {
+  cudaError_t e = cudaFuncSetAttribute(
+      forest_kernel<F, kMode, kXSmem, W>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, c.smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, forest_kernel<F, kMode, kXSmem, W>, c.threads, c.smem));
+}
+
+template <class F, int kMode, bool kXSmem>
+int forest_occupancy_w(const ForestCfg& c, int* per_sm) {
+  return c.walks == 4 ? forest_occupancy<F, kMode, kXSmem, 4>(c, per_sm)
+                      : forest_occupancy<F, kMode, kXSmem, 8>(c, per_sm);
+}
+
+template <class F, int kMode>
+int forest_occupancy_x(const ForestCfg& c, int* per_sm) {
+  return c.x_smem ? forest_occupancy_w<F, kMode, true>(c, per_sm)
+                  : forest_occupancy_w<F, kMode, false>(c, per_sm);
+}
+
+template <class F>
+int forest_occupancy_form(const ForestCfg& c, int* per_sm) {
+  switch (c.mode) {
+    case kPerTree:
+      return forest_occupancy_x<F, kPerTree>(c, per_sm);
+    case kVotes:
+      return forest_occupancy_x<F, kVotes>(c, per_sm);
+    case kVoteAtomic:
+      return forest_occupancy_x<F, kVoteAtomic>(c, per_sm);
+    default:
+      return forest_occupancy_x<F, kSum>(c, per_sm);
+  }
+}
+
+// The full configuration on the current device: tiling, then the grid
+// from the SM count and the kernel's occupancy at that tiling.
+int forest_config(int t, int h, int n, int d, int max_depth, int n_classes,
+                  int per_tree, int block_trees, int form, ForestCfg* c) {
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int err = forest_tile(t, h, d, max_depth, n_classes, per_tree, block_trees,
+                        form, c);
+  if (err) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  err = form == kNarrow ? forest_occupancy_form<NarrowForm>(*c, &per_sm)
+                        : forest_occupancy_form<WideForm>(*c, &per_sm);
+  if (err) return err;
+  forest_grid(n, t, sms * (per_sm > 0 ? per_sm : 1), c);
+  return 0;
+}
+
+template <class F, int kMode, bool kXSmem>
+int forest_main_w(const typename F::Word* words, const float* fits,
+                  const int* xb, float* out, float* partial,
+                  const ForestShape& s, const ForestCfg& c, cudaStream_t st) {
+  if (c.walks == 4)
+    forest_kernel<F, kMode, kXSmem, 4><<<c.grid, c.threads, c.smem, st>>>(
+        words, fits, xb, out, partial, s, c);
+  else
+    forest_kernel<F, kMode, kXSmem, 8><<<c.grid, c.threads, c.smem, st>>>(
+        words, fits, xb, out, partial, s, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class F, int kMode>
+int forest_main(const typename F::Word* words, const float* fits,
+                const int* xb, float* out, float* partial,
+                const ForestShape& s, const ForestCfg& c, cudaStream_t st) {
+  return c.x_smem ? forest_main_w<F, kMode, true>(words, fits, xb, out,
+                                                  partial, s, c, st)
+                  : forest_main_w<F, kMode, false>(words, fits, xb, out,
+                                                   partial, s, c, st);
+}
+
+template <class F>
+int forest_launch_form(const int* xb, const int* feature,
+                       const int* threshold, const float* fit,
+                       const unsigned char* is_internal, void* records,
+                       float* partial, float* out, const ForestShape& s,
+                       const ForestCfg& c, cudaStream_t st) {
+  using Word = typename F::Word;
+  const int64_t total = static_cast<int64_t>(s.t) * s.ws;
+  Word* words = static_cast<Word*>(records);
+  float* fits = reinterpret_cast<float*>(words + total);
+  const int64_t blocks = (total + 255) / 256;
+  pack_kernel<F><<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0,
+                   st>>>(feature, threshold, fit, is_internal, words, fits,
+                         s);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  switch (c.mode) {
+    case kPerTree:
+      return forest_main<F, kPerTree>(words, fits, xb, out, partial, s, c,
+                                      st);
+    case kVotes:
+      err = forest_main<F, kVotes>(words, fits, xb, out, partial, s, c, st);
+      break;
+    case kVoteAtomic:
+      err = forest_main<F, kVoteAtomic>(words, fits, xb, out, partial, s, c,
+                                        st);
+      break;
+    default:
+      err = forest_main<F, kSum>(words, fits, xb, out, partial, s, c, st);
+      if (err || !c.partials) return err;
+      fold_kernel<<<(s.n + 255) / 256, 256, 0, st>>>(
+          partial, out, s.n, (s.t + s.block_trees - 1) / s.block_trees);
+      return static_cast<int>(cudaGetLastError());
+  }
+  if (err || (c.mode == kVotes && !c.partials)) return err;
+  const int64_t size = static_cast<int64_t>(s.n) * s.n_classes;
+  const int64_t cblocks = (size + 255) / 256;
+  count_kernel<<<static_cast<int>(cblocks < 4096 ? cblocks : 4096), 256, 0,
+                 st>>>(out, size);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int forest_launch(const int* xb, const int* feature, const int* threshold,
+                  const float* fit, const unsigned char* is_internal,
+                  void* records, float* partial, float* out, int n, int d,
+                  int t, int h, int max_depth, int n_classes, int per_tree,
+                  int block_trees, int form, void* stream) {
+  ForestCfg c;
+  int err = forest_config(t, h, n, d, max_depth, n_classes, per_tree,
+                          block_trees, form, &c);
+  if (err) return err;
+  const ForestShape s{n,         d,
+                      t,         h,
+                      bit_length(h), c.depth,
+                      leaf_stride(c.depth), max_depth,
+                      n_classes, block_trees};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (form == kNarrow)
+    return forest_launch_form<NarrowForm>(xb, feature, threshold, fit,
+                                          is_internal, records, partial, out,
+                                          s, c, st);
+  return forest_launch_form<WideForm>(xb, feature, threshold, fit,
+                                      is_internal, records, partial, out, s,
+                                      c, st);
 }
 
 }  // namespace
@@ -254,7 +954,7 @@ int tp_seg_packed(const int* xb, const int* obs_seg, const float* code,
                   int h, int max_depth, int tb2, int n_classes,
                   int block_trees, int block_obs, void* stream) {
   PackedNodes nodes{code, fit, static_cast<int64_t>(h), tb2};
-  return launch<PackedNodes, true>(
+  return launch<PackedNodes>(
       nodes, xb, obs_seg, tree_seg, chunk_lo, chunk_hi, out, n, d, t_pad,
       t_pad / block_trees, max_depth, n_classes, block_trees, block_obs,
       static_cast<cudaStream_t>(stream));
@@ -269,40 +969,56 @@ int tp_seg_simple(const int* xb, const int* obs_seg, const int* tree_seg,
                   int block_trees, int block_obs, void* stream) {
   SimpleNodes nodes{feature, threshold, fit, is_internal,
                     static_cast<int64_t>(h)};
-  return launch<SimpleNodes, true>(
+  return launch<SimpleNodes>(
       nodes, xb, obs_seg, tree_seg, nullptr, nullptr, out, n, d, t,
       (t + block_trees - 1) / block_trees, max_depth, n_classes,
       block_trees, block_obs, static_cast<cudaStream_t>(stream));
 }
 
 // K3.  feature / threshold (t, h) i32, fit (t, h) f32, is_internal (t, h)
-// bool bytes; out zeroed (n, C) or (n,).
+// bool bytes; records: scratch of t * ws node words of the form (0: 4
+// bytes, 1: 8), then t * ws float32 fits, ws = leaf_stride(walk_depth(h,
+// max_depth)); partial: (ceil(t / block_trees), n) f32 scratch,
+// read only when tp_forest_config reports partials for a regression;
+// out zeroed (n, C) or (n,).  form 0 needs d <= 2**15 and every
+// |threshold| < 2**15 (tree_predict.py's _record_form).
 int tp_agg(const int* xb, const int* feature, const int* threshold,
-           const float* fit, const unsigned char* is_internal, float* out,
-           int n, int d, int t, int h, int max_depth, int n_classes,
-           int block_trees, int block_obs, void* stream) {
-  SimpleNodes nodes{feature, threshold, fit, is_internal,
-                    static_cast<int64_t>(h)};
-  return launch<SimpleNodes, false>(
-      nodes, xb, nullptr, nullptr, nullptr, nullptr, out, n, d, t,
-      (t + block_trees - 1) / block_trees, max_depth, n_classes,
-      block_trees, block_obs, static_cast<cudaStream_t>(stream));
+           const float* fit, const unsigned char* is_internal, void* records,
+           float* partial, float* out, int n, int d, int t, int h,
+           int max_depth, int n_classes, int block_trees, int form,
+           void* stream) {
+  return forest_launch(xb, feature, threshold, fit, is_internal, records,
+                       partial, out, n, d, t, h, max_depth, n_classes, 0,
+                       block_trees, form, stream);
 }
 
-// K4.  The same tables; out (t, n) f32, every element written.
+// K4.  The same tables and scratch; out (t, n) f32, every element written.
 int tp_per_tree(const int* xb, const int* feature, const int* threshold,
                 const float* fit, const unsigned char* is_internal,
-                float* out, int n, int d, int t, int h, int max_depth,
-                int block_trees, int block_obs, void* stream) {
-  SimpleNodes nodes{feature, threshold, fit, is_internal,
-                    static_cast<int64_t>(h)};
-  const int threads = block_obs < kMaxThreads ? block_obs : kMaxThreads;
-  const int n_tree_blocks = (t + block_trees - 1) / block_trees;
-  const dim3 grid((n + block_obs - 1) / block_obs,
-                  n_tree_blocks < 65535 ? n_tree_blocks : 65535);
-  per_tree_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      nodes, xb, out, n, d, t, max_depth, block_trees, block_obs);
-  return static_cast<int>(cudaGetLastError());
+                void* records, float* out, int n, int d, int t, int h,
+                int max_depth, int block_trees, int form, void* stream) {
+  return forest_launch(xb, feature, threshold, fit, is_internal, records,
+                       nullptr, out, n, d, t, h, max_depth, 0, 1,
+                       block_trees, form, stream);
+}
+
+// The configuration of a K3 (per_tree 0) or K4 (per_tree 1) launch on the
+// current device, out[20] in ForestCfg's order (form, mode, walks,
+// threads, depth, levels, staged words and leaf fits per tree, group,
+// n_groups, x in shared memory, x row stride, shared memory bytes,
+// resident CTAs, splits and rows per split of a full group and of the
+// last, grid, partials).
+int tp_forest_config(int t, int h, int n, int d, int max_depth,
+                     int n_classes, int per_tree, int block_trees, int form,
+                     int* out) {
+  ForestCfg c;
+  const int err =
+      forest_config(t, h, n, d, max_depth, per_tree ? 0 : n_classes,
+                    per_tree, block_trees, form, &c);
+  if (err) return err;
+  const int* v = reinterpret_cast<const int*>(&c);
+  for (int i = 0; i < kCfgInts; ++i) out[i] = v[i];
+  return 0;
 }
 
 const char* tp_error_string(int code) {

@@ -31,6 +31,16 @@ Two whole-forest entries, no segments:
 * ``forest_predict`` — K4: the unaggregated (T, N) leaf fit of every
   (tree, row) pair (``ops.predict_forest_kernel_per_tree``).
 
+On the card K3 and K4 first complete each heap (``_pack_records_plain``
+is the plain twin of that prologue): a node below a leaf copies the
+leaf's fit, so every walk takes the same ``_walk_depth`` levels without
+a stop test (``_walk_records_plain``), reading one word a level — 4
+bytes (``NARROW``) where ``d <= 2**15`` and every ``|threshold| <
+2**15``, else 8 (``WIDE``), the form chosen from the maxima the 2**24
+guard reads (``_record_form``) — and one fit where it ends.  Their
+tiling and work partition come from the library (``forest_config``;
+plain twin ``_forest_config``, CTA by CTA ``_forest_work``).
+
 Every kernel reads a heap index at or past the heap width ``H`` (a
 ``max_depth`` deeper than the heap) as feature 0, threshold 0, not
 internal, fit 0 — what the Pallas kernels read from their zero-padded
@@ -76,13 +86,36 @@ LAUNCHES = {
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_IP = ctypes.POINTER(_I)
 _SIGNATURES = {
     "tp_seg_packed": ([_P] * 8 + [_I] * 9 + [_P], _I),
     "tp_seg_simple": ([_P] * 8 + [_I] * 8 + [_P], _I),
-    "tp_agg": ([_P] * 6 + [_I] * 8 + [_P], _I),
-    "tp_per_tree": ([_P] * 6 + [_I] * 7 + [_P], _I),
+    "tp_agg": ([_P] * 8 + [_I] * 8 + [_P], _I),
+    "tp_per_tree": ([_P] * 7 + [_I] * 7 + [_P], _I),
+    "tp_forest_config": ([_I] * 9 + [_IP], _I),
     "tp_error_string": ([_I], ctypes.c_char_p),
 }
+
+#: K3 / K4 node-word forms: 4 bytes (the int16 threshold and the clamped
+#: feature) or 8 (feature, threshold); the fits lie in a float32 array
+#: beside the words.
+NARROW, WIDE = 0, 1
+_WORD_INTS = {NARROW: 1, WIDE: 2}
+_NARROW_LIMIT = 1 << 15
+
+#: What ``forest_config`` reports, in the library's order (``ForestCfg``).
+CONFIG_KEYS = (
+    "form", "mode", "walks", "threads", "depth", "levels", "staged",
+    "group", "n_groups", "x_smem", "dpad", "smem", "resident", "splits",
+    "rows_per_split", "splits_last", "rows_last", "grid", "partials",
+)
+#: ``mode`` values: K4, K3 votes in registers (C <= 8), K3 votes by integer
+#: atomics (C > 8), K3 sums.
+PER_TREE, VOTES, VOTE_ATOMIC, SUM = 0, 1, 2, 3
+#: The library's constants (``kThreads``, ``kTreeBytes``, ``kXBytes``,
+#: ``kMinGroup``, ``kSumLevels``, ``kRegClasses``).
+_THREADS, _TREE_BYTES, _X_BYTES = 512, 96 * 1024, 136 * 1024
+_MIN_GROUP, _SUM_LEVELS, _REG_CLASSES = 8, 8, 8
 
 
 def reset_launches() -> None:
@@ -91,9 +124,11 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _validate_f32_exact(max_depth: int, d: int, **arrays) -> None:
+def _validate_f32_exact(max_depth: int, d: int, **arrays) -> dict[str, int]:
     """Raise if a value the reference routes through the float32 one-hot
-    path could exceed the exactly-representable integer range.
+    path could exceed the exactly-representable integer range; return
+    each array's largest absolute value (0 when empty), which K3 and K4
+    choose their record form from.
 
     Host numpy arrays are checked with numpy (free); tensors are checked
     with torch, which costs a device sync on a card — hot loops (the
@@ -107,21 +142,29 @@ def _validate_f32_exact(max_depth: int, d: int, **arrays) -> None:
         )
     if d >= _F32_EXACT_INT:
         raise ValueError(f"n_features={d} >= 2**24 overflows float32 gathers")
+    maxima = {}
     for name, arr in arrays.items():
         if isinstance(arr, torch.Tensor):
-            if not arr.numel():
-                continue
-            big = int(torch.max(torch.abs(arr))) >= _F32_EXACT_INT
+            top = int(torch.max(torch.abs(arr))) if arr.numel() else 0
         else:
             arr = np.asarray(arr)
-            if not arr.size:
-                continue
-            big = int(np.max(np.abs(arr))) >= _F32_EXACT_INT
-        if big:
+            top = int(np.max(np.abs(arr))) if arr.size else 0
+        if top >= _F32_EXACT_INT:
             raise ValueError(
                 f"{name} contains values >= 2**24, not exactly representable "
                 "in the float32 one-hot gathers"
             )
+        maxima[name] = top
+    return maxima
+
+
+def _record_form(d: int, max_abs_threshold: int) -> int:
+    """K3 / K4's record form: ``NARROW`` when the clamped feature fits 15
+    bits (``d <= 2**15``) and every threshold int16 (``|threshold| <
+    2**15``), else ``WIDE``."""
+    if d <= _NARROW_LIMIT and max_abs_threshold < _NARROW_LIMIT:
+        return NARROW
+    return WIDE
 
 
 # ---------------------------------------------------------------------------
@@ -357,6 +400,187 @@ def _seg_sharded_plain(
     ])
 
 
+def _walk_depth(h: int, max_depth: int) -> int:
+    """The levels every K3 / K4 walk takes through the completed heap: to
+    ``max_depth`` or to the heap's last level, whichever comes first."""
+    return min(max_depth, h.bit_length() - 1)
+
+
+def _leaf_stride(depth: int) -> int:
+    """Per tree in K3 / K4's scratch: words of the ``2**depth - 1`` nodes
+    above the last level walked and fits of its ``2**depth`` nodes, each
+    padded to at least 4 (16-byte copies)."""
+    return max(1 << depth, 4)
+
+
+def _pack_records_plain(feature, threshold, fit, is_internal, d: int,
+                        form: int, max_depth: int):
+    """Plain twin of K3 / K4's prologue: the completed heap's (words, fits),
+    (T, ws) each, ``ws = _leaf_stride(depth)``: the words of the nodes
+    above level ``depth = _walk_depth(h, max_depth)`` and the fits of the
+    nodes on it.  A node below a leaf, or below a child past the heap,
+    copies that stop (word 0, the stop's fit; fit 0 past the heap); any
+    other node keeps its feature (clamped to [0, d - 1]), threshold and
+    fit, except that an internal node of the heap's last level has fit 0
+    when ``max_depth`` reaches past the heap.  ``NARROW`` words are int32
+    ``threshold << 16 | feature``, ``WIDE`` words (T, ws, 2) int32
+    (feature, threshold); the padding is zero."""
+    t, h = feature.shape
+    lh, depth = h.bit_length(), _walk_depth(h, max_depth)
+    ws, first_leaf = _leaf_stride(depth), (1 << depth) - 1
+    width = 2 * first_leaf + 1  # the nodes of levels 0..depth
+    dev = feature.device
+
+    def padded(a, dtype):
+        out = torch.zeros((t, max(width, h)), dtype=dtype, device=dev)
+        out[:, :h] = a
+        return out[:, :width]
+
+    inter = padded(is_internal.to(torch.bool), torch.bool)
+    fit_p = padded(fit.to(torch.float32), torch.float32)
+    # the shallowest strict ancestor where a walk stops (-1: none), level
+    # by level from the root; a node past the heap is no internal node
+    stop = torch.full((t, width), -1, dtype=torch.int64, device=dev)
+    for lv in range(1, depth + 1):
+        js = torch.arange((1 << lv) - 1, (1 << (lv + 1)) - 1, device=dev)
+        ps = (js - 1) // 2
+        here = torch.where(inter[:, ps], -1, ps.expand(t, -1))
+        stop[:, js] = torch.where(stop[:, ps] >= 0, stop[:, ps], here)
+    copy = stop >= 0
+    leaves = slice(first_leaf, width)
+    cut = inter[:, leaves] & (depth == lh - 1) & (max_depth >= lh)
+    fits = torch.zeros((t, ws), dtype=torch.float32, device=dev)
+    fits[:, :first_leaf + 1] = torch.where(
+        copy[:, leaves], torch.gather(fit_p, 1, stop[:, leaves].clamp(min=0)),
+        torch.where(cut, 0.0, fit_p[:, leaves]))
+    above = slice(0, first_leaf)
+    feat = padded(feature.to(torch.int64).clamp(0, d - 1), torch.int64)
+    thr = padded(threshold.to(torch.int64), torch.int64)
+    feat = feat[:, above].masked_fill(copy[:, above], 0)
+    thr = thr[:, above].masked_fill(copy[:, above], 0)
+    if form == NARROW:  # int64 -> int32 wraps: the threshold's sign bit
+        word = (((thr & 0xFFFF) << 16) | feat).to(torch.int32)
+        words = torch.zeros((t, ws), dtype=torch.int32, device=dev)
+    else:
+        word = torch.stack([feat, thr], dim=-1).to(torch.int32)
+        words = torch.zeros((t, ws, 2), dtype=torch.int32, device=dev)
+    words[:, :first_leaf] = word
+    return words, fits
+
+
+def _unpack_records_plain(words: torch.Tensor, form: int):
+    """(feature, threshold) of packed words, decoded as the kernel decodes
+    them."""
+    if form == NARROW:
+        return words & 0xFFFF, words >> 16
+    return words[..., 0], words[..., 1]
+
+
+def _walk_records_plain(xb, words, fits, form: int, h: int,
+                        max_depth: int) -> torch.Tensor:
+    """The (T, N) leaves of K3 / K4's walk over a completed heap:
+    ``_walk_depth(h, max_depth)`` uniform levels, one word each, no clamp
+    and no stop; the answer is the fit of the node where the walk ends."""
+    feature, threshold = _unpack_records_plain(words, form)
+    t, n = feature.shape[0], xb.shape[0]
+    depth = _walk_depth(h, max_depth)
+    xb_t = xb.T.contiguous()
+    idx = torch.zeros((t, n), dtype=torch.int64, device=xb.device)
+    for _ in range(depth):
+        go_right = (torch.gather(xb_t, 0, torch.gather(feature, 1, idx).long())
+                    > torch.gather(threshold, 1, idx))
+        idx = 2 * idx + 1 + go_right.long()
+    return torch.gather(fits, 1, idx - ((1 << depth) - 1))
+
+
+def _round_up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def _staged_words(levels: int) -> int:
+    """Words a K3 / K4 CTA stages per tree for ``levels`` staged levels
+    (at most the walk's depth): the top ``2**levels - 1`` nodes as a power
+    of two of at least 4."""
+    return 0 if levels == 0 else max(1 << levels, 4)
+
+
+def _row_ranges(n: int, t: int, trees: int, resident: int):
+    """(splits, rows per split) of ``trees`` trees' rows when ``resident``
+    CTAs share ``t`` trees by tree count."""
+    want = max(resident * trees // t, 1)
+    rows = _round_up(-(-n // want), 32)
+    return -(-n // rows), rows
+
+
+def _forest_config(t: int, h: int, n: int, d: int, max_depth: int,
+                   n_classes: int, per_tree: bool, block_trees: int,
+                   form: int, resident: int) -> dict[str, int]:
+    """Plain twin of the library's ``forest_config`` (``forest_tile``, then
+    ``forest_grid`` over ``resident`` CTAs, which the library reads from
+    the SM count and the kernel's occupancy): K3 / K4's tiling and work
+    partition, keyed by ``CONFIG_KEYS``."""
+    n_classes = 0 if per_tree else n_classes
+    c = {"form": form, "threads": _THREADS}
+    c["mode"] = (PER_TREE if per_tree else SUM if n_classes == 0
+                 else VOTES if n_classes <= _REG_CLASSES else VOTE_ATOMIC)
+    c["depth"] = depth = _walk_depth(h, max_depth)
+    word = 4 * _WORD_INTS[form]
+    c["dpad"] = d | 1
+    # the x tile, when it fits, comes out of the trees' budget
+    tile = c["threads"] * c["dpad"] * 4
+    c["x_smem"] = int(tile <= _X_BYTES)
+    x_bytes = _round_up(tile, 16) if c["x_smem"] else 0
+    budget = min(_TREE_BYTES, _MAX_SMEM_BYTES - 16 - x_bytes)
+    unit = block_trees if c["mode"] == SUM else 1  # votes: any order
+    g_min = min(_round_up(t, unit), _round_up(_MIN_GROUP, unit))
+    levels = depth  # the words walked; not the leaf fits
+    # sums: one group of every tree when their top levels fit (groups of
+    # whole chunks leave a small last group)
+    one_group = c["mode"] == SUM and (
+        t * word * _staged_words(min(levels, _SUM_LEVELS)) <= budget)
+    need = t if one_group else g_min
+    while levels > 0 and need * word * _staged_words(levels) > budget:
+        levels -= 1
+    c["levels"] = levels
+    c["staged"] = _staged_words(levels)
+    per = word * c["staged"]
+    g_max = max(budget // per // unit * unit, unit) if per else t
+    if g_max >= t:
+        c["group"], c["n_groups"] = t, 1
+    else:
+        groups = -(-t // g_max)
+        c["group"] = _round_up(-(-t // groups), unit)
+        c["n_groups"] = -(-t // c["group"])
+    slots = _round_up(c["group"], 8)  # 8 walks unless a quarter idles
+    c["walks"] = 4 if 4 * (slots - c["group"]) > slots else 8
+    c["smem"] = 16 + c["group"] * per + x_bytes
+    if c["smem"] > _MAX_SMEM_BYTES:
+        raise ValueError("the forest tiling needs more shared memory than "
+                         "a Hopper CTA has")
+    c["resident"] = resident
+    c["splits"], c["rows_per_split"] = _row_ranges(n, t, c["group"], resident)
+    c["splits_last"], c["rows_last"] = _row_ranges(
+        n, t, t - (c["n_groups"] - 1) * c["group"], resident)
+    c["grid"] = (c["n_groups"] - 1) * c["splits"] + c["splits_last"]
+    c["partials"] = int(not per_tree and c["n_groups"] > 1)
+    return {k: c[k] for k in CONFIG_KEYS}
+
+
+def _forest_work(cfg: dict, t: int, n: int):
+    """Each CTA's (trees, rows) under ``cfg``, in the kernel's assignment:
+    CTAs ``[0, (n_groups - 1) * splits)`` take the full groups, ``splits``
+    row ranges each, the rest the last group."""
+    full = (cfg["n_groups"] - 1) * cfg["splits"]
+    for b in range(cfg["grid"]):
+        last = b >= full
+        g = cfg["n_groups"] - 1 if last else b // cfg["splits"]
+        split = b - full if last else b % cfg["splits"]
+        rows = cfg["rows_last"] if last else cfg["rows_per_split"]
+        t0, r0 = g * cfg["group"], split * rows
+        yield (range(t0, min(t, t0 + cfg["group"])),
+               range(r0, min(n, r0 + rows)))
+
+
 # ---------------------------------------------------------------------------
 # CUDA launches
 # ---------------------------------------------------------------------------
@@ -388,7 +612,7 @@ def _grid_config(n: int, block_trees: int, block_obs: int) -> None:
 
 
 def _launch_config(n: int, block_trees: int, block_obs: int) -> None:
-    """Grid checks plus the shared-memory pair buffer of K1-K3."""
+    """Grid checks plus the shared-memory pair buffer of K1 and K2."""
     _grid_config(n, block_trees, block_obs)
     if block_trees * block_obs * 4 > _MAX_SMEM_BYTES:
         raise ValueError(
@@ -493,19 +717,70 @@ def _check_heaps(xb, feature, threshold, fit, is_internal, dev):
     _check("is_internal", is_internal, torch.bool, (t, h), dev)
 
 
+def forest_config(t: int, h: int, n: int, d: int, max_depth: int,
+                  n_classes: int, per_tree: bool, block_trees: int,
+                  form: int) -> dict[str, int]:
+    """K3's (``per_tree`` False) or K4's configuration on the current
+    card, as the library computes it for a launch (``CONFIG_KEYS``)."""
+    out = (_I * len(CONFIG_KEYS))()
+    _raise_on(
+        _library().tp_forest_config(
+            t, h, n, d, max_depth, n_classes, int(per_tree), block_trees,
+            form, out,
+        ),
+        "tp_forest_config",
+    )
+    return dict(zip(CONFIG_KEYS, out))
+
+
+def _forest_launch_args(xb, feature, threshold, fit, is_internal, name,
+                        max_depth, block_trees, block_obs, form):
+    """Checks shared by K3's and K4's launches; the record form (read from
+    the thresholds when not given) and the scratch of node words and
+    fits.  A given ``NARROW`` form is refused where d > 2**15; that every
+    |threshold| < 2**15 is the caller's to guarantee (reading it would
+    sync the card)."""
+    dev = feature.device
+    _check_heaps(xb, feature, threshold, fit, is_internal, dev)
+    t, h = feature.shape
+    d = xb.shape[1]
+    if form == NARROW and d > _NARROW_LIMIT:
+        raise ValueError(f"narrow records hold d <= 2**15 features, got {d}")
+    if dev.type != "cuda":
+        raise ValueError(f"{name} launches on a CUDA device, got {dev}")
+    _grid_config(xb.shape[0], block_trees, block_obs)
+    if form is None:
+        top = int(threshold.abs().max()) if threshold.numel() else 0
+        form = _record_form(d, top)
+    ws = _leaf_stride(_walk_depth(h, max_depth))
+    records = torch.empty((t * ws * (_WORD_INTS[form] + 1),),
+                          dtype=torch.int32, device=dev)
+    return dev, form, records
+
+
 def _launch_agg(
     xb, feature, threshold, fit, is_internal, max_depth: int,
     n_classes: int = 0, block_trees: int = 8, block_obs: int = 256,
+    form: int | None = None,
 ) -> torch.Tensor:
-    """Launch K3 on the card: one CTA per block of ``block_obs`` rows,
-    every chunk of ``block_trees`` trees, no segment test."""
-    dev = feature.device
-    if dev.type != "cuda":
-        raise ValueError(f"K3 launches on a CUDA device, got {dev}")
+    """Launch K3 on the card: the record prologue, the forest kernel (a
+    CTA per tree group and row range, ``forest_config``) and, when the
+    trees span several groups, the pass that folds their chunk sums or
+    turns their integer votes into floats.  ``block_obs`` does not change
+    the launch; it is taken so the launch and its plain version share one
+    signature."""
+    dev, form, records = _forest_launch_args(
+        xb, feature, threshold, fit, is_internal, "K3", max_depth,
+        block_trees, block_obs, form,
+    )
     n, d = xb.shape
     t, h = feature.shape
-    _check_heaps(xb, feature, threshold, fit, is_internal, dev)
-    _launch_config(n, block_trees, block_obs)
+    cfg = forest_config(t, h, n, d, max_depth, n_classes, False,
+                        block_trees, form)
+    partial = None
+    if cfg["mode"] == SUM and cfg["partials"]:
+        partial = torch.empty((-(-t // block_trees), n), dtype=torch.float32,
+                              device=dev)
     out = torch.zeros(
         (n, n_classes) if n_classes > 0 else (n,), dtype=torch.float32,
         device=dev,
@@ -514,8 +789,9 @@ def _launch_agg(
     with torch.cuda.device(dev):
         err = lib.tp_agg(
             xb.data_ptr(), feature.data_ptr(), threshold.data_ptr(),
-            fit.data_ptr(), is_internal.data_ptr(), out.data_ptr(), n, d, t,
-            h, max_depth, n_classes, block_trees, block_obs,
+            fit.data_ptr(), is_internal.data_ptr(), records.data_ptr(),
+            None if partial is None else partial.data_ptr(), out.data_ptr(),
+            n, d, t, h, max_depth, n_classes, block_trees, form,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(err, "tp_agg")
@@ -525,24 +801,25 @@ def _launch_agg(
 
 def _launch_per_tree(
     xb, feature, threshold, fit, is_internal, max_depth: int,
-    block_trees: int = 8, block_obs: int = 256,
+    block_trees: int = 8, block_obs: int = 256, form: int | None = None,
 ) -> torch.Tensor:
-    """Launch K4 on the card: a CTA per block of ``block_obs`` rows and
-    ``block_trees`` trees, a row per thread, writing (T, N) along rows."""
-    dev = feature.device
-    if dev.type != "cuda":
-        raise ValueError(f"K4 launches on a CUDA device, got {dev}")
+    """Launch K4 on the card: the record prologue, then the forest kernel
+    writing (T, N) along rows.  ``block_trees`` and ``block_obs`` do not
+    change the launch; they are taken so the launch and its plain version
+    share one signature."""
+    dev, form, records = _forest_launch_args(
+        xb, feature, threshold, fit, is_internal, "K4", max_depth,
+        block_trees, block_obs, form,
+    )
     n, d = xb.shape
     t, h = feature.shape
-    _check_heaps(xb, feature, threshold, fit, is_internal, dev)
-    _grid_config(n, block_trees, block_obs)
     out = torch.empty((t, n), dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.tp_per_tree(
             xb.data_ptr(), feature.data_ptr(), threshold.data_ptr(),
-            fit.data_ptr(), is_internal.data_ptr(), out.data_ptr(), n, d, t,
-            h, max_depth, block_trees, block_obs,
+            fit.data_ptr(), is_internal.data_ptr(), records.data_ptr(),
+            out.data_ptr(), n, d, t, h, max_depth, block_trees, form,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(err, "tp_per_tree")
@@ -777,10 +1054,12 @@ def forest_predict_agg_segmented(
 
 def _forest_inputs(xb, feature, threshold, fit, is_internal, max_depth):
     """Shared checks of the whole-forest entries (K3, K4): the device,
-    the reference's 2**24 guards, and the inputs moved there."""
+    the reference's 2**24 guards, the inputs moved there, and the record
+    form the guard's threshold maximum allows."""
     dev = _device_of(xb, feature, threshold, fit, is_internal)
-    _validate_f32_exact(
-        max_depth, xb.shape[1], feature=feature, threshold=threshold, xb=xb
+    d = xb.shape[1]
+    maxima = _validate_f32_exact(
+        max_depth, d, feature=feature, threshold=threshold, xb=xb
     )
     args = (
         _on(xb, torch.int32, dev),
@@ -789,7 +1068,7 @@ def _forest_inputs(xb, feature, threshold, fit, is_internal, max_depth):
         _on(fit, torch.float32, dev),
         _on(is_internal, torch.bool, dev),
     )
-    return dev, args
+    return dev, args, _record_form(d, maxima["threshold"])
 
 
 def forest_predict(
@@ -804,14 +1083,17 @@ def forest_predict(
 ) -> torch.Tensor:
     """Returns (T, N) per-(tree, obs) leaf fits (K4) on the arguments'
     device."""
-    dev, args = _forest_inputs(
+    dev, args, form = _forest_inputs(
         xb, feature, threshold, fit, is_internal, max_depth
     )
     t, n = feature.shape[0], xb.shape[0]
     if n == 0 or t == 0:
         return torch.zeros((t, n), dtype=torch.float32, device=dev)
-    run = _per_tree_plain if dev.type == "cpu" else _launch_per_tree
-    return run(*args, max_depth, min(block_trees, t), min(block_obs, n))
+    if dev.type == "cpu":
+        return _per_tree_plain(*args, max_depth, min(block_trees, t),
+                               min(block_obs, n))
+    return _launch_per_tree(*args, max_depth, min(block_trees, t),
+                            min(block_obs, n), form=form)
 
 
 def forest_predict_agg(
@@ -831,7 +1113,7 @@ def forest_predict_agg(
     divide by T for the ensemble mean) or (N, C) per-class vote counts
     otherwise, on the arguments' device.  Sums run per chunk of
     ``block_trees`` trees in tree order, then chunk by chunk."""
-    dev, args = _forest_inputs(
+    dev, args, form = _forest_inputs(
         xb, feature, threshold, fit, is_internal, max_depth
     )
     if n_classes > 0 and n_classes >= _F32_EXACT_INT:
@@ -840,7 +1122,7 @@ def forest_predict_agg(
     if n == 0 or t == 0:
         shape = (n, n_classes) if n_classes > 0 else (n,)
         return torch.zeros(shape, dtype=torch.float32, device=dev)
-    run = _agg_plain_unseg if dev.type == "cpu" else _launch_agg
-    return run(
-        *args, max_depth, n_classes, min(block_trees, t), min(block_obs, n)
-    )
+    blocks = (min(block_trees, t), min(block_obs, n))
+    if dev.type == "cpu":
+        return _agg_plain_unseg(*args, max_depth, n_classes, *blocks)
+    return _launch_agg(*args, max_depth, n_classes, *blocks, form=form)

@@ -246,7 +246,9 @@ def test_build_library_path_tracks_source_and_flags():
 
 def test_every_c_entry_is_declared_and_every_launch_is_counted():
     """The ctypes declarations name exactly the ``extern "C"`` functions of
-    the CUDA source, and each launch function bumps its own counter."""
+    the CUDA source (``tp_forest_config`` among them), each declares as
+    many ctypes arguments as its C prototype has parameters, and each
+    launch function bumps its own counter."""
     import inspect
 
     src = os.path.join(
@@ -256,7 +258,11 @@ def test_every_c_entry_is_declared_and_every_launch_is_counted():
         text = fh.read()
     c_entries = set(re.findall(r"^(?:int|const char\*) (tp_\w+)\(", text, re.M))
     assert c_entries == set(tp._SIGNATURES)
-    assert {"tp_agg", "tp_per_tree"} <= c_entries
+    assert {"tp_agg", "tp_per_tree", "tp_forest_config"} <= c_entries
+    for name in c_entries:
+        params = re.search(rf"^(?:int|const char\*) {name}\(([^)]*)\)",
+                           text, re.M).group(1)
+        assert len(tp._SIGNATURES[name][0]) == len(params.split(",")), name
     for fn, key in ((tp._launch_seg_packed, "seg_packed"),
                     (tp._launch_seg_simple, "seg_simple"),
                     (tp._launch_agg, "agg"),

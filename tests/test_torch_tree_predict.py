@@ -452,3 +452,303 @@ def test_walks_past_the_heap_read_zero(kernel, task):
             engine=engine, **kw,
         )
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# K3 / K4 on the card: node records, tiling and work partition, rehearsed
+# through their plain twins
+# ---------------------------------------------------------------------------
+
+def wide_heaps(seed, t, depth, d, n_bins, n_classes, n=60, p_internal=0.85):
+    """Heaps with negative and out-of-range features, thresholds in
+    [-n_bins, n_bins) and internal nodes on the last level (walks leave the
+    heap at ``max_depth > depth``)."""
+    rng = np.random.default_rng(seed)
+    h = (1 << (depth + 1)) - 1
+    feat = rng.integers(-2, d + 2, (t, h)).astype(np.int32)
+    thr = rng.integers(-n_bins, n_bins, (t, h)).astype(np.int32)
+    inter = rng.random((t, h)) < p_internal
+    if n_classes:
+        fit = rng.integers(-1, n_classes + 2, (t, h)).astype(np.float32)
+    else:
+        fit = rng.normal(size=(t, h)).astype(np.float32)
+    xb = rng.integers(-n_bins, n_bins, (n, d)).astype(np.int32)
+    return [torch.as_tensor(a) for a in (xb, feat, thr, fit, inter)]
+
+
+@pytest.mark.parametrize("max_depth", [2, 4, 6])
+@pytest.mark.parametrize("form", [tp.NARROW, tp.WIDE])
+def test_packed_records_round_trip(form, max_depth):
+    """The prologue's plain twin completes the heap and keeps what a walk
+    of ``depth`` levels reads: the words of the nodes above level
+    ``depth``, the fits of the nodes on it.  A node whose strict ancestors
+    are all internal keeps its feature (clamped to [0, d - 1]), its
+    threshold (negative ones sign-extended) and its fit, save an internal
+    node of the heap's last level when ``max_depth`` passes the heap (fit
+    0); a node below a leaf, or below a child past the heap, has word 0
+    and that stop's fit; the padding is zero."""
+    n_bins = 1 << 15 if form == tp.NARROW else 1 << 20
+    xb, feat, thr, fit, inter = wide_heaps(131, 5, 4, 7, n_bins, 0)
+    if form == tp.NARROW:
+        thr = thr.clamp(-(2**15) + 1, 2**15 - 1)
+        thr[0, :2] = torch.tensor([2**15 - 1, -(2**15) + 1])
+    h = 29  # a partial last level: nodes 29 and 30 lie past the heap
+    feat, thr, fit, inter = (a[:, :h].contiguous()
+                             for a in (feat, thr, fit, inter))
+    words, fits = tp._pack_records_plain(feat, thr, fit, inter, 7, form,
+                                         max_depth)
+    depth = tp._walk_depth(h, max_depth)
+    assert depth == min(max_depth, 4)
+    ws = tp._leaf_stride(depth)
+    assert tp._leaf_stride(0) == tp._leaf_stride(2) == 4 and ws == 1 << depth
+    assert words.shape == ((5, ws) if form == tp.NARROW else (5, ws, 2))
+    assert words.dtype == torch.int32 and fits.shape == (5, ws)
+    f, th = tp._unpack_records_plain(words, form)
+    first_leaf = (1 << depth) - 1
+    for t in range(5):
+        for j in range(2 * first_leaf + 1):
+            stop, a = None, j
+            while a:
+                a = (a - 1) // 2
+                if a >= h or not inter[t, a]:
+                    stop = a  # keeps the shallowest
+            if j >= first_leaf:  # level depth: the fit
+                if stop is not None:
+                    want = 0.0 if stop >= h else fit[t, stop]
+                elif j >= h:
+                    want = 0.0
+                else:
+                    cut = bool(inter[t, j]) and depth == 4 and max_depth >= 5
+                    want = 0.0 if cut else fit[t, j]
+                assert fits[t, j - first_leaf] == want
+            elif stop is not None or j >= h:
+                assert f[t, j] == th[t, j] == 0
+            else:
+                assert f[t, j] == min(max(int(feat[t, j]), 0), 6)
+                assert th[t, j] == thr[t, j]
+    assert not f[:, first_leaf:].any() and not fits[:, first_leaf + 1:].any()
+
+
+def test_record_form_boundaries():
+    """Narrow records take d <= 2**15 and |threshold| < 2**15; the entry
+    reads the threshold maximum from the 2**24 guard's own pass."""
+    assert tp._record_form(2**15, 2**15 - 1) == tp.NARROW
+    assert tp._record_form(2**15, 2**15) == tp.WIDE
+    assert tp._record_form(2**15 + 1, 0) == tp.WIDE
+    assert tp._record_form(1, 0) == tp.NARROW
+    xb, feat, thr, fit, inter = wide_heaps(132, 2, 2, 3, 9, 0)
+    for top, form in ((2**15 - 1, tp.NARROW), (2**15, tp.WIDE)):
+        thr2 = thr.clone()
+        thr2[1, 3] = -top
+        maxima = tp._validate_f32_exact(2, 3, feature=feat, threshold=thr2,
+                                        xb=xb)
+        assert maxima["threshold"] == top
+        _, _, got = tp._forest_inputs(xb, feat, thr2, fit, inter, 2)
+        assert got == form
+    maxima = tp._validate_f32_exact(2, 3, threshold=np.zeros((0, 3)),
+                                    xb=xb.numpy())
+    assert maxima == {"threshold": 0, "xb": int(xb.abs().max())}
+
+
+@pytest.mark.parametrize("form", [tp.NARROW, tp.WIDE])
+@pytest.mark.parametrize("extra_levels", [-2, 0, 2])
+@pytest.mark.parametrize("h", [63, 50])
+def test_walk_over_records_equals_per_tree_plain(form, extra_levels, h):
+    """The kernel's walk over the completed heap (``min(max_depth, levels
+    - 1)`` uniform levels, one word each, the fit where it ends) equals
+    ``_per_tree_plain`` bit for bit: with ``max_depth`` short of the heap,
+    at it, past it (walks that leave the heap), and on a heap of 50 nodes,
+    whose last level is partial."""
+    n_bins = 2**15 - 1 if form == tp.NARROW else 70000
+    xb, *heap = wide_heaps(133 + form, 9, 5, 6, n_bins, 0)
+    feat, thr, fit, inter = (a[:, :h].contiguous() for a in heap)
+    depth = 6 + extra_levels
+    words, fits = tp._pack_records_plain(feat, thr, fit, inter, 6, form,
+                                         depth)
+    got = tp._walk_records_plain(xb, words, fits, form, h, depth)
+    want = tp._per_tree_plain(xb, feat, thr, fit, inter, depth)
+    assert torch.equal(got, want)
+
+
+#: chip_smoke.py's K3 / K4 shapes: (t, h, n, d, max_depth, n_classes,
+#: block_trees, form) — the Liberty forests (50 trees, depth 12, 50,999
+#: rows, 32 variables) and the parity cases.
+SMOKE_SHAPES = [
+    (50, 8191, 50999, 32, 12, 2, 8, tp.NARROW),
+    (50, 8191, 50999, 32, 12, 0, 8, tp.NARROW),
+    (1021, 511, 65536, 8, 8, 2, 8, tp.NARROW),
+    (1021, 511, 65536, 8, 8, 0, 8, tp.NARROW),
+    (203, 8191, 5003, 8, 12, 7, 8, tp.NARROW),
+    (99, 511, 2001, 8, 10, 0, 8, tp.NARROW),
+    (37, 32767, 3001, 8, 14, 0, 8, tp.NARROW),
+    (45, 2047, 4001, 8, 10, 3, 8, tp.WIDE),
+    (17, 511, 257, 40000, 8, 40, 8, tp.WIDE),
+    (1, 8191, 4099, 8, 12, 0, 8, tp.NARROW),
+    (203, 8191, 1, 8, 12, 7, 8, tp.NARROW),
+    (301, 2047, 2003, 8, 10, 0, 5, tp.NARROW),
+    # 67 features: a 512-row x tile of 137,216 B beside a full tree budget
+    # would pass a CTA's 232,448 B (12 depth-12 trees, 96 depth-8 trees)
+    (12, 8191, 3001, 67, 12, 2, 8, tp.NARROW),
+    (96, 511, 3001, 67, 8, 0, 8, tp.NARROW),
+    (96, 511, 3001, 67, 8, 3, 8, tp.NARROW),
+]
+
+
+@pytest.mark.parametrize("resident", [132, 264, 396])
+@pytest.mark.parametrize("shape", SMOKE_SHAPES)
+def test_work_partition_covers_every_pair_once(shape, resident):
+    """Over the configuration the wrapper computes, the CTAs' (tree range,
+    row range) work items cover every (tree, row) pair exactly once, with
+    the rows of a group of fewer trees cut into fewer ranges; K3's sums
+    run in groups of whole chunks of block_trees trees whenever there are
+    several, so a chunk's sum is made in one CTA; the tiling fits a Hopper
+    CTA, x in shared memory whenever its tile alone fits (its bytes taken
+    from the trees' budget)."""
+    t, h, n, d, max_depth, c, bt, form = shape
+    for per_tree in (False, True):
+        cfg = tp._forest_config(t, h, n, d, max_depth, c, per_tree, bt, form,
+                                resident)
+        assert cfg["smem"] <= 232448 and cfg["grid"] >= 1
+        assert cfg["x_smem"] == (512 * (d | 1) * 4 <= 136 * 1024)
+        assert cfg["grid"] <= max(resident, 1) + cfg["n_groups"]
+        depth = cfg["depth"]
+        assert depth == min(max_depth, h.bit_length() - 1)
+        assert 0 <= cfg["levels"] <= depth
+        assert cfg["staged"] % 4 == 0
+        assert (1 << cfg["levels"]) - 1 <= cfg["staged"] <= tp._leaf_stride(
+            depth)
+        rows_of = {}
+        for trees, rows in tp._forest_work(cfg, t, n):
+            assert len(trees) and len(rows)
+            rows_of.setdefault((trees.start, trees.stop), []).append(rows)
+        starts = sorted(rows_of)
+        assert starts[0][0] == 0 and starts[-1][1] == t
+        assert all(a[1] == b[0] for a, b in zip(starts, starts[1:]))
+        for key, ranges in rows_of.items():
+            ranges.sort(key=lambda r: r.start)
+            assert ranges[0].start == 0 and ranges[-1].stop == n
+            assert all(a.stop == b.start for a, b in zip(ranges, ranges[1:]))
+            if not per_tree and c == 0 and cfg["n_groups"] > 1:
+                assert key[0] % bt == 0 and cfg["partials"] == 1
+        splits = [len(rows_of[k]) for k in starts]
+        assert splits[-1] <= splits[0]  # the last group has the fewest trees
+        assert cfg["mode"] == (tp.PER_TREE if per_tree else tp.SUM if c == 0
+                               else tp.VOTES if c <= 8 else tp.VOTE_ATOMIC)
+
+
+def kernel_order_plain(xb, feat, thr, fit, inter, depth, n_classes, bt, cfg):
+    """K3 written out as the kernel orders it, in float32 numpy over the
+    configuration's work items: per row and group, leaves in tree order
+    into the open chunk, chunk sums into the row's total (one group) or
+    into partials that a second pass folds in chunk order; votes as
+    integer counts."""
+    leaf = tp._per_tree_plain(xb, feat, thr, fit, inter, depth).numpy()
+    t, n = leaf.shape
+    if n_classes:
+        votes = np.zeros((n, n_classes), np.int64)
+        for trees, rows in tp._forest_work(cfg, t, n):
+            for tree in trees:
+                cls = leaf[tree, rows.start:rows.stop].astype(np.int32)
+                for r, k in zip(rows, cls):
+                    if 0 <= k < n_classes:
+                        votes[r, k] += 1
+        return votes.astype(np.float32)
+    n_chunks = -(-t // bt)
+    partial = np.full((n_chunks, n), np.nan, np.float32)
+    out = np.full(n, np.nan, np.float32)
+    for trees, rows in tp._forest_work(cfg, t, n):
+        sl = slice(rows.start, rows.stop)
+        total = np.zeros(len(rows), np.float32)
+        chunk = np.zeros(len(rows), np.float32)
+        for tree in trees:
+            if tree % bt == 0 and tree != trees.start:
+                if cfg["partials"]:
+                    partial[tree // bt - 1, sl] = chunk
+                else:
+                    total = total + chunk
+                chunk = np.zeros(len(rows), np.float32)
+            chunk = chunk + leaf[tree, sl]
+        if cfg["partials"]:
+            partial[(trees.stop - 1) // bt, sl] = chunk
+        else:
+            out[sl] = total + chunk
+    if cfg["partials"]:
+        out = np.zeros(n, np.float32)
+        for k in range(n_chunks):
+            out = out + partial[k]
+    return out
+
+
+#: (trees, heap depth, max_depth, block_trees, groups): one group; several
+#: groups folded through chunk partials (walks past the heap in one);
+#: nothing staged (max_depth 0).
+ORDER_SHAPES = [
+    (29, 5, 6, 3, 1),
+    (101, 10, 10, 3, 5),
+    (101, 10, 12, 7, 5),
+    (29, 5, 0, 3, 1),
+]
+
+
+@pytest.mark.parametrize("shape", ORDER_SHAPES)
+@pytest.mark.parametrize("n_classes", [0, 3, 11])
+def test_kernel_reduction_order_equals_agg_plain(n_classes, shape):
+    """K3's reduction, written out in the kernel's order over its work
+    items (one group, several groups folded through chunk partials, and
+    nothing staged), equals ``_agg_plain_unseg`` bit for bit."""
+    t, depth, max_depth, bt, groups = shape
+    xb, feat, thr, fit, inter = wide_heaps(141 + n_classes, t, depth, 6, 9,
+                                           n_classes, n=97)
+    cfg = tp._forest_config(t, feat.shape[1], 97, 6, max_depth, n_classes,
+                            False, bt, tp.NARROW, resident=5)
+    assert cfg["n_groups"] == groups and cfg["partials"] == (groups > 1)
+    assert (cfg["levels"] == 0) == (max_depth == 0)
+    got = kernel_order_plain(xb, feat, thr, fit, inter, max_depth, n_classes,
+                             bt, cfg)
+    want = tp._agg_plain_unseg(xb, feat, thr, fit, inter, max_depth,
+                               n_classes, bt)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+def test_forest_launches_refuse_what_they_do_not_take():
+    """K3's and K4's launches check dtype, shape and contiguity, refuse
+    narrow records for d > 2**15, then refuse a CPU tensor; a refusal
+    counts no launch and runs no plain version."""
+    xb, feat, thr, fit, inter = wide_heaps(151, 4, 3, 5, 9, 0)
+    tp.reset_launches()
+    for launch in (tp._launch_agg, tp._launch_per_tree):
+        with pytest.raises(ValueError, match="dtype"):
+            launch(xb.long(), feat, thr, fit, inter, 3)
+        with pytest.raises(ValueError, match="dtype"):
+            launch(xb, feat, thr, fit, inter.to(torch.uint8), 3)
+        with pytest.raises(ValueError, match="contiguous"):
+            launch(xb, feat.T.contiguous().T, thr, fit, inter, 3)
+        with pytest.raises(ValueError, match="shape"):
+            launch(xb, feat, thr[:, :-1], fit, inter, 3)
+        with pytest.raises(ValueError, match="CUDA"):
+            launch(xb, feat, thr, fit, inter, 3)
+        # narrow records cannot hold a feature id past 2**15
+        wide_x = torch.zeros((2, 2**15 + 1), dtype=torch.int32)
+        with pytest.raises(ValueError, match="narrow"):
+            launch(wide_x, feat, thr, fit, inter, 3, form=tp.NARROW)
+    assert tp.LAUNCHES["agg"] == tp.LAUNCHES["per_tree"] == 0
+
+
+@pytest.mark.parametrize("task", ["classification", "regression"])
+def test_depth13_entries_match_interpret_kernels(task):
+    """Depth 13 (16,383-node heaps), small T and N: K3's and K4's entries
+    on the CPU (their plain versions) against the interpret-mode Pallas
+    kernels, with walks two levels past the heap for K4."""
+    c = 3 if task == "classification" else 0
+    xb, feat, thr, fit, inter = wide_heaps(161 + c, 5, 13, 6, 9, c, n=24,
+                                           p_internal=0.9)
+    J = [jnp.asarray(a.numpy()) for a in (xb, feat, thr, fit, inter)]
+    kw = dict(block_trees=2, block_obs=8)
+    want = jtp.forest_predict_agg(*J, 13, n_classes=c, interpret=True, **kw)
+    got = tp.forest_predict_agg(xb, feat, thr, fit, inter, 13, n_classes=c,
+                                **kw)
+    check(got, want, c)
+    for depth in (13, 15):
+        want = jtp.forest_predict(*J, depth, interpret=True, **kw)
+        got = tp.forest_predict(xb, feat, thr, fit, inter, depth, **kw)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
