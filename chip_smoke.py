@@ -22,7 +22,14 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    memory), C = 40 (integer vote atomics), one tree, one row, groups of
    more than 128 trees, T not a multiple of the tree group, K3 chunks of
    5 trees, 67 features (the x tile's bytes taken from the trees' budget);
-   for these the library's configuration is held equal to its plain twin;
+   then K1 and K2 alone on what their tiling introduces: a fleet batch
+   (65,536 rows of 256 sorted requests, 222 users of 8-16 trees at depth
+   6), 1,000 rows and one row, row blocks with empty chunk ranges, one
+   user of 2,100 trees (ranges longer than a window of slices), a code
+   word base that is no power of two (K1's division), 160 users whose
+   chunks mostly meet none of a CTA's rows, and C = 300 (integer vote
+   atomics); for every case the library's configuration is held equal to
+   its plain twin;
 4. main path: ``ForestServer.from_forest(forest, device="cuda")`` serves a
    seeded synthetic forest (100 trees, depth 8, 8 features, 32 bins) for
    each task through ``predict`` / ``serve`` / ``serve_safe`` and
@@ -54,7 +61,7 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    plain version at its main path's shapes and at the large phase-3 shape
    (K3 and K4 with the configuration the library reports, checked
    against its plain twin, their record form and ``-Xptxas -v``
-   report);
+   report; K1 and K2 likewise, with the large regression shape too);
    then, on the host clock, warm serving ms per 1,024-row batch and its
    stages (plan lookup, pack lookup, the K1 run with its upload and copy
    back, finalize), with K1's share of the batch;
@@ -123,14 +130,22 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    ``serve_safe`` with one user's delta corrupted (that user
    quarantined, the others unchanged); (c) K1, K2 and K5 launch counts
    read around (b), positive, with 4 K1 launches per S = 4 batch; (d) K5
-   against its plain version at the S = 1 and S = 4 inputs; (e) the
+   against its plain version at the S = 1 and S = 4 inputs, and K1 at the
+   S = 1 session's batch timed beside its plain version and bound, with
+   its configuration (part of K1's ``{"kernels"}`` entry); (e) the
    builds' seconds, each engine's cold and warm batch with its stages,
    K1's share, and K5 at S = 1 and 4, in one ``{"fleet": ...}`` line.
 
 ``python3 chip_smoke.py --forest-times`` runs only K3 and K4 at the two
 Liberty shapes and the large one (the same command times a parent tree's
 kernels); ``--forest-profile`` adds ``max_depth`` cut to 0, 2, ..., 12
-and a ``torch.profiler`` split of each call by kernel.
+and a ``torch.profiler`` split of each call by kernel.  ``--seg-times``
+runs only K1, K2 and K5: K1 and K2 at the single-forest 1,024-row batch
+of phase 4, K1 at phase 10's 65,536-row fleet batch, K5 there at S = 1
+and 4, K1 and K2 at the large classification and regression shapes, each
+held against its plain version (the same command times a parent tree's
+kernels); ``--seg-profile`` adds ``max_depth`` cut to 0, 2, ..., 8 at the
+single-forest batch, with each call's device time from ``torch.profiler``.
 
 Votes must be equal; regression sums are held at rtol = atol = 1e-5 (the
 reference's own serving tolerance); on the card K1-K4 equal their plain
@@ -186,8 +201,9 @@ K4 = {
     "source": "src/repro_torch/kernels/tree_predict/csrc/tree_predict.cu",
     "replaces": "src/repro/kernels/tree_predict/tree_predict.py:158",
 }
-#: The kernels a parity case runs when it names them (K3, K4).
+#: The kernels a parity case runs when it names them (K3, K4; K1, K2).
 FOREST = ("agg", "per_tree")
+SEG = ("seg_packed", "seg_simple")
 
 K5 = {
     "name": "seg_sharded",
@@ -400,33 +416,57 @@ def ragged_segments(rng, n, n_segs, sort):
     return np.sort(seg) if sort else seg
 
 
+def fleet_segments(rng, n_users, n_requests, rows):
+    """A fleet batch's segments: users of 8-16 trees each, and
+    ``n_requests`` requests of ``rows`` rows, every user asked at least
+    once, the rows sorted by user (as the serving plan sorts them)."""
+    tseg = np.repeat(np.arange(n_users), rng.integers(8, 17, n_users))
+    asked = np.concatenate([np.arange(n_users),
+                            rng.integers(0, n_users, n_requests - n_users)])
+    oseg = np.sort(np.repeat(asked, rows))
+    return tseg.astype(np.int32), oseg.astype(np.int32)
+
+
 def walk_depth(case):
     """``max_depth`` of a case: two levels past the heap when it asks."""
     return case["depth"] + (2 if case.get("past_heap") else 0)
 
 
+def seg_layout(rng, case):
+    """(trees, rows, tree segments or None, row segments or None) of a K1 /
+    K2 case: a fleet batch's when it asks, else drawn after the heaps."""
+    if "fleet" in case:
+        tseg, oseg = fleet_segments(rng, *case["fleet"])
+        return len(tseg), len(oseg), tseg, oseg
+    return case["trees"], case["rows"], None, None
+
+
 def k1_inputs(dev, case, rng):
     from repro_torch.kernels.tree_predict import tree_predict as tp
 
-    t, depth, d, nb, c, n = (
-        case["trees"], case["depth"], 8, 32, case["classes"], case["rows"]
-    )
+    d, nb, c = 8, 32, case["classes"]
+    t, n, tseg, oseg = seg_layout(rng, case)
+    depth = case["depth"]
     bt, bo = case.get("k1_blocks", (8, 128))
     feature, threshold, is_internal, fit = random_heaps(
         rng, t, depth, d, nb, c, negative=False,
         past_heap=case.get("past_heap", False),
     )
-    tb = tp.fused_threshold_base(nb - 1)
+    tb = case.get("tb") or tp.fused_threshold_base(nb - 1)
     code = tp.fuse_node_attrs(feature, threshold, is_internal, tb)
     t_pad = -(-t // bt) * bt
-    tseg = ragged_segments(rng, t, case["segs"], sort=True)
+    if tseg is None:
+        tseg = ragged_segments(rng, t, case["segs"], sort=True)
     pad = t_pad - t
     code = np.pad(code, ((0, pad), (0, 0)))
     fit = np.pad(fit, ((0, pad), (0, 0)))
     tseg = np.pad(tseg, (0, pad), constant_values=-1)
     xb = rng.integers(0, nb, (n, d)).astype(np.int32)
-    oseg = ragged_segments(rng, n, case["segs"], sort=case["sorted"])
+    if oseg is None:
+        oseg = ragged_segments(rng, n, case["segs"], sort=case["sorted"])
     lo, hi = tp.segment_chunk_ranges(oseg, tseg, bt, bo)
+    if case.get("empty_ranges"):  # every third row block walks nothing
+        hi[::3] = lo[::3]
 
     def T(a, dt):
         return torch.as_tensor(a, dtype=dt, device=dev)
@@ -439,16 +479,17 @@ def k1_inputs(dev, case, rng):
 
 
 def k2_inputs(dev, case, rng):
-    t, depth, d, nb, c, n = (
-        case["trees"], case["depth"], 8, 32, case["classes"], case["rows"]
-    )
+    d, nb, c = 8, 32, case["classes"]
+    t, n, tseg, oseg = seg_layout(rng, case)
     feature, threshold, is_internal, fit = random_heaps(
-        rng, t, depth, d, nb, c, negative=True,
+        rng, t, case["depth"], d, nb, c, negative=True,
         past_heap=case.get("past_heap", False),
     )
-    tseg = ragged_segments(rng, t, case["segs"], sort=True)
+    if tseg is None:
+        tseg = ragged_segments(rng, t, case["segs"], sort=True)
     xb = rng.integers(-2, nb, (n, d)).astype(np.int32)
-    oseg = ragged_segments(rng, n, case["segs"], sort=case["sorted"])
+    if oseg is None:
+        oseg = ragged_segments(rng, n, case["segs"], sort=case["sorted"])
 
     def T(a, dt):
         return torch.as_tensor(a, dtype=dt, device=dev)
@@ -458,7 +499,7 @@ def k2_inputs(dev, case, rng):
         T(xb, torch.int32), T(oseg, torch.int32), T(tseg, torch.int32),
         T(feature, torch.int32), T(threshold, torch.int32),
         T(fit, torch.float32), T(is_internal, torch.bool), walk_depth(case),
-        c, bt, bo,
+        c, bt, min(bo, n),
     )
 
 
@@ -732,6 +773,49 @@ PARITY_CASES = [
      "rows": 3001, "d": 67, "kernels": FOREST},
     {"name": "cls3-d67-t96", "classes": 3, "depth": 8, "trees": 96,
      "rows": 3001, "d": 67, "kernels": FOREST},
+    # K1 and K2 only: what their tiling introduces.  A fleet batch: 256
+    # requests of 256 rows from 222 users of 8-16 trees at depth 6, the
+    # rows sorted by user (65,536 rows)
+    {"name": "cls2-d6-fleet", "classes": 2, "depth": 6,
+     "fleet": (222, 256, 256), "kernels": SEG},
+    {"name": "reg-d6-fleet", "classes": 0, "depth": 6,
+     "fleet": (222, 256, 256), "kernels": SEG},
+    # rows that are no multiple of a CTA's rows; one row
+    {"name": "cls3-n1000", "classes": 3, "depth": 8, "trees": 100,
+     "rows": 1000, "segs": 2, "sorted": False, "kernels": SEG},
+    {"name": "reg-n1000", "classes": 0, "depth": 8, "trees": 100,
+     "rows": 1000, "segs": 2, "sorted": False, "kernels": SEG},
+    {"name": "cls3-seg-n1", "classes": 3, "depth": 8, "trees": 203,
+     "rows": 1, "segs": 3, "sorted": True, "kernels": SEG},
+    {"name": "reg-seg-n1", "classes": 0, "depth": 8, "trees": 203,
+     "rows": 1, "segs": 3, "sorted": True, "kernels": SEG},
+    # every third row block with an empty chunk range (K1; K2 walks all)
+    {"name": "cls3-empty-ranges", "classes": 3, "depth": 8, "trees": 301,
+     "rows": 3001, "segs": 7, "sorted": True, "empty_ranges": True,
+     "kernels": SEG},
+    {"name": "reg-empty-ranges", "classes": 0, "depth": 8, "trees": 301,
+     "rows": 3001, "segs": 7, "sorted": True, "empty_ranges": True,
+     "kernels": SEG},
+    # one user of 2,100 trees: a range of more slices than one window of
+    # a CTA's threads (263 chunks of 8 for K1, 263 slices of 8 for K2)
+    {"name": "cls3-long-range", "classes": 3, "depth": 6, "trees": 2100,
+     "rows": 700, "segs": 1, "sorted": True, "kernels": SEG},
+    {"name": "reg-long-range", "classes": 0, "depth": 6, "trees": 2100,
+     "rows": 700, "segs": 1, "sorted": True, "kernels": SEG},
+    # K1 with a code word base that is no power of two (TB 48: decoded by
+    # division)
+    {"name": "cls3-tb48", "classes": 3, "depth": 8, "trees": 99,
+     "rows": 2001, "segs": 3, "sorted": False, "tb": 48, "kernels": SEG},
+    {"name": "reg-tb48", "classes": 0, "depth": 8, "trees": 99,
+     "rows": 2001, "segs": 3, "sorted": True, "tb": 48, "kernels": SEG},
+    # 160 users over 640 trees: most chunks of 32 meet none of a CTA's rows
+    {"name": "cls3-dead-chunks", "classes": 3, "depth": 8, "trees": 640,
+     "rows": 8192, "segs": 160, "sorted": True, "kernels": SEG},
+    {"name": "reg-dead-chunks", "classes": 0, "depth": 8, "trees": 640,
+     "rows": 8192, "segs": 160, "sorted": True, "kernels": SEG},
+    # C = 300: a vote table past the shared budget (integer atomics)
+    {"name": "cls300-d8", "classes": 300, "depth": 8, "trees": 64,
+     "rows": 20000, "segs": 4, "sorted": True, "kernels": SEG},
 ]
 
 
@@ -750,11 +834,12 @@ def kernel_table():
 def phase_parity(dev, errs):
     """Every kernel against its plain version on the same CUDA inputs, at
     every case of PARITY_CASES (errors appended to ``errs[name]``).
-    Returns each kernel's inputs at the large classification case."""
+    Returns each kernel's inputs at the large classification case, and
+    K1's and K2's at the large regression case."""
     rng = np.random.default_rng(0)
     makers = {"seg_packed": k1_inputs, "seg_simple": k2_inputs,
               "agg": k3_inputs, "per_tree": k4_inputs}
-    large = {}
+    large, large_reg = {}, {}
     for case in PARITY_CASES:
         for kern, launch, plain, _ in kernel_table():
             if kern["name"] not in case.get("kernels", makers):
@@ -770,10 +855,16 @@ def phase_parity(dev, errs):
                 cfg = forest_config_checked(kern["name"], args)
                 line["config"] = {k: cfg[k] for k in (
                     "levels", "group", "n_groups", "x_smem", "smem", "walks")}
+            else:
+                cfg = seg_config_checked(kern["name"], args)
+                line["config"] = {k: cfg[k] for k in (
+                    "mode", "decode", "rows", "cols", "grid", "smem")}
             log(json.dumps(line))
             if case["name"] == "cls2-d8-large":
                 large[kern["name"]] = args
-    return large
+            elif case["name"] == "reg-d8-large":
+                large_reg[kern["name"]] = args
+    return large, large_reg
 
 
 def synthetic_forest(task):
@@ -1229,6 +1320,66 @@ def forest_config_checked(name, args):
     return card
 
 
+def seg_shape_of(name, args):
+    """(n, d, t, h, max_depth, n_classes, block_trees, block_obs, tb2) of
+    K1 / K2 inputs (tb2 None for K2)."""
+    if name == K1["name"]:
+        xb, _, code, _, _, _, _, depth, tb2, c, bt, bo = args
+        t, h = code.shape
+    else:
+        xb, _, _, feature, _, _, _, depth, c, bt, bo = args
+        t, h = feature.shape
+        tb2 = None
+    return (xb.shape[0], xb.shape[1], t, h, depth, c, bt, bo, tb2)
+
+
+def seg_config_checked(name, args):
+    """K1's / K2's configuration as the library reports it for these
+    inputs, held equal to its plain twin's at the same resident CTA
+    count."""
+    from repro_torch.kernels.tree_predict import tree_predict as tp
+
+    shape = seg_shape_of(name, args)
+    card = tp.seg_config(*shape)
+    twin = tp._seg_config(*shape, resident=card["resident"])
+    assert card == twin, (name, card, twin)
+    return card
+
+
+def seg_ptxas(cfg) -> dict | None:
+    """``-Xptxas -v``'s registers and spills of the seg_kernel
+    instantiation a K1 / K2 configuration runs (nodes, mode, x in shared
+    memory)."""
+    import re
+
+    from repro_torch.kernels import build
+
+    text = build.build_logs.get("tree_predict")
+    if text is None:
+        return None
+    nodes = ("SimpleNodes", "PackedNodesILb1EE",
+             "PackedNodesILb0EE")[cfg["decode"]]
+    args = f"ELi{cfg['mode']}ELb{cfg['x_smem']}EE"
+    for name in re.findall(r"Compiling entry function '(\S+)'", text):
+        if "seg_kernel" in name and nodes in name and args in name:
+            return {"entry": name, **ptxas_report("tree_predict", name)}
+    return None
+
+
+def seg_timed(name, launch, plain, parts, args, reps=REPS):
+    """One K1 / K2 shape of its ``{"kernels"}`` entry: median / min / max
+    ms, the plain version's ms, the bound and the library's configuration
+    (checked against its twin)."""
+    bms, by, work = bound(parts(args))
+    cfg = seg_config_checked(name, args)
+    stats = time_stats(bound_launch(name, launch, args))
+    return {"ms": stats["median"], "ms_min": stats["min"],
+            "ms_max": stats["max"],
+            "plain_ms": time_ms(lambda: plain(*args), reps=reps),
+            "bound_ms": bms, "bound_by": by, "work": work,
+            "config": cfg, "ptxas": seg_ptxas(cfg)}
+
+
 def forest_ptxas(cfg) -> dict | None:
     """``-Xptxas -v``'s registers and spills of the forest_kernel
     instantiation a configuration runs (form, mode, x in shared memory,
@@ -1266,6 +1417,24 @@ def forest_report(name, per_task_args, large_args):
         "ptxas": forest_ptxas(main_cfg),
         "prologue": "pack_kernel, one launch inside each K3 / K4 call "
                     "(timed and counted with it)",
+    }
+
+
+def seg_report(name, launch, plain, parts, per_task_args, large_args,
+               large_reg_args):
+    """K1's / K2's part of its ``{"kernels"}`` entry: the configuration
+    the library reports at the main path's shapes and at the large parity
+    shapes (checked against the plain twin), the ``-Xptxas -v`` report of
+    the instantiation the classification shape runs, and the large
+    regression shape timed beside its plain version and bound."""
+    configs = {task: seg_config_checked(name, a)
+               for task, a in per_task_args.items()}
+    configs["cls2-d8-large"] = seg_config_checked(name, large_args)
+    return {
+        "config": configs,
+        "ptxas": seg_ptxas(configs["classification"]),
+        "reg-d8-large": seg_timed(name, launch, plain, parts, large_reg_args,
+                                  reps=5),
     }
 
 
@@ -1311,6 +1480,96 @@ def forest_times_main(profile: bool) -> None:
                             **time_stats(run)}))
     if profile:
         forest_depth_profile(shapes["classification"])
+    print(json.dumps({"ok": True}), flush=True)
+
+
+def seg_shapes(dev):
+    """K1's, K2's and K5's inputs at the shapes ``--seg-times`` times: the
+    single-forest 1,024-row batch of phase 4 (K1, and K2's first tree
+    chunk), the 65,536-row batch of phase 10's 1,000-user fleet (K1; K5 at
+    S = 1 and 4) and the large parity shapes."""
+    from repro_torch.serving import ForestServer
+    from repro_torch.store import (
+        build_store,
+        make_request_batch,
+        make_synthetic_fleet,
+    )
+
+    shapes = {}
+    rng = np.random.default_rng(1)
+    for task in ("classification", "regression"):
+        server = ForestServer.from_forest(synthetic_forest(task),
+                                          device="cuda")
+        x = rng.integers(0, 32, (5000, 8)).astype(np.int32)
+        shapes[f"main-path-{task}"] = main_path_args(server, x)
+    task = "classification"
+    store = build_store(make_synthetic_fleet(FLEET_SERVE_USERS[task], task,
+                                             seed=0), device=dev)
+    requests = make_request_batch(store, FLEET_REQUESTS, FLEET_ROWS, seed=1)
+    shapes["fleet"] = {K1["name"]: fleet_kernel_args(
+        fleet_session(store, dev, None), requests, "pipelined")[1]}
+    for shards in (1, 4):
+        shapes[f"fleet-s{shards}"] = {K5["name"]: fleet_kernel_args(
+            fleet_session(store, dev, shards), requests, "sharded")[1]}
+    for case in PARITY_CASES:
+        if case["name"] in ("cls2-d8-large", "reg-d8-large"):
+            shapes[case["name"]] = {
+                K1["name"]: k1_inputs(dev, case, np.random.default_rng(0)),
+                K2["name"]: k2_inputs(dev, case, np.random.default_rng(0)),
+            }
+    return shapes
+
+
+def seg_depth_profile(args):
+    """--seg-profile: K1 and K2 at the single-forest classification batch
+    with ``max_depth`` cut to 0, 2, ..., 8 (0: the launch, the keep window,
+    staging and the reduction alone), device ms per call of each kernel
+    from ``torch.profiler``, each held against its plain version."""
+    from repro_torch.kernels.tree_predict import tree_predict as tp
+
+    for name, launch, plain in ((K1["name"], tp._launch_seg_packed,
+                                 tp._seg_packed_plain),
+                                (K2["name"], tp._launch_seg_simple,
+                                 tp._seg_simple_plain)):
+        a = list(args[name])
+        for depth in range(0, 9, 2):
+            a[7] = depth  # max_depth, in K1's and K2's arguments alike
+            max_abs_err(launch(*a), plain(*a))
+            split = profile_kernels(lambda: launch(*a), calls=20)
+            log(json.dumps({"seg_profile": name, "max_depth": depth,
+                            "kernel_ms": sum(split.values()),
+                            "event_ms": time_ms(lambda: launch(*a))}))
+
+
+def seg_times_main(profile: bool) -> None:
+    """``--seg-times``: K1, K2 and K5 alone at ``seg_shapes``, each held
+    against its plain version, median / min / max of REPS calls, with the
+    library's configuration where the tree has one.  Only the launch and
+    plain functions are used, so the same command times a parent tree's
+    kernels.  ``--seg-profile`` adds ``seg_depth_profile``."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.tree_predict import tree_predict as tp
+
+    dev = phase_environment()
+    build.build(["tree_predict"])
+    runs = {K1["name"]: (tp._launch_seg_packed, tp._seg_packed_plain),
+            K2["name"]: (tp._launch_seg_simple, tp._seg_simple_plain),
+            K5["name"]: (tp._launch_seg_sharded, tp._seg_sharded_plain)}
+    shapes = seg_shapes(dev)
+    for where, kernels in shapes.items():
+        for name, args in kernels.items():
+            launch, plain = runs[name]
+            run = bound_launch(name, launch, args)
+            max_abs_err(run(), plain(*args))
+            line = {"seg_times": name, "shape": where, **time_stats(run)}
+            if hasattr(tp, "seg_config") and name in SEG:
+                cfg = seg_config_checked(name, args)
+                line["config"] = {k: cfg[k] for k in (
+                    "mode", "decode", "rows", "cols", "grid", "resident",
+                    "smem")}
+            log(json.dumps(line))
+    if profile:
+        seg_depth_profile(shapes["main-path-classification"])
     print(json.dumps({"ok": True}), flush=True)
 
 
@@ -2518,8 +2777,10 @@ def fleet_entry(served, launches, build_rows, fleet_rows):
         dev = store.device
         plan1, k1_args = fleet_kernel_args(fleet_session(store, dev, None),
                                            requests, "pipelined")
-        bms, by, work = bound(k1_parts(k1_args))
-        k1_ms = time_ms(lambda: tp._launch_seg_packed(*k1_args))
+        k1 = seg_timed(K1["name"], tp._launch_seg_packed,
+                       tp._seg_packed_plain, k1_parts, k1_args, reps=3)
+        k1_ms, bms, by, work = (k1[k] for k in ("ms", "bound_ms",
+                                                "bound_by", "work"))
         times = {}
         for shards in (1, 4):
             _plan, args = fleet_kernel_args(
@@ -2544,7 +2805,7 @@ def fleet_entry(served, launches, build_rows, fleet_rows):
                                           engine)
                         for label, shards, engine in FLEET_ENGINES]
         pipelined = engines_rows[0]
-        fleet[task] = {"engines": engines_rows, "k1_ms": k1_ms,
+        fleet[task] = {"engines": engines_rows, "k1_ms": k1_ms, "k1": k1,
                        "k1_share_of_warm_batch": k1_ms / pipelined["warm_ms"],
                        "k5_ms_s1": times[1]["ms"], "k5_ms_s4": times[4]["ms"]}
     main = per_task["classification"]
@@ -2574,7 +2835,7 @@ def main() -> None:
     table = kernel_table()
     errs = {kern["name"]: [] for kern, *_ in table}
     clock = {"start": time.perf_counter()}
-    large = phase_parity(dev, errs)
+    large, large_reg = phase_parity(dev, errs)
     clock["parity"] = time.perf_counter()
     servers, serve_launches = phase_main_path(dev)
     clock["serving"] = time.perf_counter()
@@ -2605,6 +2866,9 @@ def main() -> None:
         ))
         if name in FOREST:
             out[-1]["forest"] = forest_report(name, task_args, large[name])
+        else:
+            out[-1]["seg"] = seg_report(name, launch, plain, parts, task_args,
+                                        large[name], large_reg[name])
 
     from repro_torch.serving import engines
 
@@ -2679,6 +2943,8 @@ def main() -> None:
     for entry in out:
         if entry["name"] in (K1["name"], K2["name"]):
             entry["fleet_launches"] = fleet_launches[entry["name"]]
+        if entry["name"] == K1["name"]:
+            entry["fleet"] = {task: fleet[task]["k1"] for task in served}
     out.append(k5)
     log(json.dumps({"fleet": fleet}))
     clock["fleet"] = time.perf_counter()
@@ -2700,5 +2966,8 @@ if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] in ("--forest-times",
                                              "--forest-profile"):
         forest_times_main(sys.argv[1] == "--forest-profile")
+    elif len(sys.argv) > 1 and sys.argv[1] in ("--seg-times",
+                                               "--seg-profile"):
+        seg_times_main(sys.argv[1] == "--seg-profile")
     else:
         main()

@@ -1,6 +1,6 @@
 // Tree-predict kernels for Hopper (sm_90a), with a plain C interface for
-// ctypes.  K1 and K2 share one aggregating template; K3 and K4 share the
-// whole-forest kernel (forest_kernel):
+// ctypes.  K1 and K2 share the segmented kernel (seg_kernel); K3 and K4
+// share the whole-forest kernel (forest_kernel):
 //
 //   K1 (tp_seg_packed) replaces
 //     src/repro/kernels/tree_predict/tree_predict.py:
@@ -27,12 +27,33 @@
 // (N,), over the trees whose segment id equals the row's (K1, K2) or over
 // all trees (K3); K4 stores each leaf.
 //
-// K1 and K2: a CTA covers the fixed row block [blockIdx.x * block_obs,
-// (blockIdx.x + 1) * block_obs) and runs a (tree, row) pair per thread,
-// each node ONE indexed load per table through the read-only cache.  Each
-// pair writes its masked leaf to shared memory; after a barrier one thread
-// per row folds the chunk's block_trees values in tree order into the
-// row's output, so sums are deterministic (no float atomics).
+// K1 and K2 (seg_kernel), what bounds them: the same dependent chain of
+// loads a level, over far less work per launch (a 1,024-row batch of 100
+// trees, or K2's 32-tree chunk), so the launch and one walk's latency
+// set their time unless the walks are spread over the card; at 65,536
+// rows the deep levels' divergent word gathers (up to 32 sectors a warp
+// load) bound them through L1.  What the design does about it:
+//  - a CTA holds `rows` rows of one row block (the fewest of 8 ... 128
+//    whose grid fits the resident CTAs, seg_config) and walks 256 / rows
+//    slices of the block's chunk range at once: a slice is a chunk (up to
+//    8 trees) or 8 trees of a larger chunk, and a thread walks one
+//    slice's trees for one row, all 8 in flight;
+//  - every walk takes min(max_depth, bit_length(h)) levels with no branch:
+//    the word loads, then the x loads (x staged in shared memory, odd row
+//    stride), then the steps idx = internal ? child : idx; past the heap a
+//    select reads the zero word; K1 decodes by shift and mask where tb2 is
+//    a power of two (a second instantiation divides);
+//  - per window of 256 slices the CTA keeps, in order, those with a tree
+//    whose segment lies in its rows' segment range (K2 walks every chunk,
+//    most of which meet none of a sorted tile's rows), and a warp skips a
+//    slice none of whose pairs count;
+//  - sums: a slice's thread adds its chunk's leaves in tree order (or
+//    keeps the leaves of a larger chunk), the values go to shared memory,
+//    and one thread per row adds them in (chunk, tree) order to its total
+//    after a barrier a pass, so sums equal the plain version's bit for bit
+//    (no float atomics); votes: integer counts in a shared table, or
+//    integer atomics into the output and count_kernel past its budget;
+//    each element of the output is written once.
 //
 // K3 and K4, what bounds them: a walk is a chain of dependent loads (the
 // node decides which node comes next).  A warp runs 32 rows, which after
@@ -82,166 +103,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
+#include <type_traits>
+
 namespace {
 
-// K1 node source: code = (feature * TB + threshold) * 2 + is_internal as
-// an exact float32 integer below 2**24.
-struct PackedNodes {
-  const float* __restrict__ code;
-  const float* __restrict__ fit;
-  int64_t h;
-  int tb2;
-
-  __device__ __forceinline__ bool node(int64_t base, int64_t idx, int& feat,
-                                       int& thr) const {
-    if (idx >= h) {  // past the heap: the TPU kernel reads a zero word
-      feat = 0;
-      thr = 0;
-      return false;
-    }
-    const int c = static_cast<int>(__ldg(code + base + idx));
-    int q = c / tb2;
-    if (c % tb2 != 0 && c < 0) --q;  // floor, as the reference's decode
-    const int rem = c - q * tb2;     // in [0, tb2)
-    feat = q;
-    thr = rem >> 1;
-    return (rem & 1) != 0;
-  }
-
-  __device__ __forceinline__ float leaf(int64_t base, int64_t idx) const {
-    return idx < h ? __ldg(fit + base + idx) : 0.0f;
-  }
-};
-
-// K2 node source: separate int32 feature / threshold, bool is_internal.
-struct SimpleNodes {
-  const int* __restrict__ feature;
-  const int* __restrict__ threshold;
-  const float* __restrict__ fit;
-  const unsigned char* __restrict__ is_internal;
-  int64_t h;
-
-  __device__ __forceinline__ bool node(int64_t base, int64_t idx, int& feat,
-                                       int& thr) const {
-    if (idx >= h) {
-      feat = 0;
-      thr = 0;
-      return false;
-    }
-    feat = __ldg(feature + base + idx);
-    thr = __ldg(threshold + base + idx);
-    return __ldg(is_internal + base + idx) != 0;
-  }
-
-  __device__ __forceinline__ float leaf(int64_t base, int64_t idx) const {
-    return idx < h ? __ldg(fit + base + idx) : 0.0f;
-  }
-};
-
-// The leaf one (tree, row) pair reaches: `max_depth` levels from the root.
-template <class Nodes>
-__device__ __forceinline__ float walk(const Nodes& nodes, int64_t base,
-                                      const int* __restrict__ x, int d,
-                                      int max_depth) {
-  int64_t idx = 0;
-  for (int level = 0; level < max_depth; ++level) {
-    int feat, thr;
-    if (!nodes.node(base, idx, feat, thr)) break;  // leaf: stays put
-    feat = min(max(feat, 0), d - 1);
-    idx = (__ldg(x + feat) <= thr) ? 2 * idx + 1 : 2 * idx + 2;
-  }
-  return nodes.leaf(base, idx);
-}
-
-// K1 and K2: one CTA per row block.  chunk_lo == nullptr means every chunk
-// [0, n_chunks).  n_trees masks tree ids past the real trees (K2); K1
-// passes T_pad, whose padding trees carry segment -1.
-template <class Nodes>
-__global__ void seg_agg_kernel(Nodes nodes, const int* __restrict__ xb,
-                               const int* __restrict__ obs_seg,
-                               const int* __restrict__ tree_seg,
-                               const int* __restrict__ chunk_lo,
-                               const int* __restrict__ chunk_hi,
-                               float* __restrict__ out, int n, int d,
-                               int n_trees, int n_chunks, int max_depth,
-                               int n_classes, int block_trees,
-                               int block_obs) {
-  extern __shared__ float slot[];  // [block_trees][block_obs]
-  int* slot_cls = reinterpret_cast<int*>(slot);
-  const int blk = blockIdx.x;
-  const int row0 = blk * block_obs;
-  int lo = 0;
-  int hi = n_chunks;
-  if (chunk_lo != nullptr) {
-    lo = chunk_lo[blk];
-    hi = chunk_hi[blk];
-  }
-  const int pairs = block_trees * block_obs;
-  for (int ci = lo; ci < hi; ++ci) {
-    for (int p = threadIdx.x; p < pairs; p += blockDim.x) {
-      const int t = p / block_obs;
-      const int r = p - t * block_obs;
-      const int row = row0 + r;
-      const int tree = ci * block_trees + t;
-      float v = 0.0f;
-      int cls = -1;
-      if (row < n && tree < n_trees && tree_seg[tree] == obs_seg[row]) {
-        v = walk(nodes, static_cast<int64_t>(tree) * nodes.h,
-                 xb + static_cast<int64_t>(row) * d, d, max_depth);
-        cls = __float2int_rz(v);  // astype(int32): truncate toward zero
-      }
-      if (n_classes > 0) {
-        slot_cls[p] = cls;
-      } else {
-        slot[p] = v;
-      }
-    }
-    __syncthreads();
-    for (int r = threadIdx.x; r < block_obs; r += blockDim.x) {
-      const int row = row0 + r;
-      if (row >= n) continue;
-      if (n_classes > 0) {
-        float* o = out + static_cast<int64_t>(row) * n_classes;
-        for (int t = 0; t < block_trees; ++t) {
-          const int c = slot_cls[t * block_obs + r];
-          if (c >= 0 && c < n_classes) o[c] += 1.0f;  // one-hot: else none
-        }
-      } else {
-        float s = 0.0f;
-        for (int t = 0; t < block_trees; ++t) s += slot[t * block_obs + r];
-        out[row] += s;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-constexpr int kMaxThreads = 1024;
-constexpr int kDefaultSmem = 48 * 1024;
 constexpr int kMaxSmem = 232448;
-
-template <class Nodes>
-int launch(Nodes nodes, const int* xb, const int* obs_seg,
-           const int* tree_seg, const int* chunk_lo, const int* chunk_hi,
-           float* out, int n, int d, int n_trees, int n_chunks,
-           int max_depth, int n_classes, int block_trees, int block_obs,
-           cudaStream_t stream) {
-  const int pairs = block_trees * block_obs;
-  int threads = ((pairs + 31) / 32) * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  const size_t smem = static_cast<size_t>(pairs) * sizeof(float);
-  if (smem > kDefaultSmem) {
-    cudaError_t e = cudaFuncSetAttribute(
-        seg_agg_kernel<Nodes>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int grid = (n + block_obs - 1) / block_obs;
-  seg_agg_kernel<Nodes><<<grid, threads, smem, stream>>>(
-      nodes, xb, obs_seg, tree_seg, chunk_lo, chunk_hi, out, n, d, n_trees,
-      n_chunks, max_depth, n_classes, block_trees, block_obs);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---------------------------------------------------------------------------
 // K3 and K4: the whole-forest kernel
@@ -942,37 +809,739 @@ int forest_launch(const int* xb, const int* feature, const int* threshold,
                                       c, st);
 }
 
+// ---------------------------------------------------------------------------
+// K1 and K2: the segmented kernel
+// ---------------------------------------------------------------------------
+
+// K1's nodes: the fused code word (feature * TB + threshold) * 2 +
+// is_internal, an exact float32 integer below 2**24.  kPow2 (tb2 a power
+// of two, as on every serving path: fused_threshold_base rounds TB up)
+// decodes by shift and mask, the arithmetic shift flooring negative words
+// too; any other tb2 by floor division, as the reference's decode.  A
+// walk loads its node's word unconditionally (at an index clamped into
+// the heap) and selects the zero word where the load does not count, so
+// a level's loads carry no branch and issue together.
+template <bool kPow2>
+struct PackedNodes {
+  using Raw = float;
+  const float* __restrict__ code;
+  const float* __restrict__ fit;
+  int h;
+  int tb2;
+  int shift;  // log2(tb2) when kPow2
+
+  __device__ __forceinline__ Raw load(int base, int at) const {
+    return __ldg(code + base + at);
+  }
+
+  // The word where `on` (a valid walk inside the heap), else the zero
+  // word: feature 0, threshold 0, not internal.
+  __device__ __forceinline__ void decode(Raw w, bool on, int& feat, int& thr,
+                                         bool& in) const {
+    const int c = on ? static_cast<int>(w) : 0;
+    int rem;
+    if (kPow2) {
+      feat = c >> shift;
+      rem = c & (tb2 - 1);
+    } else {
+      int q = c / tb2;
+      if (c % tb2 != 0 && c < 0) --q;  // floor
+      feat = q;
+      rem = c - q * tb2;
+    }
+    thr = rem >> 1;
+    in = (rem & 1) != 0;
+  }
+
+  __device__ __forceinline__ float leaf(int base, int at) const {
+    return __ldg(fit + base + at);
+  }
+
+  // One load a level: staging the trees' top levels saved no time, at 8
+  // rows a CTA or at 128 (PERF.md, section 6).
+  static constexpr bool kStaged = false;
+};
+
+// K2's nodes: separate int32 feature / threshold, bool is_internal.
+struct SimpleNodes {
+  struct Raw {
+    int feat, thr;
+    unsigned char in;
+  };
+  const int* __restrict__ feature;
+  const int* __restrict__ threshold;
+  const float* __restrict__ fit;
+  const unsigned char* __restrict__ is_internal;
+  int h;
+
+  __device__ __forceinline__ Raw load(int base, int at) const {
+    return Raw{__ldg(feature + base + at), __ldg(threshold + base + at),
+               __ldg(is_internal + base + at)};
+  }
+
+  __device__ __forceinline__ void decode(Raw w, bool on, int& feat, int& thr,
+                                         bool& in) const {
+    feat = on ? w.feat : 0;
+    thr = on ? w.thr : 0;
+    in = on && w.in != 0;
+  }
+
+  __device__ __forceinline__ float leaf(int base, int at) const {
+    return __ldg(fit + base + at);
+  }
+
+  // Three loads a level: the top levels of a pass's trees are staged in
+  // shared memory, a node as (feature, threshold) when internal, else
+  // (kLeafWord, 0) (a leaf, or outside the heap).  (In 4 bytes, as K3's
+  // narrow records, they staged no faster: PERF.md, section 6.)
+  static constexpr bool kStaged = true;
+  using Staged = int2;
+  static constexpr int kLeafWord = INT_MIN;
+  __device__ __forceinline__ Staged stage(int off, bool in_heap) const {
+    const Raw w = load(off, 0);
+    return in_heap && w.in ? make_int2(w.feat, w.thr)
+                           : make_int2(kLeafWord, 0);
+  }
+  __device__ __forceinline__ Raw staged(const Staged* p, int idx) const {
+    const int2 w = p[idx];
+    return Raw{w.x, w.y, static_cast<unsigned char>(w.x != kLeafWord)};
+  }
+};
+
+// The configuration's constants (seg_config), settled on an H100 (PERF.md,
+// section 6).
+constexpr int kSegThreads = 256;              // threads of a CTA
+constexpr int kSegWalkBits = 3;
+constexpr int kSegWalks = 1 << kSegWalkBits;  // trees a thread walks at once
+constexpr int kSegValues = 8;       // fold values a thread keeps a pass
+constexpr int kSegMinRows = 8;      // fewest rows a CTA holds
+constexpr int kSegMaxRows = 128;    // most rows a CTA holds
+constexpr int kSegXBytes = 48 * 1024;       // largest x tile in shared memory
+constexpr int kSegCountBytes = 32 * 1024;   // largest shared vote table
+constexpr int kSegStageBytes = 128 * 1024;  // most shared memory for trees
+constexpr int kSegMinLevels = 3;    // fewest levels worth staging
+constexpr int kSegStagedBytes = 8;  // a staged node (K2's int2)
+
+// What a segmented launch reduces.
+constexpr int kSegSums = 0;        // regression: chunk sums folded in order
+constexpr int kSegVotes = 1;       // votes: integer counts in shared memory
+constexpr int kSegVoteAtomic = 2;  // votes past kSegCountBytes: integer
+                                   // atomics into the output, then
+                                   // count_kernel
+
+// How a launch reads a node.
+constexpr int kTables = 0;  // K2: the separate tables
+constexpr int kShift = 1;   // K1, tb2 a power of two: shift and mask
+constexpr int kDivide = 2;  // K1, any other tb2: floor division
+
+// The launch's configuration, in the order tp_seg_config reports it.
+struct SegCfg {
+  int mode;      // kSegSums / kSegVotes / kSegVoteAtomic
+  int decode;    // kTables / kShift / kDivide
+  int threads;   // kSegThreads
+  int rows;      // rows a CTA holds: a tile inside one row block
+  int cols;      // threads / rows: slices a CTA walks at once for a row
+  int walks;     // trees a thread walks at once: one slice
+  int slices;    // slices per chunk of block_trees trees
+  int values;    // a slice's values for the fold: 1 (its chunk's sum) or
+                 // walks (its leaves)
+  int rounds;    // slices a thread walks per pass (1 when trees are
+                 // staged, else kSegValues / values)
+  int depth;     // levels a walk takes: min(max_depth, bit_length(h))
+  int levels;    // levels of a pass's trees staged in shared memory
+  int staged;    // nodes staged per tree: 2**levels (0: none)
+  int x_smem;    // 1: the tile's x in shared memory
+  int dpad;      // row stride of the x tile (odd)
+  int smem;      // dynamic shared memory bytes
+  int tiles;     // tiles per row block
+  int resident;  // CTAs resident on the card
+  int grid;      // row blocks * tiles
+};
+constexpr int kSegCfgInts = sizeof(SegCfg) / sizeof(int);
+
+// Shapes of one segmented launch.
+struct SegShape {
+  int n, d, n_trees, n_chunks, h, n_classes, block_trees, block_obs;
+};
+
+__host__ __device__ __forceinline__ int seg_x_bytes(const SegCfg& c) {
+  return c.x_smem ? (c.rows * c.dpad * 4 + 15) / 16 * 16 : 0;
+}
+
+// Where the staged trees start: after the x tile and the fold's values
+// (sums) or the vote table, 16-byte aligned.
+__host__ __device__ __forceinline__ int seg_stage_offset(const SegCfg& c,
+                                                        int n_classes) {
+  const int table = c.mode == kSegSums
+                        ? kSegThreads * kSegValues * 4
+                        : (c.mode == kSegVotes ? c.rows * n_classes * 4 : 0);
+  return seg_x_bytes(c) + (table + 15) / 16 * 16;
+}
+
+// Tiling from the shapes alone, before the rows a CTA holds are chosen
+// (the plain twin is tree_predict.py's _seg_config).
+int seg_tile(int n, int d, int t, int h, int max_depth, int n_classes,
+             int block_trees, int block_obs, int tb2, int simple,
+             SegCfg* c) {
+  if (n < 1 || d < 1 || t < 0 || h < 0 || block_trees < 1 ||
+      block_obs < 1 || (!simple && tb2 < 1) ||
+      static_cast<int64_t>(t) * h >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  c->decode = simple ? kTables : ((tb2 & (tb2 - 1)) == 0 ? kShift : kDivide);
+  c->threads = kSegThreads;
+  c->walks = kSegWalks;
+  c->slices = (block_trees + kSegWalks - 1) / kSegWalks;
+  c->values = c->slices == 1 ? 1 : kSegWalks;
+  const int lh = bit_length(h);
+  c->depth = max_depth < lh ? max_depth : lh;
+  c->dpad = d | 1;
+  return 0;
+}
+
+// The fields that follow from `rows`: shared memory (the x tile where it
+// fits, then the fold's values or the vote table) and the grid.
+void seg_size(int n, int block_obs, int n_classes, int rows, SegCfg* c) {
+  c->rows = rows;
+  c->cols = kSegThreads / rows;
+  c->x_smem = static_cast<int64_t>(rows) * c->dpad * 4 <= kSegXBytes;
+  const int64_t counts = static_cast<int64_t>(rows) * n_classes * 4;
+  c->mode = n_classes <= 0 ? kSegSums
+                           : (counts <= kSegCountBytes ? kSegVotes
+                                                       : kSegVoteAtomic);
+  // a pass stages the top levels of its slices' trees, one slice a column:
+  // as many levels as fit kSegStageBytes, if that is at least
+  // kSegMinLevels (the first levels' loads share their sectors anyway)
+  int levels = c->decode == kTables ? c->depth : 0;  // K2 only
+  while (levels > 0 && static_cast<int64_t>(c->cols) * kSegWalks *
+                               (int64_t{1} << levels) * kSegStagedBytes >
+                           kSegStageBytes)
+    --levels;
+  c->levels = levels < kSegMinLevels ? 0 : levels;
+  c->staged = c->levels ? 1 << c->levels : 0;
+  c->rounds = c->levels ? 1 : kSegValues / c->values;
+  c->smem = seg_stage_offset(*c, n_classes) +
+            c->cols * kSegWalks * c->staged * kSegStagedBytes;
+  const int block_rows = block_obs < n ? block_obs : n;
+  c->tiles = (block_rows + rows - 1) / rows;
+  const int64_t blocks = (static_cast<int64_t>(n) + block_obs - 1) / block_obs;
+  c->grid = static_cast<int>(blocks * c->tiles);
+}
+
+// Rows a CTA holds: the fewest (a power of two from kSegMinRows to
+// kSegMaxRows; from 2 * kSegMinRows for K2, whose fewer columns then stage
+// a level more) whose grid fits the resident CTAs, so a small batch spreads
+// its walks over the card and a large one runs in about one wave.
+void seg_rows(int n, int block_obs, int n_classes, int resident, SegCfg* c) {
+  c->resident = resident;
+  int rows = c->decode == kTables ? 2 * kSegMinRows : kSegMinRows;
+  seg_size(n, block_obs, n_classes, rows, c);
+  while (rows < kSegMaxRows && c->grid > resident) {
+    rows *= 2;
+    seg_size(n, block_obs, n_classes, rows, c);
+  }
+}
+
+// One level of W walks from their words: the steps idx = internal ?
+// child : idx (the reference's own), after the W x loads, no branch.
+template <class Nodes, bool kXSmem>
+__device__ __forceinline__ void seg_step(
+    const Nodes& nodes, const typename Nodes::Raw (&raw)[kSegWalks],
+    const bool (&valid)[kSegWalks], int (&idx)[kSegWalks], int last,
+    const int* xr, const int* __restrict__ xg, int d) {
+  int feat[kSegWalks], thr[kSegWalks];
+  bool in[kSegWalks];
+#pragma unroll
+  for (int k = 0; k < kSegWalks; ++k)
+    nodes.decode(raw[k], valid[k] && idx[k] <= last, feat[k], thr[k], in[k]);
+  int xv[kSegWalks];
+#pragma unroll
+  for (int k = 0; k < kSegWalks; ++k) {
+    const int f = min(max(feat[k], 0), d - 1);
+    xv[k] = kXSmem ? xr[f] : __ldg(xg + f);
+  }
+#pragma unroll
+  for (int k = 0; k < kSegWalks; ++k)
+    idx[k] = in[k] ? 2 * idx[k] + (xv[k] <= thr[k] ? 1 : 2) : idx[k];
+}
+
+// W walks of one thread's row, `depth` uniform levels from the root: the
+// first `levels` from the trees staged in shared memory (K2: slot `slot`
+// of stage_mem, 2**levels nodes a tree), the rest from global memory; each
+// level issues the W word loads, then the W x loads, then the W steps.  A
+// walk past the heap reads the zero word, so it stays put, and its leaf
+// is 0; an invalid walk (its loads at tree 0, row r0: addresses that
+// exist) reads the zero word and its leaf is 0.
+template <class Nodes, bool kXSmem>
+__device__ __forceinline__ void seg_walk(
+    const Nodes& nodes, const int (&base)[kSegWalks],
+    const bool (&valid)[kSegWalks], const unsigned char* stage_mem,
+    int slot, int levels, const int* xr, const int* __restrict__ xg, int d,
+    int depth, float (&leaf)[kSegWalks]) {
+  const int last = nodes.h - 1;
+  if (last < 0) {  // no heap: every leaf is 0 (and depth is 0)
+#pragma unroll
+    for (int k = 0; k < kSegWalks; ++k) leaf[k] = 0.0f;
+    return;
+  }
+  int idx[kSegWalks];
+#pragma unroll
+  for (int k = 0; k < kSegWalks; ++k) idx[k] = 0;
+  typename Nodes::Raw raw[kSegWalks];
+  int lv = 0;
+  if constexpr (Nodes::kStaged) {
+    const auto* st =
+        reinterpret_cast<const typename Nodes::Staged*>(stage_mem) +
+        (slot << (levels + kSegWalkBits));
+    for (; lv < min(levels, depth); ++lv) {
+#pragma unroll
+      for (int k = 0; k < kSegWalks; ++k)
+        raw[k] = nodes.staged(st + (k << levels), idx[k]);
+      seg_step<Nodes, kXSmem>(nodes, raw, valid, idx, last, xr, xg, d);
+    }
+  }
+  for (; lv < depth; ++lv) {
+#pragma unroll
+    for (int k = 0; k < kSegWalks; ++k)
+      raw[k] = nodes.load(base[k], min(idx[k], last));
+    seg_step<Nodes, kXSmem>(nodes, raw, valid, idx, last, xr, xg, d);
+  }
+  float fit[kSegWalks];
+#pragma unroll
+  for (int k = 0; k < kSegWalks; ++k)
+    fit[k] = nodes.leaf(base[k], min(idx[k], last));
+#pragma unroll
+  for (int k = 0; k < kSegWalks; ++k)
+    leaf[k] = valid[k] && idx[k] <= last ? fit[k] : 0.0f;
+}
+
+// One CTA: a tile of `rows` rows inside row block b, against the chunks
+// [chunk_lo[b], chunk_hi[b]) (every chunk when chunk_lo is null), cut into
+// slices: a chunk, or `walks` trees of one.  A window of up to
+// kSegThreads slices at a time, the CTA keeps those whose trees' segments
+// fall inside its rows' segment range, in order; thread (q, r) =
+// (threadIdx / rows, threadIdx % rows) walks kept slice q + cols * i for
+// row r, and a warp skips a slice none of whose pairs count.  Sums: each
+// pass the slices' values go to shared memory (a chunk's sum in tree
+// order, or the leaves), and after a barrier thread r (q = 0) adds them in
+// (chunk, tree) order into its running total, which it writes once.
+// Skipped pairs would add +0.0, which changes no total (one starting at
+// +0.0 never becomes -0.0).  Votes: integer counts in a shared table (or
+// atomics into the output), written once.  n_trees masks trees past the
+// real ones (K2); K1 passes T_pad, whose padding trees carry segment -1.
+// Node offsets are 32-bit (the launch refuses t * h >= 2**31).
+template <class Nodes, int kMode, bool kXSmem>
+__global__ void __launch_bounds__(kSegThreads)
+    seg_kernel(Nodes nodes, const int* __restrict__ xb,
+               const int* __restrict__ obs_seg,
+               const int* __restrict__ tree_seg,
+               const int* __restrict__ chunk_lo,
+               const int* __restrict__ chunk_hi, float* __restrict__ out,
+               SegShape s, SegCfg c) {
+  constexpr int W = kSegWalks;
+  constexpr int kWarps = kSegThreads / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int kept[kSegThreads];  // the window's kept slices, in order
+  __shared__ int warp_min[kWarps], warp_max[kWarps], warp_kept[kWarps];
+  int* xs = reinterpret_cast<int*>(smem);  // [rows][dpad]
+  float* vals = reinterpret_cast<float*>(smem + seg_x_bytes(c));
+  int* counts = reinterpret_cast<int*>(smem + seg_x_bytes(c));  // [rows][C]
+  // K2: the pass's trees, [slot][walk][2**levels nodes]
+  unsigned char* stage_mem = smem + seg_stage_offset(c, s.n_classes);
+  const int blk = blockIdx.x / c.tiles;
+  const int64_t blk0 = static_cast<int64_t>(blk) * s.block_obs;
+  const int64_t r0l = blk0 + static_cast<int64_t>(blockIdx.x - blk * c.tiles) *
+                                 c.rows;
+  int64_t end = blk0 + s.block_obs;  // the block's end, the tile's, n
+  if (end > r0l + c.rows) end = r0l + c.rows;
+  if (end > s.n) end = s.n;
+  if (end <= r0l) return;  // a tile past its block's last row
+  const int r0 = static_cast<int>(r0l);
+  const int nrows = static_cast<int>(end - r0l);
+  int lo = 0;
+  int hi = s.n_chunks;
+  if (chunk_lo != nullptr) {
+    lo = max(chunk_lo[blk], 0);
+    hi = min(chunk_hi[blk], s.n_chunks);
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int r = threadIdx.x % c.rows;
+  const int q = threadIdx.x / c.rows;
+  const bool row_ok = r < nrows;
+  const int row = r0 + (row_ok ? r : 0);
+  const int seg = obs_seg[row];
+  const int* xg = xb + static_cast<int64_t>(row) * s.d;
+  if (kXSmem) {
+    const int* src = xb + static_cast<int64_t>(r0) * s.d;
+    for (int e = threadIdx.x; e < nrows * s.d; e += kSegThreads) {
+      const int rr = e / s.d;
+      xs[rr * c.dpad + (e - rr * s.d)] = src[e];
+    }
+  }
+  if (kMode == kSegVotes)
+    for (int e = threadIdx.x; e < c.rows * s.n_classes; e += kSegThreads)
+      counts[e] = 0;
+  // the rows' segment range
+  const int wmin = __reduce_min_sync(0xffffffffu, seg);
+  const int wmax = __reduce_max_sync(0xffffffffu, seg);
+  if (lane == 0) {
+    warp_min[warp] = wmin;
+    warp_max[warp] = wmax;
+  }
+  __syncthreads();
+  int seg_lo = warp_min[0];
+  int seg_hi = warp_max[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) {
+    seg_lo = min(seg_lo, warp_min[w]);
+    seg_hi = max(seg_hi, warp_max[w]);
+  }
+  const int* xr = xs + r * c.dpad;
+
+  const int n_sl = hi > lo ? (hi - lo) * c.slices : 0;
+  const int per_pass = c.cols * c.rounds;
+  float total = 0.0f;  // sums, thread r of q = 0: the chunk sums in order
+  float open = 0.0f;   // the open chunk's leaves in tree order
+  int open_chunk = -1;
+  for (int w0 = 0; w0 < n_sl; w0 += kSegThreads) {
+    // keep the window's slices that may meet the rows, in order
+    {
+      const int j = w0 + threadIdx.x;
+      bool keep = false;
+      if (j < n_sl) {
+        const int chunk = j / c.slices;
+        const int part = j - chunk * c.slices;
+        const int t0 = (lo + chunk) * s.block_trees + part * W;
+        const int nk = min(W, s.block_trees - part * W);
+        int ts[W];
+#pragma unroll
+        for (int k = 0; k < W; ++k)
+          ts[k] = __ldg(tree_seg + min(t0 + k, s.n_trees - 1));
+#pragma unroll
+        for (int k = 0; k < W; ++k)
+          keep |= k < nk && t0 + k < s.n_trees && ts[k] >= seg_lo &&
+                  ts[k] <= seg_hi;
+      }
+      const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+      if (lane == 0) warp_kept[warp] = __popc(ballot);
+      __syncthreads();
+      int before = 0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w)
+        if (w < warp) before += warp_kept[w];
+      if (keep) kept[before + __popc(ballot & ((1u << lane) - 1))] = j;
+    }
+    int n_kept = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) n_kept += warp_kept[w];
+    __syncthreads();  // the kept list is complete
+    for (int p0 = 0; p0 < n_kept; p0 += per_pass) {
+      if constexpr (Nodes::kStaged) {
+        if (c.levels > 0) {  // stage the top levels of the pass's trees
+          __shared__ int stage_tree[kSegThreads];  // slot * W + k: its tree
+          const int n_pass = min(per_pass, n_kept - p0);
+          if (static_cast<int>(threadIdx.x) < n_pass * W) {  // slot trees
+            const int k = threadIdx.x & (W - 1);
+            const int j = kept[p0 + (threadIdx.x >> kSegWalkBits)];
+            const int chunk = j / c.slices;
+            const int part = j - chunk * c.slices;
+            const int tree = (lo + chunk) * s.block_trees + part * W + k;
+            stage_tree[threadIdx.x] =
+                k < min(W, s.block_trees - part * W) && tree < s.n_trees
+                    ? tree
+                    : -1;
+          }
+          __syncthreads();
+          auto* st = reinterpret_cast<typename Nodes::Staged*>(stage_mem);
+          // kStageBatch loads in flight a thread, then their stores
+          constexpr int kStageBatch = 8;
+          const int n_nodes = n_pass * W << c.levels;
+          for (int e0 = 0; e0 < n_nodes; e0 += kSegThreads * kStageBatch) {
+            typename Nodes::Staged w[kStageBatch];
+#pragma unroll
+            for (int b = 0; b < kStageBatch; ++b) {
+              const int e = e0 + b * kSegThreads + threadIdx.x;
+              const int tree = e < n_nodes ? stage_tree[e >> c.levels] : -1;
+              const int node = e & (c.staged - 1);
+              const bool in_heap = tree >= 0 && node < s.h;
+              w[b] = nodes.stage(in_heap ? tree * s.h + node : 0, in_heap);
+            }
+#pragma unroll
+            for (int b = 0; b < kStageBatch; ++b) {
+              const int e = e0 + b * kSegThreads + threadIdx.x;
+              if (e < n_nodes) st[e] = w[b];
+            }
+          }
+          __syncthreads();
+        }
+      }
+      for (int rd = 0; rd < c.rounds; ++rd) {
+        if (p0 + rd * c.cols >= n_kept) break;  // no kept slice left
+        const int i = p0 + rd * c.cols + q;  // the kept slice, in order
+        const bool here = i < n_kept;
+        const int j = here ? kept[i] : 0;
+        const int chunk = j / c.slices;
+        const int part = j - chunk * c.slices;
+        const int t0 = (lo + chunk) * s.block_trees + part * W;
+        const int nk = min(W, s.block_trees - part * W);
+        int segs[W];
+#pragma unroll
+        for (int k = 0; k < W; ++k)
+          segs[k] = __ldg(tree_seg + min(t0 + k, s.n_trees - 1));
+        int base[W];
+        bool valid[W];
+        bool any = false;
+#pragma unroll
+        for (int k = 0; k < W; ++k) {
+          const int tree = t0 + k;
+          const bool pair = here && row_ok && k < nk && tree < s.n_trees;
+          valid[k] = pair && segs[k] == seg;
+          base[k] = (pair ? tree : 0) * s.h;
+          any |= valid[k];
+        }
+        float leaf[W];
+        if (__any_sync(0xffffffffu, any)) {
+          seg_walk<Nodes, kXSmem>(nodes, base, valid, stage_mem,
+                                  rd * c.cols + q, c.levels, xr, xg, s.d,
+                                  c.depth, leaf);
+        } else {
+#pragma unroll
+          for (int k = 0; k < W; ++k) leaf[k] = 0.0f;
+        }
+        if (kMode == kSegSums) {
+          if (here) {
+            float* v = vals + (rd * c.cols + q) * c.values * c.rows + r;
+            if (c.values == 1) {  // the whole chunk: its sum in tree order
+              float sum = leaf[0];
+#pragma unroll
+              for (int k = 1; k < W; ++k)
+                if (k < nk) sum += leaf[k];
+              v[0] = sum;
+            } else {
+#pragma unroll
+              for (int k = 0; k < W; ++k)
+                if (k < nk) v[k * c.rows] = leaf[k];
+            }
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < W; ++k) {
+            const int cls = __float2int_rz(leaf[k]);  // astype(int32)
+            if (valid[k] && cls >= 0 && cls < s.n_classes) {
+              if (kMode == kSegVotes)
+                atomicAdd(counts + r * s.n_classes + cls, 1);
+              else
+                atomicAdd(reinterpret_cast<int*>(out) +
+                              static_cast<int64_t>(row) * s.n_classes + cls,
+                          1);
+            }
+          }
+        }
+      }
+      if (kMode == kSegSums) {
+        __syncthreads();  // the pass's values are in shared memory
+        if (static_cast<int>(threadIdx.x) < c.rows) {  // q = 0: fold row r
+          const int stop = min(p0 + per_pass, n_kept);
+          for (int i = p0; i < stop; ++i) {
+            const float* v = vals + (i - p0) * c.values * c.rows + r;
+            if (c.values == 1) {
+              total += v[0];
+            } else {
+              const int j = kept[i];
+              const int chunk = j / c.slices;
+              const int part = j - chunk * c.slices;
+              if (chunk != open_chunk) {  // a new chunk: close the last
+                total += open;
+                open = 0.0f;
+                open_chunk = chunk;
+              }
+              const int nk = min(W, s.block_trees - part * W);
+              for (int k = 0; k < nk; ++k) open += v[k * c.rows];
+            }
+          }
+        }
+        __syncthreads();  // folded: the next pass may overwrite the values
+      } else if (c.levels > 0) {
+        __syncthreads();  // walked: the next pass may restage
+      }
+    }
+    __syncthreads();  // the next window may overwrite the kept list
+  }
+  if (kMode == kSegSums) {
+    if (static_cast<int>(threadIdx.x) < c.rows && row_ok)
+      out[r0 + r] = total + open;
+  } else if (kMode == kSegVotes) {
+    __syncthreads();
+    float* o = out + static_cast<int64_t>(r0) * s.n_classes;
+    for (int e = threadIdx.x; e < nrows * s.n_classes; e += kSegThreads)
+      o[e] = static_cast<float>(counts[e]);
+  }
+}
+
+// f(mode, x in shared memory) as integral constants, for the
+// configuration's instantiation.
+template <class F>
+int seg_dispatch(const SegCfg& c, F&& f) {
+  using std::false_type;
+  using std::integral_constant;
+  using std::true_type;
+  if (c.mode == kSegSums)
+    return c.x_smem ? f(integral_constant<int, kSegSums>{}, true_type{})
+                    : f(integral_constant<int, kSegSums>{}, false_type{});
+  if (c.mode == kSegVotes)
+    return c.x_smem ? f(integral_constant<int, kSegVotes>{}, true_type{})
+                    : f(integral_constant<int, kSegVotes>{}, false_type{});
+  return c.x_smem ? f(integral_constant<int, kSegVoteAtomic>{}, true_type{})
+                  : f(integral_constant<int, kSegVoteAtomic>{}, false_type{});
+}
+
+template <class Nodes>
+int seg_occupancy(const SegCfg& c, int* per_sm) {
+  return seg_dispatch(c, [&](auto mode, auto xsm) {
+    auto kernel = seg_kernel<Nodes, decltype(mode)::value,
+                             decltype(xsm)::value>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, c.smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, kernel, c.threads, c.smem));
+  });
+}
+
+// The full configuration on the current device: the tiling, then the rows
+// a CTA holds from the resident CTAs (the SM count and the kernel's
+// occupancy at the largest shared memory any row count would take).
+int seg_config(int n, int d, int t, int h, int max_depth, int n_classes,
+               int block_trees, int block_obs, int tb2, int simple,
+               SegCfg* c) {
+  int err = seg_tile(n, d, t, h, max_depth, n_classes, block_trees,
+                     block_obs, tb2, simple, c);
+  if (err) return err;
+  int smem = 0;
+  for (int rows = kSegMinRows; rows <= kSegMaxRows; rows *= 2) {
+    seg_size(n, block_obs, n_classes, rows, c);
+    smem = c->smem > smem ? c->smem : smem;
+  }
+  c->smem = smem;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (c->decode == kTables)
+    err = seg_occupancy<SimpleNodes>(*c, &per_sm);
+  else if (c->decode == kShift)
+    err = seg_occupancy<PackedNodes<true>>(*c, &per_sm);
+  else
+    err = seg_occupancy<PackedNodes<false>>(*c, &per_sm);
+  if (err) return err;
+  seg_rows(n, block_obs, n_classes, sms * (per_sm > 0 ? per_sm : 1), c);
+  return 0;
+}
+
+struct SegPtrs {
+  const int* xb;
+  const int* obs_seg;
+  const int* tree_seg;
+  const int* chunk_lo;
+  const int* chunk_hi;
+  float* out;
+};
+
+template <class Nodes>
+int seg_launch(const Nodes& nodes, const SegPtrs& p, const SegShape& s,
+               const SegCfg& c, cudaStream_t st) {
+  const int64_t size = static_cast<int64_t>(s.n) * s.n_classes;
+  if (c.mode == kSegVoteAtomic) {
+    cudaError_t e = cudaMemsetAsync(p.out, 0, size * sizeof(float), st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  int err = seg_dispatch(c, [&](auto mode, auto xsm) {
+    auto kernel = seg_kernel<Nodes, decltype(mode)::value,
+                             decltype(xsm)::value>;
+    // always: the occupancy query set the attribute for another row count
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, c.smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    kernel<<<c.grid, c.threads, c.smem, st>>>(nodes, p.xb, p.obs_seg,
+                                              p.tree_seg, p.chunk_lo,
+                                              p.chunk_hi, p.out, s, c);
+    return static_cast<int>(cudaGetLastError());
+  });
+  if (err || c.mode != kSegVoteAtomic) return err;
+  const int64_t blocks = (size + 255) / 256;
+  count_kernel<<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0,
+                 st>>>(p.out, size);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int log2_of(int v) {
+  int k = 0;
+  while ((1 << k) < v) ++k;
+  return k;
+}
+
+
 }  // namespace
 
 extern "C" {
 
 // K1.  code / fit (t_pad, h) f32; tree_seg (t_pad,) i32 with -1 padding;
-// chunk_lo / chunk_hi (ceil(n / block_obs),) i32; out zeroed (n, C) or (n,).
+// chunk_lo / chunk_hi (ceil(n / block_obs),) i32; out (n, C) or (n,) f32,
+// every element written.
 int tp_seg_packed(const int* xb, const int* obs_seg, const float* code,
                   const float* fit, const int* tree_seg, const int* chunk_lo,
                   const int* chunk_hi, float* out, int n, int d, int t_pad,
                   int h, int max_depth, int tb2, int n_classes,
                   int block_trees, int block_obs, void* stream) {
-  PackedNodes nodes{code, fit, static_cast<int64_t>(h), tb2};
-  return launch<PackedNodes>(
-      nodes, xb, obs_seg, tree_seg, chunk_lo, chunk_hi, out, n, d, t_pad,
-      t_pad / block_trees, max_depth, n_classes, block_trees, block_obs,
-      static_cast<cudaStream_t>(stream));
+  SegCfg c;
+  const int err = seg_config(n, d, t_pad, h, max_depth, n_classes,
+                             block_trees, block_obs, tb2, 0, &c);
+  if (err) return err;
+  const SegShape s{n, d, t_pad, t_pad / block_trees, h, n_classes,
+                   block_trees, block_obs};
+  const SegPtrs p{xb, obs_seg, tree_seg, chunk_lo, chunk_hi, out};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (c.decode == kShift)
+    return seg_launch(PackedNodes<true>{code, fit, h, tb2, log2_of(tb2)}, p,
+                      s, c, st);
+  return seg_launch(PackedNodes<false>{code, fit, h, tb2, 0}, p, s, c, st);
 }
 
 // K2.  feature / threshold (t, h) i32, fit (t, h) f32, is_internal (t, h)
-// bool bytes; tree_seg (t,) i32; out zeroed (n, C) or (n,).
+// bool bytes; tree_seg (t,) i32; out (n, C) or (n,) f32, every element
+// written.
 int tp_seg_simple(const int* xb, const int* obs_seg, const int* tree_seg,
                   const int* feature, const int* threshold, const float* fit,
                   const unsigned char* is_internal, float* out, int n, int d,
                   int t, int h, int max_depth, int n_classes,
                   int block_trees, int block_obs, void* stream) {
-  SimpleNodes nodes{feature, threshold, fit, is_internal,
-                    static_cast<int64_t>(h)};
-  return launch<SimpleNodes>(
-      nodes, xb, obs_seg, tree_seg, nullptr, nullptr, out, n, d, t,
-      (t + block_trees - 1) / block_trees, max_depth, n_classes,
-      block_trees, block_obs, static_cast<cudaStream_t>(stream));
+  SegCfg c;
+  const int err = seg_config(n, d, t, h, max_depth, n_classes, block_trees,
+                             block_obs, 0, 1, &c);
+  if (err) return err;
+  const SegShape s{n, d, t, (t + block_trees - 1) / block_trees, h,
+                   n_classes, block_trees, block_obs};
+  const SegPtrs p{xb, obs_seg, tree_seg, nullptr, nullptr, out};
+  return seg_launch(SimpleNodes{feature, threshold, fit, is_internal, h}, p,
+                    s, c, static_cast<cudaStream_t>(stream));
+}
+
+// The configuration of a K1 (simple 0, tb2 its decode's) or K2 (simple 1,
+// tb2 ignored) launch on the current device, out[18] in SegCfg's order
+// (mode, decode, threads, rows, cols, walks, slices, values, rounds,
+// depth, staged levels, staged nodes per tree, x in shared memory, x row
+// stride, shared memory bytes, tiles per row block, resident CTAs, grid).
+int tp_seg_config(int n, int d, int t, int h, int max_depth, int n_classes,
+                  int block_trees, int block_obs, int tb2, int simple,
+                  int* out) {
+  SegCfg c;
+  const int err = seg_config(n, d, t, h, max_depth, n_classes, block_trees,
+                             block_obs, tb2, simple, &c);
+  if (err) return err;
+  const int* v = reinterpret_cast<const int*>(&c);
+  for (int i = 0; i < kSegCfgInts; ++i) out[i] = v[i];
+  return 0;
 }
 
 // K3.  feature / threshold (t, h) i32, fit (t, h) f32, is_internal (t, h)

@@ -41,6 +41,15 @@ guard reads (``_record_form``) — and one fit where it ends.  Their
 tiling and work partition come from the library (``forest_config``;
 plain twin ``_forest_config``, CTA by CTA ``_forest_work``).
 
+K1 and K2 share one kernel on the card: a CTA holds a few rows of one
+row block and walks many slices of the block's chunk range at once (8
+trees a thread), keeping the slices whose trees' segments fall in its
+rows' segment range; each walk takes ``min(max_depth, h.bit_length())``
+uniform levels (``_walk_stay_put_plain``), K1's word decoded by shift and
+mask (``_decode_plain``); sums are folded in (chunk, tree) order, so they
+equal the plain versions bit for bit.  The tiling comes from the library
+(``seg_config``; plain twin ``_seg_config``, CTA by CTA ``_seg_work``).
+
 Every kernel reads a heap index at or past the heap width ``H`` (a
 ``max_depth`` deeper than the heap) as feature 0, threshold 0, not
 internal, fit 0 — what the Pallas kernels read from their zero-padded
@@ -93,6 +102,7 @@ _SIGNATURES = {
     "tp_agg": ([_P] * 8 + [_I] * 8 + [_P], _I),
     "tp_per_tree": ([_P] * 7 + [_I] * 7 + [_P], _I),
     "tp_forest_config": ([_I] * 9 + [_IP], _I),
+    "tp_seg_config": ([_I] * 10 + [_IP], _I),
     "tp_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -116,6 +126,28 @@ PER_TREE, VOTES, VOTE_ATOMIC, SUM = 0, 1, 2, 3
 #: ``kMinGroup``, ``kSumLevels``, ``kRegClasses``).
 _THREADS, _TREE_BYTES, _X_BYTES = 512, 96 * 1024, 136 * 1024
 _MIN_GROUP, _SUM_LEVELS, _REG_CLASSES = 8, 8, 8
+
+#: What ``seg_config`` reports for a K1 / K2 launch, in the library's order
+#: (``SegCfg``).
+SEG_CONFIG_KEYS = (
+    "mode", "decode", "threads", "rows", "cols", "walks", "slices", "values",
+    "rounds", "depth", "levels", "staged", "x_smem", "dpad", "smem", "tiles",
+    "resident", "grid",
+)
+#: ``mode`` values: sums folded in chunk order, votes counted in shared
+#: memory, votes by integer atomics into the output (a vote table past
+#: ``_SEG_COUNT_BYTES``).
+SEG_SUMS, SEG_VOTES, SEG_VOTE_ATOMIC = 0, 1, 2
+#: ``decode`` values: K2's separate tables; K1's code word by shift and
+#: mask (``tb2`` a power of two) or by floor division.
+TABLES, SHIFT, DIVIDE = 0, 1, 2
+#: The library's constants (``kSegThreads``, ``kSegWalks``, ``kSegValues``,
+#: ``kSegMinRows``, ``kSegMaxRows``, ``kSegXBytes``, ``kSegCountBytes``,
+#: ``kSegStageBytes``, ``kSegMinLevels``, ``kSegStagedBytes``).
+_SEG_THREADS, _SEG_WALKS, _SEG_VALUES = 256, 8, 8
+_SEG_MIN_ROWS, _SEG_MAX_ROWS = 8, 128
+_SEG_X_BYTES, _SEG_COUNT_BYTES = 48 * 1024, 32 * 1024
+_SEG_STAGE_BYTES, _SEG_MIN_LEVELS, _SEG_STAGED_BYTES = 128 * 1024, 3, 8
 
 
 def reset_launches() -> None:
@@ -581,6 +613,134 @@ def _forest_work(cfg: dict, t: int, n: int):
                range(r0, min(n, r0 + rows)))
 
 
+def _decode_plain(code: torch.Tensor, tb2: int):
+    """K1's decode of its code words, as the kernel does it: shift and
+    mask where ``tb2`` is a power of two (the arithmetic shift floors
+    negative words), else floor division; equal to ``_unfuse``."""
+    if tb2 & (tb2 - 1):
+        return _unfuse(code, tb2)
+    c = code.to(torch.int32)
+    rem = c & (tb2 - 1)
+    return c >> (tb2.bit_length() - 1), rem >> 1, (rem & 1) == 1
+
+
+def _walk_stay_put_plain(xb, feature, threshold, fit, is_internal,
+                         max_depth: int) -> torch.Tensor:
+    """The (T, N) leaves of K1 / K2's walk: ``min(max_depth,
+    h.bit_length())`` uniform levels from the root (after them every walk
+    has stopped or left the heap), each reading node idx's word by a
+    select — the zero word past the heap: feature 0, threshold 0, not
+    internal — and stepping ``idx = internal ? child : idx``; the fit where
+    it ends, 0 past the heap."""
+    n, d = xb.shape
+    t, h = feature.shape
+    xb_t = xb.T.contiguous()
+    inter = is_internal.to(torch.bool)
+    idx = torch.zeros((t, n), dtype=torch.int64, device=xb.device)
+    for _ in range(min(max_depth, h.bit_length())):
+        inside = idx < h
+        at = idx.clamp(max=h - 1)
+        fe = torch.where(inside, torch.gather(feature, 1, at), 0)
+        th = torch.where(inside, torch.gather(threshold, 1, at), 0)
+        step = inside & torch.gather(inter, 1, at)
+        right = torch.gather(xb_t, 0, fe.long().clamp(0, d - 1)) > th
+        idx = torch.where(step, 2 * idx + 1 + right.long(), idx)
+    return torch.where(idx < h, torch.gather(fit, 1, idx.clamp(max=h - 1)),
+                       torch.zeros((), dtype=fit.dtype))
+
+
+def _seg_size(c: dict, n: int, block_obs: int, n_classes: int,
+              rows: int) -> None:
+    """The fields of a K1 / K2 configuration that follow from ``rows``."""
+    c["rows"], c["cols"] = rows, _SEG_THREADS // rows
+    c["x_smem"] = int(rows * c["dpad"] * 4 <= _SEG_X_BYTES)
+    counts = rows * n_classes * 4
+    c["mode"] = (SEG_SUMS if n_classes <= 0 else
+                 SEG_VOTES if counts <= _SEG_COUNT_BYTES else SEG_VOTE_ATOMIC)
+    x_bytes = _round_up(rows * c["dpad"] * 4, 16) if c["x_smem"] else 0
+    table = {SEG_SUMS: _SEG_THREADS * _SEG_VALUES * 4, SEG_VOTES: counts,
+             SEG_VOTE_ATOMIC: 0}[c["mode"]]
+    # K2 stages the top levels of a pass's trees, one slice a column, as
+    # many as fit (none if fewer than _SEG_MIN_LEVELS)
+    levels = c["depth"] if c["decode"] == TABLES else 0
+    while levels > 0 and (c["cols"] * _SEG_WALKS * (1 << levels)
+                          * _SEG_STAGED_BYTES > _SEG_STAGE_BYTES):
+        levels -= 1
+    c["levels"] = levels if levels >= _SEG_MIN_LEVELS else 0
+    c["staged"] = 1 << c["levels"] if c["levels"] else 0
+    c["rounds"] = 1 if c["levels"] else _SEG_VALUES // c["values"]
+    c["smem"] = (x_bytes + _round_up(table, 16)
+                 + c["cols"] * _SEG_WALKS * c["staged"] * _SEG_STAGED_BYTES)
+    c["tiles"] = -(-min(block_obs, n) // rows)
+    c["grid"] = -(-n // block_obs) * c["tiles"]
+
+
+def _seg_config(n: int, d: int, t: int, h: int, max_depth: int,
+                n_classes: int, block_trees: int, block_obs: int,
+                tb2: int | None, resident: int) -> dict[str, int]:
+    """Plain twin of the library's ``seg_config``: K1's (``tb2`` its code
+    word's) or K2's (``tb2=None``) tiling over ``resident`` CTAs, which the
+    library reads from the SM count and the kernel's occupancy; keyed by
+    ``SEG_CONFIG_KEYS``.  A CTA holds ``rows`` rows of one row block (the
+    fewest, a power of two from 8 to 128, whose grid fits ``resident``)
+    and walks ``cols`` slices of their chunk range at once, a slice being
+    a chunk of up to 8 trees or 8 trees of a larger one; K2's CTAs hold at
+    least 16 rows, so their 16 columns stage a level more of their trees."""
+    if (n < 1 or d < 1 or t < 0 or h < 0 or block_trees < 1
+            or block_obs < 1 or (tb2 is not None and tb2 < 1)
+            or t * h >= 1 << 31):
+        raise ValueError("the segmented kernels take n, d, block_trees, "
+                         "block_obs and tb2 >= 1 and t * h < 2**31")
+    c = {"threads": _SEG_THREADS, "walks": _SEG_WALKS, "resident": resident}
+    c["decode"] = (TABLES if tb2 is None else
+                   SHIFT if tb2 & (tb2 - 1) == 0 else DIVIDE)
+    c["slices"] = -(-block_trees // _SEG_WALKS)
+    c["values"] = 1 if c["slices"] == 1 else _SEG_WALKS
+    c["depth"] = min(max_depth, h.bit_length())
+    c["dpad"] = d | 1
+    rows = 2 * _SEG_MIN_ROWS if tb2 is None else _SEG_MIN_ROWS
+    _seg_size(c, n, block_obs, n_classes, rows)
+    while rows < _SEG_MAX_ROWS and c["grid"] > resident:
+        rows *= 2
+        _seg_size(c, n, block_obs, n_classes, rows)
+    return {k: c[k] for k in SEG_CONFIG_KEYS}
+
+
+def _seg_work(cfg: dict, obs_seg, tree_seg, block_trees: int,
+              block_obs: int, chunk_lo=None, chunk_hi=None):
+    """Each K1 / K2 CTA's rows and the trees of the slices it keeps, in
+    order, as the kernel assigns them: CTA ``b`` holds tile ``b % tiles``
+    of row block ``b // tiles`` against that block's chunks (every chunk
+    when ``chunk_lo`` is None); of each window of ``threads`` slices it
+    keeps those with a tree whose segment lies in its rows' segment range,
+    and kept slice ``i`` is walked by column ``i % cols``, ``cols * rounds``
+    a pass.  Trees past the real ones are listed; the kernel masks them."""
+    obs_seg, tree_seg = np.asarray(obs_seg), np.asarray(tree_seg)
+    n, t = len(obs_seg), len(tree_seg)
+    n_chunks = -(-t // block_trees)
+    rows, tiles, parts = cfg["rows"], cfg["tiles"], cfg["slices"]
+    for b in range(cfg["grid"]):
+        blk = b // tiles
+        r0 = blk * block_obs + (b % tiles) * rows
+        end = min(blk * block_obs + block_obs, r0 + rows, n)
+        if end <= r0:
+            continue
+        lo, hi = 0, n_chunks
+        if chunk_lo is not None:
+            lo, hi = max(int(chunk_lo[blk]), 0), min(int(chunk_hi[blk]),
+                                                     n_chunks)
+        seg_lo, seg_hi = obs_seg[r0:end].min(), obs_seg[r0:end].max()
+        slices = []
+        for j in range(max(hi - lo, 0) * parts):
+            t0 = (lo + j // parts) * block_trees + (j % parts) * _SEG_WALKS
+            trees = range(t0, t0 + min(
+                _SEG_WALKS, block_trees - (j % parts) * _SEG_WALKS))
+            segs = tree_seg[trees.start:min(trees.stop, t)]
+            if ((segs >= seg_lo) & (segs <= seg_hi)).any():
+                slices.append(trees)
+        yield range(r0, end), slices
+
+
 # ---------------------------------------------------------------------------
 # CUDA launches
 # ---------------------------------------------------------------------------
@@ -611,14 +771,22 @@ def _grid_config(n: int, block_trees: int, block_obs: int) -> None:
         raise ValueError(f"{n} rows do not fit the kernels' int32 row index")
 
 
-def _launch_config(n: int, block_trees: int, block_obs: int) -> None:
-    """Grid checks plus the shared-memory pair buffer of K1 and K2."""
+def _launch_config(n: int, d: int, t: int, h: int, block_trees: int,
+                   block_obs: int, tb2: int | None = None) -> None:
+    """What K1 (``tb2`` given) and K2 refuse: no rows or features, blocks
+    below 1, a code word base below 1 (its decode divides by it), more
+    rows than an int32 row index holds, and heaps of ``t * h >= 2**31``
+    nodes (32-bit node offsets).  Their shared memory does not grow with
+    ``block_trees`` or ``block_obs``, so no block size is refused."""
     _grid_config(n, block_trees, block_obs)
-    if block_trees * block_obs * 4 > _MAX_SMEM_BYTES:
-        raise ValueError(
-            f"block_trees * block_obs = {block_trees * block_obs} pairs "
-            "need more shared memory than a Hopper CTA has"
-        )
+    if n < 1 or d < 1:
+        raise ValueError(f"the segmented kernels need rows and features, "
+                         f"got n={n}, d={d}")
+    if tb2 is not None and tb2 < 1:
+        raise ValueError(f"tb2={tb2}: the code word decode divides by it")
+    if t * h >= 1 << 31:
+        raise ValueError(f"{t} x {h} heap nodes pass the kernels' 32-bit "
+                         "node offsets")
 
 
 def _raise_on(err: int, fn: str) -> None:
@@ -627,19 +795,36 @@ def _raise_on(err: int, fn: str) -> None:
         raise RuntimeError(f"{fn} failed: CUDA error {err} ({msg})")
 
 
+def seg_config(n: int, d: int, t: int, h: int, max_depth: int,
+               n_classes: int, block_trees: int, block_obs: int,
+               tb2: int | None = None) -> dict[str, int]:
+    """K1's (``tb2`` its code word's) or K2's (``tb2=None``) configuration
+    on the current card, as the library computes it for a launch
+    (``SEG_CONFIG_KEYS``)."""
+    out = (_I * len(SEG_CONFIG_KEYS))()
+    _raise_on(
+        _library().tp_seg_config(
+            n, d, t, h, max_depth, n_classes, block_trees, block_obs,
+            0 if tb2 is None else tb2, int(tb2 is None), out,
+        ),
+        "tp_seg_config",
+    )
+    return dict(zip(SEG_CONFIG_KEYS, out))
+
+
 def _launch_seg_packed(
     xb, obs_seg, code, fit, tree_seg, chunk_lo, chunk_hi, max_depth: int,
     tb2: int, n_classes: int = 0, block_trees: int = 8,
     block_obs: int = 128,
 ) -> torch.Tensor:
-    """Launch K1 on the card: one CTA per fixed block of ``block_obs``
-    rows.  Inputs must already have the kernel's dtypes and be contiguous
-    on one CUDA device."""
+    """Launch K1 on the card: CTAs of a few rows of one row block, each
+    walking many chunks of the block's range at once (``seg_config``).
+    Inputs must already have the kernel's dtypes and be contiguous on one
+    CUDA device."""
     dev = code.device
-    if dev.type != "cuda":
-        raise ValueError(f"K1 launches on a CUDA device, got {dev}")
     n, d = xb.shape
     t_pad, h = code.shape
+    _launch_config(n, d, t_pad, h, block_trees, block_obs, tb2)
     g = -(-n // block_obs)
     _check("xb", xb, torch.int32, (n, d), dev)
     _check("obs_seg", obs_seg, torch.int32, (n,), dev)
@@ -648,10 +833,11 @@ def _launch_seg_packed(
     _check("tree_seg", tree_seg, torch.int32, (t_pad,), dev)
     _check("chunk_lo", chunk_lo, torch.int32, (g,), dev)
     _check("chunk_hi", chunk_hi, torch.int32, (g,), dev)
-    _launch_config(n, block_trees, block_obs)
     if t_pad % block_trees:
         raise ValueError("T_pad must be a multiple of block_trees")
-    out = torch.zeros(
+    if dev.type != "cuda":
+        raise ValueError(f"K1 launches on a CUDA device, got {dev}")
+    out = torch.empty(
         (n, n_classes) if n_classes > 0 else (n,), dtype=torch.float32,
         device=dev,
     )
@@ -674,13 +860,13 @@ def _launch_seg_simple(
     max_depth: int, n_classes: int = 0, block_trees: int = 32,
     block_obs: int = 256,
 ) -> torch.Tensor:
-    """Launch K2 on the card: one CTA per block of ``block_obs`` rows,
-    every chunk of ``block_trees`` trees."""
+    """Launch K2 on the card: K1's kernel over the separate tables and
+    every chunk of ``block_trees`` trees, masking ``tree_id < T``, the top
+    levels of its trees staged in shared memory."""
     dev = feature.device
-    if dev.type != "cuda":
-        raise ValueError(f"K2 launches on a CUDA device, got {dev}")
     n, d = xb.shape
     t, h = feature.shape
+    _launch_config(n, d, t, h, block_trees, block_obs)
     _check("xb", xb, torch.int32, (n, d), dev)
     _check("obs_seg", obs_seg, torch.int32, (n,), dev)
     _check("tree_seg", tree_seg, torch.int32, (t,), dev)
@@ -688,8 +874,9 @@ def _launch_seg_simple(
     _check("threshold", threshold, torch.int32, (t, h), dev)
     _check("fit", fit, torch.float32, (t, h), dev)
     _check("is_internal", is_internal, torch.bool, (t, h), dev)
-    _launch_config(n, block_trees, block_obs)
-    out = torch.zeros(
+    if dev.type != "cuda":
+        raise ValueError(f"K2 launches on a CUDA device, got {dev}")
+    out = torch.empty(
         (n, n_classes) if n_classes > 0 else (n,), dtype=torch.float32,
         device=dev,
     )

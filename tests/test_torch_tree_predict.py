@@ -752,3 +752,307 @@ def test_depth13_entries_match_interpret_kernels(task):
         want = jtp.forest_predict(*J, depth, interpret=True, **kw)
         got = tp.forest_predict(xb, feat, thr, fit, inter, depth, **kw)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# K1 / K2 on the card: tiling, kept slices, walk, decode and reduction,
+# rehearsed through their plain twins
+# ---------------------------------------------------------------------------
+
+def seg_layout(name):
+    """(obs_seg, tree_seg, block_trees, block_obs, chunk ranges or None) of
+    the K1 / K2 shapes ``chip_smoke.py`` runs: the main path's 1,024-row
+    batches, the fleet batch (222 users of 8-16 trees, 256 requests of 256
+    rows sorted by user), the large parity shape and the parity cases
+    that the tiling introduces.  K1's trees are padded to a multiple of
+    its 8-tree chunks with segment -1; its ranges come from
+    ``segment_chunk_ranges``."""
+    rng = np.random.default_rng(171)
+    k1 = name.startswith("k1")
+    if name.endswith("main"):  # one user, 100 trees or K2's first chunk
+        tseg, oseg = np.zeros(100 if k1 else 32, np.int32), np.zeros(1024)
+    elif name.endswith("fleet"):
+        tseg = np.repeat(np.arange(222), rng.integers(8, 17, 222))
+        asked = np.concatenate([np.arange(222), rng.integers(0, 222, 34)])
+        oseg = np.sort(np.repeat(asked, 256))
+    elif name.endswith("large"):
+        tseg = np.sort(rng.integers(0, 37, 1021))
+        oseg = np.sort(rng.integers(0, 37, 65536))
+    elif name.endswith("long"):  # one user of 2,100 trees
+        tseg, oseg = np.zeros(2100), np.zeros(700)
+    elif name.endswith("n1000"):
+        tseg = np.sort(rng.integers(0, 2, 100))
+        oseg = rng.integers(0, 2, 1000)
+    elif name.endswith("n1"):
+        tseg, oseg = np.sort(rng.integers(0, 3, 203)), np.array([1])
+    else:  # dead chunks: 160 users over 640 trees
+        tseg = np.sort(rng.integers(0, 160, 640))
+        oseg = np.sort(rng.integers(0, 160, 8192))
+    tseg, oseg = tseg.astype(np.int32), oseg.astype(np.int32)
+    bt, bo = (8, 128) if k1 else (32, 256)
+    bo = min(bo, len(oseg))
+    if not k1:
+        return oseg, tseg, bt, bo, None
+    tseg = np.pad(tseg, (0, -len(tseg) % bt), constant_values=-1)
+    lo, hi = tp.segment_chunk_ranges(oseg, tseg, bt, bo)
+    if name == "k1-fleet":  # and every third row block with an empty range
+        hi = hi.copy()
+        hi[::3] = lo[::3]
+    return oseg, tseg, bt, bo, (lo, hi)
+
+
+SEG_LAYOUTS = ["k1-main", "k1-fleet", "k1-large", "k1-long", "k1-n1000",
+               "k1-n1", "k2-main", "k2-fleet", "k2-large", "k2-long",
+               "k2-dead"]
+
+
+@pytest.mark.parametrize("resident", [132, 528, 1056])
+@pytest.mark.parametrize("name", SEG_LAYOUTS)
+def test_seg_work_covers_every_pair_once(name, resident):
+    """Over the configuration the wrapper computes, K1's / K2's CTAs hold
+    tiles that cut each row block into consecutive row ranges, and the
+    slices each keeps, walked against its rows, cover every (tree, row)
+    pair whose segments match and whose chunk lies in the row block's
+    range exactly once; the rows a CTA holds are the fewest (from 8, or
+    16 for K2) whose grid fits the resident CTAs."""
+    oseg, tseg, bt, bo, ranges = seg_layout(name)
+    n, t = len(oseg), len(tseg)
+    tb2 = 64 if ranges is not None else None
+    cfg = tp._seg_config(n, 8, t, 511, 8, 2, bt, bo, tb2, resident)
+    assert cfg["rows"] * cfg["cols"] == cfg["threads"] == 256
+    assert cfg["grid"] <= resident or cfg["rows"] == 128
+    # dynamic shared memory beside the static (the kept list, K2's staged
+    # trees' table, the warps' ranges) fits a Hopper CTA; only K2 stages
+    assert cfg["smem"] + 2 * 4 * 256 + 3 * 4 * 8 <= 232448
+    assert (cfg["levels"] > 0) == (tb2 is None)
+    assert cfg["levels"] <= cfg["depth"]
+    fewest = 8 if tb2 else 16  # K2's CTAs hold 16 rows or more
+    assert cfg["rows"] >= fewest
+    if cfg["rows"] > fewest:  # half the rows would not have fit the card
+        half = tp._seg_config(n, 8, t, 511, 8, 2, bt, bo, tb2, resident)
+        tp._seg_size(half, n, bo, 2, cfg["rows"] // 2)
+        assert half["grid"] > resident
+    lo, hi = ranges if ranges is not None else (None, None)
+    n_chunks = -(-t // bt)
+    blocks = np.arange(n) // bo
+    chunk_of = np.arange(t) // bt
+    if ranges is None:
+        in_range = np.ones((len(np.unique(blocks)), n_chunks), bool)
+    else:
+        c = np.arange(n_chunks)
+        in_range = (c[None] >= lo[:, None]) & (c[None] < hi[:, None])
+    covered = 0
+    rows_seen = np.zeros(n, np.int64)
+    for rows, slices in tp._seg_work(cfg, oseg, tseg, bt, bo, lo, hi):
+        assert len({blocks[r] for r in (rows.start, rows.stop - 1)}) == 1
+        rows_seen[rows.start:rows.stop] += 1
+        trees = np.concatenate([np.arange(s.start, min(s.stop, t))
+                                for s in slices] or [np.zeros(0, int)])
+        assert len(set(trees.tolist())) == len(trees)  # no tree twice
+        ok = in_range[blocks[rows.start], chunk_of[trees]]
+        covered += int((tseg[trees][ok, None]
+                        == oseg[None, rows.start:rows.stop]).sum())
+    assert (rows_seen == 1).all()
+    want = 0
+    for tree in range(t):
+        rows = np.flatnonzero(oseg == tseg[tree])
+        want += int(in_range[blocks[rows], chunk_of[tree]].sum())
+    assert covered == want
+
+
+def seg_kernel_order_plain(leaf, oseg, tseg, n_classes, bt, bo, cfg,
+                           ranges=None):
+    """K1's / K2's reduction written out in the kernel's order, in float32
+    numpy over its CTAs' kept slices: for a slice that is a whole chunk,
+    the thread's sum of its masked leaves in tree order, added by the
+    row's folding thread into its total; for slices of a larger chunk,
+    the leaves, added into the open chunk's sum, which goes into the total
+    when the next kept chunk starts and at the end; votes as integer
+    counts.  Pairs that do not count hold leaf 0."""
+    n, t = len(oseg), len(tseg)
+    lo, hi = ranges if ranges is not None else (None, None)
+    counts = np.zeros((n, max(n_classes, 1)), np.int64)
+    out = np.full(n, np.nan, np.float32)
+    for rows, slices in tp._seg_work(cfg, oseg, tseg, bt, bo, lo, hi):
+        for r in rows:
+            total, open_, open_chunk = (np.float32(0), np.float32(0), -1)
+            for trees in slices:
+                held = [np.float32(leaf[k, r])
+                        if k < t and tseg[k] == oseg[r] else np.float32(0)
+                        for k in trees]  # the leaves one thread holds
+                if n_classes:
+                    for k, v in zip(trees, held):
+                        cls = int(v)
+                        if k < t and tseg[k] == oseg[r] and 0 <= cls < n_classes:
+                            counts[r, cls] += 1
+                elif cfg["values"] == 1:
+                    s = held[0]
+                    for v in held[1:]:
+                        s = np.float32(s + v)
+                    total = np.float32(total + s)
+                else:
+                    if trees.start // bt != open_chunk:
+                        total = np.float32(total + open_)
+                        open_, open_chunk = np.float32(0), trees.start // bt
+                    for v in held:
+                        open_ = np.float32(open_ + v)
+            out[r] = np.float32(total + open_)
+    return counts.astype(np.float32) if n_classes else out
+
+
+#: (block_trees, rows, trees, users, sorted rows, K1 ranges): chunks of 8
+#: trees as K1 runs them, 5 (short chunks), 12 (two slices, the last of 4
+#: trees) and K2's 32; a fleet-like layout of sorted users; unsorted rows;
+#: ranges with empty blocks.
+SEG_ORDER_SHAPES = [
+    (8, 300, 61, 9, True, True),
+    (5, 97, 37, 3, False, True),
+    (12, 150, 50, 4, True, False),
+    (32, 300, 101, 12, True, False),
+    (32, 64, 40, 2, False, False),
+]
+
+
+@pytest.mark.parametrize("shape", SEG_ORDER_SHAPES)
+@pytest.mark.parametrize("n_classes", [0, 3, 11])
+def test_seg_kernel_reduction_order_equals_agg_plain(n_classes, shape):
+    """K1's and K2's reduction, written out as the kernel folds the leaves
+    each thread holds (a chunk's sum, or the leaves of slices of a larger
+    chunk, kept slices only), equals their plain versions bit for bit."""
+    bt, n, t, users, sort, use_ranges = shape
+    xb, feat, thr, fit, inter = wide_heaps(181 + n_classes + bt, t, 5, 6, 9,
+                                           n_classes, n=n)
+    rng = np.random.default_rng(bt + n)
+    tseg = np.repeat(np.arange(users), np.diff(np.linspace(0, t, users + 1)
+                                               .astype(int)))
+    oseg = rng.integers(0, users + 1, n)  # segment `users` has no trees
+    oseg = np.sort(oseg) if sort else oseg
+    tseg, oseg = tseg.astype(np.int32), oseg.astype(np.int32)
+    leaf = tp._per_tree_plain(xb, feat, thr, fit, inter, 6).numpy()
+    T = torch.as_tensor
+    if use_ranges:
+        bo = 16
+        pad = -t % bt
+        tseg_p = np.pad(tseg, (0, pad), constant_values=-1)
+        lo, hi = tp.segment_chunk_ranges(oseg, tseg_p, bt, bo)
+        hi[1::4] = lo[1::4]
+        tb2 = 2 * tp.fused_threshold_base(int(thr.abs().max()))
+        code = tp.fuse_node_attrs(feat.clamp(min=0).numpy(),
+                                  thr.clamp(min=0).numpy(), inter.numpy(),
+                                  tb2 // 2)
+        xb_k = xb.clamp(min=0)
+        want = tp._seg_packed_plain(
+            xb_k, T(oseg), T(np.pad(code, ((0, pad), (0, 0)))),
+            T(np.pad(fit.numpy(), ((0, pad), (0, 0)))), T(tseg_p), T(lo),
+            T(hi), 6, tb2, n_classes, bt, bo)
+        f2, t2, i2 = tp._unfuse(T(code), tb2)
+        leaf = tp._per_tree_plain(xb_k, f2, t2, fit, i2, 6).numpy()
+        leaf = np.pad(leaf, ((0, pad), (0, 0)))
+        cfg = tp._seg_config(n, 6, t + pad, feat.shape[1], 6, n_classes, bt,
+                             bo, tb2, resident=7)
+        got = seg_kernel_order_plain(leaf, oseg, tseg_p, n_classes, bt, bo,
+                                     cfg, (lo, hi))
+    else:
+        bo = 32
+        want = tp._seg_simple_plain(xb, T(oseg), T(tseg), feat, thr, fit,
+                                    inter, 6, n_classes, bt, bo)
+        cfg = tp._seg_config(n, 6, t, feat.shape[1], 6, n_classes, bt, bo,
+                             None, resident=7)
+        got = seg_kernel_order_plain(leaf, oseg, tseg, n_classes, bt, bo,
+                                     cfg)
+    assert cfg["values"] == (1 if bt <= 8 else 8)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("tb2", [2, 4, 64, 1 << 14, 96])
+def test_shift_and_mask_decode_equals_unfuse(tb2):
+    """K1's decode (shift and mask where ``tb2`` is a power of two, the
+    arithmetic shift flooring negative words; division for 96) equals
+    ``_unfuse`` on every word of a fused table and on negative words."""
+    rng = np.random.default_rng(191)
+    tb = tb2 // 2
+    feat = rng.integers(0, 300, (7, 63))
+    thr = rng.integers(0, tb, (7, 63))
+    inter = rng.random((7, 63)) < 0.5
+    code = tp.fuse_node_attrs(feat, thr, inter, tb).reshape(-1)
+    words = torch.as_tensor(np.concatenate(
+        [code, np.arange(-5000, 5000, dtype=np.float32)]))
+    for got, want in zip(tp._decode_plain(words, tb2),
+                         tp._unfuse(words, tb2)):
+        assert torch.equal(got, want)
+    f, th, it = tp._decode_plain(torch.as_tensor(code), tb2)
+    assert torch.equal(f, torch.as_tensor(feat.reshape(-1), dtype=torch.int32))
+    assert torch.equal(th, torch.as_tensor(thr.reshape(-1), dtype=torch.int32))
+    assert torch.equal(it, torch.as_tensor(inter.reshape(-1)))
+
+
+@pytest.mark.parametrize("extra_levels", [-3, 0, 2, 5])
+@pytest.mark.parametrize("h", [63, 50])
+def test_stay_put_walk_equals_per_tree_plain(extra_levels, h):
+    """K1's / K2's walk (``min(max_depth, h.bit_length())`` uniform
+    levels, the zero word by a select past the heap, ``idx = internal ?
+    child : idx``) equals ``_per_tree_plain`` bit for bit: ``max_depth``
+    short of the heap, at it and past it (walks that leave the heap), on
+    a full heap and on one of 50 nodes, whose last level is partial."""
+    xb, *heap = wide_heaps(201 + h, 9, 5, 6, 9, 0)
+    feat, thr, fit, inter = (a[:, :h].contiguous() for a in heap)
+    depth = 5 + extra_levels
+    got = tp._walk_stay_put_plain(xb, feat, thr, fit, inter, depth)
+    want = tp._per_tree_plain(xb, feat, thr, fit, inter, depth)
+    assert torch.equal(got, want)
+
+
+def test_seg_launches_refuse_what_they_do_not_take():
+    """K1's and K2's launches refuse no rows, no features, blocks below 1,
+    a code word base below 1 and T_pad no multiple of block_trees (with
+    the same messages as the twin's refusals), then a CPU tensor; a
+    refusal counts no launch.  Block sizes no longer meet a shared-memory
+    limit: chip_smoke.py's largest blocks, (32, 512) for K1 and (64, 512)
+    for K2, reach the device check, and so does one block of 4,096 trees.
+    Heaps of 2**31 nodes pass the 32-bit node offsets."""
+    xb, feat, thr, fit, inter = wide_heaps(211, 64, 3, 5, 9, 0, n=40)
+    code = torch.zeros(feat.shape, dtype=torch.float32)
+    seg = torch.zeros(40, dtype=torch.int32)
+    tseg = torch.zeros(64, dtype=torch.int32)
+
+    def k1(bt=8, bo=16, tb2=32, x=xb, s=seg):
+        g = torch.zeros(-(-x.shape[0] // max(bo, 1)), dtype=torch.int32)
+        return tp._launch_seg_packed(x, s, code, fit, tseg, g, g, 3, tb2, 0,
+                                     bt, bo)
+
+    def k2(bt=32, bo=16, x=xb, s=seg):
+        return tp._launch_seg_simple(x, s, tseg, feat, thr, fit, inter, 3,
+                                     0, bt, bo)
+
+    tp.reset_launches()
+    empty = torch.zeros((0, 5), dtype=torch.int32)
+    no_features = torch.zeros((40, 0), dtype=torch.int32)
+    for launch in (k1, k2):
+        with pytest.raises(ValueError, match="positive"):
+            launch(bt=0)
+        with pytest.raises(ValueError, match="positive"):
+            launch(bo=0)
+        with pytest.raises(ValueError, match="rows and features"):
+            launch(x=empty, s=seg[:0])
+        with pytest.raises(ValueError, match="rows and features"):
+            launch(x=no_features)
+        for bt, bo in ((32, 512), (64, 512), (64, 4096)):
+            with pytest.raises(ValueError, match="CUDA"):
+                launch(bt=bt, bo=bo)
+    with pytest.raises(ValueError, match="tb2=0"):
+        k1(tb2=0)
+    with pytest.raises(ValueError, match="multiple of block_trees"):
+        k1(bt=5)
+    with pytest.raises(ValueError, match="CUDA"):
+        k1(tb2=96)  # no power of two: decoded by division
+    with pytest.raises(ValueError, match="32-bit node offsets"):
+        tp._launch_config(10, 5, 1 << 16, 1 << 15, 8, 128)
+    tp._launch_config(10, 5, (1 << 16) - 1, 1 << 15, 8, 128)
+    assert tp.LAUNCHES["seg_packed"] == tp.LAUNCHES["seg_simple"] == 0
+    # the twin refuses the same shapes
+    for args in ((0, 5, 64, 15, 3, 0, 8, 16, 32), (40, 0, 64, 15, 3, 0, 8,
+                 16, 32), (40, 5, 64, 15, 3, 0, 0, 16, 32),
+                 (40, 5, 64, 15, 3, 0, 8, 0, 32), (40, 5, 64, 15, 3, 0, 8, 16,
+                 0), (40, 5, 1 << 16, 1 << 15, 3, 0, 8, 16, None)):
+        with pytest.raises(ValueError):
+            tp._seg_config(*args, resident=132)
