@@ -134,7 +134,39 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    S = 1 session's batch timed beside its plain version and bound, with
    its configuration (part of K1's ``{"kernels"}`` entry); (e) the
    builds' seconds, each engine's cold and warm batch with its stages,
-   K1's share, and K5 at S = 1 and 4, in one ``{"fleet": ...}`` line.
+   K1's share, and K5 at S = 1 and 4, in one ``{"fleet": ...}`` line;
+11. the store's life on disk and across codebook generations (its K1
+   count set to 0 before and read after, positive): (a) durable: phase
+   10's 1,000-user classification store written by
+   ``DurableStore.create`` (slabs, XOR parity, the RFN1 manifest), opened
+   lazily and eagerly with ``load_store(device="cuda")``, and the fleet
+   batch served from the lazy store through ``pipelined``, equal to
+   phase 10's CPU answer; (b) residency: budgets of 0.15 and 0.6 of the
+   fleet's delta bytes with a background ``Prefetcher`` (no prefetch
+   error, at least one request served from a prefetch), 16 seeded
+   batches (cut from 64) of 16 requests x 256 rows, each served by the
+   lazy and the eager store on the card and equal to the CPU's answer
+   from the store's RFT1 bytes, the budget held after every batch; (c)
+   repair: bits flipped in one user's shard on disk, ``serve_safe`` with
+   ``attach_auto_repair`` serves the batch exactly after one parity
+   repair and a scrub finds nothing left, then a second fault in one
+   slab is a typed ``UnrepairableError`` and its users are quarantined;
+   (d) lifecycle: ``make_drifted_fleet(1000, late_fraction=0.3)``, the
+   700 initial users built on the card and the 300 late users onboarded (``drift_report`` recommends a recluster), a
+   warm session, equal to the CPU's answer from the pre-recluster RFT1
+   bytes, crosses ``recluster(mode="extend")`` with an RFJ1 journal on
+   disk (verified, every user bit-exact, no fallback users after, the
+   CPU's answer again, arena runs lost only by re-encoded users), and
+   ``mode="full"`` runs on 300 users (cut from 1,000) of a store opened
+   from the pre-recluster RFT1 bytes, serving the CPU's answer; a
+   100-user drifted fleet (``benchmarks/recluster_bench.py``'s
+   size) is crashed at every journal step and resumed from its journal's
+   bytes to the uncrashed run's RFT1 bytes (in spawned worker processes,
+   beside the rest); (e) streaming: ``build_store_streaming`` of phase
+   10's fleet in waves of 256 with extend, loaded bit-exact on the card
+   and serving phase 10's CPU answer; all in one
+   ``{"store_lifecycle": ...}`` line with the card's name and power
+   limit.
 
 ``python3 chip_smoke.py --forest-times`` runs only K3 and K4 at the two
 Liberty shapes and the large one (the same command times a parent tree's
@@ -146,6 +178,8 @@ and 4, K1 and K2 at the large classification and regression shapes, each
 held against its plain version (the same command times a parent tree's
 kernels); ``--seg-profile`` adds ``max_depth`` cut to 0, 2, ..., 8 at the
 single-forest batch, with each call's device time from ``torch.profiler``.
+``--lifecycle`` runs phase 11 alone, over phase 10's 1,000-user fleet
+built for it.
 
 Votes must be equal; regression sums are held at rtol = atol = 1e-5 (the
 reference's own serving tolerance); on the card K1-K4 equal their plain
@@ -681,17 +715,21 @@ def time_stats(fn, reps: int = REPS) -> dict:
 # phases
 # ---------------------------------------------------------------------------
 
+def smi_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
 def phase_environment():
     from repro_torch.device import resolve_device
 
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    log(smi)
+    log(smi_line())
     dev = resolve_device("cuda")
     log(f"device {dev} {torch.cuda.get_device_name(dev)}")
     return dev
@@ -2606,13 +2644,23 @@ def check_fleet(task, requests, preds, want, what):
         check_pred(task, got, ref, f"{what}: user {u}")
 
 
+def cpu_answers(blob, batches):
+    """The independent answer to each batch of requests: the store read
+    back from its RFT1 bytes ``blob`` on the CPU, where no kernel runs,
+    and each request predicted there."""
+    from repro_torch.store import ForestStore
+
+    oracle = ForestStore.from_bytes(blob, device="cpu")
+    return [[oracle.predict(u, x) for u, x in batch] for batch in batches]
+
+
 def phase_fleet_serving(dev, bench_stores):
     """The fleet's main path (module docstring, phase 10b-c): every engine
     serves 65,536 ragged rows of 256 requests, held against
     ``predict_compressed`` on the CPU; ``serve_safe`` quarantines one
     corrupted user.  Launch counts are set to 0 before and read after.
     Returns {task: (store, requests, want)}, the launch counts, the build
-    rows and the S = 4 session's K5 inputs per task."""
+    rows and {task: the forests} of the fleets built here."""
     from repro_torch.kernels.tree_predict import tree_predict as tp
     from repro_torch.runtime.chaos import poison_user
     from repro_torch.serving import ForestServer
@@ -2625,22 +2673,21 @@ def phase_fleet_serving(dev, bench_stores):
 
     build_rows = {}
     fleets = {}
+    forests = {}
     for task, n_users in FLEET_SERVE_USERS.items():
         if n_users == FLEET_BENCH_USERS:
             fleets[task] = bench_stores[task]
             continue
-        fleet = make_synthetic_fleet(n_users, task, seed=0)
+        forests[task] = make_synthetic_fleet(n_users, task, seed=0)
         t0 = time.perf_counter()
-        fleets[task] = build_store(fleet, device=dev)
+        fleets[task] = build_store(forests[task], device=dev)
         build_rows[task] = {"users": n_users,
                             "build_s": time.perf_counter() - t0}
-        del fleet
     out = {}
     tp.reset_launches()
     for task, store in fleets.items():
         requests = make_request_batch(store, FLEET_REQUESTS, FLEET_ROWS, seed=1)
-        oracle = ForestStore.from_bytes(store.to_bytes(), device="cpu")
-        want = [oracle.predict(u, x) for u, x in requests]
+        want, = cpu_answers(store.to_bytes(), [requests])
         row = {"fleet_serving": task, "users": len(store.user_ids),
                "trees": sum(store.n_trees(u) for u in store.user_ids),
                "requests": len(requests),
@@ -2681,7 +2728,7 @@ def phase_fleet_serving(dev, bench_stores):
     log(f"fleet-path launches: {json.dumps(launches)}")
     for name in (K1["name"], K2["name"], K5["name"]):
         assert launches[name] > 0, f"kernel {name} was not launched on the fleet path"
-    return out, launches, build_rows
+    return out, launches, build_rows, forests
 
 
 def fleet_kernel_args(server, requests, engine):
@@ -2828,6 +2875,555 @@ def fleet_entry(served, launches, build_rows, fleet_rows):
     return entry, fleet
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the fleet store's life on disk and across codebook generations
+# ---------------------------------------------------------------------------
+
+LIFE_BUDGETS = (0.15, 0.6)  # residency budgets, fractions of delta bytes
+LIFE_BATCHES = 16  # residency batches per budget (64 before the cut)
+LIFE_REQUESTS = 16  # requests per residency batch
+LIFE_ROWS = 256  # rows per request
+LIFE_USERS = 1000  # the drifted fleet (make_drifted_fleet)
+LIFE_FULL_USERS = 300  # the full rebuild's fleet (1,000 before the cut)
+LIFE_LATE = 0.3
+LIFE_SEED = 7
+LIFE_BATCH = (64, 256)  # the warm lifecycle batch: requests, rows
+CRASH_USERS = 100  # benchmarks/recluster_bench.py's fleet
+CRASH_SEED = 0
+CRASH_WORKERS = 6
+STREAM_WAVE = 256
+
+
+def counted_invalidations(arena):
+    """Count, on this arena only, the invalidations that drop a live run
+    (a demotion's or a re-registration's)."""
+    real = arena.invalidate
+    counter = {"runs": 0}
+
+    def invalidate(user_id):
+        counter["runs"] += user_id in arena
+        real(user_id)
+
+    arena.invalidate = invalidate
+    return counter
+
+
+def flip_shard_bits(durable, user_id, seed, n=8):
+    """Flip ``n`` seeded bits of one user's shard in its slab file."""
+    from repro_torch.runtime.chaos import flip_bits
+
+    entry = durable.shard_for_user(user_id)
+    path, off, length = durable.shard_location(entry.shard_id)
+    with open(path, "r+b") as f:
+        f.seek(off)
+        bad, _ = flip_bits(f.read(length), seed, n)
+        f.seek(off)
+        f.write(bad)
+    return entry
+
+
+def life_durable(dev, store, requests, want, root):
+    """Write the fleet with ``DurableStore.create``, open it lazily and
+    eagerly on the card, and serve the fleet batch from the lazy store;
+    ``want`` is phase 10's CPU answer to it."""
+    from repro_torch.serving import ForestServer
+    from repro_torch.store import DurableStore
+
+    path = os.path.join(root, "fleet")
+    t0 = time.perf_counter()
+    durable = DurableStore.create(path, store)
+    t1 = time.perf_counter()
+    lazy = DurableStore.open(path).load_store(device=dev)
+    t2 = time.perf_counter()
+    eager = DurableStore.open(path).load_store(lazy=False, device=dev)
+    t3 = time.perf_counter()
+    assert lazy._deltas.n_loaded() == 0
+    server = ForestServer(lazy, device=dev)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    got = server.serve(requests, engine="pipelined")
+    t5 = time.perf_counter()
+    task = store.shared.task
+    check_fleet(task, requests, got, want,
+                "lazy store against phase 10's CPU answer")
+    check_fleet(task, requests, ForestServer(eager, device=dev).serve(
+        requests, engine="pipelined"), want, "eager store")
+    assert eager.to_bytes() == store.to_bytes()
+    st = durable.stats()
+    return path, durable, eager, {
+        "users": st["n_users"],
+        "trees": sum(store.n_trees(u) for u in store.user_ids),
+        "create_ms": (t1 - t0) * 1e3, "open_lazy_ms": (t2 - t1) * 1e3,
+        "open_eager_ms": (t3 - t2) * 1e3,
+        "first_touch_ms": (t5 - t4) * 1e3,
+        "first_touch_loaded_users": lazy._deltas.n_loaded(),
+        "live_bytes": st["live_bytes"], "n_slabs": st["n_slabs"],
+        "lazy_serve_equals_cpu": True,
+    }
+
+
+def residency_batches(dev, eager):
+    """LIFE_BATCHES seeded batches of the eager store's users and their
+    CPU answers, which the eager store serves on the card too."""
+    from repro_torch.serving import ForestServer
+    from repro_torch.store import make_request_batch
+
+    batches = [make_request_batch(eager, LIFE_REQUESTS, LIFE_ROWS,
+                                  seed=1000 + i)
+               for i in range(LIFE_BATCHES)]
+    wants = cpu_answers(eager.to_bytes(), batches)
+    on_card = ForestServer(eager, device=dev)
+    for i, (batch, want) in enumerate(zip(batches, wants)):
+        check_fleet(eager.shared.task, batch,
+                    on_card.serve(batch, engine="pipelined"), want,
+                    f"eager store, residency batch {i}")
+    return batches, wants
+
+
+def life_residency(dev, path, frac, batches, wants):
+    """Serve ``batches`` from a lazy store under a budget of ``frac`` of
+    the fleet's delta bytes, with a background prefetcher warming the
+    next batch's users while one is served (the first batch's warmed
+    before the clock starts); every answer is held to its CPU answer in
+    ``wants``, and the budget after every batch."""
+    from repro_torch.serving import ForestServer
+    from repro_torch.store import DurableStore, Prefetcher, attach_residency
+
+    durable = DurableStore.open(path)
+    delta_bytes = sum(e.length for e in durable.delta_entries())
+    budget = int(frac * delta_bytes)
+    store = durable.load_store(device=dev)
+    invalidated = counted_invalidations(store.arena)
+    mgr = attach_residency(store, durable, budget,
+                           clock=time.perf_counter)
+    server = ForestServer(store, device=dev)
+    task = store.shared.task
+    pf = Prefetcher(mgr, server=server, background=True)
+    try:
+        pf.request([u for u, _ in batches[0]])
+        pf.drain()
+        serve_s = 0.0
+        for i, (batch, want) in enumerate(zip(batches, wants)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            # install what was staged for this batch before it is planned:
+            # planning reads each user's delta, and one still staged
+            # would be loaded cold again
+            mgr.absorb_staged()
+            if i + 1 < len(batches):
+                pf.request([u for u, _ in batches[i + 1]])
+            got = server.serve(batch, engine="pipelined")
+            serve_s += time.perf_counter() - t0
+            check_fleet(task, batch, got, want, f"residency {frac} batch {i}")
+            assert mgr.accounted_bytes() <= budget, (frac, i)
+    finally:
+        pf.close()
+    st = mgr.stats()
+    assert st["prefetch_errors"] == 0, st["prefetch_errors"]
+    assert st["prefetch_hits"] > 0, "no request was served from a prefetch"
+    n_req = LIFE_BATCHES * LIFE_REQUESTS
+    return {
+        "budget_fraction": frac, "budget_bytes": budget,
+        "delta_bytes": delta_bytes, "batches": LIFE_BATCHES,
+        "requests_per_batch": LIFE_REQUESTS, "rows": LIFE_ROWS,
+        "demotions": st["demotions"], "reloads": st["reloads"],
+        "writebacks": st["writebacks"],
+        "over_budget_events": st["over_budget_events"],
+        "prefetch_staged": st["prefetch_staged"],
+        "prefetch_hits": st["prefetch_hits"],
+        "prefetch_errors": st["prefetch_errors"],
+        "cold_load_ms_p50": st["cold_load_ms_p50"],
+        "cold_load_ms_p99": st["cold_load_ms_p99"],
+        "prefetch_load_ms_p50": st["prefetch_load_ms_p50"],
+        "requests_per_s": n_req / serve_s,
+        "rows_per_s": n_req * LIFE_ROWS / serve_s,
+        "arena_runs_invalidated": invalidated["runs"],
+        "arena": store.arena.stats(),
+        "budget_held_after_every_batch": True,
+        "answers_equal_cpu_and_eager": True,
+    }
+
+
+def life_repair(dev, path, requests, want, root):
+    """One user's shard corrupted on disk: ``serve_safe`` with
+    ``attach_auto_repair`` serves it exactly after one parity repair, and
+    a scrub finds nothing left; a second fault in one slab is a typed
+    ``UnrepairableError`` and its users are quarantined, not served."""
+    import shutil
+
+    from repro_torch.core.framing import IntegrityError, UnrepairableError
+    from repro_torch.serving import ForestServer
+    from repro_torch.store import DurableStore, Scrubber, attach_auto_repair
+
+    rpath = os.path.join(root, "repair")
+    shutil.copytree(path, rpath)
+    durable = DurableStore.open(rpath)
+    victim = requests[0][0]
+    entry = flip_shard_bits(durable, victim, seed=11)
+    try:
+        durable.read_shard(entry.shard_id)
+        raise AssertionError("a corrupt shard read back clean")
+    except IntegrityError:
+        pass
+    server = ForestServer(durable.load_store(device=dev), device=dev)
+    attach_auto_repair(server, durable)
+    statuses = server.serve_safe(requests)
+    assert [s.status for s in statuses] == ["ok"] * len(requests)
+    task = server.store.shared.task
+    check_fleet(task, requests, [s.prediction for s in statuses], want,
+                "after repair")
+    health = server.stats()["health"]
+    assert health["repairs"] == 1 and health["n_quarantined"] == 0, health
+    scrub = Scrubber(durable).scrub_all()
+    assert scrub["repaired"] == scrub["unrepairable"] == 0, scrub
+    assert scrub["parity_rebuilt"] == 0, scrub
+
+    slab, _ = durable._locate(entry.shard_id)
+    pair = [e.name for e in slab.shards if e.name and e.name != victim][:2]
+    assert len(pair) == 2, "the victim's slab holds fewer than 3 users"
+    for i, u in enumerate(pair):
+        flip_shard_bits(durable, u, seed=12 + i)
+    first = durable.shard_for_user(pair[0])
+    try:
+        durable.read_shard(first.shard_id, repair=True)
+        raise AssertionError("a double fault was repaired")
+    except UnrepairableError as exc:
+        typed = type(exc).__name__
+    server2 = ForestServer(DurableStore.open(rpath).load_store(device=dev),
+                           device=dev)
+    attach_auto_repair(server2, durable)
+    x = requests[0][1]
+    reqs2 = [(pair[0], x), (pair[1], x), (victim, x)]
+    st2 = server2.serve_safe(reqs2)
+    assert [s.status for s in st2[:2]] == ["quarantined"] * 2
+    assert all(s.prediction is None for s in st2[:2])
+    assert st2[2].status == "ok"
+    check_pred(task, st2[2].prediction, want[0], "a healthy sibling")
+    health2 = server2.stats()["health"]
+    assert "UnrepairableError" in health2["last_repair_error"]
+    return {
+        "victim": victim, "repairs": health["repairs"],
+        "repair_attempts": health["repair_attempts"],
+        "served_exact_after_repair": True, "scrub_after": scrub,
+        "double_fault": typed, "double_fault_users": pair,
+        "quarantined": health2["n_quarantined"],
+    }
+
+
+def crash_points(pre: bytes, want: bytes, points: list, device: str,
+                 submitted: float):
+    """A worker's share of the crash sweep: for each step index, a
+    recluster from ``pre`` crashed there (``CrashSchedule``), then resumed
+    from the journal's bytes.  Returns the indices whose RFT1 bytes differ
+    from the uncrashed run's, the worker's CPU seconds over its points,
+    and its clock (``time.time()``) in seconds after ``submitted``: when
+    it entered (the process spawned and the main module imported), when
+    the store's modules were imported, when its CUDA context was up, and
+    when it finished.  The runs skip ``verify``: their RFT1 bytes are held
+    equal to the uncrashed run's, which was verified user by user."""
+    entered = time.time()
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.set_num_threads(1)
+    from repro_torch.runtime.chaos import CrashSchedule, InjectedCrash
+    from repro_torch.store import (
+        ForestStore,
+        MigrationJournal,
+        recluster,
+        resume_recluster,
+    )
+
+    imported = time.time()
+    torch.empty(0, device=device)
+    ready = time.time()
+    cpu0 = time.process_time()
+    bad = []
+    for i in points:
+        store = ForestStore.from_bytes(pre, device=device)
+        journal = MigrationJournal()
+        try:
+            recluster(store, mode="extend", journal=journal, verify=False,
+                      on_step=CrashSchedule(fail_at=(i,)))
+            bad.append((i, "no crash"))
+            continue
+        except InjectedCrash:
+            pass
+        revived = MigrationJournal.from_bytes(journal.to_bytes())
+        if revived.state == "idle":
+            recluster(store, mode="extend", journal=revived, verify=False)
+        else:
+            resume_recluster(store, revived, verify=False)
+        if revived.state != "committed" or store.to_bytes() != want:
+            bad.append((i, revived.state))
+    clock = {"entered_s": entered, "imported_s": imported,
+             "cuda_ready_s": ready, "done_s": time.time()}
+    return bad, time.process_time() - cpu0, {
+        k: t - submitted for k, t in clock.items()}
+
+
+def life_crash_sweep(dev):
+    """Start the crash-at-every-step sweep on CRASH_USERS users in
+    CRASH_WORKERS spawned processes (host work: every point reruns a
+    recluster); returns what ``life_crash_result`` reads."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+
+    from repro_torch.runtime.chaos import CrashSchedule
+    from repro_torch.store import (
+        ForestStore,
+        MigrationJournal,
+        build_store,
+        make_drifted_fleet,
+        recluster,
+    )
+
+    initial, late = make_drifted_fleet(CRASH_USERS, late_fraction=LIFE_LATE,
+                                       seed=CRASH_SEED)
+    store = build_store(initial, device=dev)
+    for u, f in late.items():
+        store.add_user(u, f)
+    pre = store.to_bytes()
+    clean = ForestStore.from_bytes(pre, device=dev)
+    sched = CrashSchedule()
+    t0 = time.perf_counter()
+    recluster(clean, mode="extend", journal=MigrationJournal(), on_step=sched)
+    uncrashed_s = time.perf_counter() - t0
+    want, steps = clean.to_bytes(), list(sched.steps)
+    submitted = time.time()
+    pool = cf.ProcessPoolExecutor(CRASH_WORKERS,
+                                  mp_context=mp.get_context("spawn"))
+    futures = [pool.submit(crash_points, pre, want,
+                           list(range(w, len(steps), CRASH_WORKERS)),
+                           str(dev), submitted)
+               for w in range(CRASH_WORKERS)]
+    return {"pool": pool, "futures": futures, "steps": steps,
+            "submitted": submitted, "uncrashed_s": uncrashed_s}
+
+
+def life_crash_result(sweep):
+    try:
+        results = [f.result() for f in sweep["futures"]]
+    finally:
+        sweep["pool"].shutdown(wait=True, cancel_futures=True)
+    collected_s = time.time() - sweep["submitted"]
+    bad = [b for r in results for b in r[0]]
+    assert bad == [], f"crash points that did not resume bit-exact: {bad}"
+    steps = sweep["steps"]
+    clocks = [r[2] for r in results]
+    return {"users": CRASH_USERS, "steps": len(steps),
+            "migrate_steps": sum(s.startswith("migrate:") for s in steps),
+            "workers": CRASH_WORKERS, "uncrashed_s": sweep["uncrashed_s"],
+            "sweep_span_s": max(c["done_s"] for c in clocks),
+            "collected_s": collected_s,
+            "worker_cpu_s": [r[1] for r in results],
+            "worker_clock_s": {k: [c[k] for c in clocks] for k in clocks[0]},
+            "every_step_resumed_to_uncrashed_bytes": True}
+
+
+def life_recluster(dev, root):
+    """The drifted fleet: the initial users built on the card, the late
+    users onboarded; a warm session, held to the CPU's answer for the
+    fleet before the recluster, crosses an extend recluster (RFJ1 journal
+    on disk, verified) and serves that answer again; then a full rebuild
+    of the pre-recluster bytes serves it too."""
+    from repro_torch.serving import ForestServer
+    from repro_torch.store import (
+        ForestStore,
+        MigrationJournal,
+        build_store,
+        drift_report,
+        make_drifted_fleet,
+        make_request_batch,
+        recluster,
+    )
+
+    t0 = time.perf_counter()
+    initial, late = make_drifted_fleet(LIFE_USERS, late_fraction=LIFE_LATE,
+                                       seed=LIFE_SEED)
+    fleet = {**initial, **late}
+    t1 = time.perf_counter()
+    store = build_store(initial, device=dev)
+    t2 = time.perf_counter()
+    for u, f in late.items():
+        store.add_user(u, f)
+    t3 = time.perf_counter()
+    drift = drift_report(store)
+    assert drift["recommend_recluster"], drift["fallback_user_fraction"]
+    batch = make_request_batch(store, *LIFE_BATCH, seed=LIFE_SEED)
+    pre = store.to_bytes()
+    before, = cpu_answers(pre, [batch])
+    server = ForestServer(store, device=dev)
+    task = store.shared.task
+    check_fleet(task, batch, server.serve(batch), before,
+                "cold lifecycle batch")
+    check_fleet(task, batch, server.serve(batch), before,
+                "warm lifecycle batch")
+    arena = store.arena
+    runs = {u: arena.run_token(u) for u in store.user_ids if u in arena}
+    journal = MigrationJournal(path=os.path.join(root, "recluster.rfj"))
+    t4 = time.perf_counter()
+    res = recluster(store, mode="extend", journal=journal, verify=True)
+    t5 = time.perf_counter()
+    assert res.verified_bit_exact and res.n_pending == 0
+    assert journal.state == "committed"
+    assert store.generations == [res.new_generation]
+    reencoded = {u for u, r in res.per_user.items()
+                 if r["status"] == "reencoded"}
+    lost = {u for u in runs if arena.run_token(u) != runs[u]}
+    assert lost <= reencoded, sorted(lost - reencoded)[:5]
+    after = drift_report(store)
+    assert after["n_fallback_users"] == 0, after["n_fallback_users"]
+    check_fleet(task, batch, server.serve(batch), before,
+                "after extend recluster")
+    t6 = time.perf_counter()
+    extend = {
+        "n_relabeled": res.n_relabeled, "n_reencoded": res.n_reencoded,
+        "bytes_before": res.bytes_before, "bytes_after": res.bytes_after,
+        "wall_time_s": res.wall_time_s, "verified_bit_exact": True,
+        "arena_runs_before": len(runs),
+        "arena_runs_invalidated": len(lost),
+        "invalidated_only_reencoded": True,
+        "fallback_users_after": after["n_fallback_users"],
+        "same_answer_after": True,
+    }
+
+    full_store = ForestStore.from_bytes(pre, device=dev)
+    keep = sorted(full_store.user_ids)[:LIFE_FULL_USERS]
+    if len(keep) < len(full_store.user_ids):
+        cut = ForestStore(full_store.shared, device=dev)
+        for u in keep:
+            cut.add_delta(u, full_store.delta(u))
+        full_store = cut
+    res_full = recluster(full_store, mode="full", verify=True)
+    assert res_full.verified_bit_exact and res_full.n_pending == 0
+    fbatch = [(u, x) for u, x in batch if u in full_store]
+    fwant = [p for (u, _), p in zip(batch, before) if u in full_store]
+    check_fleet(task, fbatch, ForestServer(full_store, device=dev).serve(
+        fbatch), fwant, "after full recluster")
+    t7 = time.perf_counter()
+    return {
+        "users": len(fleet), "late_users": len(late),
+        "fleet_s": t1 - t0, "build_initial_s": t2 - t1,
+        "onboard_late_s": t3 - t2,
+        "drift_before": {k: drift[k] for k in (
+            "n_fallback_users", "fallback_user_fraction", "fallback_bytes",
+            "fallback_overhead_fraction", "recommend_recluster")},
+        "batch": {"requests": LIFE_BATCH[0], "rows": LIFE_BATCH[1]},
+        "extend": extend, "extend_phase_s": t6 - t4,
+        "full": {
+            "users": len(keep), "n_relabeled": res_full.n_relabeled,
+            "n_reencoded": res_full.n_reencoded,
+            "bytes_before": res_full.bytes_before,
+            "bytes_after": res_full.bytes_after,
+            "wall_time_s": res_full.wall_time_s,
+            "verified_bit_exact": True, "same_answer_after": True,
+        },
+        "full_phase_s": t7 - t6,
+    }
+
+
+def life_streaming(dev, root, fleet, requests, want):
+    """``build_store_streaming`` of phase 10's 1,000-user fleet in waves,
+    with extend; the durable store it writes loads bit-exact on the card
+    and serves phase 10's batch to its CPU answer ``want``."""
+    from repro_torch.serving import ForestServer
+    from repro_torch.store import build_store_streaming
+
+    waves = []
+    t0 = time.perf_counter()
+    durable = build_store_streaming(
+        fleet, os.path.join(root, "stream"), wave_users=STREAM_WAVE,
+        extend=True, on_wave=waves.append, device=dev)
+    t1 = time.perf_counter()
+    store = durable.load_store(lazy=False, device=dev)
+    for u, f in fleet.items():
+        assert store.reconstruct(u).equals(f), u
+    check_fleet(store.shared.task, requests, ForestServer(
+        store, device=dev).serve(requests, engine="pipelined"), want,
+        "streaming-built store")
+    return {
+        "users": len(fleet), "wave_users": STREAM_WAVE, "waves": len(waves),
+        "generations": store.generations,
+        "extended_waves": sum(w["extended"] for w in waves),
+        "build_s": t1 - t0, "epoch": durable.manifest.epoch,
+        "live_bytes": durable.stats()["live_bytes"],
+        "bit_exact_every_user": True, "serves_cpu_answer": True,
+    }
+
+
+def phase_store_lifecycle(dev, store, fleet, requests, want):
+    """Phase 11 (module docstring): the fleet's life on disk and across
+    codebook generations, on the card, over phase 10's classification
+    store, the forests it was built from, its batch and the CPU's answer
+    to it.  K1's count is set to 0 before and read after, and must be
+    positive.  Returns the ``{"store_lifecycle": ...}`` row and the
+    launch counts."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels.tree_predict import tree_predict as tp
+
+    build_dir = os.path.join(ROOT, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="store_lifecycle_", dir=build_dir)
+    clock = {"start": time.perf_counter()}
+    sweep = None
+    try:
+        sweep = life_crash_sweep(dev)
+        clock["crash_sweep_started"] = time.perf_counter()
+        tp.reset_launches()
+        row = {"card": smi_line()}
+        path, _durable, eager, row["durable"] = life_durable(
+            dev, store, requests, want, root)
+        clock["durable"] = time.perf_counter()
+        batches, wants = residency_batches(dev, eager)
+        row["residency"] = [life_residency(dev, path, frac, batches, wants)
+                            for frac in LIFE_BUDGETS]
+        clock["residency"] = time.perf_counter()
+        row["repair"] = life_repair(dev, path, requests, want, root)
+        clock["repair"] = time.perf_counter()
+        row["lifecycle"] = life_recluster(dev, root)
+        clock["lifecycle"] = time.perf_counter()
+        row["streaming"] = life_streaming(dev, root, fleet, requests, want)
+        clock["streaming"] = time.perf_counter()
+        launches = dict(tp.LAUNCHES)
+        row["crash_resume"] = life_crash_result(sweep)
+        clock["crash_resume"] = time.perf_counter()
+    finally:
+        if sweep is not None:
+            sweep["pool"].shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(root, ignore_errors=True)
+    assert launches[K1["name"]] > 0, "K1 was not launched by phase 11"
+    row["launches"] = launches
+    marks = list(clock.items())
+    row["phase_s"] = {b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])}
+    row["total_s"] = marks[-1][1] - marks[0][1]
+    return row, launches
+
+
+def lifecycle_main() -> None:
+    """``--lifecycle``: phase 11 alone, over phase 10's 1,000-user
+    classification fleet built here."""
+    from repro_torch.kernels import build
+    from repro_torch.store import (
+        build_store,
+        make_request_batch,
+        make_synthetic_fleet,
+    )
+
+    dev = phase_environment()
+    build.build(["tree_predict"])
+    fleet = make_synthetic_fleet(FLEET_SERVE_USERS["classification"],
+                                 "classification", seed=0)
+    t0 = time.perf_counter()
+    store = build_store(fleet, device=dev)
+    log(json.dumps({"fleet_build_s": time.perf_counter() - t0}))
+    requests = make_request_batch(store, FLEET_REQUESTS, FLEET_ROWS, seed=1)
+    want, = cpu_answers(store.to_bytes(), [requests])
+    row, _ = phase_store_lifecycle(dev, store, fleet, requests, want)
+    log(json.dumps({"store_lifecycle": row}))
+    print(json.dumps({"ok": True}), flush=True)
+
+
 def main() -> None:
     dev = phase_environment()
     phase_build()
@@ -2938,7 +3534,8 @@ def main() -> None:
     clock["rwkv6"] = time.perf_counter()
 
     bench_stores, fleet_rows = phase_fleet_store(dev)
-    served, fleet_launches, build_rows = phase_fleet_serving(dev, bench_stores)
+    served, fleet_launches, build_rows, forests = phase_fleet_serving(
+        dev, bench_stores)
     k5, fleet = fleet_entry(served, fleet_launches, build_rows, fleet_rows)
     for entry in out:
         if entry["name"] in (K1["name"], K2["name"]):
@@ -2948,6 +3545,15 @@ def main() -> None:
     out.append(k5)
     log(json.dumps({"fleet": fleet}))
     clock["fleet"] = time.perf_counter()
+
+    store, requests, want = served["classification"]
+    life, life_launches = phase_store_lifecycle(
+        dev, store, forests["classification"], requests, want)
+    for entry in out:
+        if entry["name"] in (K1["name"], K2["name"], K5["name"]):
+            entry["lifecycle_launches"] = life_launches[entry["name"]]
+    log(json.dumps({"store_lifecycle": life}))
+    clock["store_lifecycle"] = time.perf_counter()
     marks = list(clock.items())
     log(json.dumps({"phase_s": {b[0]: b[1] - a[1]
                                 for a, b in zip(marks, marks[1:])}}))
@@ -2969,5 +3575,7 @@ if __name__ == "__main__":
     elif len(sys.argv) > 1 and sys.argv[1] in ("--seg-times",
                                                "--seg-profile"):
         seg_times_main(sys.argv[1] == "--seg-profile")
+    elif len(sys.argv) > 1 and sys.argv[1] == "--lifecycle":
+        lifecycle_main()
     else:
         main()

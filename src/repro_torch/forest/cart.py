@@ -33,6 +33,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 _NEG = -1e30
@@ -235,3 +236,14 @@ def grow_tree(
 
     out = (feature, threshold, node_fit, is_internal, node_count)
     return tuple(a[0] for a in out) if single else out
+
+
+def heap_children(h: int):
+    """Left and right child slots of every slot of an ``h``-slot heap
+    (-1 past the end), as host int arrays."""
+    i = np.arange(h)
+    left = 2 * i + 1
+    right = 2 * i + 2
+    left[left >= h] = -1
+    right[right >= h] = -1
+    return left, right

@@ -1168,6 +1168,7 @@ def forest_predict_agg_segmented(
     n_classes: int = 0,
     block_trees: int = 8,
     block_obs: int = 256,
+    *,
     engine: str | None = None,
 ) -> torch.Tensor:
     """Ragged multi-tenant serving entry: per-row ensemble aggregation

@@ -175,6 +175,7 @@ class ForestServer:
         self,
         store: ForestStore,
         plan_cache_size: int = 64,
+        *,
         max_retries: int = 3,
         retry_backoff_s: float = 0.01,
         repairer: "Callable[[str], bool] | None" = None,

@@ -21,9 +21,9 @@ Port notes: the store lives on an explicit ``device`` (default
 ``"cuda"``; raises without a card): its arena's buffers are there and
 ``predict`` runs ``predict_compressed`` there.  Everything else (the
 codebooks, deltas, RFT1 frames) is host numpy, copied from the
-reference.  ``residency`` and ``journal`` stay ``None`` with the
-reference's hooks in place: the residency manager and the recluster
-journal come with later slices (ROADMAP Queue 1 items 8 and 7).
+reference.  The ``residency`` and ``journal`` hooks are the reference's:
+``store.residency.attach_residency`` sets the first and
+``store.lifecycle.recluster`` / ``resume_recluster`` the second.
 """
 from __future__ import annotations
 

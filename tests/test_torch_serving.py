@@ -225,25 +225,6 @@ def test_single_forest_store_errors():
         server.predict(rows(11), user_id="someone-else")
 
 
-def test_parts_of_later_slices_raise_not_implemented():
-    """What still waits: the codebook lifecycle's recluster and migration
-    (ROADMAP Queue 1 item 7), and the durable tier, residency and
-    streaming builds (item 8)."""
-    import repro_torch.store as store_pkg
-
-    for name in ("recluster", "resume_recluster", "migrate_user",
-                 "migrate_users", "extend_codebook_from_forests",
-                 "RemapTable", "MigrationJournal", "ReclusterResult"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            getattr(store_pkg, name)
-    for name in ("DurableStore", "attach_auto_repair", "attach_residency",
-                 "ResidencyManager", "build_store_streaming"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            getattr(store_pkg, name)
-    with pytest.raises(AttributeError):
-        store_pkg.no_such_name  # noqa: B018
-
-
 def test_engine_choice_matches_reference_on_one_device():
     seg = np.array([5, 7])
     for arena in (None, object()):
