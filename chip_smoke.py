@@ -166,7 +166,43 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    10's fleet in waves of 256 with extend, loaded bit-exact on the card
    and serving phase 10's CPU answer; all in one
    ``{"store_lifecycle": ...}`` line with the card's name and power
-   limit.
+   limit;
+12. online serving through ``repro_torch.sched`` (its K1 count set to 0
+   before and read after, positive), over phase 10's 1,000-user
+   classification store, every answer held to the CPU's from the store's
+   RFT1 bytes: (a) throughput: ``benchmarks/sched_bench.py``'s trace (a
+   seeded Poisson trace, 4 s at 150 requests/s, bursts of 2x, Zipf skew
+   1.1, rows 64 / 128 / 256; the generator copied here), its
+   micro-batches of up to 2,048 rows recorded under ``VirtualClock``,
+   then timed through ``Scheduler`` (``WallClock``, overlap on,
+   ``safe=False``) and through direct ``serve``, warm and with the plan
+   cache cleared, 5 interleaved repeats, the minimum of each; every
+   ticket equal to direct ``serve``; (b) latency: the trace at rows 16 /
+   32 / 64 replayed open-loop on the wall clock (``max_rows`` 512, SLO
+   0.25 s, ``serve_safe``), two passes, the second reported: p50, p99,
+   SLO attainment at 1x and 2x, triggers, plan hit rate; (c) the online
+   stack over the durable tier: the fleet written by
+   ``DurableStore.create``, bits flipped in one user's shard, opened
+   lazily at a residency budget of 0.15 of its delta bytes with a
+   background ``Prefetcher``, served by a ``Scheduler`` with a
+   ``LifecycleDriver`` whose ``Scrubber`` repairs the shard in the idle
+   gap before the first arrival, then (b)'s trace paced: one repair, no
+   prefetch error, the budget held, every arena call made on the
+   ``sched-executor`` thread, cold loads counted by thread and in
+   ``plan`` (ROADMAP R7); (d) the self-driving lifecycle:
+   ``make_drifted_fleet(100, late_fraction=0.3)`` built on the card and
+   on the CPU, each served 200 requests of 8 rows every 0.05 virtual s
+   while a ``LifecycleDriver`` (RFJ1 journal on disk) reclusters and
+   migrates 20 users/s, 2 a tick: a recluster, requests served
+   mid-migration, the journal committed, no fallback user after, every
+   card ticket equal to per-user ``predict_compressed`` on the CPU, and
+   the card's RFT1 and RFJ1 bytes equal to the CPU's; (e) batch
+   isolation: ``BatchFaults`` fails one micro-batch of a ``WallClock``
+   run, exactly its tickets ``failed``, every other one exact.  In
+   parts (a)-(d) every ticket is ``ok`` and not degraded, no batch
+   fails, overlapped runs pre-plan, and ``pipelined`` serves every
+   batch; all in one ``{"online": ...}`` line with the card's name and
+   power limit.
 
 ``python3 chip_smoke.py --forest-times`` runs only K3 and K4 at the two
 Liberty shapes and the large one (the same command times a parent tree's
@@ -179,7 +215,7 @@ held against its plain version (the same command times a parent tree's
 kernels); ``--seg-profile`` adds ``max_depth`` cut to 0, 2, ..., 8 at the
 single-forest batch, with each call's device time from ``torch.profiler``.
 ``--lifecycle`` runs phase 11 alone, over phase 10's 1,000-user fleet
-built for it.
+built for it; ``--online`` runs phase 12 alone, likewise.
 
 Votes must be equal; regression sums are held at rtol = atol = 1e-5 (the
 reference's own serving tolerance); on the card K1-K4 equal their plain
@@ -3424,6 +3460,595 @@ def lifecycle_main() -> None:
     print(json.dumps({"ok": True}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: online serving (the scheduler) over the fleet store
+# ---------------------------------------------------------------------------
+
+# benchmarks/sched_bench.py's defaults: a seeded Poisson trace of 4 s at
+# 150 requests/s, bursts of 2x, Zipf skew 1.1
+ONLINE_TRACE = {"duration_s": 4.0, "rate_per_s": 150.0,
+                "popularity_skew": 1.1, "burst_factor": 2.0, "seed": 0}
+ONLINE_TP_ROWS = (64, 128, 256)  # throughput trace: bulk requests
+ONLINE_TP_MAX_ROWS = 2048
+ONLINE_REPEATS = 5
+ONLINE_LAT_ROWS = (16, 32, 64)  # latency trace: interactive requests
+ONLINE_LAT_MAX_ROWS = 512
+ONLINE_SLO_S = 0.25
+ONLINE_BUDGET = 0.15  # residency budget, a fraction of the delta bytes
+ONLINE_LIFE_USERS = 100  # benchmarks/recluster_bench.py's drifted fleet
+ONLINE_LIFE_REQUESTS = 200  # sched_bench's lifecycle loop
+ONLINE_LIFE_ROWS = 8
+ONLINE_FAIL_BATCH = 1  # part (e): the micro-batch BatchFaults fails
+ONLINE_FAIL_BATCHES = 6  # part (e): recorded batches it replays
+
+
+def poisson_trace(user_ids, duration_s, rate_per_s, *,
+                  rows_choices=(16, 32, 64), popularity_skew=1.1,
+                  burst_factor=1.0, burst_period_s=2.0, burst_duty=0.25,
+                  seed=0):
+    """``benchmarks/common.py::poisson_trace`` (that module imports the
+    reference): a seeded multi-tenant arrival trace, (t, user, rows)
+    events — Poisson arrivals thinned to a bursty rate of mean
+    ``rate_per_s``, tenants drawn Zipf-like, row counts uniform over
+    ``rows_choices``."""
+    rng = np.random.default_rng(seed)
+    weights = np.arange(1, len(user_ids) + 1, dtype=np.float64) \
+        ** -float(popularity_skew)
+    weights /= weights.sum()
+    bf = max(float(burst_factor), 1.0)
+    duty = min(max(float(burst_duty), 0.0), 1.0)
+    hi = rate_per_s * bf
+    lo = (rate_per_s * (1.0 - bf * duty) / (1.0 - duty)
+          if duty < 1.0 else rate_per_s)
+    lo = max(lo, 0.0)
+
+    def rate_at(t):
+        if bf <= 1.0 or duty in (0.0, 1.0):
+            return rate_per_s
+        return hi if (t % burst_period_s) < duty * burst_period_s else lo
+
+    events = []
+    t = 0.0
+    while True:
+        t += rng.exponential(1.0 / hi)
+        if t >= duration_s:
+            break
+        if rng.random() * hi > rate_at(t):
+            continue  # thinned: candidate falls in the trough
+        events.append((t, user_ids[int(rng.choice(len(user_ids), p=weights))],
+                       int(rng.choice(rows_choices))))
+    return events
+
+
+def trace_requests(store, events, seed=0):
+    """``sched_bench.trace_rows`` for every event: (user, rows block)."""
+    out = []
+    for t, user, n_rows in events:
+        rng = np.random.default_rng((seed, int(t * 1e6), n_rows))
+        out.append((user, rng.integers(
+            0, 64, size=(n_rows, store.shared.n_features), dtype=np.int32)))
+    return out
+
+
+def record_batches(server, events, requests, max_rows):
+    """The micro-batches a ``VirtualClock`` scheduler forms from the trace
+    (``sched_bench.record_batches``), each a list of indices into
+    ``requests``."""
+    from repro_torch.sched import MicroBatcher, Scheduler, VirtualClock
+
+    clock = VirtualClock()
+    sched = Scheduler(server, clock=clock,
+                      batcher=MicroBatcher(max_rows=max_rows), safe=False)
+    tickets = []
+    for (t, _, _), (u, x) in zip(events, requests):
+        if clock.now() < t:
+            clock.advance(t - clock.now())
+        tickets.append(sched.submit(u, x))
+        sched.pump()
+    sched.close()
+    by_batch = {}
+    for i, ticket in enumerate(tickets):
+        by_batch.setdefault(ticket.batch_seq, []).append(i)
+    return [by_batch[k] for k in sorted(by_batch)]
+
+
+def check_tickets(task, requests, tickets, want, what):
+    """Every ticket ``ok``, not degraded, and equal to the CPU's answer."""
+    assert len(tickets) == len(requests) == len(want), what
+    for (u, _), ticket, ref in zip(requests, tickets, want):
+        assert ticket.status == "ok" and not ticket.degraded, (
+            what, u, ticket.status, ticket.detail)
+        check_pred(task, ticket.prediction, ref, f"{what}: user {u}")
+
+
+def check_executor(sched, server, pipelined_before, what):
+    """No failed batch, a pre-plan for each overlapped run, and every
+    batch served through ``pipelined`` (K1)."""
+    ex = sched.executor.stats()
+    assert ex["n_failed_batches"] == 0, (what, ex)
+    if ex["overlap"]:
+        assert ex["n_preplanned"] > 0, (what, ex)
+    served = server.engine_counts["pipelined"] - pipelined_before
+    assert served == ex["n_batches"], (what, served, ex)
+    return ex
+
+
+def online_throughput(server, events, requests, wants):
+    """Part (a): the recorded micro-batches through the scheduler
+    (``WallClock``, overlap on, ``safe=False``) and through direct
+    ``serve``, warm and with the plan cache cleared, interleaved; the
+    minimum of each over ``ONLINE_REPEATS``."""
+    from repro_torch.sched import MicroBatcher, Scheduler
+
+    task = server.store.shared.task
+    order = record_batches(server, events, requests, ONLINE_TP_MAX_ROWS)
+    batches = [[requests[i] for i in b] for b in order]
+    flat = [r for b in batches for r in b]
+    want = [wants[i] for b in order for i in b]
+    n_rows = sum(len(x) for _, x in flat)
+    sched = Scheduler(server, batcher=MicroBatcher(max_rows=1 << 30),
+                      safe=False)
+
+    def direct(cold=False):
+        if cold:
+            server.plan_cache.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preds = [p for b in batches for p in server.serve(b)]
+        return time.perf_counter() - t0, preds
+
+    def scheduled(cold=False):
+        if cold:
+            server.plan_cache.clear()
+        before = server.engine_counts["pipelined"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tickets = []
+        for b in batches:
+            tickets.extend(sched.submit(u, x) for u, x in b)
+            sched.flush(drain=False)  # one micro-batch per recorded batch
+        sched.executor.drain()
+        dt = time.perf_counter() - t0
+        served = server.engine_counts["pipelined"] - before
+        assert served == len(batches), (served, len(batches))
+        return dt, tickets
+
+    _, preds = direct()
+    check_fleet(task, flat, preds, want, "direct serve of the trace")
+    scheduled()  # warm the scheduler's session
+    best = {k: float("inf") for k in ("direct", "sched", "direct_cold",
+                                      "sched_cold")}
+    runs = {k: [] for k in best}
+    for _ in range(ONLINE_REPEATS):
+        for key, fn, cold in (("direct", direct, False),
+                              ("sched", scheduled, False),
+                              ("direct_cold", direct, True),
+                              ("sched_cold", scheduled, True)):
+            dt, out = fn(cold)
+            runs[key].append(dt)
+            best[key] = min(best[key], dt)
+            if fn is scheduled:
+                check_tickets(task, flat, out, want,
+                              f"scheduled trace ({key})")
+                for ticket, p in zip(out, preds):
+                    assert np.array_equal(ticket.prediction, p), key
+    sched.close()
+    ex = sched.executor.stats()
+    assert ex["n_failed_batches"] == 0 and ex["n_preplanned"] > 0, ex
+    return order, {
+        "requests": len(flat), "rows": n_rows, "batches": len(batches),
+        "max_rows": ONLINE_TP_MAX_ROWS, "repeats": ONLINE_REPEATS,
+        **{f"{k}_ms": v * 1e3 for k, v in best.items()},
+        "runs_ms": {k: [v * 1e3 for v in vs] for k, vs in runs.items()},
+        "direct_rows_per_s": n_rows / best["direct"],
+        "sched_rows_per_s": n_rows / best["sched"],
+        "sched_vs_direct": best["direct"] / best["sched"],
+        "sched_vs_direct_coldplan": best["direct_cold"] / best["sched_cold"],
+        "executor": ex, "equal_to_direct_and_cpu": True,
+    }
+
+
+def paced(sched, events, requests):
+    """Open-loop replay on the wall clock: each request submitted at its
+    trace time, the pump run after each; returns the tickets and the
+    seconds from the first arrival to the drained close."""
+    tickets = []
+    start = time.monotonic()
+    for (t, _, _), (u, x) in zip(events, requests):
+        lag = t - (time.monotonic() - start)
+        if lag > 0:
+            time.sleep(lag)
+        tickets.append(sched.submit(u, x))
+        sched.pump()
+    sched.close()
+    return tickets, time.monotonic() - start
+
+
+def online_latency(server, events, requests, want):
+    """Part (b): ``sched_bench.bench_latency`` — the trace's batches
+    served once to warm, then two paced passes through a ``WallClock``
+    scheduler (overlap on, ``serve_safe``); the second is reported."""
+    from repro_torch.sched import MicroBatcher, RequestQueue, Scheduler
+
+    task = server.store.shared.task
+    for b in record_batches(server, events, requests, ONLINE_LAT_MAX_ROWS):
+        server.serve([requests[i] for i in b])
+    passes = []
+    for _ in range(2):
+        before = server.engine_counts["pipelined"]
+        sched = Scheduler(server, queue=RequestQueue(slo_s=ONLINE_SLO_S),
+                          batcher=MicroBatcher(max_rows=ONLINE_LAT_MAX_ROWS))
+        tickets, wall_s = paced(sched, events, requests)
+        check_tickets(task, requests, tickets, want, "paced trace")
+        ex = check_executor(sched, server, before, "paced trace")
+        passes.append((sched, wall_s, ex))
+    sched, wall_s, ex = passes[-1]
+    lat = sched.latency_stats()
+    lat2 = sched.latency_stats(slack_s=ONLINE_SLO_S)
+    stats = sched.stats()
+    return {
+        "requests": len(requests), "slo_s": ONLINE_SLO_S,
+        "max_rows": ONLINE_LAT_MAX_ROWS,
+        "p50_ms": lat["p50_ms"], "p99_ms": lat["p99_ms"],
+        "max_ms": lat["max_ms"],
+        "slo_attainment": lat["slo_attainment"],
+        "slo_attainment_2x": lat2["slo_attainment"],
+        "trigger_counts": stats["batcher"]["trigger_counts"],
+        "plan_hit_rate": server.plan_cache.stats()["plan_hit_rate"],
+        "requests_per_s": len(requests) / wall_s, "wall_s": wall_s,
+        "first_pass_p99_ms": passes[0][0].latency_stats()["p99_ms"],
+        "executor": ex, "equal_to_cpu": True,
+    }
+
+
+def spy_threads(obj, names, calls):
+    """Record (method, thread name) of every call of ``obj``'s methods."""
+    import threading
+
+    for name in names:
+        real = getattr(obj, name)
+
+        def spy(*a, _real=real, _name=name, **k):
+            calls.append((_name, threading.current_thread().name))
+            return _real(*a, **k)
+
+        setattr(obj, name, spy)
+
+
+def online_durable(dev, store, events, requests, want, root):
+    """Part (c): the fleet on disk, opened lazily under a residency
+    budget with a background ``Prefetcher``, served by a ``WallClock``
+    scheduler (overlap on) with a ``LifecycleDriver`` that scrubs.  One
+    user's shard is corrupted first; the driver's first tick, in the idle
+    gap before the first arrival, scrubs the whole manifest and repairs
+    it.  Every arena call is counted by thread, and every cold load by
+    thread and by whether ``plan`` made it (ROADMAP R7)."""
+    import threading
+
+    from repro_torch.sched import (
+        LifecycleDriver,
+        MicroBatcher,
+        RequestQueue,
+        Scheduler,
+        WallClock,
+    )
+    from repro_torch.serving import ForestServer
+    from repro_torch.store import (
+        DurableStore,
+        Prefetcher,
+        Scrubber,
+        attach_residency,
+    )
+
+    path = os.path.join(root, "online")
+    t0 = time.perf_counter()
+    DurableStore.create(path, store)
+    durable = DurableStore.open(path)
+    delta_bytes = sum(e.length for e in durable.delta_entries())
+    budget = int(ONLINE_BUDGET * delta_bytes)
+    victim = requests[0][0]
+    flip_shard_bits(durable, victim, seed=21)
+    lazy = durable.load_store(device=dev)
+    mgr = attach_residency(lazy, durable, budget, clock=time.perf_counter)
+    server = ForestServer(lazy, device=dev)
+    arena_calls, loads, in_plan = [], [], threading.local()
+    spy_threads(lazy.arena, ("admit_many", "gather", "run_token",
+                             "invalidate", "touch_users"), arena_calls)
+    plan, notify = server.plan, mgr.notify_loaded
+
+    def counted_plan(*a, **k):
+        in_plan.on = True
+        try:
+            return plan(*a, **k)
+        finally:
+            in_plan.on = False
+
+    def counted_load(user_id, *a, **k):
+        loads.append((threading.current_thread().name,
+                      getattr(in_plan, "on", False)))
+        return notify(user_id, *a, **k)
+
+    server.plan, mgr.notify_loaded = counted_plan, counted_load
+    items = sum(len(s.shards) + 1 for s in durable.manifest.slabs)
+    scrubber = Scrubber(durable)
+    clock = WallClock()
+    # one whole pass a minute: the gap's pass repairs, none runs mid-trace
+    driver = LifecycleDriver(server, clock, scrubber=scrubber,
+                             scrub_interval_s=60.0,
+                             scrub_shards_per_tick=items)
+    pf = Prefetcher(mgr, server=server, background=True)
+    sched = Scheduler(server, clock=clock,
+                      queue=RequestQueue(slo_s=ONLINE_SLO_S),
+                      batcher=MicroBatcher(max_rows=ONLINE_LAT_MAX_ROWS),
+                      lifecycle=driver, prefetcher=pf)
+    t1 = time.perf_counter()
+    sched.pump()  # the idle gap: the driver scrubs, then polls drift
+    t2 = time.perf_counter()
+    assert scrubber.repairs == 1, scrubber.stats()
+    gap_loads = len(loads)
+    before = server.engine_counts["pipelined"]
+    tickets, wall_s = paced(sched, events, requests)
+    task = store.shared.task
+    check_tickets(task, requests, tickets, want, "durable online stack")
+    ex = check_executor(sched, server, before, "durable online stack")
+    st = mgr.stats()
+    assert st["prefetch_errors"] == 0, st["prefetch_errors"]
+    assert mgr.accounted_bytes() <= budget, (mgr.accounted_bytes(), budget)
+    threads = {t for _, t in arena_calls}
+    assert arena_calls and threads == {"sched-executor"}, sorted(
+        {c for c in arena_calls if c[1] != "sched-executor"})
+    assert driver.n_scrub_failures == 0 and scrubber.repairs == 1
+    alive = {t.name for t in threading.enumerate()}
+    assert not alive & {"sched-executor", "residency-prefetch"}, alive
+    trace_loads = loads[gap_loads:]
+    by_thread = {}
+    for name, planned in trace_loads:
+        key = f"{name}{' (plan)' if planned else ''}"
+        by_thread[key] = by_thread.get(key, 0) + 1
+    lat = sched.latency_stats()
+    return {
+        "users": len(store.user_ids), "budget_bytes": budget,
+        "delta_bytes": delta_bytes, "budget_fraction": ONLINE_BUDGET,
+        "victim": victim, "scrub": scrubber.stats(),
+        "scrub_failures": driver.n_scrub_failures,
+        "open_s": t1 - t0, "gap_tick_s": t2 - t1,
+        "gap_cold_loads": gap_loads,
+        "cold_loads_in_trace": len(trace_loads),
+        "cold_loads_in_plan": sum(1 for _, p in trace_loads if p),
+        "cold_loads_by_thread": by_thread,
+        "prefetch_requested": st["prefetch_requested"],
+        "prefetch_staged": st["prefetch_staged"],
+        "prefetch_hits": st["prefetch_hits"],
+        "prefetch_errors": st["prefetch_errors"],
+        "demotions": st["demotions"], "reloads": st["reloads"],
+        "over_budget_events": st["over_budget_events"],
+        "cold_load_ms_p50": st["cold_load_ms_p50"],
+        "cold_load_ms_p99": st["cold_load_ms_p99"],
+        "requests_per_s": len(requests) / wall_s, "wall_s": wall_s,
+        "p50_ms": lat["p50_ms"], "p99_ms": lat["p99_ms"],
+        "slo_attainment": lat["slo_attainment"],
+        "arena_calls": len(arena_calls), "arena_call_threads": sorted(threads),
+        "driver_polls": driver.n_polls, "executor": ex,
+        "budget_held": True, "equal_to_cpu": True,
+    }
+
+
+def online_lifecycle_run(dev, journal_path):
+    """``sched_bench``'s lifecycle loop on ``dev``: the drifted fleet
+    served under ``VirtualClock`` while a ``LifecycleDriver`` reclusters
+    and migrates, rate-limited, with an RFJ1 journal on disk."""
+    from repro_torch.sched import (
+        LifecycleDriver,
+        MicroBatcher,
+        RequestQueue,
+        Scheduler,
+        VirtualClock,
+    )
+    from repro_torch.serving import ForestServer
+    from repro_torch.store import build_store, drift_report, make_drifted_fleet
+
+    initial, late = make_drifted_fleet(ONLINE_LIFE_USERS,
+                                       late_fraction=LIFE_LATE,
+                                       seed=CRASH_SEED)
+    t0 = time.perf_counter()
+    store = build_store(initial, device=dev)
+    for u, f in late.items():
+        store.add_user(u, f)
+    t1 = time.perf_counter()
+    assert drift_report(store)["recommend_recluster"]
+    server = ForestServer(store, device=dev)
+    clock = VirtualClock()
+    driver = LifecycleDriver(server, clock, poll_interval_s=0.2,
+                             low_load_rows=256, migrate_users_per_s=20.0,
+                             max_users_per_tick=2, journal_path=journal_path)
+    sched = Scheduler(server, clock=clock,
+                      queue=RequestQueue(slo_s=ONLINE_SLO_S),
+                      batcher=MicroBatcher(max_rows=128), lifecycle=driver)
+    users = sorted({**initial, **late})
+    rng = np.random.default_rng(CRASH_SEED + 9)
+    gen0 = store.generation
+    before = server.engine_counts["pipelined"]
+    tickets, mid = [], 0
+    for _ in range(ONLINE_LIFE_REQUESTS):
+        u = users[int(rng.integers(len(users)))]
+        x = rng.integers(0, 64, size=(ONLINE_LIFE_ROWS,
+                                      store.shared.n_features),
+                         dtype=np.int32)
+        tickets.append((u, x, sched.submit(u, x)))
+        clock.advance(0.05)
+        sched.pump()
+        mid += driver.state == "migrating"
+    while driver.state == "migrating":
+        clock.advance(0.1)
+        sched.pump()
+    sched.close()
+    t2 = time.perf_counter()
+    ex = check_executor(sched, server, before, f"lifecycle loop on {dev}")
+    with open(journal_path, "rb") as f:
+        journal = f.read()
+    return store, tickets, journal, {
+        "users": len(users), "late_users": len(late),
+        "build_s": t1 - t0, "serve_s": t2 - t1,
+        "generation": [gen0, store.generation],
+        "n_reclusters": driver.n_reclusters,
+        "n_migrated": driver.n_migrated,
+        "n_migration_ticks": driver.n_migration_ticks,
+        "served_mid_migration": mid,
+        "journal_state": driver.stats()["journal"]["state"],
+        "fallback_user_fraction_after":
+            drift_report(store)["fallback_user_fraction"],
+        "deadline_misses_beyond_slack":
+            sched.latency_stats(slack_s=ONLINE_SLO_S)["deadline_misses"],
+        "executor": ex,
+    }
+
+
+def online_lifecycle(dev, root):
+    """Part (d): the lifecycle loop on the card and on the CPU; every
+    card ticket held to per-user ``predict_compressed`` on the CPU store,
+    and the card's RFT1 and RFJ1 bytes to the CPU's."""
+    card, tickets, journal, row = online_lifecycle_run(
+        dev, os.path.join(root, "card.rfj"))
+    cpu, cpu_tickets, cpu_journal, cpu_row = online_lifecycle_run(
+        "cpu", os.path.join(root, "cpu.rfj"))
+    silent_wrong = 0
+    for (u, x, t), (cu, cx, ct) in zip(tickets, cpu_tickets):
+        assert u == cu and np.array_equal(x, cx)
+        assert t.status == ct.status == "ok" and not t.degraded, (
+            u, t.status, t.detail)
+        if not np.array_equal(t.prediction, cpu.predict(u, x)):
+            silent_wrong += 1
+    assert row["n_reclusters"] >= 1, row
+    assert row["served_mid_migration"] > 0, row
+    assert row["journal_state"] == "committed", row
+    assert row["fallback_user_fraction_after"] == 0.0, row
+    assert silent_wrong == 0, silent_wrong
+    rft1_equal = card.to_bytes() == cpu.to_bytes()
+    rfj1_equal = journal == cpu_journal
+    assert rft1_equal and rfj1_equal, (rft1_equal, rfj1_equal)
+    for key in ("n_reclusters", "n_migrated", "n_migration_ticks",
+                "served_mid_migration", "generation"):
+        assert row[key] == cpu_row[key], (key, row[key], cpu_row[key])
+    return {**row, "silent_wrong_total": silent_wrong,
+            "rft1_equal_cpu": rft1_equal, "rfj1_equal_cpu": rfj1_equal,
+            "rfj1_bytes": len(journal), "cpu_build_s": cpu_row["build_s"],
+            "cpu_serve_s": cpu_row["serve_s"]}
+
+
+def online_isolation(server, batches, wants):
+    """Part (e): ``BatchFaults`` fails micro-batch ``ONLINE_FAIL_BATCH``
+    of a ``WallClock`` scheduler run (overlap on); exactly its tickets are
+    ``failed`` and every other ticket is ``ok`` and exact."""
+    from repro_torch.runtime.chaos import BatchFaults
+    from repro_torch.sched import MicroBatcher, Scheduler
+
+    task = server.store.shared.task
+    faults = BatchFaults(fail_batches=(ONLINE_FAIL_BATCH,))
+    sched = Scheduler(server, batcher=MicroBatcher(max_rows=1 << 30),
+                      fault_hook=faults)
+    tickets = []
+    for b in batches:
+        tickets.append([sched.submit(u, x) for u, x in b])
+        sched.flush(drain=False)
+    sched.close()
+    ex = sched.executor.stats()
+    assert ex["n_failed_batches"] == 1, ex
+    n_failed = 0
+    for k, (b, ts, want) in enumerate(zip(batches, tickets, wants)):
+        if k == ONLINE_FAIL_BATCH:
+            for t in ts:
+                assert t.status == "failed" and "InjectedCrash" in t.detail
+                assert t.prediction is None
+                n_failed += 1
+        else:
+            check_tickets(task, b, ts, want, f"isolation batch {k}")
+    return {"batches": len(batches), "failed_batch": ONLINE_FAIL_BATCH,
+            "failed_tickets": n_failed, "executor": ex}
+
+
+def phase_online(dev, store):
+    """Phase 12 (module docstring): online serving through
+    ``repro_torch.sched`` on the card, over phase 10's classification
+    store.  K1's count is set to 0 before and read after, and must be
+    positive.  Returns the ``{"online": ...}`` row and the launch
+    counts."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels.tree_predict import tree_predict as tp
+    from repro_torch.serving import ForestServer
+
+    build_dir = os.path.join(ROOT, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="online_", dir=build_dir)
+    clock = {"start": time.perf_counter()}
+    users = sorted(store.user_ids)
+    tp_events = poisson_trace(users, ONLINE_TRACE["duration_s"],
+                              ONLINE_TRACE["rate_per_s"],
+                              rows_choices=ONLINE_TP_ROWS,
+                              **{k: ONLINE_TRACE[k] for k in (
+                                  "popularity_skew", "burst_factor", "seed")})
+    lat_events = poisson_trace(users, ONLINE_TRACE["duration_s"],
+                               ONLINE_TRACE["rate_per_s"],
+                               rows_choices=ONLINE_LAT_ROWS,
+                               **{k: ONLINE_TRACE[k] for k in (
+                                   "popularity_skew", "burst_factor",
+                                   "seed")})
+    tp_requests = trace_requests(store, tp_events)
+    lat_requests = trace_requests(store, lat_events)
+    tp_want, lat_want = cpu_answers(store.to_bytes(),
+                                    [tp_requests, lat_requests])
+    clock["cpu_answers"] = time.perf_counter()
+    tp.reset_launches()
+    row = {"card": smi_line(), "trace": dict(ONLINE_TRACE)}
+    try:
+        server = ForestServer(store, device=dev)
+        order, row["throughput"] = online_throughput(
+            server, tp_events, tp_requests, tp_want)
+        clock["throughput"] = time.perf_counter()
+        row["latency"] = online_latency(ForestServer(store, device=dev),
+                                        lat_events, lat_requests, lat_want)
+        clock["latency"] = time.perf_counter()
+        row["durable"] = online_durable(dev, store, lat_events,
+                                        lat_requests, lat_want, root)
+        clock["durable"] = time.perf_counter()
+        row["lifecycle"] = online_lifecycle(dev, root)
+        clock["lifecycle"] = time.perf_counter()
+        fail = order[:ONLINE_FAIL_BATCHES]
+        row["isolation"] = online_isolation(
+            ForestServer(store, device=dev),
+            [[tp_requests[i] for i in b] for b in fail],
+            [[tp_want[i] for i in b] for b in fail])
+        clock["isolation"] = time.perf_counter()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = dict(tp.LAUNCHES)
+    assert launches[K1["name"]] > 0, "K1 was not launched by phase 12"
+    row["launches"] = launches
+    marks = list(clock.items())
+    row["phase_s"] = {b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])}
+    row["total_s"] = marks[-1][1] - marks[0][1]
+    return row, launches
+
+
+def online_main() -> None:
+    """``--online``: phase 12 alone, over phase 10's 1,000-user
+    classification fleet built here."""
+    from repro_torch.kernels import build
+    from repro_torch.store import build_store, make_synthetic_fleet
+
+    dev = phase_environment()
+    build.build(["tree_predict"])
+    fleet = make_synthetic_fleet(FLEET_SERVE_USERS["classification"],
+                                 "classification", seed=0)
+    t0 = time.perf_counter()
+    store = build_store(fleet, device=dev)
+    log(json.dumps({"fleet_build_s": time.perf_counter() - t0}))
+    row, _ = phase_online(dev, store)
+    log(json.dumps({"online": row}))
+    print(json.dumps({"ok": True}), flush=True)
+
+
 def main() -> None:
     dev = phase_environment()
     phase_build()
@@ -3554,6 +4179,13 @@ def main() -> None:
             entry["lifecycle_launches"] = life_launches[entry["name"]]
     log(json.dumps({"store_lifecycle": life}))
     clock["store_lifecycle"] = time.perf_counter()
+
+    online, online_launches = phase_online(dev, store)
+    for entry in out:
+        if entry["name"] in (K1["name"], K2["name"], K5["name"]):
+            entry["online_launches"] = online_launches[entry["name"]]
+    log(json.dumps({"online": online}))
+    clock["online"] = time.perf_counter()
     marks = list(clock.items())
     log(json.dumps({"phase_s": {b[0]: b[1] - a[1]
                                 for a, b in zip(marks, marks[1:])}}))
@@ -3577,5 +4209,7 @@ if __name__ == "__main__":
         seg_times_main(sys.argv[1] == "--seg-profile")
     elif len(sys.argv) > 1 and sys.argv[1] == "--lifecycle":
         lifecycle_main()
+    elif len(sys.argv) > 1 and sys.argv[1] == "--online":
+        online_main()
     else:
         main()

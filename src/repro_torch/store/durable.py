@@ -37,9 +37,9 @@ manifest's generation stamp (so ``referenced_generations`` stays cheap)
 and loads + self-replaces on first real access.
 
 Background repair: ``Scrubber`` walks shard and parity CRCs with a
-bounded per-tick budget and repairs what it finds; the reference's
-``sched.LifecycleDriver`` schedules ticks in low-load gaps (its port is
-ROADMAP Queue 1 item 9).  Serving repair:
+bounded per-tick budget and repairs what it finds;
+``repro_torch.sched.LifecycleDriver`` schedules ticks in low-load gaps.
+Serving repair:
 ``attach_auto_repair`` gives ``ForestServer.serve_safe`` a quarantine ->
 parity-repair -> verify -> release path.
 
@@ -954,7 +954,7 @@ class Scrubber:
     next pass from the then-current manifest, so compactions mid-pass
     simply retire stale queue items (skipped via their vanished ids).
 
-    A scheduler (the reference's ``sched.LifecycleDriver``) calls
+    A scheduler (``repro_torch.sched.LifecycleDriver``) calls
     ``tick`` in low-load gaps; tests and benches call ``scrub_all``.
     ``tick``/``scrub_all`` run on the pump
     thread while ``stats`` may be read from any thread, so the walk

@@ -44,6 +44,19 @@ only (shard read, RFD1 parse, hydrate, ``serving.pack.iter_heap_tiles``,
 all numpy) and never touches a device; the staged result reaches the
 store, and the card, on the serving thread (``absorb_staged`` / ``pin``,
 which ``ForestServer.execute`` calls).
+
+The one departure from the reference (ROADMAP Queue 3 S2): a demotion
+made on a thread other than the serving thread (the scheduler's pump
+thread, whose pre-plan and drift poll cold-load users and so enforce
+the budget) swaps the registry entry and the accounting at once, but
+leaves the derived artifacts (hydrated forest, decoded tiles, arena
+run: value-identical to the disk bytes) for the serving thread to drop
+at its next serve-path call (``touch`` / ``absorb_staged``).  The
+reference drops them on the demoting thread, where they race the
+worker's arena admission and gather.  The serving thread is the one
+that made the last serve-path call; where no call was made yet, the
+first one drops what demotions left.  On the serving thread itself a
+demotion drops at once, as the reference's does.
 """
 from __future__ import annotations
 
@@ -76,9 +89,10 @@ def _percentile(samples, q: float) -> float:
     "_staged", "_warming", "_prefetched", "_cold_ms", "_warm_ms",
     "demotions", "writebacks", "reloads", "over_budget_events",
     "dirty_skips", "prefetch_requested", "prefetch_staged",
-    "prefetch_hits", "prefetch_errors",
+    "prefetch_hits", "prefetch_errors", "_serving", "_drops",
     holds=("_enforce", "_absorb_one", "_demote_one", "_account",
-           "_demotable", "_writeback_commit"),
+           "_demotable", "_writeback_commit", "_serve_path",
+           "_drop_derived"),
 )
 class ResidencyManager:
     """Byte-accounted residency budget over one ``(ForestStore,
@@ -137,6 +151,10 @@ class ResidencyManager:
         self.prefetch_staged = 0
         self.prefetch_hits = 0
         self.prefetch_errors = 0
+        # the serving thread's ident, and the users demoted off it whose
+        # derived artifacts it has still to drop
+        self._serving: int | None = None
+        self._drops: set[str] = set()
 
     # ---------------- clock (injected; DET001-clean) -----------------------
     def clock_now(self) -> float:
@@ -160,6 +178,7 @@ class ResidencyManager:
         a staged prefetch for this user, and account a prefetch hit when
         the prefetcher made this touch warm."""
         with self._lock:
+            self._serve_path()
             staged = self._staged.pop(user_id, None)
             if staged is not None and isinstance(self._raw(user_id),
                                                  _LazyShard):
@@ -290,6 +309,21 @@ class ResidencyManager:
         placeholder = _LazyShard(self.durable, store._deltas, user_id,
                                  entry.shard_id, entry.generation)
         dict.__setitem__(store._deltas, user_id, placeholder)
+        if self._serving == threading.get_ident():
+            self._drop_derived(user_id)
+        else:
+            self._drops.add(user_id)
+        prio = self._prio.pop(user_id, None)
+        if prio is not None:
+            self._gd.evicted(prio[0])
+        self._total_bytes -= self._resident_bytes.pop(user_id, 0)
+        self._dirty.discard(user_id)
+        self.demotions += 1
+        return True
+
+    def _drop_derived(self, user_id: str) -> None:
+        # caller holds self._lock, on the serving thread (guarded_by holds=)
+        store = self.store
         store._hydrated.pop(user_id, None)
         store._tile_counts = {
             k: v for k, v in store._tile_counts.items() if k[0] != user_id
@@ -299,13 +333,14 @@ class ResidencyManager:
         store.cache.invalidate_user(user_id, reset_stats=False)
         if store.arena is not None:
             store.arena.invalidate(user_id)
-        prio = self._prio.pop(user_id, None)
-        if prio is not None:
-            self._gd.evicted(prio[0])
-        self._total_bytes -= self._resident_bytes.pop(user_id, 0)
-        self._dirty.discard(user_id)
-        self.demotions += 1
-        return True
+
+    def _serve_path(self) -> None:
+        # caller holds self._lock: this thread is now the serving thread;
+        # drop what demotions on other threads left for it
+        self._serving = threading.get_ident()
+        for u in sorted(self._drops):
+            self._drop_derived(u)
+        self._drops.clear()
 
     def _writeback_commit(self, user_ids) -> None:
         # caller holds self._lock; stages every named user's resident
@@ -417,6 +452,7 @@ class ResidencyManager:
         """Install every staged prefetch into the registry (serving
         thread).  Returns the number absorbed."""
         with self._lock:
+            self._serve_path()
             staged = list(self._staged.items())
             self._staged.clear()
             n = 0

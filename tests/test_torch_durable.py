@@ -8,10 +8,9 @@ reference on the CPU.
   and eagerly, bit-exact per user.
 * The port's own copies of ``tests/test_durable.py``'s checks (atomic
   writes, the manifest, create / open / commit, parity repair, the
-  scrubber, crash sweeps and serving's quarantine -> repair -> release),
-  unweakened, on ``device="cpu"``.  ``TestDriverScrub`` needs the
-  scheduler's ``LifecycleDriver`` (ROADMAP Queue 1 item 9) and waits for
-  it.
+  scrubber and its scheduling by ``repro_torch.sched.LifecycleDriver``
+  in low-load gaps, crash sweeps and serving's quarantine -> repair ->
+  release), unweakened, on ``device="cpu"``.
 """
 import os
 import shutil
@@ -684,6 +683,55 @@ class TestServeAutoRepair:
                               device=CPU)
         repair = attach_auto_repair(server, durable)
         assert repair("no_such_user") is False
+
+
+class TestDriverScrub:
+    def _driver(self, durable, **kw):
+        from repro_torch.sched.driver import LifecycleDriver
+
+        server = ForestServer(durable.load_store(lazy=True, device=CPU),
+                              device=CPU)
+        scrubber = Scrubber(durable, shards_per_tick=4)
+        driver = LifecycleDriver(
+            server, clock=None, scrubber=scrubber,
+            scrub_interval_s=2.0, low_load_rows=64, **kw
+        )
+        return driver, scrubber
+
+    def test_scrub_ticks_in_low_load_gaps_only(self, durable):
+        driver, _ = self._driver(durable)
+        driver.tick(0.0, pending_rows=1000)   # loaded: no scrub
+        assert driver.n_scrub_ticks == 0
+        driver.tick(0.1, pending_rows=0)      # idle: scrub
+        assert driver.n_scrub_ticks == 1
+        driver.tick(0.5, pending_rows=0)      # inside the interval: no
+        assert driver.n_scrub_ticks == 1
+        driver.tick(2.5, pending_rows=0)      # interval elapsed: scrub
+        assert driver.n_scrub_ticks == 2
+        assert driver.stats()["scrub"]["bytes_scanned"] > 0
+
+    def test_driver_scrub_repairs_corruption(self, durable, store0, bytes0):
+        entry = durable.shard_for_user(store0.user_ids[4])
+        path, off, length = durable.shard_location(entry.shard_id)
+        DiskFaults().corrupt_region(path, off, min(length, 16))
+        driver, scrubber = self._driver(durable)
+        t = 0.0
+        while scrubber.repairs == 0 and t < 100.0:
+            driver.tick(t, pending_rows=0)
+            t += 2.5
+        assert scrubber.repairs == 1
+        assert driver.n_scrub_failures == 0
+        _assert_fleet_bit_exact(durable, bytes0)
+
+    def test_scrubber_fault_counted_not_raised(self, durable, monkeypatch):
+        driver, scrubber = self._driver(durable)
+        monkeypatch.setattr(
+            scrubber, "tick",
+            lambda *a, **k: (_ for _ in ()).throw(RuntimeError("boom")),
+        )
+        driver.tick(0.0, pending_rows=0)
+        assert driver.n_scrub_failures == 1
+        assert "boom" in driver.last_error
 
 
 # ---------------------------------------------------------------------------

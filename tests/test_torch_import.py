@@ -79,6 +79,13 @@ def test_port_modules_exist():
         "repro_torch.store.streaming",
         "repro_torch.launch.serve_store",
         "repro_torch.launch.serve_forest",
+        "repro_torch.sched",
+        "repro_torch.sched.clock",
+        "repro_torch.sched.queue",
+        "repro_torch.sched.batcher",
+        "repro_torch.sched.executor",
+        "repro_torch.sched.driver",
+        "repro_torch.sched.scheduler",
     ):
         assert name in mods
 
