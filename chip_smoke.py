@@ -70,7 +70,8 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    ``_flash_plain`` in float32 and bf16, head_dim 32 / 64 / 128, windows
    of 64, 100 and 256, ragged S (200, 2,049) and T (1,500), S != T both
    ways (with a window, rows that keep no key), and grouped KV heads
-   (n_rep 2 and 4); then
+   (n_rep 2 and 4; n_rep 5 with a window of 2,048 at S = 4,096 and n_rep
+   3 at S = 2,048, phase 13's launches); then
    qwen3-4b at full width and depth (36 layers, d_model 2,560, bf16,
    random weights from seed 0) — ``make_prefill_step(cfg,
    use_flash=True)`` over 4 seeded prompts of 2,048 tokens with
@@ -202,7 +203,32 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    parts (a)-(d) every ticket is ``ok`` and not degraded, no batch
    fails, overlapped runs pre-plan, and ``pipelined`` serves every
    batch; all in one ``{"online": ...}`` line with the card's name and
-   power limit.
+   power limit;
+13. the LM substrate's other families, bf16, random weights from seed 0:
+   hymba-1.5b uncut (32 layers, d_model 1,600, 25 / 5 heads of 64, a
+   window of 2,048, the SSM branch at d_inner 3,200, state 16) over 2 x
+   4,096 prompts with ``max_len`` 4,128 and 32 decode steps (the ring
+   buffer wraps); granite-moe-3b-a800m uncut (32 layers, d_model 1,536,
+   24 / 8 heads, 40 experts, top 8) over 4 x 2,048 (capacity 2,048 of
+   8,192 tokens: drops happen) and 32 steps; deepseek-v3-671b at full
+   width (d_model 7,168, 128 heads, MLA ranks 1,536 / 512, 256 experts
+   of 2,048 and one shared, the MTP head built) cut to one dense and one
+   MoE layer, over 1 x 4,096 (MLA's chunked prefill) and 16 steps
+   of its absorbed decode.  Each through ``make_prefill_step(cfg,
+   use_flash=True)``: a warm-up prefill and the timed one, K7's count set
+   to 0 before and read after each (32 launches for Hymba and Granite,
+   none for MLA), none added by decode; a prefill profiled by
+   ``torch.profiler`` with the selective scan, ``moe_apply``, the expert
+   products and MLA's attention labelled (their device-time shares); K7
+   at Hymba's and Granite's layer-0 launch against its plain version,
+   timed beside its bound and ``scaled_dot_product_attention``; then the
+   checks, MoE dropless: K7's prefill against the plain one (Hymba,
+   Granite) and decode after prefill(S) against ``forward`` on S + 1
+   tokens, in float32 at 1e-4 relative L2 and in bf16 within 1.5x bf16's
+   floor; DeepSeek-V3's on a copy with 32 routed experts and a 1 x 2,047
+   prompt, plus layer 0's chunked MLA against the dense formula at S =
+   4,096 in float32 (1e-4); one ``{"families": ...}`` line with the
+   card's name and power limit.
 
 ``python3 chip_smoke.py --forest-times`` runs only K3 and K4 at the two
 Liberty shapes and the large one (the same command times a parent tree's
@@ -215,7 +241,8 @@ held against its plain version (the same command times a parent tree's
 kernels); ``--seg-profile`` adds ``max_depth`` cut to 0, 2, ..., 8 at the
 single-forest batch, with each call's device time from ``torch.profiler``.
 ``--lifecycle`` runs phase 11 alone, over phase 10's 1,000-user fleet
-built for it; ``--online`` runs phase 12 alone, likewise.
+built for it; ``--online`` runs phase 12 alone, likewise; ``--families``
+runs K7's parity cases and phase 13 alone.
 
 Votes must be equal; regression sums are held at rtol = atol = 1e-5 (the
 reference's own serving tolerance); on the card K1-K4 equal their plain
@@ -415,6 +442,15 @@ FLASH_PARITY_CASES = [
     # rows 1,063 on keep no key (S >= T + window): 0 on every route
     ("bf16-s2048-t1000-window64", 4, 2048, 1000, 64, torch.bfloat16, 64, 1),
     ("f32-s2048-t1000-window64", 4, 2048, 1000, 128, torch.float32, 64, 1),
+    # phase 13's launches: hymba-1.5b (2 x 25 query heads over 5 KV heads,
+    # a window of 2,048 cutting half the keys of late rows) and
+    # granite-moe-3b-a800m (4 x 24 over 8)
+    ("bf16-hymba-nrep5-window2048", 50, 4096, 4096, 64, torch.bfloat16,
+     2048, 5),
+    ("f32-hymba-nrep5-window2048", 50, 4096, 4096, 64, torch.float32, 2048,
+     5),
+    ("bf16-granite-nrep3", 96, 2048, 2048, 64, torch.bfloat16, None, 3),
+    ("f32-granite-nrep3", 96, 2048, 2048, 64, torch.float32, None, 3),
 ]
 
 # Fleet serving (phase 10): the subscriber scenario — one ForestStore per
@@ -1743,7 +1779,8 @@ def phase_flash_parity(dev, errs):
     FLASH_PARITY_CASES: float32 and bf16, head_dim 32 / 64 / 128, windows
     of 64, 100 and 256, ragged S (200, 2,049) and T (1,500), S != T both
     ways (with a window, rows that keep no key), and grouped KV heads
-    (n_rep 2 and 4) through ``_flash_attention_grouped``."""
+    (n_rep 2 and 4; phase 13's n_rep 5 with a window of 2,048 and n_rep
+    3) through ``_flash_attention_grouped``."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
 
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -4049,6 +4086,591 @@ def online_main() -> None:
     print(json.dumps({"ok": True}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the LM substrate's other families (Hymba, Granite-MoE,
+# DeepSeek-V3) served on the card
+# ---------------------------------------------------------------------------
+
+# (arch, (layers, d_model, dtype) as served, batch, prompt, max_len, decode
+# steps, K7 launches per prefill, layers profiled, check prompt): bf16,
+# random weights from seed 0.  hymba-1.5b and granite-moe-3b-a800m are
+# uncut; deepseek-v3-671b keeps its full width but is cut to one dense and
+# one MoE layer (FAMILY_DSV3_CUT): 61 layers would be ~1.3 TB in bf16.
+# Hymba's prefill is profiled over its first 4 layers (the scan's ~4,400
+# launches a layer make a whole-model trace too long to read back); its
+# check prompt is the main path's, since its ring buffer needs window | S.
+# DeepSeek-V3's check prompt is 1 x 2,047: ``forward`` on S + 1 tokens
+# then stays below the chunked path, which needs chunk | S (4,097 is
+# refused in both packages), and its float32 dense MLA scores fit the card.
+FAMILY_DSV3_CUT = {"n_layers": 2, "n_dense_layers": 1}
+FAMILY_RUNS = [
+    ("hymba-1.5b", (32, 1600, "bfloat16"), 2, 4096, 4128, 32, 32, 4,
+     (2, 4096)),
+    ("granite-moe-3b-a800m", (32, 1536, "bfloat16"), 4, 2048, 2080, 32, 32,
+     None, (4, 2048)),
+    ("deepseek-v3-671b", (2, 7168, "bfloat16"), 1, 4096, 4112, 16, 0, None,
+     (1, 2047)),
+]
+# the float32 and bf16 checks of DeepSeek-V3 run on a copy with its routed
+# experts cut from 256 to 32 (top-8 kept): at 256, float32 weights beside
+# the bf16 ones would need ~87 GB
+FAMILY_DSV3_CHECK_EXPERTS = 32
+# bf16 differences are held to this factor over their witness, bf16's own
+# rounding floor read in the same run (phase 9's rule)
+FAMILY_BF16_OVER_FLOOR = 1.5
+# timed prefills per model after the warm-up: the median is reported with
+# its min and max (a prefill is host-bound where the plain scan runs)
+FAMILY_PREFILL_REPS = 5
+# the labelled regions of a profiled prefill: (label, module, function)
+FAMILY_REGIONS = (
+    ("ssm.selective_scan", "ssm", "selective_scan"),
+    ("moe.moe_apply", "model", "moe_apply"),
+    ("moe.experts", "moe", "_experts"),
+    ("mla.prefill", "model", "mla_prefill"),
+    ("mla.attend_chunked", "mla", "_attend_chunked"),
+    ("mla.attend_dense", "mla", "_attend_dense"),
+)
+
+
+def family_config(name, **changes):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    if name == "deepseek-v3-671b":
+        cfg = dataclasses.replace(cfg, **FAMILY_DSV3_CUT)
+    return dataclasses.replace(cfg, **changes) if changes else cfg
+
+
+def dropless(cfg):
+    """The config with no capacity drop (capacity_factor E / k, as the
+    reference's decode test runs MoE): a (B, S) batch and a (B, 1) one
+    then route alike.  Other configs unchanged."""
+    import dataclasses
+
+    if cfg.mlp_type != "moe":
+        return cfg
+    return dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def profile_regions(fn) -> dict:
+    """``torch.profiler`` over one call of ``fn`` with FAMILY_REGIONS
+    labelled (``record_function`` around each function, put back after):
+    per label, the device ms of the kernels launched inside it, the
+    device span its annotation covers, and its calls; the device ms of
+    every kernel of the call."""
+    import importlib
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    saved = []
+    for label, mod_name, fn_name in FAMILY_REGIONS:
+        mod = importlib.import_module(f"repro_torch.models.{mod_name}")
+        orig = getattr(mod, fn_name)
+
+        def wrapped(*a, _orig=orig, _label=label, **kw):
+            with record_function(_label):
+                return _orig(*a, **kw)
+
+        saved.append((mod, fn_name, orig))
+        setattr(mod, fn_name, wrapped)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for mod, fn_name, orig in saved:
+            setattr(mod, fn_name, orig)
+    labels = {label for label, _, _ in FAMILY_REGIONS}
+    regions = {}
+    kernel_us = 0.0
+    for e in prof.events():
+        if e.name not in labels:
+            if e.device_type == DeviceType.CUDA:
+                kernel_us += e.time_range.elapsed_us()
+            continue
+        r = regions.setdefault(e.name, {"device_ms": 0.0,
+                                        "device_span_ms": 0.0, "calls": 0})
+        if e.device_type == DeviceType.CUDA:
+            r["device_span_ms"] += e.time_range.elapsed_us() / 1e3
+        else:
+            r["device_ms"] += e.device_time_total / 1e3
+            r["calls"] += 1
+    return {"regions": regions, "device_ms": kernel_us / 1e3}
+
+
+def family_shares(prof, name) -> dict:
+    """The plain device work's shares of the profiled prefill's device
+    time: the selective scan (Hymba), MoE dispatch plus combine
+    (everything in ``moe_apply`` but the three expert products) and the
+    expert products, MLA's attention core and the whole MLA prefill."""
+    reg = prof["regions"]
+    total = prof["device_ms"]
+
+    def ms(label):
+        return reg.get(label, {}).get("device_ms", 0.0)
+
+    out = {"device_ms": total}
+    if name == "hymba-1.5b":
+        out["selective_scan_ms"] = ms("ssm.selective_scan")
+    if "moe.moe_apply" in reg:
+        out["moe_dispatch_combine_ms"] = (ms("moe.moe_apply")
+                                          - ms("moe.experts"))
+        out["moe_experts_ms"] = ms("moe.experts")
+    if "mla.prefill" in reg:
+        out["mla_attention_ms"] = (ms("mla.attend_chunked")
+                                   + ms("mla.attend_dense"))
+        out["mla_prefill_ms"] = ms("mla.prefill")
+    for key in [k for k in out if k.endswith("_ms") and k != "device_ms"]:
+        out[key[:-3] + "_share"] = out[key] / total if total else None
+    return out
+
+
+def family_main_path(dev, run):
+    """One family's main path: ``init_params`` (bf16, seed 0),
+    ``make_prefill_step(cfg, use_flash=True)`` over seeded prompts (a
+    warm-up, then FAMILY_PREFILL_REPS timed prefills, the last one's cache
+    decoded), greedy ``make_decode_step`` steps.
+    K7's count is set to 0 before each prefill and read after it: one
+    launch per attention layer (Hymba, Granite), none for MLA; decode adds
+    none.  Then one profiled prefill (``profile_regions``)."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import init_params
+
+    (name, shape, batch, prompt, max_len, steps, k7_per_prefill,
+     profile_layers, _) = run
+    cfg = family_config(name)
+    assert (cfg.n_layers, cfg.d_model, cfg.dtype) == shape, cfg
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    host = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                           generator=host).to(dev)
+    prefill_step = make_prefill_step(cfg, use_flash=True)
+    decode = make_decode_step(cfg)
+
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    _, warm_cache = prefill_step(params, tokens, max_len=max_len)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    assert fa.LAUNCHES["flash"] == k7_per_prefill, (name, fa.LAUNCHES)
+    del warm_cache
+
+    prefill_times = []
+    for _ in range(FAMILY_PREFILL_REPS):
+        cache = None
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = prefill_step(params, tokens, max_len=max_len)
+        torch.cuda.synchronize()
+        prefill_times.append(time.perf_counter() - t0)
+        launches = fa.LAUNCHES["flash"]
+        assert launches == k7_per_prefill, (name, fa.LAUNCHES)
+    t_prefill = float(np.median(prefill_times))
+    assert logits.shape == (batch, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all()), f"{name} prefill not finite"
+    tok = logits.argmax(-1)
+    out = [tok]
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, cache = decode(params, tok, cache)
+        tok = logits.argmax(-1)
+        out.append(tok)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    assert fa.LAUNCHES["flash"] == launches, (name, fa.LAUNCHES)
+    assert bool(torch.isfinite(logits).all()), f"{name} decode not finite"
+    assert int(cache["pos"].min()) == int(cache["pos"].max()) == (
+        prompt + steps)
+    gen = torch.stack(out, 1)
+    assert gen.shape == (batch, steps + 1)
+    assert 0 <= int(gen.min()) and int(gen.max()) < cfg.vocab_size
+    peak = torch.cuda.max_memory_allocated(dev)
+    del cache
+
+    full = params.layers
+    if profile_layers:
+        params.layers = full[:profile_layers]
+    try:
+        prof = profile_regions(
+            lambda: prefill_step(params, tokens, max_len=max_len))
+    finally:
+        params.layers = full
+    row = {
+        "model": name, "layers": cfg.n_layers,
+        "dense_layers": len(params.layers_dense), "d_model": cfg.d_model,
+        "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+        "params": sum(p.numel() for p in params.parameters()),
+        "dtype": cfg.dtype, "batch": batch, "prompt": prompt,
+        "max_len": max_len, "init_s": init_s, "warm_prefill_s": warm_s,
+        "prefill_s": t_prefill, "prefill_s_min": min(prefill_times),
+        "prefill_s_max": max(prefill_times), "prefill_s_all": prefill_times,
+        "prefill_tok_s": batch * prompt / t_prefill,
+        "decode_steps": steps,
+        "decode_ms_per_step": t_decode / steps * 1e3,
+        "decode_tok_s": batch * steps / t_decode,
+        "max_memory_allocated": peak,
+        "k7_launches_per_prefill": launches,
+        "sample_tokens": gen[0, :8].tolist(),
+        "profiled_layers": profile_layers or cfg.n_layers,
+        "profile": family_shares(prof, name),
+        "regions": prof["regions"],
+    }
+    return cfg, params, tokens, row
+
+
+def family_pair_checks(cfg, params, tokens, nxt, max_len):
+    """For one set of weights: the K7 prefill against the plain one
+    (``use_flash=False``; skipped for MLA, which never takes K7), both at
+    the served capacity factor, since both route the same (B, S) batch;
+    and decode after prefill(S) against ``forward`` on the prompt plus the
+    token (its last logits), an MoE config dropless (``dropless``): a
+    (B, S) batch and a (B, 1) one legitimately drop different
+    assignments."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import forward
+
+    flash = make_prefill_step(cfg, use_flash=True)
+    lf, cache = flash(params, tokens, max_len=max_len)
+    out = {"flash": lf}
+    if cfg.attn_type != "mla":
+        out["plain"], _ = make_prefill_step(cfg, use_flash=False)(
+            params, tokens, max_len=max_len)
+    dcfg = dropless(cfg)
+    if dcfg is not cfg:
+        del cache
+        out["flash_dropless"], cache = make_prefill_step(
+            dcfg, use_flash=True)(params, tokens, max_len=max_len)
+    out["decode"], _ = make_decode_step(dcfg)(params, nxt, cache)
+    del cache
+    full, _ = forward(dcfg, params, torch.cat([tokens, nxt[:, None]], 1),
+                      use_flash=True)
+    out["forward"] = full[:, -1]
+    del full
+    for key, t in out.items():
+        assert bool(torch.isfinite(t).all()), f"{cfg.name} {key} not finite"
+    return out
+
+
+def family_seed_checks(dev, cfg, params, tokens, nxt, max_len):
+    """``family_pair_checks`` in bf16 and in float32 (the same weights
+    upcast).  Float32: K7 against plain (served capacity), and decode
+    against forward (dropless), within F32_MODEL_REL_L2 (and decode at
+    DECODE_RTOL).  bf16: the same gaps within FAMILY_BF16_OVER_FLOOR
+    times their witness, the bf16 plain prefill's (resp. forward's)
+    distance from the float32 run."""
+    import dataclasses
+
+    from repro_torch.models import TransformerLM
+
+    bf = family_pair_checks(cfg, params, tokens, nxt, max_len)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = TransformerLM(cfg32, dev)
+    with torch.no_grad():
+        for p32, p in zip(params32.parameters(), params.parameters()):
+            p32.copy_(p.float())
+    f32 = family_pair_checks(cfg32, params32, tokens, nxt, max_len)
+    r32 = {
+        "decode_vs_forward_rel_l2": rel_l2(f32["decode"], f32["forward"]),
+        "decode_vs_forward_allclose_5e-2": bool(torch.allclose(
+            f32["decode"].float(), f32["forward"].float(),
+            rtol=DECODE_RTOL, atol=DECODE_ATOL)),
+    }
+    rbf = {
+        "decode_vs_forward_rel_l2": rel_l2(bf["decode"], bf["forward"]),
+        "forward_vs_f32_rel_l2": rel_l2(bf["forward"], f32["forward"]),
+        "flash_vs_f32_rel_l2": rel_l2(bf["flash"], f32["flash"]),
+    }
+    if "plain" in f32:
+        r32["flash_vs_plain_rel_l2"] = rel_l2(f32["flash"], f32["plain"])
+        rbf["flash_vs_plain_rel_l2"] = rel_l2(bf["flash"], bf["plain"])
+        rbf["plain_vs_f32_rel_l2"] = rel_l2(bf["plain"], f32["flash"])
+    return {"float32": r32, "bfloat16": rbf}, params32
+
+
+def mla_layer0_check(cfg32, params32, tokens) -> dict:
+    """DeepSeek-V3's layer 0 (float32) at S = 4,096: ``_attend_chunked``
+    (the online softmax over live blocks) against the dense MLA formula
+    (``_attend_dense``, 16 heads at a time) on the same q / k / v."""
+    from repro_torch.models import mla
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.model import _positions, embed_inputs
+
+    blk = params32.layers_dense[0]
+    x = rms_norm(embed_inputs(cfg32, params32, tokens), blk.norm1,
+                 cfg32.rms_eps)
+    b, s, _ = x.shape
+    pos = _positions(b, s, x.device)
+    h, qk_n = cfg32.n_heads, cfg32.qk_nope_dim
+    q_nope, q_rope = mla._queries(blk.attn, cfg32, x, pos)
+    c_kv, k_rope = mla._latents(blk.attn, cfg32, x, pos)
+    k_nope = (c_kv @ blk.attn.w_uk).reshape(b, s, h, qk_n)
+    v = (c_kv @ blk.attn.w_uv).reshape(b, s, h, cfg32.v_head_dim)
+    scale = (qk_n + cfg32.qk_rope_dim) ** -0.5
+    with torch.no_grad():
+        got = mla._attend_chunked(q_nope, q_rope, k_nope, k_rope, v, scale)
+        want = torch.cat([
+            mla._attend_dense(q_nope[:, :, i:i + 16], q_rope[:, :, i:i + 16],
+                              k_nope[:, :, i:i + 16], k_rope,
+                              v[:, :, i:i + 16], scale, torch.float32)
+            for i in range(0, h, 16)], -1)
+    assert got.shape == want.shape == (b, s, h * cfg32.v_head_dim)
+    return {"s": s, "chunked_vs_dense_rel_l2": rel_l2(got, want)}
+
+
+def capture_moe_input(prefill_step, params, tokens, max_len):
+    """The (N, d) input of the first MoE layer in one prefill of the
+    served model (``model.moe_apply`` wrapped for the call)."""
+    from repro_torch.models import model
+
+    seen = []
+    orig = model.moe_apply
+
+    def wrapped(p, cfg, x):
+        if not seen:
+            seen.append(x.reshape(-1, x.shape[-1]).clone())
+        return orig(p, cfg, x)
+
+    model.moe_apply = wrapped
+    try:
+        prefill_step(params, tokens, max_len=max_len)
+    finally:
+        model.moe_apply = orig
+    return seen[0]
+
+
+def moe_route_check(cfg, moe, xf) -> dict:
+    """The card's ``_route`` at the served capacity factor over the served
+    model's first MoE input ``xf`` (N, d): each (token, slot)'s position
+    and keep flag against the reference's formula, a one-hot cumsum in
+    token-major order computed in numpy on the host from the card's own
+    expert ids: equal.  And the CPU's ``_route`` on the same inputs and
+    router: the shares of expert ids and keep flags that agree (reported,
+    not held: float32 matmuls on the two devices may split a near-tie
+    differently)."""
+    import types
+
+    from repro_torch.models import moe as moe_mod
+
+    ids, pos, keep, _, _, cap = moe_mod._route(moe, cfg, xf)
+    ids_h = ids.cpu().numpy()
+    nk = ids_h.size
+    onehot = np.zeros((nk, cfg.n_experts), np.int64)
+    onehot[np.arange(nk), ids_h] = 1
+    ref_pos = (np.cumsum(onehot, 0) - onehot)[np.arange(nk), ids_h]
+    ref_keep = ref_pos < cap
+    keep_h = keep.cpu().numpy()
+    pos_h = pos.cpu().numpy()
+    assert np.array_equal(keep_h, ref_keep), "keep mask differs"
+    assert np.array_equal(pos_h, np.where(ref_keep, ref_pos, 0)), (
+        "positions differ")
+    cpu_router = types.SimpleNamespace(router=moe.router.detach().cpu())
+    ids_c, _, keep_c, _, _, cap_c = moe_mod._route(cpu_router, cfg,
+                                                   xf.cpu())
+    assert cap_c == cap
+    return {"n_tokens": xf.shape[0], "capacity": cap,
+            "dropped": int(nk - keep_h.sum()),
+            "positions_equal": True,
+            "cpu_ids_agree": float((ids_c.numpy() == ids_h).mean()),
+            "cpu_keep_agree": float((keep_c.numpy() == keep_h).mean())}
+
+
+def moe_dispatch_check(cfg, moe, xf) -> dict:
+    """``_moe_apply_dense`` (float32, served capacity factor) over ``xf``
+    (N, d) against a plain version on the same routing: each expert's
+    kept tokens through its SwiGLU, weighted by their gates and added
+    back per token, then the shared expert."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import swiglu
+
+    with torch.no_grad():
+        got, _ = moe_mod._moe_apply_dense(moe, cfg, xf[None])
+        ids, _, keep, gates, _, cap = moe_mod._route(moe, cfg, xf)
+        token = torch.arange(ids.numel(), device=xf.device) // cfg.top_k
+        want = torch.zeros_like(xf)
+        for e in range(cfg.n_experts):
+            sel = (ids == e) & keep
+            t = token[sel]
+            y = swiglu(xf[t], moe.w1[e], moe.w3[e], moe.w2[e])
+            want.index_add_(0, t, y * gates[sel][:, None])
+        if moe.shared is not None:
+            sp = moe.shared
+            want = want + swiglu(xf, sp.w1, sp.w3, sp.w2)
+    return {"n_tokens": xf.shape[0], "capacity": cap,
+            "n_experts": cfg.n_experts,
+            "dropped": int(keep.numel() - int(keep.sum())),
+            "rel_l2": rel_l2(got[0], want)}
+
+
+def family_checks(dev, run, params, tokens, moe_in):
+    """The whole-model checks of one family (see ``family_seed_checks``)
+    at the served capacity factor (decode dropless), on the main path's
+    weights and the first (B, S) of its prompts given in the run.
+    DeepSeek-V3's run on a fresh model with FAMILY_DSV3_CHECK_EXPERTS
+    routed experts instead (``params`` None: the caller frees the served
+    one first), plus ``mla_layer0_check`` on the main path's prompt.  An
+    MoE config's first MoE layer, upcast, also takes
+    ``moe_dispatch_check`` on ``moe_in``.  Returns the row; raises on a
+    gap out of bounds."""
+    from repro_torch.models import init_params
+
+    name, _, _, _, max_len, _, _, _, (cb, cs) = run
+    host = torch.Generator().manual_seed(2)
+    extra = {}
+    if params is None:
+        cfg = family_config(name, n_experts=FAMILY_DSV3_CHECK_EXPERTS)
+        params = init_params(cfg, seed=0, device=dev)
+        max_len = cs + 1
+    else:
+        cfg = params.cfg
+    nxt = torch.randint(0, cfg.vocab_size, (cb,), generator=host).to(dev)
+    readings, params32 = family_seed_checks(dev, cfg, params,
+                                            tokens[:cb, :cs], nxt, max_len)
+    del params
+    if cfg.attn_type == "mla":
+        extra = mla_layer0_check(params32.cfg, params32, tokens)
+    dispatch = None
+    if cfg.mlp_type == "moe":
+        dispatch = moe_dispatch_check(params32.cfg, params32.layers[0].mlp,
+                                      moe_in.float())
+    del params32
+    torch.cuda.empty_cache()
+    f32, bf = readings["float32"], readings["bfloat16"]
+    row = {"model": name, "check_prompt": [cb, cs],
+           "capacity_factor": cfg.capacity_factor,
+           "decode_capacity_factor": dropless(cfg).capacity_factor,
+           "n_experts": cfg.n_experts, **readings,
+           "bounds": {"float32_rel_l2": F32_MODEL_REL_L2,
+                      "bfloat16_over_witness": FAMILY_BF16_OVER_FLOOR,
+                      "decode_rtol_atol": DECODE_RTOL}}
+    if extra:
+        row["mla_layer0"] = extra
+        assert extra["chunked_vs_dense_rel_l2"] <= F32_MODEL_REL_L2, extra
+    if dispatch:
+        row["moe_dispatch"] = dispatch
+        assert dispatch["rel_l2"] <= F32_MODEL_REL_L2, dispatch
+    assert f32["decode_vs_forward_rel_l2"] <= F32_MODEL_REL_L2, row
+    assert f32["decode_vs_forward_allclose_5e-2"], row
+    assert bf["decode_vs_forward_rel_l2"] <= (
+        FAMILY_BF16_OVER_FLOOR * bf["forward_vs_f32_rel_l2"]), row
+    if "flash_vs_plain_rel_l2" in f32:
+        assert f32["flash_vs_plain_rel_l2"] <= F32_MODEL_REL_L2, row
+        assert bf["flash_vs_plain_rel_l2"] <= (
+            FAMILY_BF16_OVER_FLOOR * bf["plain_vs_f32_rel_l2"]), row
+    return row
+
+
+def family_flash_timing(cfg, params, tokens, errs) -> dict:
+    """K7 at one family's layer-0 launch (the grouped call the model
+    makes) against its plain version, timed beside its bound, its plain
+    version and ``scaled_dot_product_attention`` on the KV heads repeated
+    (with the window as a boolean mask where there is one; a dense mask
+    keeps SDPA off its flash backend, so with a window SDPA's
+    ``is_causal`` call at the same shape is timed too, as
+    ``library_causal_ms``: the flash backend over the causal triangle,
+    more work than the window leaves)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ops import bh_layout
+
+    q, k, v, n_rep = bh_layout(*lm_flash_args(cfg, params, tokens))
+    window = cfg.sliding_window or None
+    got = fa._flash_attention_grouped(q, k, v, n_rep, True, window)
+    torch.cuda.synchronize()
+    err = close_err(got, fa._flash_plain(q, k, v, True, window, n_rep=n_rep),
+                    FLASH_TOL[q.dtype])
+    errs.append(err)
+    bms, by, work = flash_bound(q, k, window=window)
+    kr, vr = k.repeat_interleave(n_rep, 0), v.repeat_interleave(n_rep, 0)
+    s = q.shape[1]
+    causal = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q[None], kr[None], vr[None], is_causal=True)
+    library = causal
+    if window:
+        idx = torch.arange(s, device=q.device)
+        mask = ((idx[:, None] >= idx[None, :])
+                & (idx[:, None] - idx[None, :] < window))
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q[None], kr[None], vr[None], attn_mask=mask)
+    return {
+        "launch": {"bh": q.shape[0], "kv_heads": k.shape[0], "n_rep": n_rep,
+                   "s": s, "hd": q.shape[2], "window": window,
+                   "dtype": str(q.dtype)},
+        "max_abs_err": err,
+        "ms": time_ms(lambda: fa._launch_flash(q, k, v, True, window,
+                                               n_rep)),
+        "plain_ms": time_ms(lambda: fa._flash_plain(q, k, v, True, window,
+                                                    n_rep=n_rep)),
+        "bound_ms": bms, "bound_by": by, "work": work,
+        "library_ms": time_ms(library),
+        "library_causal_ms": time_ms(causal) if window else None,
+    }
+
+
+def phase_families(dev, flash_errs):
+    """Phase 13: hymba-1.5b, granite-moe-3b-a800m and the cut
+    deepseek-v3-671b through ``family_main_path``, ``family_checks`` and,
+    for the two that run K7, ``family_flash_timing``.  Returns the
+    ``{"families"}`` row and the K7 launches of the main paths (the count
+    set to 0 just before each prefill, read just after)."""
+    from repro_torch.launch.steps import make_prefill_step
+
+    t_phase = time.perf_counter()
+    row = {"card": smi_line(), "models": []}
+    launches = 0
+    for run in FAMILY_RUNS:
+        t0 = time.perf_counter()
+        cfg, params, tokens, main = family_main_path(dev, run)
+        launches += main["k7_launches_per_prefill"]
+        moe_in = None
+        if cfg.mlp_type == "moe":
+            moe_in = capture_moe_input(make_prefill_step(cfg, use_flash=True),
+                                       params, tokens, run[4])
+            main["moe_route"] = moe_route_check(cfg, params.layers[0].mlp,
+                                                moe_in)
+        if main["k7_launches_per_prefill"]:
+            main["k7"] = family_flash_timing(cfg, params, tokens, flash_errs)
+            main["k7_share_of_prefill"] = (
+                main["k7"]["ms"] * main["k7_launches_per_prefill"]
+                / (main["prefill_s"] * 1e3))
+        log(json.dumps({"family": main}))
+        if cfg.attn_type == "mla":  # its checks run on a smaller copy
+            del params
+            torch.cuda.empty_cache()
+            params = None
+        main["checks"] = family_checks(dev, run, params, tokens, moe_in)
+        del params, tokens, moe_in
+        torch.cuda.empty_cache()
+        main["phase_s"] = time.perf_counter() - t0
+        row["models"].append(main)
+    row["phase_s"] = time.perf_counter() - t_phase
+    return row, launches
+
+
+def families_main() -> None:
+    """``--families``: K7's parity cases and phase 13 alone."""
+    from repro_torch.kernels import build
+
+    dev = phase_environment()
+    build.build(["flash_attention"])
+    errs = []
+    phase_flash_parity(dev, errs)
+    row, launches = phase_families(dev, errs)
+    log(json.dumps({"families": row}))
+    log(json.dumps({"k7_launches": launches, "k7_max_abs_err": max(errs)}))
+    print(json.dumps({"ok": True}), flush=True)
+
+
 def main() -> None:
     dev = phase_environment()
     phase_build()
@@ -4186,6 +4808,17 @@ def main() -> None:
             entry["online_launches"] = online_launches[entry["name"]]
     log(json.dumps({"online": online}))
     clock["online"] = time.perf_counter()
+
+    families, family_launches = phase_families(dev, flash_errs)
+    for entry in out:
+        if entry["name"] == K7["name"]:
+            entry["families_launches"] = family_launches
+            entry["max_abs_err"] = max(flash_errs)
+            entry["families"] = {m["model"]: m["k7"]
+                                 for m in families["models"] if "k7" in m}
+    assert family_launches > 0, family_launches
+    log(json.dumps({"families": families}))
+    clock["families"] = time.perf_counter()
     marks = list(clock.items())
     log(json.dumps({"phase_s": {b[0]: b[1] - a[1]
                                 for a, b in zip(marks, marks[1:])}}))
@@ -4211,5 +4844,7 @@ if __name__ == "__main__":
         lifecycle_main()
     elif len(sys.argv) > 1 and sys.argv[1] == "--online":
         online_main()
+    elif len(sys.argv) > 1 and sys.argv[1] == "--families":
+        families_main()
     else:
         main()

@@ -106,15 +106,33 @@ def _tensor(arr) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
+def _leaves(tree, prefix: str = "") -> dict:
+    """A nested dict of arrays as {dotted name: array}, the names
+    ``named_parameters`` gives the matching module."""
+    out = {}
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if hasattr(val, "items"):
+            out.update(_leaves(val, f"{name}."))
+        else:
+            out[name] = val
+    return out
+
+
 @torch.no_grad()
 def lm_params_from_arrays(cfg, params, device="cuda") -> TransformerLM:
     """The port's ``TransformerLM`` for ``cfg`` on ``device`` holding the
     numbers of a reference parameter pytree given as numpy arrays
     (``jax.tree.map(np.asarray, init_params(cfg, key))``; duck-typed dict
-    access).  The reference stacks its layers on a leading L axis: layer i
-    takes slice i of every ``params["layers"]`` leaf.  Both packages keep
-    projection weights as (d_in, d_out), so nothing is transposed.  Raises
-    ``ValueError`` on a missing, extra or misshapen leaf."""
+    access).  The reference stacks its layers on a leading L axis: block
+    i of ``layers`` (and of ``layers_dense``, an MoE config's leading
+    dense blocks) takes slice i of every leaf of that tree; ``mtp``'s
+    block is not stacked.  Every leaf carries across by its dotted name
+    (``attn.wq``, ``mlp.shared.w1``, ``ssm.a_log``, ``branch_beta``, ...),
+    the MoE router in float32.  Both packages keep projection weights as
+    (d_in, d_out), so nothing is transposed.  Raises ``ValueError`` on a
+    missing, extra or misshapen leaf, and on a missing or unexpected
+    top-level key."""
     lm = TransformerLM(cfg, device)
 
     def put(dst: torch.Tensor, src, name: str) -> None:
@@ -125,23 +143,47 @@ def lm_params_from_arrays(cfg, params, device="cuda") -> TransformerLM:
             )
         dst.copy_(t)
 
-    def put_all(module: torch.nn.Module, tree, i: int, prefix: str) -> None:
-        names = {n for n, _ in module.named_parameters()}
-        if set(tree) != names:
+    def put_module(module: torch.nn.Module, tree, prefix: str,
+                   index: int | None = None, count: int = 0) -> None:
+        """Fill ``module`` from ``tree``; with ``index``, every leaf is a
+        stack of ``count`` and slice ``index`` is taken."""
+        leaves = _leaves(tree)
+        names = dict(module.named_parameters())
+        if set(leaves) != set(names):
             raise ValueError(
-                f"{prefix}: leaves {sorted(tree)}, expected {sorted(names)}"
+                f"{prefix}: leaves {sorted(leaves)}, expected {sorted(names)}"
             )
-        for n, p in module.named_parameters():
-            put(p, np.asarray(tree[n])[i], f"{prefix}.{n}[{i}]")
+        for n, p in names.items():
+            arr = np.asarray(leaves[n])
+            if index is None:
+                put(p, arr, f"{prefix}.{n}")
+                continue
+            if arr.shape != (count, *p.shape):
+                raise ValueError(
+                    f"{prefix}.{n}: shape {arr.shape}, expected "
+                    f"{(count, *p.shape)}"
+                )
+            put(p, arr[index], f"{prefix}.{n}[{index}]")
 
+    want = {"embed", "final_norm", "layers"}
+    if lm.lm_head is not None:
+        want.add("lm_head")
+    if len(lm.layers_dense):
+        want.add("layers_dense")
+    if lm.mtp is not None:
+        want.add("mtp")
+    if set(params) != want:
+        raise ValueError(
+            f"top-level keys {sorted(params)}, expected {sorted(want)}"
+        )
     put(lm.embed, params["embed"], "embed")
     put(lm.final_norm, params["final_norm"], "final_norm")
     if lm.lm_head is not None:
         put(lm.lm_head, params["lm_head"], "lm_head")
-    layers = params["layers"]
-    for i, blk in enumerate(lm.layers):
-        put(blk.norm1, np.asarray(layers["norm1"])[i], f"norm1[{i}]")
-        put(blk.norm2, np.asarray(layers["norm2"])[i], f"norm2[{i}]")
-        put_all(blk.attn, layers["attn"], i, "attn")
-        put_all(blk.mlp, layers["mlp"], i, "mlp")
+    for key in ("layers_dense", "layers"):
+        blocks = getattr(lm, key)
+        for i, blk in enumerate(blocks):
+            put_module(blk, params[key], key, i, len(blocks))
+    if lm.mtp is not None:
+        put_module(lm.mtp, params["mtp"], "mtp")
     return lm

@@ -7,10 +7,15 @@ port of ``repro.launch.serve``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
         --smoke --device cpu --temperature 0
 
-Prefill goes through ``make_prefill_step(cfg, use_flash=True)``, so the
-prompt runs the hand-written kernels on a card and their plain versions on
-the CPU: the flash kernel (K7) for the dense GQA archs' attention, the
-WKV6 kernel (K8) for RWKV6's recurrence.  Decode steps follow one token at
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b
+
+Every architecture of the registry serves.  Prefill goes through
+``make_prefill_step(cfg, use_flash=True)``, so the prompt runs the
+hand-written kernels on a card and their plain versions on the CPU: the
+flash kernel (K7) for the attention of the GQA archs (granite-moe's
+included) and of Hymba, the WKV6 kernel (K8) for RWKV6's recurrence; MLA
+(deepseek-v3), the MoE dispatch and Hymba's SSM branch are plain
+PyTorch.  Decode steps follow one token at
 a time.  Sampling draws from an explicit ``torch.Generator``;
 ``--temperature 0`` is greedy.  The device defaults to ``cuda`` and raises
 without a card.

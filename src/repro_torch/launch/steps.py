@@ -19,8 +19,8 @@ __all__ = ["make_decode_step", "make_prefill_step"]
 def make_prefill_step(cfg: ModelConfig, *, use_flash: bool = False):
     """(params, tokens[, frontend_embeds][, max_len=]) -> (last logits,
     decode cache).  ``use_flash=True`` runs the prompt through the
-    hand-written kernels: K7 for GQA attention, K8 for the RWKV6
-    recurrence."""
+    hand-written kernels: K7 for GQA and Hymba attention, K8 for the
+    RWKV6 recurrence (MLA never takes K7, as in the reference)."""
 
     def prefill_step(params, tokens, frontend_embeds=None,
                      max_len: int | None = None):

@@ -1,5 +1,5 @@
-"""repro_torch.models — the decoder-only LM, dense-GQA and RWKV6 subset
-(the port of ``repro.models``)."""
+"""repro_torch.models — the decoder-only LM (the port of
+``repro.models``): dense GQA, MoE, MLA, RWKV6 and the Hymba hybrid."""
 
 from .model import (
     TransformerLM,

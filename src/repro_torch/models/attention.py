@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from .blockwise import chunked_attention
 from .layers import apply_rope, rms_norm
 
 __all__ = [
@@ -33,9 +34,9 @@ __all__ = [
 
 _NEG_INF = -1e30
 
-# The reference switches full-sequence attention to its chunked
-# online-softmax path (models/blockwise.py) at this length when the flash
-# kernel is off; the port has no blockwise path yet.
+# Full-sequence attention without the flash kernel switches to the chunked
+# online-softmax path (models/blockwise.py) at this length, as the
+# reference does.
 BLOCKWISE_THRESHOLD = 8192
 
 
@@ -119,8 +120,10 @@ def _sdpa(q, k, v, mask, n_rep: int):
 
 def _attend_full(q, k, v, cfg: ModelConfig, use_flash: bool):
     """Causal self-attention over the full sequence: the flash kernel (K7,
-    on any length) when ``use_flash``, else dense attention.  The
-    reference's chunked path for long sequences is not ported."""
+    on any length) when ``use_flash``, else the chunked online softmax
+    from BLOCKWISE_THRESHOLD on, else dense attention.  The reference's
+    head padding (``_shard_qkv``) applies only under a mesh and is the
+    identity without one, so it is not ported."""
     s = q.shape[1]
     n_rep = q.shape[2] // k.shape[2]
     if use_flash:
@@ -129,11 +132,10 @@ def _attend_full(q, k, v, cfg: ModelConfig, use_flash: bool):
         return flash_attention(q, k, v, causal=True,
                                window=cfg.sliding_window or None)
     if s >= BLOCKWISE_THRESHOLD:
-        raise NotImplementedError(
-            f"dense attention at S={s} >= {BLOCKWISE_THRESHOLD} takes the "
-            "reference's chunked path (models/blockwise.py), not ported yet "
-            "(ROADMAP Queue 1 item 12); pass use_flash=True"
-        )
+        chunk = min(1024, cfg.sliding_window or 1024)
+        return chunked_attention(q, k, v, causal=True,
+                                 window=cfg.sliding_window, q_chunk=chunk,
+                                 kv_chunk=chunk)
     idx = torch.arange(s, device=q.device)
     mask = idx[:, None] >= idx[None, :]
     if cfg.sliding_window:

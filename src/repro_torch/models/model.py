@@ -1,24 +1,31 @@
-"""TransformerLM, dense-GQA and RWKV6 subset — the port of
-``repro.models.model``.
+"""TransformerLM — the port of ``repro.models.model``, serving every family
+of the reference: dense GQA, GQA + MoE (granite-moe), MLA + MoE with a
+multi-token-prediction head (deepseek-v3), RWKV6, the Hymba attention +
+SSM hybrid, and the modality-stub backbones.
 
 Parameters live in ``nn.Module``s: ``TransformerLM`` holds the embedding,
-the final norm, the untied head and an ``nn.ModuleList`` of ``Block``s
-(``norm1``, ``Attention``, ``norm2``, ``MLP``).  The reference stacks its
-layers on a leading L axis for ``lax.scan``; the port loops over the list.
-The reference's function names stay as thin functions over those modules
-(``forward(cfg, params, tokens, ...)``, ``prefill``, ``decode_step``, ...),
-so a test calls both packages the same way.  The decode cache is
-``{"layers": [{"k", "v"} per layer], "pos": (B,) int32}``.
+the final norm, the untied head, ``layers_dense`` (an MoE config's
+leading dense blocks; empty otherwise), ``layers`` and, with
+``mtp_depth``, the ``mtp`` head (``proj``, a dense ``block``, ``norm``),
+which serving carries but does not run, as in the reference.  A ``Block``
+holds ``norm1``, the mixer (``Attention``, ``MLA`` or ``RWKV6TimeMix``;
+Hymba: ``Attention`` and ``SSM`` side by side with ``norm_attn_out``,
+``norm_ssm_out`` and ``branch_beta``), ``norm2`` and the MLP (``MLP``,
+``MoE`` or ``ChannelMix``).  The reference stacks its layers on a leading
+L axis for ``lax.scan``; the port loops over the lists.  The reference's
+function names stay as thin functions over those modules
+(``forward(cfg, params, tokens, ...)``, ``prefill``, ``decode_step``,
+...), so a test calls both packages the same way.
 
-This slice serves the dense GQA family (qwen3, qwen2.5, starcoder2,
-deepseek-7b, and the musicgen / internvl2 backbones behind their frontend
-stubs) and RWKV6 (``Block`` then holds ``RWKV6TimeMix`` and
-``ChannelMix``; its per-layer cache is ``{"state", "x_prev_tm",
-"x_prev_cm"}``).  ``use_flash=True`` sends the prompt through the
-hand-written kernels: flash attention (K7) for GQA, the WKV6 recurrence
-(K8) for RWKV6.  MLA, MoE and the Hymba hybrid, ``remat``, ``loss_fn``
-and ``mtp_loss`` raise ``NotImplementedError`` naming their ROADMAP
-item.
+The decode cache is ``{"layers": [one cache per layer], "pos": (B,)
+int32}``, plus ``"layers_dense"`` for the leading dense layers of an MoE
+config.  A layer's cache is ``{"k", "v"}`` (GQA), ``{"c_kv", "k_rope"}``
+(MLA), ``{"state", "x_prev_tm", "x_prev_cm"}`` (RWKV6) or ``{"kv",
+"ssm"}`` (Hymba).  ``use_flash=True`` sends the prompt through the
+hand-written kernels: flash attention (K7) for GQA and Hymba's attention,
+the WKV6 recurrence (K8) for RWKV6; MLA never takes K7, as in the
+reference.  ``remat``, ``loss_fn`` and ``mtp_loss`` raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -40,6 +47,8 @@ from .attention import (
     init_kv_cache,
 )
 from .layers import rms_norm, swiglu
+from .mla import MLA, init_mla, init_mla_cache, mla_decode, mla_prefill, mla_train
+from .moe import MoE, init_moe, moe_apply
 from .rwkv6 import (
     ChannelMix,
     RWKV6TimeMix,
@@ -52,10 +61,12 @@ from .rwkv6 import (
     rwkv6_prefill,
     rwkv6_train,
 )
+from .ssm import SSM, init_ssm, init_ssm_cache, ssm_decode, ssm_prefill, ssm_train
 
 __all__ = [
     "Block",
     "MLP",
+    "MTP",
     "TransformerLM",
     "decode_step",
     "embed_inputs",
@@ -69,10 +80,7 @@ __all__ = [
     "prefill",
 ]
 
-_UNPORTED_ATTN = {
-    "mla": "MLA attention (models/mla.py)",
-    "hymba": "the Hymba attention + SSM hybrid (models/ssm.py)",
-}
+_ATTN_TYPES = ("gqa", "mla", "rwkv6", "hymba")
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -82,18 +90,19 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.attn_type in _UNPORTED_ATTN:
-        raise _not_ported(_UNPORTED_ATTN[cfg.attn_type])
-    if cfg.attn_type not in ("gqa", "rwkv6"):
+    if cfg.attn_type not in _ATTN_TYPES:
         raise ValueError(cfg.attn_type)
-    if cfg.mlp_type == "moe":
-        raise _not_ported("the MoE MLP (models/moe.py)")
-    if cfg.mtp_depth:
-        raise _not_ported("the multi-token-prediction head")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def _n_layers(cfg: ModelConfig) -> tuple[int, int]:
+    """(leading dense layers, main layers): an MoE config's first
+    ``n_dense_layers`` blocks have a dense MLP and their own list."""
+    n_dense = cfg.n_dense_layers if cfg.mlp_type == "moe" else 0
+    return n_dense, cfg.n_layers - n_dense
 
 
 class MLP(nn.Module):
@@ -116,25 +125,50 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """One decoder layer: pre-norm attention (RWKV6: time-mix), pre-norm
-    MLP (RWKV6: channel-mix)."""
+    """One decoder layer: pre-norm mixer (attention, MLA, RWKV6 time-mix,
+    or Hymba's attention + SSM), pre-norm MLP (dense, MoE when ``moe``,
+    RWKV6 channel-mix)."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype, device, moe: bool = False):
         super().__init__()
         d = cfg.d_model
         self.norm1 = _param((d,), dtype, device)
         self.norm2 = _param((d,), dtype, device)
         if cfg.attn_type == "rwkv6":
             self.attn = RWKV6TimeMix(cfg, dtype, device)
-            self.mlp = ChannelMix(cfg, dtype, device)
+        elif cfg.attn_type == "mla":
+            self.attn = MLA(cfg, dtype, device)
         else:
             self.attn = Attention(cfg, dtype, device)
+        if cfg.attn_type == "hymba":
+            self.ssm = SSM(cfg, dtype, device)
+            self.norm_attn_out = _param((d,), dtype, device)
+            self.norm_ssm_out = _param((d,), dtype, device)
+            self.branch_beta = _param((2,), dtype, device)
+        if cfg.attn_type == "rwkv6":
+            self.mlp = ChannelMix(cfg, dtype, device)
+        elif moe:
+            self.mlp = MoE(cfg, dtype, device)
+        else:
             self.mlp = MLP(cfg, dtype, device)
+
+
+class MTP(nn.Module):
+    """The multi-token-prediction head: proj (2 d, d), a dense ``block``,
+    norm (d,)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        d = cfg.d_model
+        self.proj = _param((2 * d, d), dtype, device)
+        self.block = Block(cfg, dtype, device)
+        self.norm = _param((d,), dtype, device)
 
 
 class TransformerLM(nn.Module):
     """The whole LM's parameters: embed (V, d), final_norm (d,), lm_head
-    (d, V) unless tied, and ``layers``."""
+    (d, V) unless tied, ``layers_dense``, ``layers`` and ``mtp``
+    (``None`` without ``mtp_depth``)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
@@ -142,15 +176,21 @@ class TransformerLM(nn.Module):
         dev = resolve_device(device)
         dtype = _dtype(cfg)
         d, v = cfg.d_model, cfg.vocab_size
+        moe = cfg.mlp_type == "moe"
+        n_dense, n_main = _n_layers(cfg)
         self.cfg = cfg
         self.embed = _param((v, d), dtype, dev)
         self.final_norm = _param((d,), dtype, dev)
         self.register_parameter(
             "lm_head", None if cfg.tie_embeddings else _param((d, v), dtype, dev)
         )
-        self.layers = nn.ModuleList(
-            Block(cfg, dtype, dev) for _ in range(cfg.n_layers)
+        self.layers_dense = nn.ModuleList(
+            Block(cfg, dtype, dev) for _ in range(n_dense)
         )
+        self.layers = nn.ModuleList(
+            Block(cfg, dtype, dev, moe) for _ in range(n_main)
+        )
+        self.mtp = MTP(cfg, dtype, dev) if cfg.mtp_depth else None
 
     @property
     def device(self) -> torch.device:
@@ -161,13 +201,47 @@ class TransformerLM(nn.Module):
 # init
 # ---------------------------------------------------------------------------
 @torch.no_grad()
+def _init_mlp_dense(mlp: MLP, cfg: ModelConfig, gen: torch.Generator):
+    d = cfg.d_model
+    mlp.w1.normal_(0.0, d**-0.5, generator=gen)
+    mlp.w3.normal_(0.0, d**-0.5, generator=gen)
+    mlp.w2.normal_(0.0, cfg.d_ff**-0.5, generator=gen)
+    for b in (mlp.b1, mlp.b3, mlp.b2):
+        if b is not None:
+            b.zero_()
+
+
+@torch.no_grad()
+def _init_block(blk: Block, cfg: ModelConfig, gen: torch.Generator):
+    blk.norm1.fill_(1.0)
+    blk.norm2.fill_(1.0)
+    if cfg.attn_type == "rwkv6":
+        init_rwkv6(blk.attn, cfg, gen)
+        init_channel_mix(blk.mlp, cfg, gen)
+        return
+    if cfg.attn_type == "mla":
+        init_mla(blk.attn, cfg, gen)
+    else:
+        init_attention(blk.attn, cfg, gen)
+    if cfg.attn_type == "hymba":
+        init_ssm(blk.ssm, cfg, gen)
+        blk.norm_attn_out.fill_(1.0)
+        blk.norm_ssm_out.fill_(1.0)
+        blk.branch_beta.fill_(1.0)
+    if isinstance(blk.mlp, MoE):
+        init_moe(blk.mlp, cfg, gen)
+    else:
+        _init_mlp_dense(blk.mlp, cfg, gen)
+
+
+@torch.no_grad()
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device="cuda") -> TransformerLM:
     """A ``TransformerLM`` drawn from an explicit ``torch.Generator`` on the
     target device, at the reference's scales (normal * d_in**-0.5, the
-    embedding * 0.02, unit norms, zero biases; RWKV6's own in
-    ``rwkv6.init_rwkv6``), not its bits.  Raises
-    ``RuntimeError`` for CUDA on a host without a card."""
+    embedding * 0.02, unit norms and ``branch_beta``, zero biases; RWKV6's,
+    the SSM's, MLA's and MoE's own in their modules), not its bits.
+    Raises ``RuntimeError`` for CUDA on a host without a card."""
     params = TransformerLM(cfg, device)
     gen = torch.Generator(device=params.device).manual_seed(seed)
     d = cfg.d_model
@@ -175,35 +249,51 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     params.final_norm.fill_(1.0)
     if params.lm_head is not None:
         params.lm_head.normal_(0.0, d**-0.5, generator=gen)
-    for blk in params.layers:
-        blk.norm1.fill_(1.0)
-        blk.norm2.fill_(1.0)
-        if cfg.attn_type == "rwkv6":
-            init_rwkv6(blk.attn, cfg, gen)
-            init_channel_mix(blk.mlp, cfg, gen)
-            continue
-        init_attention(blk.attn, cfg, gen)
-        mlp = blk.mlp
-        mlp.w1.normal_(0.0, d**-0.5, generator=gen)
-        mlp.w3.normal_(0.0, d**-0.5, generator=gen)
-        mlp.w2.normal_(0.0, cfg.d_ff**-0.5, generator=gen)
-        for b in (mlp.b1, mlp.b3, mlp.b2):
-            if b is not None:
-                b.zero_()
+    for blk in (*params.layers_dense, *params.layers):
+        _init_block(blk, cfg, gen)
+    if params.mtp is not None:
+        params.mtp.proj.normal_(0.0, (2 * d) ** -0.5, generator=gen)
+        _init_block(params.mtp.block, cfg, gen)
+        params.mtp.norm.fill_(1.0)
     return params
 
 
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
+def _hymba_mix(cfg: ModelConfig, p: Block, att, ssm_o):
+    """Hymba's two branches, each normed, mixed by branch_beta."""
+    att = rms_norm(att, p.norm_attn_out, cfg.rms_eps)
+    ssm_o = rms_norm(ssm_o, p.norm_ssm_out, cfg.rms_eps)
+    beta = p.branch_beta
+    return 0.5 * (beta[0] * att + beta[1] * ssm_o)
+
+
+def _mlp(cfg: ModelConfig, p: Block, h):
+    """(the MLP's output, its aux loss or None)."""
+    if isinstance(p.mlp, MoE):
+        return moe_apply(p.mlp, cfg, h)
+    return p.mlp(h), None
+
+
 def _block_train(cfg: ModelConfig, p: Block, x, positions, use_flash: bool):
+    """Returns (x, MoE aux loss or None)."""
     h = rms_norm(x, p.norm1, cfg.rms_eps)
     if cfg.attn_type == "rwkv6":
         x = x + rwkv6_train(p.attn, cfg, h, positions, use_flash)
-        return x + channel_mix_train(p.mlp, rms_norm(x, p.norm2, cfg.rms_eps))
-    x = x + attention_train(p.attn, cfg, h, positions, use_flash)
-    h = rms_norm(x, p.norm2, cfg.rms_eps)
-    return x + p.mlp(h)
+        return x + channel_mix_train(p.mlp,
+                                     rms_norm(x, p.norm2, cfg.rms_eps)), None
+    if cfg.attn_type == "mla":
+        a = mla_train(p.attn, cfg, h, positions)
+    elif cfg.attn_type == "hymba":
+        a = _hymba_mix(cfg, p,
+                       attention_train(p.attn, cfg, h, positions, use_flash),
+                       ssm_train(p.ssm, cfg, h))
+    else:
+        a = attention_train(p.attn, cfg, h, positions, use_flash)
+    x = x + a
+    m, aux = _mlp(cfg, p, rms_norm(x, p.norm2, cfg.rms_eps))
+    return x + m, aux
 
 
 def _block_prefill(cfg: ModelConfig, p: Block, x, positions, max_len: int,
@@ -215,16 +305,26 @@ def _block_prefill(cfg: ModelConfig, p: Block, x, positions, max_len: int,
         h = rms_norm(x, p.norm2, cfg.rms_eps)
         cache["x_prev_cm"] = h[:, -1, :]
         return x + channel_mix_train(p.mlp, h), cache
-    a, cache = attention_prefill(p.attn, cfg, h, positions, max_len,
-                                 use_flash)
+    if cfg.attn_type == "mla":
+        a, cache = mla_prefill(p.attn, cfg, h, positions, max_len)
+    elif cfg.attn_type == "hymba":
+        att, kv = attention_prefill(p.attn, cfg, h, positions, max_len,
+                                    use_flash)
+        ssm_o, ssm_c = ssm_prefill(p.ssm, cfg, h)
+        a = _hymba_mix(cfg, p, att, ssm_o)
+        cache = {"kv": kv, "ssm": ssm_c}
+    else:
+        a, cache = attention_prefill(p.attn, cfg, h, positions, max_len,
+                                     use_flash)
     x = x + a
-    h = rms_norm(x, p.norm2, cfg.rms_eps)
-    return x + p.mlp(h), cache
+    m, _ = _mlp(cfg, p, rms_norm(x, p.norm2, cfg.rms_eps))
+    return x + m, cache
 
 
 def _block_decode(cfg: ModelConfig, p: Block, x, cache, position):
-    """One-token step. cache: this layer's cache (GQA: updated in place;
-    RWKV6: a new dict of new tensors)."""
+    """One-token step. cache: this layer's cache (GQA and MLA buffers, and
+    Hymba's key / value buffers, are updated in place; RWKV6 and the SSM
+    get new tensors)."""
     h = rms_norm(x, p.norm1, cfg.rms_eps)
     if cfg.attn_type == "rwkv6":
         a, state, xprev = rwkv6_decode(p.attn, cfg, h, cache)
@@ -233,10 +333,18 @@ def _block_decode(cfg: ModelConfig, p: Block, x, cache, position):
         m, xprev_cm = channel_mix_decode(p.mlp, h, cache["x_prev_cm"])
         return x + m, {"state": state, "x_prev_tm": xprev,
                        "x_prev_cm": xprev_cm}
-    a, cache = attention_decode(p.attn, cfg, h, cache, position)
+    if cfg.attn_type == "mla":
+        a, cache = mla_decode(p.attn, cfg, h, cache, position)
+    elif cfg.attn_type == "hymba":
+        att, kv = attention_decode(p.attn, cfg, h, cache["kv"], position)
+        ssm_o, ssm_c = ssm_decode(p.ssm, cfg, h, cache["ssm"])
+        a = _hymba_mix(cfg, p, att, ssm_o)
+        cache = {"kv": kv, "ssm": ssm_c}
+    else:
+        a, cache = attention_decode(p.attn, cfg, h, cache, position)
     x = x + a
-    h = rms_norm(x, p.norm2, cfg.rms_eps)
-    return x + p.mlp(h), cache
+    m, _ = _mlp(cfg, p, rms_norm(x, p.norm2, cfg.rms_eps))
+    return x + m, cache
 
 
 # ---------------------------------------------------------------------------
@@ -262,6 +370,11 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None, :].expand(b, s)
 
 
+def _all_layers(params: TransformerLM):
+    """The blocks in order: the leading dense ones, then the main ones."""
+    return (*params.layers_dense, *params.layers)
+
+
 def hidden_states(
     cfg: ModelConfig,
     params: TransformerLM,
@@ -270,16 +383,19 @@ def hidden_states(
     use_flash: bool = False,
     remat: str | None = None,
 ):
-    """tokens (B,S) -> (final-normed hidden (B,S,d), moe aux loss = 0)."""
+    """tokens (B,S) -> (final-normed hidden (B,S,d), moe aux loss: the sum
+    over the MoE layers, float32; 0 without MoE)."""
     _check_supported(cfg)
     if remat is not None:
         raise _not_ported(f"remat={remat!r} (activation checkpointing)")
     x = embed_inputs(cfg, params, tokens, frontend_embeds)
     b, s = x.shape[:2]
     positions = _positions(b, s, x.device)
-    for layer in params.layers:
-        x = _block_train(cfg, layer, x, positions, use_flash)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in _all_layers(params):
+        x, a = _block_train(cfg, layer, x, positions, use_flash)
+        if a is not None:
+            aux = aux + a
     return rms_norm(x, params.final_norm, cfg.rms_eps), aux
 
 
@@ -295,7 +411,7 @@ def forward(
     use_flash: bool = False,
     remat: str | None = None,
 ):
-    """tokens (B,S) -> logits (B,S,V), aux (0: no MoE in this slice)."""
+    """tokens (B,S) -> logits (B,S,V), aux (moe load-balance loss)."""
     x, aux = hidden_states(cfg, params, tokens, frontend_embeds, use_flash,
                            remat)
     logits = x @ lm_head(cfg, params)
@@ -331,14 +447,17 @@ def prefill(
     b, s = x.shape[:2]
     max_len = max_len or s
     positions = _positions(b, s, x.device)
-    layers = []
-    for layer in params.layers:
-        x, c = _block_prefill(cfg, layer, x, positions, max_len, use_flash)
-        layers.append(c)
     cache: dict[str, Any] = {
-        "layers": layers,
         "pos": torch.full((b,), s, dtype=torch.int32, device=x.device),
     }
+    for key in ("layers_dense", "layers"):
+        layers = []
+        for layer in getattr(params, key):
+            x, c = _block_prefill(cfg, layer, x, positions, max_len,
+                                  use_flash)
+            layers.append(c)
+        if layers or key == "layers":
+            cache[key] = layers
     x = rms_norm(x[:, -1:], params.final_norm, cfg.rms_eps)
     logits = (x @ lm_head(cfg, params))[:, 0]
     return logits, cache
@@ -347,35 +466,56 @@ def prefill(
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
+def _init_layer_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                      device):
+    if cfg.attn_type == "gqa":
+        return init_kv_cache(cfg, batch, max_len, dtype, device)
+    if cfg.attn_type == "mla":
+        return init_mla_cache(cfg, batch, max_len, dtype, device)
+    if cfg.attn_type == "rwkv6":
+        return init_rwkv6_cache(cfg, batch, dtype, device)
+    return {  # hymba
+        "kv": init_kv_cache(cfg, batch, max_len, dtype, device),
+        "ssm": init_ssm_cache(cfg, batch, dtype, device),
+    }
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     """Per-layer caches + current position (zeros), on ``device``."""
     _check_supported(cfg)
     dev = resolve_device(device)
     dtype = _dtype(cfg)
-    if cfg.attn_type == "rwkv6":
-        layers = [init_rwkv6_cache(cfg, batch, dtype, dev)
-                  for _ in range(cfg.n_layers)]
-    else:
-        layers = [init_kv_cache(cfg, batch, max_len, dtype, dev)
-                  for _ in range(cfg.n_layers)]
-    return {
-        "layers": layers,
+    n_dense, n_main = _n_layers(cfg)
+    cache: dict[str, Any] = {
+        "layers": [_init_layer_cache(cfg, batch, max_len, dtype, dev)
+                   for _ in range(n_main)],
         "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
     }
+    if n_dense:
+        cache["layers_dense"] = [
+            _init_layer_cache(cfg, batch, max_len, dtype, dev)
+            for _ in range(n_dense)
+        ]
+    return cache
 
 
 def decode_step(cfg: ModelConfig, params: TransformerLM, tokens, cache):
-    """tokens (B,) current token ids -> (logits (B,V), new cache).  GQA
-    layers' key / value buffers are written in place and shared with the
-    returned cache; RWKV6 layers get new tensors; ``pos`` is a new
+    """tokens (B,) current token ids -> (logits (B,V), new cache).  Key /
+    value and latent buffers are written in place and shared with the
+    returned cache; recurrent states get new tensors; ``pos`` is a new
     tensor."""
     _check_supported(cfg)
     position = cache["pos"]
     x = F.embedding(_tokens(params, tokens)[:, None], params.embed)
-    layers = []
-    for layer, layer_c in zip(params.layers, cache["layers"]):
-        x, c = _block_decode(cfg, layer, x, layer_c, position)
-        layers.append(c)
+    new_cache = dict(cache, pos=position + 1)
+    for key in ("layers_dense", "layers"):
+        if key not in cache:
+            continue
+        layers = []
+        for layer, layer_c in zip(getattr(params, key), cache[key]):
+            x, c = _block_decode(cfg, layer, x, layer_c, position)
+            layers.append(c)
+        new_cache[key] = layers
     x = rms_norm(x, params.final_norm, cfg.rms_eps)
     logits = (x @ lm_head(cfg, params))[:, 0]
-    return logits, dict(cache, layers=layers, pos=position + 1)
+    return logits, new_cache

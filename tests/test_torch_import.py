@@ -65,6 +65,10 @@ def test_port_modules_exist():
         "repro_torch.launch.steps",
         "repro_torch.launch.serve",
         "repro_torch.models.rwkv6",
+        "repro_torch.models.blockwise",
+        "repro_torch.models.ssm",
+        "repro_torch.models.moe",
+        "repro_torch.models.mla",
         "repro_torch.kernels.rwkv6_scan.ref",
         "repro_torch.kernels.rwkv6_scan.rwkv6_scan",
         "repro_torch.kernels.rwkv6_scan.ops",
@@ -169,6 +173,9 @@ KNOWN_DIFFERENCES = {
     ("models/model.py", "init_params"): "PRNG key -> seed",
     ("models/rwkv6.py", "init_rwkv6"): "PRNG key -> Generator",
     ("models/rwkv6.py", "init_channel_mix"): "PRNG key -> Generator",
+    ("models/ssm.py", "init_ssm"): "PRNG key -> Generator",
+    ("models/mla.py", "init_mla"): "PRNG key -> Generator",
+    ("models/moe.py", "init_moe"): "PRNG key -> Generator",
     # Pallas tile sizes: the Hopper kernel picks its own tiling
     ("kernels/flash_attention/flash_attention.py", "flash_attention_bh"):
         "TPU tile sizes",

@@ -1,5 +1,5 @@
 """LM serving in the port on the CPU: the dense-GQA and RWKV6 smoke
-configs with the reference's own weights carried across by
+configs (the other families are in ``tests/test_torch_lm_families.py``) with the reference's own weights carried across by
 ``lm_params_from_arrays``, the same numpy tokens through both packages.
 
 Smoke configs are float32.  Logits and caches are held to the reference
@@ -246,19 +246,6 @@ def test_decode_matches_forward(pairs, name):
         got.append(lg)
     np.testing.assert_allclose(torch.stack(got, 1).numpy(), full.numpy(),
                                rtol=2e-3, atol=2e-3)
-
-
-@pytest.mark.parametrize("name", ["deepseek-v3-671b", "hymba-1.5b",
-                                  "granite-moe-3b-a800m"])
-def test_unported_families_raise(name):
-    cfg = get_config(name).smoke()
-    tokens = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prefill(cfg, None, tokens)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_cache(cfg, 1, 8, device="cpu")
 
 
 def test_training_entries_raise(pairs):
