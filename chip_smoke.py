@@ -228,7 +228,34 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    floor; DeepSeek-V3's on a copy with 32 routed experts and a 1 x 2,047
    prompt, plus layer 0's chunked MLA against the dense formula at S =
    4,096 in float32 (1e-4); one ``{"families": ...}`` line with the
-   card's name and power limit.
+   card's name and power limit;
+14. LM training (plain PyTorch autograd, no kernel: K7's and K8's counts
+   set to 0 before and read after, both 0): (a) qwen3-4b at full width
+   and depth (36 layers, d_model 2,560, vocab 151,936, untied head,
+   4.41 B parameters, bf16, seeded weights) through
+   ``make_train_step(cfg, AdamWConfig(lr=3e-4, warmup_steps=2,
+   total_steps=10), remat="full")`` on ``synth_batch`` of 2 x 2,048
+   tokens (chunked cross entropy): a warm-up step and 10 timed ones
+   (host clock, median / min / max; forward / backward / optimizer by
+   CUDA events, each part's peak memory), tokens/s, mfu, every loss and
+   gradient norm finite, the last three losses' mean below the first;
+   2 more steps with deterministic algorithms off (their cost) and one
+   under ``torch.profiler``; (b) card against CPU in float32 (TF32 off)
+   with 8-bit gradient compression: every family's smoke config for 2
+   steps (loss and every gradient leaf at 1e-4 relative L2, the update
+   on the CPU's gradients bit for bit equal on both devices) and
+   qwen3-4b at full width cut to 2 layers over 1 x 256 tokens for 3
+   steps (loss and gradients); (c) ``TrainLoop`` with a lossless
+   ``CheckpointManager`` over qwen3-4b's and granite-moe-3b-a800m's
+   smoke configs, 12 steps, a checkpoint every 4, preempted at steps 5
+   and 9: the final state bit-equal to an uninterrupted run's, and a
+   final checkpoint (the reference's layout) decoded exactly; (d)
+   ``compress_tensors`` lossless on (a)'s layer 0 (bf16, ~101 M values),
+   its float32 first moments and the embedding: exact decode, bytes
+   against raw, host seconds; (e) ``python -m repro_torch.launch.train
+   --arch qwen3-4b --smoke --steps 20 --ckpt-codec lossless`` in the
+   background; one ``{"train": ...}`` line with the card's name and
+   power limit.
 
 ``python3 chip_smoke.py --forest-times`` runs only K3 and K4 at the two
 Liberty shapes and the large one (the same command times a parent tree's
@@ -242,7 +269,8 @@ kernels); ``--seg-profile`` adds ``max_depth`` cut to 0, 2, ..., 8 at the
 single-forest batch, with each call's device time from ``torch.profiler``.
 ``--lifecycle`` runs phase 11 alone, over phase 10's 1,000-user fleet
 built for it; ``--online`` runs phase 12 alone, likewise; ``--families``
-runs K7's parity cases and phase 13 alone.
+runs K7's parity cases and phase 13 alone; ``--train`` runs phase 14
+alone.
 
 Votes must be equal; regression sums are held at rtol = atol = 1e-5 (the
 reference's own serving tolerance); on the card K1-K4 equal their plain
@@ -255,6 +283,7 @@ the last is one JSON object ``{"kernels": [...]}``; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -4671,6 +4700,635 @@ def families_main() -> None:
     print(json.dumps({"ok": True}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: LM training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen3-4b"
+# layers, d_model, vocab, dtype, tied head: uncut
+TRAIN_SHAPE = (36, 2560, 151936, "bfloat16", False)
+TRAIN_BATCH = 2
+TRAIN_SEQ = 2048  # >= 2,048: loss_fn takes chunked_ce_loss
+TRAIN_STEPS = 10  # timed, after one warm-up step
+TRAIN_OPT = {"lr": 3e-4, "warmup_steps": 2, "total_steps": 10}
+TRAIN_DET_OFF_STEPS = 2  # timed with deterministic algorithms off
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 (NVIDIA's data sheet)
+TRAIN_CHECK_BATCH = (2, 32)  # (b): every family's smoke config, 8-bit
+TRAIN_CHECK_STEPS = 2  # compression, for 2 steps
+TRAIN_CHECK_LAYERS = 2  # (b): qwen3-4b at full width cut to 2 layers ...
+TRAIN_CHECK_WIDE = (1, 256)  # ... over 1 x 256 tokens ...
+TRAIN_CHECK_WIDE_STEPS = 3  # ... for 3 steps with 8-bit compression
+TRAIN_GRAD_TOL = 1e-4  # relative L2, card against CPU, float32
+TRAIN_RESTART = {"archs": ("qwen3-4b", "granite-moe-3b-a800m"), "steps": 12,
+                 "save_every": 4, "fail_at": (5, 9), "batch": 2, "seq": 64}
+TRAIN_CLI = ["--arch", "qwen3-4b", "--smoke", "--steps", "20",
+             "--ckpt-codec", "lossless"]
+
+
+def train_cfg():
+    from repro_torch.configs import get_config
+
+    cfg = get_config(TRAIN_ARCH)
+    shape = (cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.dtype,
+             cfg.tie_embeddings)
+    assert shape == TRAIN_SHAPE, shape
+    return cfg
+
+
+def train_batch(data_cfg, step, dev):
+    from repro_torch.data.tokens import synth_batch
+
+    return {k: torch.from_numpy(v).to(dev)
+            for k, v in synth_batch(data_cfg, step).items()}
+
+
+class StepSplit:
+    """CUDA events around ``loss_fn`` and ``adamw_update`` as
+    ``launch.steps`` calls them (its module names swapped for timed
+    wrappers while installed): forward = the loss, backward = from the
+    loss to the update (``autograd.grad``), optimizer = the update."""
+
+    def __init__(self):
+        self.marks = []
+        self.peaks = []  # max_memory_allocated of each window
+
+    def _peak(self) -> None:
+        self.peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+    def wrap(self, fn):
+        def timed(*a, **kw):
+            self._peak()
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            out = fn(*a, **kw)
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self._peak()
+            self.marks.append((ev, end))
+            return out
+
+        return timed
+
+    def __enter__(self):
+        from repro_torch.launch import steps
+
+        self._saved = (steps.loss_fn, steps.adamw_update)
+        steps.loss_fn = self.wrap(steps.loss_fn)
+        steps.adamw_update = self.wrap(steps.adamw_update)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import steps
+
+        steps.loss_fn, steps.adamw_update = self._saved
+
+    def split_ms(self) -> dict:
+        """The last step's forward / backward / optimizer ms."""
+        (f0, f1), (o0, o1) = self.marks[-2:]
+        return {"forward": f0.elapsed_time(f1),
+                "backward": f1.elapsed_time(o0),
+                "optimizer": o0.elapsed_time(o1)}
+
+    def split_peaks(self) -> dict:
+        """The last step's peak allocated bytes in its forward, its
+        backward (the loss's end to the update) and its optimizer."""
+        fwd, bwd, opt = self.peaks[-3:]
+        return {"forward": fwd, "backward": bwd, "optimizer": opt}
+
+
+def kernel_launch_counts() -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as ws
+
+    return {"k7": fa.LAUNCHES["flash"], "k8": ws.LAUNCHES["wkv6"]}
+
+
+def reset_kernel_launches() -> None:
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as ws
+
+    fa.reset_launches()
+    ws.reset_launches()
+
+
+def stats(xs) -> dict:
+    return {"median": float(np.median(xs)), "min": float(min(xs)),
+            "max": float(max(xs))}
+
+
+def train_main_path(dev):
+    """(a): qwen3-4b at full width and depth (bf16, seeded weights),
+    ``make_train_step(cfg, AdamWConfig(lr=3e-4, warmup_steps=2,
+    total_steps=10), remat="full")`` on ``synth_batch`` of 2 x 2,048: one
+    warm-up step, then 10 timed steps on the host clock (each ends in a
+    synchronise), split by CUDA events; then 3 steps with deterministic
+    algorithms off (their cost).  K7's and K8's counts are set to 0 just
+    before and read just after: training launches neither.  Returns the
+    row and the state (for (d))."""
+    from repro_torch.data.tokens import TokenDataConfig
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import build_state
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = train_cfg()
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
+    data = TokenDataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = build_state(cfg, opt_cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    step_fn = steps.make_train_step(cfg, opt_cfg, remat="full")
+    params, opt = state.pop("params"), state.pop("opt")  # the step's only
+    losses, norms, step_s, splits, peaks = [], [], [], [], []
+    reset_kernel_launches()
+    with StepSplit() as split:
+        for step in range(TRAIN_STEPS + 1):
+            batch = train_batch(data, step, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            tail = torch.cuda.max_memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            peaks.append(max(split.peaks[-4:] + [tail]))
+            if step == 0:
+                warm_s = dt
+                continue
+            step_s.append(dt)
+            splits.append(split.split_ms())
+            split_peaks = split.split_peaks()
+    launches = kernel_launch_counts()
+    assert launches == {"k7": 0, "k8": 0}, launches
+    assert all(np.isfinite(losses)) and all(np.isfinite(norms)), (
+        losses, norms)
+    assert np.mean(losses[-3:]) < losses[0], losses
+    det_off = []
+    saved = steps.deterministic_algorithms
+    steps.deterministic_algorithms = contextlib.nullcontext
+    try:
+        for step in range(TRAIN_DET_OFF_STEPS):
+            batch = train_batch(data, TRAIN_STEPS + 1 + step, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+            det_off.append(time.perf_counter() - t0)
+            assert np.isfinite(float(m["loss"]))
+    finally:
+        steps.deterministic_algorithms = saved
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    med = float(np.median(step_s))
+    profile = train_step_profile(
+        lambda: step_fn(params, opt, train_batch(data, 0, dev)), med)
+    row = {
+        "model": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "vocab": cfg.vocab_size, "params": n_params, "dtype": cfg.dtype,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": "full",
+        "optimizer": TRAIN_OPT, "init_s": init_s, "warmup_step_s": warm_s,
+        "step_s": stats(step_s), "tokens_per_s": tokens / med,
+        "split_ms": {k: stats([s[k] for s in splits]) for k in splits[0]},
+        "max_memory_allocated": max(peaks[1:]),
+        "max_memory_allocated_warmup": peaks[0],
+        "max_memory_allocated_by_part": split_peaks,
+        "profile": profile,
+        "mfu": 6 * n_params * tokens / med / BF16_FLOPS_PER_S,
+        "losses": losses, "grad_norms": norms,
+        "deterministic_off_step_s": stats(det_off),
+        "deterministic_cost": med / float(np.median(det_off)) - 1,
+        "k7_launches": launches["k7"], "k8_launches": launches["k8"],
+    }
+    return row, {"params": params, "opt": opt}
+
+
+def train_step_profile(step, step_s: float) -> dict:
+    """``torch.profiler`` over one train step: the device's kernel ms and
+    its busy share of the unprofiled step (``step_s``), kernel launches,
+    and the kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    device_us = launches = 0
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            device_us += e.self_device_time_total
+            kernels.append((e.self_device_time_total / 1e3, e.count,
+                            e.key[:80]))
+        if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
+                     "cudaLaunchKernelExC"):
+            launches += e.count
+    kernels.sort(reverse=True)
+    return {"device_ms": device_us / 1e3,
+            "busy_share": device_us / 1e6 / step_s,
+            "launches": launches,
+            "top_kernels": [{"ms": ms, "count": n, "name": k}
+                            for ms, n, k in kernels[:12]]}
+
+
+def codec_leaves(state) -> dict:
+    """(d)'s leaves, copied to the host: layer 0's seven bf16 weights and
+    their float32 first moments after (a)'s steps, and the embedding."""
+    lm = state["params"]
+    out = {}
+    for name, p in lm.layers[0].named_parameters():
+        if p.dim() == 2:
+            out[f"layers.0.{name}"] = p.detach().cpu()
+            out[f"m/layers.0.{name}"] = (
+                state["opt"]["m"][f"layers.0.{name}"].cpu())
+    out["embed"] = lm.embed.detach().cpu()
+    return out
+
+
+def train_grads(cfg, params, batch):
+    """(loss, {name: gradient}) with remat "full", as the train step
+    computes them."""
+    from repro_torch.launch.steps import (
+        deterministic_algorithms,
+        loss_and_grads,
+    )
+
+    with deterministic_algorithms():
+        loss, grads = loss_and_grads(cfg, params, batch, remat="full")
+    return float(loss.detach()), grads
+
+
+def train_card_vs_cpu(dev):
+    """(b): card against CPU, float32, TF32 off, 8-bit gradient
+    compression, from the same weights and batches.  Every family's smoke
+    config for 2 steps: each step's loss and every gradient leaf at 1e-4
+    relative L2 (a leaf past it is held to a float64 run instead: the
+    card no farther from it than the CPU, plus 1e-4 — RWKV6's token-shift
+    mix ``mu``, whose gradient sums terms that cancel, reads ~1e-3 apart
+    between two float32 runs); then the update (compression and AdamW)
+    applied on each device to the CPU's gradients, bit for bit equal on
+    both (parameters, moments, error feedback), which keeps the two in
+    lockstep.  (The
+    parameters after a whole step on each device's own gradients cannot
+    be held to 1e-4: a leaf whose gradient is zero but for rounding, as
+    a key bias is under softmax's shift invariance, moves by lr |noise| /
+    (|noise| + eps) in Adam's first steps.)  Then qwen3-4b at full width
+    cut to 2 layers over 1 x 256 tokens for 3 steps: loss and gradients
+    each step, the update made on the card from the CPU's gradients and
+    its parameters copied to the CPU (AdamW over 0.98 B float32
+    parameters takes the host ~10 s a step; the smoke configs hold the
+    update's arithmetic)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import ARCHITECTURES, get_config
+    from repro_torch.data.tokens import TokenDataConfig
+    from repro_torch.models import init_params
+    from repro_torch.optim.adamw import (
+        AdamWConfig,
+        adamw_update,
+        init_opt_state,
+    )
+    from repro_torch.optim.compression import (
+        GradCompressionConfig,
+        compress_gradients,
+        init_error_feedback,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    assert torch.get_float32_matmul_precision() == "highest"
+    cpu = torch.device("cpu")
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=10)
+    gc = GradCompressionConfig(bits=8)
+
+    def fresh(params):
+        """A train state with zero moments and error feedback, on the
+        parameters' device."""
+        opt = init_opt_state(params)
+        opt["ef"] = init_error_feedback(params)
+        return {"params": params, "opt": opt}
+
+    def gaps(a: dict, b: dict) -> dict:
+        """Each leaf's relative L2 gap (absolute where the CPU's leaf is
+        0, as an unused parameter's gradient is)."""
+        out = {}
+        for n, want in b.items():
+            got = a[n].detach().cpu().float()
+            want = want.detach().float()
+            den = float(want.norm())
+            out[n] = float((got - want).norm()) / (den if den else 1.0)
+        return out
+
+    def unequal(a: dict, b: dict) -> list:
+        return [n for n in b if not torch.equal(a[n].detach().cpu(),
+                                                b[n].detach())]
+
+    def update(side, grads, d):
+        g = {n: t.to(d) for n, t in grads.items()}
+        g, ef = compress_gradients(gc, g, side["opt"]["ef"])
+        side["params"], side["opt"], _ = adamw_update(
+            opt_cfg, side["params"], g, side["opt"])
+        side["opt"]["ef"] = ef
+
+    def witness(cfg, params, batch, g_c, g_h, leaves) -> dict:
+        """For leaves past the tolerance: each gradient's gap to a float64
+        run on the CPU (the model's float32 casts stay float32), the card's
+        and the CPU's."""
+        from repro_torch.models.moe import MoE
+
+        c64 = dataclasses.replace(cfg, dtype="float64")
+        p64 = copy.deepcopy(params).double()
+        for mod in p64.modules():  # the router is float32 in any model
+            if isinstance(mod, MoE):
+                mod.router.data = mod.router.data.float()
+        _, g64 = train_grads(c64, p64, batch)
+        return {n: {"card": rel(g_c[n], g64[n]), "cpu": rel(g_h[n], g64[n])}
+                for n in leaves}
+
+    def rel(a, b) -> float:
+        b = b.detach().double()
+        return float((a.detach().cpu().double() - b).norm() / b.norm())
+
+    def run(cfg, steps, batch_shape, cpu_update):
+        weights = init_params(cfg, 0, device=dev)  # drawn on the card
+        host_weights = copy.deepcopy(weights).to(cpu)
+        card = fresh(weights)
+        host = fresh(host_weights) if cpu_update else {
+            "params": host_weights}
+        data = TokenDataConfig(cfg.vocab_size, batch_shape[1],
+                               batch_shape[0], seed=0)
+        out = {"losses_card": [], "losses_cpu": [], "grad_rel_l2": [],
+               "worst_leaf": [], "witness": [], "unequal_after_update": [],
+               "card_s": 0.0, "cpu_s": 0.0}
+        for i in range(steps):
+            t0 = time.perf_counter()
+            loss_c, g_c = train_grads(cfg, card["params"],
+                                      train_batch(data, i, dev))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss_h, g_h = train_grads(cfg, host["params"],
+                                      train_batch(data, i, cpu))
+            t2 = time.perf_counter()
+            out["card_s"] += t1 - t0
+            out["cpu_s"] += t2 - t1
+            out["losses_card"].append(loss_c)
+            out["losses_cpu"].append(loss_h)
+            by_leaf = gaps(g_c, g_h)
+            leaf = max(by_leaf, key=by_leaf.get)
+            out["grad_rel_l2"].append(by_leaf[leaf])
+            out["worst_leaf"].append(leaf)
+            past = [n for n, x in by_leaf.items() if x > TRAIN_GRAD_TOL]
+            if past:
+                out["witness"].append(witness(cfg, host["params"],
+                                              train_batch(data, i, cpu),
+                                              g_c, g_h, past))
+            del g_c
+            update(card, g_h, dev)
+            if not cpu_update:
+                for p, q in zip(host["params"].parameters(),
+                                card["params"].parameters()):
+                    p.copy_(q)
+                continue
+            update(host, g_h, cpu)
+            bad = unequal(dict(card["params"].named_parameters()),
+                          dict(host["params"].named_parameters()))
+            for key in ("m", "v", "ef"):
+                bad += [f"{key}/{n}" for n in unequal(card["opt"][key],
+                                                      host["opt"][key])]
+            out["unequal_after_update"].append(bad)
+        out["loss_rel"] = max(abs(a - b) / abs(b) for a, b in zip(
+            out["losses_card"], out["losses_cpu"]))
+        return out
+
+    rows = [{"model": name, **run(get_config(name).smoke(),
+                                  TRAIN_CHECK_STEPS, TRAIN_CHECK_BATCH, True)}
+            for name in sorted(ARCHITECTURES)]
+    wide = dataclasses.replace(get_config(TRAIN_ARCH),
+                               n_layers=TRAIN_CHECK_LAYERS, dtype="float32")
+    wide_row = {
+        "model": f"{TRAIN_ARCH} x {TRAIN_CHECK_LAYERS} layers, float32",
+        "tokens": TRAIN_CHECK_WIDE,
+        **run(wide, TRAIN_CHECK_WIDE_STEPS, TRAIN_CHECK_WIDE, False),
+    }
+    for row in (*rows, wide_row):
+        assert row["loss_rel"] <= TRAIN_GRAD_TOL, row
+        # a leaf past the tolerance passes only when the card is no
+        # farther from the float64 gradient than the CPU is (+ the
+        # tolerance): its float32 gradient is that ill-conditioned
+        for w in row["witness"]:
+            for n, gaps in w.items():
+                assert gaps["card"] <= gaps["cpu"] + TRAIN_GRAD_TOL, row
+        assert not any(row["unequal_after_update"]), row
+    return {"grad_bits": gc.bits, "smoke": rows, "wide": wide_row}
+
+
+def train_restart(dev, root):
+    """(c): ``TrainLoop`` with ``CheckpointManager(codec="lossless")``
+    over qwen3-4b's and granite-moe-3b-a800m's smoke configs on the card:
+    12 steps (remat "full", the batch of step k ``synth_batch(k)``), a
+    checkpoint every 4, preempted at steps 5 and 9; the final state equal
+    to an uninterrupted run's bit for bit, every loss equal, and (for the
+    first model) the last checkpoint, in the reference's layout, decoded
+    equal to the final state.  Deterministic-algorithm alerts other than
+    cuBLAS's are recorded."""
+    import warnings
+
+    from repro_torch.checkpoint import (
+        CheckpointConfig,
+        CheckpointManager,
+        load_checkpoint,
+    )
+    from repro_torch.configs import get_config
+    from repro_torch.convert import (
+        train_state_from_arrays,
+        train_state_to_arrays,
+    )
+    from repro_torch.core.tensor_codec import flatten_pytree
+    from repro_torch.data.tokens import TokenDataConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import build_state
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime import PreemptionSchedule, TrainLoop
+
+    spec = TRAIN_RESTART
+    rows = []
+    for name in spec["archs"]:
+        cfg = get_config(name).smoke()
+        opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2,
+                              total_steps=spec["steps"])
+        data = TokenDataConfig(cfg.vocab_size, spec["seq"], spec["batch"])
+        raw = make_train_step(cfg, opt_cfg, remat="full")
+
+        def step_fn(state, step):
+            state = train_state_from_arrays(cfg, state, dev)
+            p, o, m = raw(state["params"], state["opt"],
+                          train_batch(data, step, dev))
+            return {"params": p, "opt": o}, {k: float(v)
+                                             for k, v in m.items()}
+
+        finals, logs, times = {}, {}, {}
+        for run, fail_at in (("straight", ()), ("preempted",
+                                                spec["fail_at"])):
+            mgr = CheckpointManager(CheckpointConfig(
+                os.path.join(root, name, run), codec="lossless"), device=dev)
+            loop = TrainLoop(step_fn, mgr, save_every=spec["save_every"],
+                             preemption=PreemptionSchedule(fail_at=fail_at))
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as alerts:
+                warnings.simplefilter("always")
+                finals[run] = loop.run(build_state(cfg, opt_cfg, 0,
+                                                   device=dev),
+                                       spec["steps"])
+            torch.cuda.synchronize()
+            times[run] = time.perf_counter() - t0
+            logs[run] = {m["step"]: m["loss"] for m in loop.metrics_log}
+            restarts = loop.restarts
+        a = flatten_pytree(finals["straight"])
+        b = flatten_pytree(finals["preempted"])
+        assert sorted(a) == sorted(b)
+        unequal = [k for k in a if not (a[k].dtype == b[k].dtype
+                                        and torch.equal(a[k], b[k]))]
+        step, undecoded, decode_s = spec["steps"], [], None
+        if name == spec["archs"][0]:  # ~10 s of host decode a model
+            t0 = time.perf_counter()
+            saved, step = load_checkpoint(
+                os.path.join(root, name, "preempted"), device=dev)
+            decode_s = time.perf_counter() - t0
+            c = flatten_pytree(saved)
+            ref_layout = flatten_pytree(
+                train_state_to_arrays(finals["preempted"]))
+            undecoded = [k for k in ref_layout
+                         if not torch.equal(c[k].cpu(), ref_layout[k])]
+        row = {"model": name, "restarts": restarts, "leaves": len(a),
+               "unequal_leaves": unequal,
+               "losses_equal": logs["straight"] == logs["preempted"],
+               "checkpoint_step": step, "undecoded_leaves": undecoded,
+               "straight_s": times["straight"],
+               "preempted_s": times["preempted"], "decode_s": decode_s,
+               "alerts": sorted({str(w.message)[:160] for w in alerts})}
+        log(json.dumps({"train_restart": row}))
+        assert restarts == len(spec["fail_at"]), row
+        assert not unequal and row["losses_equal"], row
+        assert step == spec["steps"] and not undecoded, row
+        rows.append(row)
+    return rows
+
+
+def train_codec(leaves, dev) -> dict:
+    """(d): ``compress_tensors`` lossless on (a)'s trained layer 0 (seven
+    bf16 weights, ~101 M values; the codec passes bf16 through, ROADMAP
+    R9), their float32 first moments (entropy-coded) and the bf16
+    embedding; exact decode; bytes against raw, host seconds."""
+    from repro_torch.core.tensor_codec import (
+        compress_tensors,
+        decompress_tensors,
+    )
+
+    groups = {
+        "layer0_bf16": {k: v for k, v in leaves.items()
+                        if k.startswith("layers.")},
+        "layer0_m_f32": {k: v for k, v in leaves.items()
+                         if k.startswith("m/")},
+        "embed_bf16": {"embed": leaves["embed"]},
+    }
+    out = {}
+    for name, tree in groups.items():
+        t0 = time.perf_counter()
+        comp = compress_tensors(tree, device=dev)
+        blob = comp.to_bytes()
+        t1 = time.perf_counter()
+        back = decompress_tensors(type(comp).from_bytes(blob))
+        t2 = time.perf_counter()
+        exact = all(back[k].dtype == v.dtype and torch.equal(back[k], v)
+                    for k, v in tree.items())
+        raw = sum(v.numel() * v.element_size() for v in tree.values())
+        out[name] = {
+            "values": sum(v.numel() for v in tree.values()),
+            "raw_bytes": raw, "payload_bytes": len(blob),
+            "ratio": len(blob) / raw, "clusters": comp.n_clusters,
+            "encode_s": t1 - t0, "decode_s": t2 - t1, "exact": exact,
+        }
+        assert exact, name
+    return out
+
+
+def train_cli_start(root):
+    """(e): ``python -m repro_torch.launch.train`` on qwen3-4b's smoke
+    config, 20 steps with lossless checkpoints, started in the background
+    (it shares the card with (b)-(d), which are not timed)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    argv = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI,
+            "--ckpt-dir", os.path.join(root, "cli")]
+    return subprocess.Popen(argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def train_cli_result(proc, root) -> dict:
+    out, _ = proc.communicate(timeout=300)
+    lines = out.strip().splitlines()
+    from repro_torch.checkpoint import latest_step
+
+    row = {"rc": proc.returncode, "tail": lines[-4:],
+           "latest_step": latest_step(os.path.join(root, "cli"))}
+    assert proc.returncode == 0, out
+    assert any(ln.startswith("final loss") for ln in lines), out
+    assert row["latest_step"] == 20, row
+    return row
+
+
+def phase_train(dev):
+    """Phase 14: LM training, (a)-(e), in one ``{"train": ...}`` row with
+    the card's name and power limit."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    row = {"card": smi_line()}
+    clock = {}
+    torch.cuda.empty_cache()  # (a) needs ~70 GB in one piece or another
+    t0 = time.perf_counter()
+    row["main"], state = train_main_path(dev)
+    log(json.dumps({"train_main": row["main"]}))
+    leaves = codec_leaves(state)
+    del state
+    torch.cuda.empty_cache()
+    clock["a"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as root:
+        cli = train_cli_start(root)
+        try:
+            t0 = time.perf_counter()
+            row["card_vs_cpu"] = train_card_vs_cpu(dev)
+            log(json.dumps({"train_card_vs_cpu": row["card_vs_cpu"]}))
+            clock["b"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            row["restart"] = train_restart(dev, root)
+            clock["c"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            row["codec"] = train_codec(leaves, dev)
+            clock["d"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            row["cli"] = train_cli_result(cli, root)
+            clock["e_wait"] = time.perf_counter() - t0
+        finally:
+            if cli.poll() is None:
+                cli.kill()
+                cli.wait()
+    row["part_s"] = clock
+    row["phase_s"] = time.perf_counter() - t_phase
+    return row
+
+
+def train_main() -> None:
+    """``--train``: phase 14 alone."""
+    dev = phase_environment()
+    row = phase_train(dev)
+    log(json.dumps({"train": row}))
+    print(json.dumps({"ok": True}), flush=True)
+
+
 def main() -> None:
     dev = phase_environment()
     phase_build()
@@ -4819,6 +5477,10 @@ def main() -> None:
     assert family_launches > 0, family_launches
     log(json.dumps({"families": families}))
     clock["families"] = time.perf_counter()
+
+    train = phase_train(dev)
+    log(json.dumps({"train": train}))
+    clock["train"] = time.perf_counter()
     marks = list(clock.items())
     log(json.dumps({"phase_s": {b[0]: b[1] - a[1]
                                 for a, b in zip(marks, marks[1:])}}))
@@ -4846,5 +5508,7 @@ if __name__ == "__main__":
         online_main()
     elif len(sys.argv) > 1 and sys.argv[1] == "--families":
         families_main()
+    elif len(sys.argv) > 1 and sys.argv[1] == "--train":
+        train_main()
     else:
         main()

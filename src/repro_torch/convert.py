@@ -8,8 +8,14 @@ fields alone (duck-typed: anything with ``feature``, ``threshold``,
 meta with the ``ForestMeta`` fields).  ``model_from_arrays`` carries a
 trained reference ``ForestModel`` (heap arrays, ``CartConfig``, ``Binner``)
 across the same way, and ``lm_params_from_arrays`` a reference LM's
-parameter pytree (as numpy arrays) into the port's ``TransformerLM``.
-Nothing here imports the reference.
+parameter pytree (numpy arrays or torch tensors) into the port's
+``TransformerLM``; ``lm_params_to_arrays`` is its inverse.
+``train_state_to_arrays`` / ``train_state_from_arrays`` carry a whole
+train state — parameters, the AdamW moments and step, and the gradient
+compression's error feedback ``"ef"`` — between the port's form (a
+``TransformerLM`` and ``{name: tensor}`` dicts) and the reference's
+pytree, layers stacked on a leading L axis: the layout of a checkpoint
+either package writes.  Nothing here imports the reference.
 """
 from __future__ import annotations
 
@@ -17,17 +23,22 @@ import numpy as np
 import torch
 
 from .core.forest_codec import CompressedForest
+from .core.tensor_codec import _host, flatten_pytree, unflatten_pytree
 from .core.tree import Forest, ForestMeta, Tree
+from .device import resolve_device
 from .forest.binning import Binner
 from .forest.cart import CartConfig
 from .forest.forest import ForestModel
-from .models.model import TransformerLM
+from .models.model import TransformerLM, reference_path
 
 __all__ = [
     "compressed_from_bytes",
     "forest_from_arrays",
     "lm_params_from_arrays",
+    "lm_params_to_arrays",
     "model_from_arrays",
+    "train_state_from_arrays",
+    "train_state_to_arrays",
 ]
 
 
@@ -99,11 +110,11 @@ def model_from_arrays(model) -> ForestModel:
 
 
 def _tensor(arr) -> torch.Tensor:
-    """A CPU tensor copy of a numpy array (bfloat16 through its bits)."""
-    a = np.ascontiguousarray(arr)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(a.copy())
+    """A tensor of a torch tensor (itself) or a CPU tensor copy of a numpy
+    array (bfloat16 through its bits)."""
+    if isinstance(arr, torch.Tensor):
+        return arr.detach()
+    return _host(arr)
 
 
 def _leaves(tree, prefix: str = "") -> dict:
@@ -124,7 +135,7 @@ def lm_params_from_arrays(cfg, params, device="cuda") -> TransformerLM:
     """The port's ``TransformerLM`` for ``cfg`` on ``device`` holding the
     numbers of a reference parameter pytree given as numpy arrays
     (``jax.tree.map(np.asarray, init_params(cfg, key))``; duck-typed dict
-    access).  The reference stacks its layers on a leading L axis: block
+    access) or torch tensors.  The reference stacks its layers on a leading L axis: block
     i of ``layers`` (and of ``layers_dense``, an MoE config's leading
     dense blocks) takes slice i of every leaf of that tree; ``mtp``'s
     block is not stacked.  Every leaf carries across by its dotted name
@@ -154,13 +165,13 @@ def lm_params_from_arrays(cfg, params, device="cuda") -> TransformerLM:
                 f"{prefix}: leaves {sorted(leaves)}, expected {sorted(names)}"
             )
         for n, p in names.items():
-            arr = np.asarray(leaves[n])
+            arr = leaves[n]
             if index is None:
                 put(p, arr, f"{prefix}.{n}")
                 continue
-            if arr.shape != (count, *p.shape):
+            if tuple(arr.shape) != (count, *p.shape):
                 raise ValueError(
-                    f"{prefix}.{n}: shape {arr.shape}, expected "
+                    f"{prefix}.{n}: shape {tuple(arr.shape)}, expected "
                     f"{(count, *p.shape)}"
                 )
             put(p, arr[index], f"{prefix}.{n}[{index}]")
@@ -187,3 +198,61 @@ def lm_params_from_arrays(cfg, params, device="cuda") -> TransformerLM:
     if lm.mtp is not None:
         put_module(lm.mtp, params["mtp"], "mtp")
     return lm
+
+
+def lm_params_to_arrays(cfg, lm: TransformerLM) -> dict:
+    """The reference's parameter pytree of ``lm``: nested dicts of CPU
+    tensors, every block of ``layers`` (and ``layers_dense``) stacked on a
+    leading L axis, each leaf in its own type (bfloat16 stays bfloat16;
+    its bits are the numbers).  The inverse of ``lm_params_from_arrays``.
+    Raises ``ValueError`` when ``lm`` was built for another config."""
+    if lm.cfg != cfg:
+        raise ValueError(f"lm holds {lm.cfg.name!r}, not {cfg.name!r}")
+    return unflatten_pytree(flatten_pytree(lm))
+
+
+def train_state_to_arrays(state) -> dict:
+    """A train state (``{"params": TransformerLM, "opt": {"m": {name:
+    tensor}, "v": ..., "step"[, "ef"]}}``) as the reference's pytree of
+    CPU tensors: ``{"params": ..., "opt": {"m": ..., "v": ..., "step":
+    int32, ["ef": ...]}}``, blocks stacked as in
+    ``lm_params_to_arrays``."""
+    return unflatten_pytree(flatten_pytree(state))
+
+
+def _unstack(lm: TransformerLM, tree, what: str, device) -> dict:
+    """{parameter name: its slice of the reference-layout ``tree``}."""
+    out = {}
+    for name, p in lm.named_parameters():
+        path, index = reference_path(name)
+        leaf = tree
+        for part in path.split("/"):
+            leaf = leaf[part]
+        t = _tensor(leaf if index is None else leaf[index])
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError(
+                f"{what} {name}: shape {tuple(t.shape)}, expected "
+                f"{tuple(p.shape)}"
+            )
+        out[name] = t.to(device).clone()
+    return out
+
+
+def train_state_from_arrays(cfg, state, device="cuda") -> dict:
+    """The port's train state on ``device`` from the reference's pytree
+    (numpy arrays or torch tensors, as ``load_checkpoint`` returns it):
+    the parameters through ``lm_params_from_arrays``, the moments and the
+    error feedback unstacked by parameter name in their own types, the
+    step an int32 0-d tensor.  A state whose ``"params"`` is already a
+    ``TransformerLM`` is returned as it is."""
+    if isinstance(state["params"], TransformerLM):
+        return state
+    dev = resolve_device(device)
+    lm = lm_params_from_arrays(cfg, state["params"], dev)
+    opt = state["opt"]
+    new_opt = {
+        key: _unstack(lm, opt[key], key, dev)
+        for key in ("m", "v", "ef") if key in opt
+    }
+    new_opt["step"] = _tensor(opt["step"]).to(dev, torch.int32).reshape(())
+    return {"params": lm, "opt": new_opt}

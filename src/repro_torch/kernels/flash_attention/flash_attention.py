@@ -40,13 +40,18 @@ float32's tolerance).
 ``LAUNCHES["flash"]`` counts the launches of both routes.  The
 reference's ``block_q`` / ``block_k`` (its TPU tile sizes) and
 ``interpret=`` keywords are dropped; the tile sizes change only the
-summation order.
+summation order.  Neither route has a backward pass: called where
+autograd would differentiate it, the entry raises
+``kernels.KernelGradientError``, as ``jax.grad`` raises through the
+Pallas kernel.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+
+from .. import refuse_autograd
 
 __all__ = ["LAUNCHES", "flash_attention_bh", "reset_launches"]
 
@@ -106,6 +111,7 @@ def _flash_attention_grouped(q, k, v, n_rep: int, causal: bool = True,
         raise ValueError(
             f"q, k, v on different devices: {q.device}, {k.device}, {v.device}"
         )
+    refuse_autograd("flash attention (K7)", q, k, v)
     if q.device.type == "cpu":
         return _flash_plain(q, k, v, causal, window, n_rep=n_rep)
     return _launch_flash(q, k, v, causal, window, n_rep)

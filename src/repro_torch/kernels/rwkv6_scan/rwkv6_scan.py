@@ -30,7 +30,10 @@ Hopper kernel in ``csrc/rwkv6_scan.cu`` (``_launch_wkv6``; the
 (BH, S, hd) layout is the case B = BH, H = 1) or raise; they never fall
 back, and the launch never copies an input: it refuses what the kernel
 does not take.  ``LAUNCHES["wkv6"]`` counts the kernel's launches.  The
-reference's ``interpret=`` keyword is dropped.
+reference's ``interpret=`` keyword is dropped.  Neither route has a
+backward pass: called where autograd would differentiate it, the entry
+raises ``kernels.KernelGradientError``, as ``jax.grad`` raises through
+the Pallas kernel.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ import ctypes
 
 import torch
 
+from .. import refuse_autograd
 from .ref import wkv6_reference
 
 __all__ = ["LAUNCHES", "bh_layout", "config", "reset_launches", "wkv6_bh",
@@ -107,6 +111,7 @@ def wkv6_bh(r, k, v, w, u, state):
     version of their layout, ``_wkv6_plain`` or ``_wkv6_model_plain``;
     CUDA tensors launch K8 on them as they are, or raise."""
     _same_device(r, k, v, w, u, state)
+    refuse_autograd("the WKV6 recurrence (K8)", r, k, v, w, u, state)
     if r.device.type == "cpu":
         plain = _wkv6_model_plain if r.dim() == 4 else _wkv6_plain
         return plain(r, k, v, w, u, state)

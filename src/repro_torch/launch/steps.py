@@ -1,19 +1,149 @@
-"""Prefill / decode step functions — the serving half of
-``repro.launch.steps`` (the train steps belong to the LM training slice,
-ROADMAP Queue 1 item 12).
+"""Train / prefill / decode step functions — the port of
+``repro.launch.steps``.
 
 PyTorch runs eagerly, so a step is the plain function the reference would
 ``jax.jit``.  The prefill step also takes ``max_len``, the decode cache's
 length, which the reference's driver passes by calling ``prefill``
 directly.
+
+The train step differentiates ``loss_fn`` with ``torch.autograd.grad``
+(an unused parameter, such as DeepSeek-V3's MTP head under ``loss_fn``,
+gets a zero gradient, as ``jax.value_and_grad`` gives it), then
+optionally compresses the gradients and takes one AdamW step, updating
+the parameters and the float32 moments in place where the reference
+donates them.  Parameters require grad only inside the step.  The step
+runs under deterministic algorithms (``deterministic_algorithms``): on a
+card, the one sum of the train path that PyTorch otherwise adds with
+atomics in no fixed order — the gradient of the MoE dispatch's gather
+(``index_select``; each token is gathered ``top_k`` times, so its
+``index_add_`` backward meets repeated rows) — then adds in a fixed
+order, so a run resumed from a checkpoint ends bit-equal to an
+uninterrupted one.  The embedding's backward already orders repeated
+tokens, and ``take_along_dim``'s scatters one value into each place.
 """
 from __future__ import annotations
 
+import contextlib
+import warnings
+
+import torch
+
 from ..configs.base import ModelConfig
 from ..models import decode_step as _decode_step
-from ..models import prefill
+from ..models import loss_fn, prefill
+from ..optim.adamw import AdamWConfig, adamw_update
+from ..optim.compression import GradCompressionConfig, compress_gradients
 
-__all__ = ["make_decode_step", "make_prefill_step"]
+__all__ = [
+    "deterministic_algorithms",
+    "loss_and_grads",
+    "make_decode_step",
+    "make_prefill_step",
+    "make_train_step",
+    "make_wire_train_step",
+]
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """PyTorch's deterministic algorithms inside the block, the previous
+    setting after it.  Uninitialised memory is not filled (nothing here
+    reads it), and cuBLAS's warning about ``CUBLAS_WORKSPACE_CONFIG`` is
+    silenced: that concerns workspaces shared by several streams, and a
+    train step runs on one.  Any other operation without a deterministic
+    implementation warns."""
+    enabled = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings(
+                "ignore", message=".*CUBLAS_WORKSPACE_CONFIG.*")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(enabled, warn_only=warn_only)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
+def loss_and_grads(cfg: ModelConfig, params, batch, *,
+                   remat: str | None = "full", use_flash: bool = False,
+                   aux_weight: float = 0.01):
+    """(loss, {parameter name: gradient}) of ``loss_fn`` on ``batch``, as
+    ``jax.value_and_grad`` gives them (an unused parameter's gradient is
+    zero).  The parameters require grad only inside."""
+    names, plist = zip(*params.named_parameters())
+    params.requires_grad_(True)
+    try:
+        loss = loss_fn(
+            cfg, params, batch["tokens"], batch["labels"],
+            batch.get("frontend_embeds"), aux_weight=aux_weight,
+            use_flash=use_flash, remat=remat,
+        )
+        grads = torch.autograd.grad(loss, plist, allow_unused=True,
+                                    materialize_grads=True)
+    finally:
+        params.requires_grad_(False)
+    return loss, dict(zip(names, grads))
+
+
+def make_train_step(
+    cfg: ModelConfig,
+    opt_cfg: AdamWConfig,
+    *,
+    remat: str | None = "full",
+    grad_comp: GradCompressionConfig | None = None,
+    use_flash: bool = False,
+    aux_weight: float = 0.01,
+):
+    """(params, opt_state, batch) -> (params, opt_state, metrics).
+
+    ``params`` is a ``TransformerLM``; ``batch`` holds ``"tokens"`` and
+    ``"labels"`` (B, S) (numpy or tensors) and optionally
+    ``"frontend_embeds"``.  When grad compression is on, opt_state
+    additionally carries the ``"ef"`` error-feedback dict (init with
+    ``optim.compression.init_error_feedback``).  Metrics are 0-d tensors:
+    ``"loss"``, ``"grad_norm"``, ``"lr"``."""
+
+    def train_step(params, opt_state, batch):
+        with deterministic_algorithms():
+            loss, grads = loss_and_grads(cfg, params, batch, remat=remat,
+                                         use_flash=use_flash,
+                                         aux_weight=aux_weight)
+            if grad_comp is not None and grad_comp.enabled:
+                grads, new_ef = compress_gradients(
+                    grad_comp, grads, opt_state["ef"]
+                )
+            params, new_opt, metrics = adamw_update(
+                opt_cfg, params, grads, opt_state
+            )
+        if grad_comp is not None and grad_comp.enabled:
+            new_opt["ef"] = new_ef
+        metrics["loss"] = loss.detach()
+        return params, new_opt, metrics
+
+    return train_step
+
+
+def make_wire_train_step(
+    cfg: ModelConfig,
+    opt_cfg: AdamWConfig,
+    mesh,
+    pspecs,
+    *,
+    bits: int = 4,
+    remat: str | None = "full",
+    aux_weight: float = 0.01,
+    rules: dict | None = None,
+):
+    """The reference's train step with the data-parallel gradient sum
+    done by hand under ``shard_map`` (§7's quantizer on the wire).  It
+    needs a device mesh, which the port does not have yet."""
+    raise NotImplementedError(
+        "make_wire_train_step needs a device mesh, which is not ported to "
+        "repro_torch yet (ROADMAP Queue 1 item 12.3)"
+    )
 
 
 def make_prefill_step(cfg: ModelConfig, *, use_flash: bool = False):

@@ -1,12 +1,20 @@
-"""Shared model primitives: RMS norm, RoPE, the SwiGLU MLP — the port of
-``repro.models.layers`` (the losses wait for the training slice, ROADMAP
-Queue 1 item 12)."""
+"""Shared model primitives: RMS norm, RoPE, the SwiGLU MLP, linear init
+and the losses — the port of ``repro.models.layers``."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-__all__ = ["apply_rope", "rms_norm", "rope_freqs", "swiglu"]
+__all__ = [
+    "apply_rope",
+    "chunked_ce_loss",
+    "cross_entropy_loss",
+    "init_linear",
+    "rms_norm",
+    "rope_freqs",
+    "swiglu",
+]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -51,3 +59,62 @@ def swiglu(x, w1, w3, w2, b1=None, b3=None, b2=None):
     if b2 is not None:
         out = out + b2
     return out
+
+
+def init_linear(gen: torch.Generator, d_in: int, d_out: int, dtype,
+                scale: float | None = None) -> torch.Tensor:
+    """A (d_in, d_out) weight: float32 normal * ``scale`` (d_in**-0.5 by
+    default) drawn from ``gen`` on its device, cast to ``dtype`` (the
+    reference's scale, not its bits)."""
+    scale = scale if scale is not None else d_in**-0.5
+    w = torch.randn((d_in, d_out), generator=gen, device=gen.device)
+    return (w * scale).to(dtype)
+
+
+def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return torch.take_along_dim(logits, labels.long()[..., None], -1)[..., 0]
+
+
+def cross_entropy_loss(
+    logits: torch.Tensor, labels: torch.Tensor,
+    mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Stable softmax cross entropy in float32; logits (B, S, V), labels
+    (B, S); the mean over tokens, or over ``mask``'s weight (at least
+    1)."""
+    logits = logits.float()
+    nll = torch.logsumexp(logits, dim=-1) - _gold(logits, labels)
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+def _chunk_nll_sum(xc, head, lc):
+    logits = (xc @ head).float()
+    return (torch.logsumexp(logits, dim=-1) - _gold(logits, lc)).sum()
+
+
+def chunked_ce_loss(
+    x: torch.Tensor,  # final hidden states (B, S, d)
+    head: torch.Tensor,  # (d, V)
+    labels: torch.Tensor,  # (B, S)
+    chunk: int = 512,
+) -> torch.Tensor:
+    """Cross entropy WITHOUT materializing the full (B, S, V) logits.
+
+    Walks the sequence in chunks; each chunk's sum is checkpointed, so the
+    backward pass recomputes that chunk's logits instead of keeping them:
+    peak logits memory drops from O(S V) to O(chunk V).  The chunk sums
+    add in sequence order into a float32 total, divided by B S, as the
+    reference's scan adds them."""
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    assert s % chunk == 0, (s, chunk)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, s, chunk):
+        total = total + checkpoint(
+            _chunk_nll_sum, x[:, lo:lo + chunk], head,
+            labels[:, lo:lo + chunk], use_reentrant=False,
+            preserve_rng_state=False,
+        )
+    return total / (b * s)

@@ -24,16 +24,33 @@ config.  A layer's cache is ``{"k", "v"}`` (GQA), ``{"c_kv", "k_rope"}``
 "ssm"}`` (Hymba).  ``use_flash=True`` sends the prompt through the
 hand-written kernels: flash attention (K7) for GQA and Hymba's attention,
 the WKV6 recurrence (K8) for RWKV6; MLA never takes K7, as in the
-reference.  ``remat``, ``loss_fn`` and ``mtp_loss`` raise
-``NotImplementedError`` naming their ROADMAP item.
+reference.  The kernels have no backward pass, so training keeps
+``use_flash=False``, as the reference's train step does; ``prefill`` and
+``decode_step`` run under ``torch.no_grad()``, so serving keeps no
+autograd graph whatever the parameters' ``requires_grad``.
+
+Training: ``loss_fn`` (dense cross entropy, or ``chunked_ce_loss`` from
+2,048 tokens in chunks of 512, plus ``aux_weight`` times the MoE aux
+loss) and ``mtp_loss`` (DeepSeek-V3's depth-1 multi-token prediction).
+``remat`` checkpoints each block (``torch.utils.checkpoint``,
+non-reentrant): ``"full"`` keeps only the block's input, ``"dots"`` also
+keeps its matmul outputs and recomputes the rest, as the reference's
+``jax.checkpoint`` policies do.
 """
 from __future__ import annotations
 
+import functools
+import re
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
@@ -46,7 +63,7 @@ from .attention import (
     init_attention,
     init_kv_cache,
 )
-from .layers import rms_norm, swiglu
+from .layers import chunked_ce_loss, cross_entropy_loss, rms_norm, swiglu
 from .mla import MLA, init_mla, init_mla_cache, mla_decode, mla_prefill, mla_train
 from .moe import MoE, init_moe, moe_apply
 from .rwkv6 import (
@@ -78,15 +95,10 @@ __all__ = [
     "loss_fn",
     "mtp_loss",
     "prefill",
+    "reference_path",
 ]
 
 _ATTN_TYPES = ("gqa", "mla", "rwkv6", "hymba")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP Queue 1 item 12)"
-    )
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -370,9 +382,63 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None, :].expand(b, s)
 
 
+_STACKED = re.compile(r"^(layers_dense|layers)\.(\d+)\.(.+)$")
+
+
+def reference_path(name: str) -> tuple[str, int | None]:
+    """Where a parameter of the port (``named_parameters`` name) lives in
+    the reference's pytree: its ``/``-joined path and, for a block of
+    ``layers`` / ``layers_dense`` (stacked on a leading L axis there), its
+    index in the stack (``None`` otherwise).  ``"layers.3.attn.wq"`` ->
+    ``("layers/attn/wq", 3)``; ``"mtp.block.norm1"`` ->
+    ``("mtp/block/norm1", None)``."""
+    m = _STACKED.match(name)
+    if m:
+        return f"{m[1]}/{m[3].replace('.', '/')}", int(m[2])
+    return name.replace(".", "/"), None
+
+
 def _all_layers(params: TransformerLM):
     """The blocks in order: the leading dense ones, then the main ones."""
     return (*params.layers_dense, *params.layers)
+
+
+# the matmuls the "dots" policy keeps (``x @ w`` and einsum reach these)
+_DOT_OPS = frozenset({
+    torch.ops.aten.mm.default,
+    torch.ops.aten.bmm.default,
+    torch.ops.aten.addmm.default,
+    torch.ops.aten.baddbmm.default,
+})
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    if op in _DOT_OPS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_REMAT_POLICIES = {
+    # save nothing: recompute the whole block in backward (min memory)
+    "full": None,
+    # save matmul outputs, recompute elementwise ops (jax's dots_saveable)
+    "dots": _save_dots,
+}
+
+
+def _maybe_remat(fn, remat: str | None):
+    """``fn`` run under a non-reentrant ``torch.utils.checkpoint`` with
+    ``remat``'s policy (``None``: ``fn`` itself).  The blocks draw no
+    random numbers, so no RNG state is kept for the recompute."""
+    if remat is None:
+        return fn
+    policy = _REMAT_POLICIES[remat]
+    kw: dict[str, Any] = {"use_reentrant": False,
+                          "preserve_rng_state": False}
+    if policy is not None:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, policy)
+    return functools.partial(checkpoint, fn, **kw)
 
 
 def hidden_states(
@@ -384,16 +450,16 @@ def hidden_states(
     remat: str | None = None,
 ):
     """tokens (B,S) -> (final-normed hidden (B,S,d), moe aux loss: the sum
-    over the MoE layers, float32; 0 without MoE)."""
+    over the MoE layers, float32; 0 without MoE).  ``remat`` ("full",
+    "dots" or None) checkpoints each block."""
     _check_supported(cfg)
-    if remat is not None:
-        raise _not_ported(f"remat={remat!r} (activation checkpointing)")
+    block = _maybe_remat(_block_train, remat)
     x = embed_inputs(cfg, params, tokens, frontend_embeds)
     b, s = x.shape[:2]
     positions = _positions(b, s, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in _all_layers(params):
-        x, a = _block_train(cfg, layer, x, positions, use_flash)
+        x, a = block(cfg, layer, x, positions, use_flash)
         if a is not None:
             aux = aux + a
     return rms_norm(x, params.final_norm, cfg.rms_eps), aux
@@ -418,17 +484,65 @@ def forward(
     return logits, aux
 
 
-def loss_fn(cfg: ModelConfig, params, tokens, labels, *args, **kwargs):
-    raise _not_ported("loss_fn (the LM training slice)")
+# below this sequence length the full logits tensor is cheap enough to
+# materialize; above it the loss walks sequence chunks (checkpointed)
+_CE_CHUNK_THRESHOLD = 2048
+_CE_CHUNK = 512
 
 
-def mtp_loss(cfg: ModelConfig, params, tokens, labels_next, labels_next2):
-    raise _not_ported("mtp_loss (the LM training slice)")
+def loss_fn(
+    cfg: ModelConfig,
+    params: TransformerLM,
+    tokens,
+    labels,
+    frontend_embeds=None,
+    aux_weight: float = 0.01,
+    use_flash: bool = False,
+    remat: str | None = None,
+):
+    """Mean next-token cross entropy (float32, a 0-d tensor), plus
+    ``aux_weight`` times the MoE aux loss for an MoE config.  From 2,048
+    tokens (a multiple of 512) the loss never holds the whole (B, S, V)
+    logits (``chunked_ce_loss``)."""
+    s = _tokens(params, tokens).shape[1]
+    x, aux = hidden_states(cfg, params, tokens, frontend_embeds, use_flash,
+                           remat)
+    head = lm_head(cfg, params)
+    labels = _tokens(params, labels)
+    if s >= _CE_CHUNK_THRESHOLD and s % _CE_CHUNK == 0:
+        loss = chunked_ce_loss(x, head, labels, _CE_CHUNK)
+    else:
+        loss = cross_entropy_loss(x @ head, labels)
+    if cfg.mlp_type == "moe":
+        loss = loss + aux_weight * aux
+    return loss
+
+
+def mtp_loss(cfg: ModelConfig, params: TransformerLM, tokens, labels_next,
+             labels_next2):
+    """Main next-token loss + depth-1 MTP loss sharing the embedding and
+    the head: the MTP block reads the token's embedding beside the next
+    token's (teacher forcing) through ``mtp.proj``."""
+    logits, aux = forward(cfg, params, tokens)
+    labels_next = _tokens(params, labels_next)
+    main = cross_entropy_loss(logits, labels_next)
+    p = params.mtp
+    tok = _tokens(params, tokens)
+    b, s = tok.shape
+    h_last = F.embedding(labels_next, params.embed)  # teacher forcing
+    x = torch.cat([F.embedding(tok, params.embed), h_last], dim=-1)
+    x = x @ p.proj
+    x, _ = _block_train(cfg, p.block, x, _positions(b, s, x.device), False)
+    x = rms_norm(x, p.norm, cfg.rms_eps)
+    logits2 = x @ lm_head(cfg, params)
+    mtp = cross_entropy_loss(logits2, _tokens(params, labels_next2))
+    return main + 0.3 * mtp + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------
 # prefill: full-prompt forward that also builds the decode cache
 # ---------------------------------------------------------------------------
+@torch.no_grad()
 def prefill(
     cfg: ModelConfig,
     params: TransformerLM,
@@ -499,6 +613,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     return cache
 
 
+@torch.no_grad()
 def decode_step(cfg: ModelConfig, params: TransformerLM, tokens, cache):
     """tokens (B,) current token ids -> (logits (B,V), new cache).  Key /
     value and latent buffers are written in place and shared with the

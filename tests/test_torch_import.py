@@ -90,6 +90,15 @@ def test_port_modules_exist():
         "repro_torch.sched.executor",
         "repro_torch.sched.driver",
         "repro_torch.sched.scheduler",
+        "repro_torch.optim",
+        "repro_torch.optim.adamw",
+        "repro_torch.optim.compression",
+        "repro_torch.data.tokens",
+        "repro_torch.core.tensor_codec",
+        "repro_torch.checkpoint",
+        "repro_torch.checkpoint.manager",
+        "repro_torch.runtime.fault_tolerance",
+        "repro_torch.launch.train",
     ):
         assert name in mods
 
@@ -154,18 +163,6 @@ REFERENCE = os.path.join(SRC, "repro")
 #: added), and why.  Each entry must still be observed, so a repaired
 #: difference leaves this table with it.
 KNOWN_DIFFERENCES = {
-    # not ported yet: LM training and its fault tolerance (ROADMAP Queue 1
-    # item 12)
-    ("launch/steps.py", "make_train_step"): "item 12",
-    ("launch/steps.py", "make_wire_train_step"): "item 12",
-    ("models/layers.py", "init_linear"): "item 12",
-    ("models/layers.py", "cross_entropy_loss"): "item 12",
-    ("models/layers.py", "chunked_ce_loss"): "item 12",
-    ("models/model.py", "loss_fn"): "item 12",
-    ("runtime/__init__.py", "Preemption"): "item 12",
-    ("runtime/__init__.py", "PreemptionSchedule"): "item 12",
-    ("runtime/__init__.py", "StragglerMonitor"): "item 12",
-    ("runtime/__init__.py", "TrainLoop"): "item 12",
     # a JAX PRNG key or dtype becomes a torch seed / Generator and the
     # parameter dict being filled
     ("forest/cart.py", "grow_tree"): "PRNG key -> per-node scores",
@@ -176,6 +173,7 @@ KNOWN_DIFFERENCES = {
     ("models/ssm.py", "init_ssm"): "PRNG key -> Generator",
     ("models/mla.py", "init_mla"): "PRNG key -> Generator",
     ("models/moe.py", "init_moe"): "PRNG key -> Generator",
+    ("models/layers.py", "init_linear"): "PRNG key -> Generator",
     # Pallas tile sizes: the Hopper kernel picks its own tiling
     ("kernels/flash_attention/flash_attention.py", "flash_attention_bh"):
         "TPU tile sizes",
@@ -190,6 +188,7 @@ KNOWN_DIFFERENCES = {
     ("launch/serve.py", "main"): "argv added",
     ("launch/serve_forest.py", "main"): "argv added",
     ("launch/serve_store.py", "main"): "argv added",
+    ("launch/train.py", "main"): "argv added",
 }
 
 

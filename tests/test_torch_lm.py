@@ -35,11 +35,8 @@ from repro_torch.models import (
     forward,
     init_cache,
     init_params,
-    loss_fn,
-    mtp_loss,
     prefill,
 )
-from repro_torch.models.model import hidden_states
 
 DENSE_GQA = ["qwen3-4b", "qwen2.5-3b", "starcoder2-3b", "deepseek-7b",
              "musicgen-large", "internvl2-76b"]
@@ -246,17 +243,6 @@ def test_decode_matches_forward(pairs, name):
         got.append(lg)
     np.testing.assert_allclose(torch.stack(got, 1).numpy(), full.numpy(),
                                rtol=2e-3, atol=2e-3)
-
-
-def test_training_entries_raise(pairs):
-    p = pairs("qwen3-4b")
-    tokens = torch.from_numpy(p.tokens)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hidden_states(p.cfg, p.lm, tokens, remat="full")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loss_fn(p.cfg, p.lm, tokens, tokens)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mtp_loss(p.cfg, p.lm, tokens, tokens, tokens)
 
 
 def test_init_params_scales_and_seed():

@@ -38,8 +38,6 @@ from repro_torch.models import (
     forward,
     init_cache,
     init_params,
-    loss_fn,
-    mtp_loss,
     prefill,
 )
 from repro_torch.models import moe as port_moe
@@ -249,17 +247,6 @@ def test_deepseek_v3_long_prompt_takes_mla_chunked_path(pairs):
                          max_len=4096)
     _close(got, want)
     _close_cache(cache, ref_cache, p.cfg)
-
-
-def test_training_entries_still_raise(pairs):
-    p = pairs(DSV3)
-    tokens = torch.from_numpy(p.tokens)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward(p.cfg, p.lm, tokens, remat="dots")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loss_fn(p.cfg, p.lm, tokens, tokens)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mtp_loss(p.cfg, p.lm, tokens, tokens, tokens)
 
 
 # ---------------------------------------------------------------------------
