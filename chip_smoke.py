@@ -51,8 +51,10 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    counts are read around this phase and must be positive; then each is
    held against its plain version at the shapes the phase gave it;
 6. one seed, one forest: phase 5's Liberty regression forest trained
-   again on the card from its seed has equal heap arrays and compresses
-   to the same bytes (the regression histograms add in a fixed order);
+   again on the card from its seed has equal heap arrays (the
+   regression histograms add in a fixed order; equal heaps compress to
+   equal bytes, which phase 5 shows card against CPU, so the second
+   compression, ~46 s, is cut to keep the script near 900 s);
    then training on the card against training on the CPU, same seed, a
    small forest at the Liberty width: classification trees equal;
    regression trees equal up to tie flips whose float64 gains differ by
@@ -71,7 +73,8 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    of 64, 100 and 256, ragged S (200, 2,049) and T (1,500), S != T both
    ways (with a window, rows that keep no key), and grouped KV heads
    (n_rep 2 and 4; n_rep 5 with a window of 2,048 at S = 4,096 and n_rep
-   3 at S = 2,048, phase 13's launches); then
+   3 at S = 2,048, phase 13's launches; n_rep 6 at 72 / 12 heads, phase
+   15's padded Hymba); then
    qwen3-4b at full width and depth (36 layers, d_model 2,560, bf16,
    random weights from seed 0) — ``make_prefill_step(cfg,
    use_flash=True)`` over 4 seeded prompts of 2,048 tokens with
@@ -255,7 +258,33 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    against raw, host seconds; (e) ``python -m repro_torch.launch.train
    --arch qwen3-4b --smoke --steps 20 --ckpt-codec lossless`` in the
    background; one ``{"train": ...}`` line with the card's name and
-   power limit.
+   power limit;
+15. the mesh (``repro_torch.models.sharding``, ``launch/mesh.py``,
+   ``shardings.py``): 4 ranks spawned on the one card (the kernels built
+   before, in this process) talk through gloo carrying CUDA tensors (NCCL
+   refuses two ranks on one card; the backend is chosen and printed, and
+   each collective's transport printed: direct, or an int16 sum carried
+   as int32). (a) granite-moe-3b-a800m uncut, bf16, seed 0, phase 13's 4 x
+   2,048 prompts prefilled through K7 on every rank and its MoE layers
+   through ``_moe_apply_ep`` on meshes (1, 4) and (2, 2): K7's count per
+   prefill equals the 32 layers on every rank; every layer's dropped
+   (token, slot) set, over the ranks, equals a one-process replay of the
+   per-shard routing (the dense ``_route`` on each data shard's tokens);
+   the (1, 4) logits against a single-process dense prefill within 1.5x
+   bf16's floor (the dense bf16 prefill's distance from a float32 one).
+   (b) hymba-1.5b at full width cut to 2 layers under (1, 4): its 25 / 5
+   heads padded to 36 / 6, K7 launched at 72 query heads over 12 KV
+   heads; the logits within K7's bf16 tolerance of the unpadded
+   single-process prefill. (c) ``make_wire_train_step`` on (4, 1),
+   qwen3-4b at full width cut to 2 layers, 4-bit codes, 1 x 1,024 tokens
+   a rank, 3 steps: the replicated leaves bit-equal across ranks, the
+   losses within 2 float32 ulps of a one-process replay with the same
+   Generator draws and every final shard bit-equal to it; the wire bytes
+   a step (int8 codes against bf16 gradients). (d) qwen3-4b's smoke
+   state saved, then ``load_checkpoint(shardings=...)`` onto (4, 1):
+   every local shard bit-equal to its slice of the saved leaf. One
+   ``{"mesh": ...}`` line: each rank's peak memory, K7's launches per
+   rank, the phase's seconds.
 
 ``python3 chip_smoke.py --forest-times`` runs only K3 and K4 at the two
 Liberty shapes and the large one (the same command times a parent tree's
@@ -270,7 +299,7 @@ single-forest batch, with each call's device time from ``torch.profiler``.
 ``--lifecycle`` runs phase 11 alone, over phase 10's 1,000-user fleet
 built for it; ``--online`` runs phase 12 alone, likewise; ``--families``
 runs K7's parity cases and phase 13 alone; ``--train`` runs phase 14
-alone.
+alone; ``--mesh`` runs K7's parity cases and phase 15 alone.
 
 Votes must be equal; regression sums are held at rtol = atol = 1e-5 (the
 reference's own serving tolerance); on the card K1-K4 equal their plain
@@ -480,6 +509,12 @@ FLASH_PARITY_CASES = [
      5),
     ("bf16-granite-nrep3", 96, 2048, 2048, 64, torch.bfloat16, None, 3),
     ("f32-granite-nrep3", 96, 2048, 2048, 64, torch.float32, None, 3),
+    # phase 15's: hymba-1.5b's heads padded for a 4-way model axis, 2 x 36
+    # query heads over 6 KV heads
+    ("bf16-hymba-pad-nrep6-window2048", 72, 4096, 4096, 64, torch.bfloat16,
+     2048, 6),
+    ("f32-hymba-pad-nrep6-window2048", 72, 4096, 4096, 64, torch.float32,
+     2048, 6),
 ]
 
 # Fleet serving (phase 10): the subscriber scenario — one ForestStore per
@@ -1166,8 +1201,8 @@ def compress_on_card_and_cpu(forest, dev, what):
 
 def phase_training(dev):
     """The paper's pipeline on the card for each task (module docstring,
-    phase 5).  Returns {task: (model, x)}, the K3 / K4 launch counts of
-    this phase and {task: compressed bytes}."""
+    phase 5).  Returns {task: (model, x)} and the K3 / K4 launch counts
+    of this phase."""
     from repro_torch.core import decompress_forest, predict_compressed
     from repro_torch.forest import (
         per_tree_predictions,
@@ -1178,7 +1213,7 @@ def phase_training(dev):
     from repro_torch.kernels.tree_predict import ops
     from repro_torch.kernels.tree_predict import tree_predict as tp
 
-    models, blobs = {}, {}
+    models = {}
     tp.reset_launches()
     for task in LIBERTY:
         spec, x, y, binner = liberty(task)
@@ -1229,12 +1264,11 @@ def phase_training(dev):
             row["lossy"] = lossy_knobs(forest, comp, xb, k4, dev)
         log(json.dumps(row))
         models[task] = (model, x)
-        blobs[task] = comp.to_bytes()
     launches = dict(tp.LAUNCHES)
     log(f"training-path launches: {json.dumps(launches)}")
     for name in (K3["name"], K4["name"]):
         assert launches[name] > 0, f"kernel {name} was not launched on the training path"
-    return models, launches, blobs
+    return models, launches
 
 
 def lossy_knobs(forest, comp, xb, per_tree, dev):
@@ -1331,12 +1365,11 @@ def phase_train_card_vs_cpu(dev):
         log(json.dumps(row))
 
 
-def phase_train_again(dev, model, blob):
+def phase_train_again(dev, model):
     """One seed, one forest (module docstring, phase 6): the Liberty
     regression forest of phase 5 trained again on the card from its seed
-    has equal heap arrays and compresses to the same bytes."""
-    from repro_torch.core import compress_forest
-    from repro_torch.forest import to_compact_forest, train_forest
+    has equal heap arrays."""
+    from repro_torch.forest import train_forest
 
     spec, x, y, binner = liberty("regression")
     torch.cuda.synchronize()
@@ -1350,13 +1383,8 @@ def phase_train_again(dev, model, blob):
         assert np.array_equal(getattr(again, f), getattr(model, f)), (
             f"regression {f} differs between two trainings from one seed"
         )
-    t0 = time.perf_counter()
-    comp = compress_forest(to_compact_forest(again), device=dev)
-    compress_s = time.perf_counter() - t0
-    assert comp.to_bytes() == blob, "compressed bytes differ between trainings"
     log(json.dumps({"train_again": "regression", "trees": TRAIN_TREES,
-                    "heaps_equal": True, "bytes_equal": len(blob),
-                    "train_s": train_s, "card_compress_s": compress_s}))
+                    "heaps_equal": True, "train_s": train_s}))
 
 
 def forest_args(model, x, dev):
@@ -1809,7 +1837,7 @@ def phase_flash_parity(dev, errs):
     of 64, 100 and 256, ragged S (200, 2,049) and T (1,500), S != T both
     ways (with a window, rows that keep no key), and grouped KV heads
     (n_rep 2 and 4; phase 13's n_rep 5 with a window of 2,048 and n_rep
-    3) through ``_flash_attention_grouped``."""
+    3; phase 15's n_rep 6) through ``_flash_attention_grouped``."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
 
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -5329,6 +5357,635 @@ def train_main() -> None:
     print(json.dumps({"ok": True}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the mesh
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 4
+# (a) granite-moe-3b-a800m uncut, phase 13's prompts, on two meshes
+MESH_MOE = {"arch": "granite-moe-3b-a800m", "meshes": ((1, 4), (2, 2)),
+            "batch": 4, "prompt": 2048, "max_len": 2080}
+# (b) hymba-1.5b at full width cut to 2 layers, phase 13's prompts (the
+# ring buffer needs window | S): 25 / 5 heads pad to 36 / 6 on (1, 4)
+MESH_HYMBA = {"arch": "hymba-1.5b", "layers": 2, "mesh": (1, 4),
+              "batch": 2, "prompt": 4096, "max_len": 4128, "pads": (6, 6)}
+# (c) the wire train step: qwen3-4b at full width cut to 2 layers (phase
+# 14's (b) cut), 4-bit codes, 1 x 1,024 tokens a rank, 3 steps
+MESH_WIRE = {"arch": "qwen3-4b", "layers": 2, "mesh": (4, 1), "bits": 4,
+             "seq": 1024, "steps": 3,
+             "opt": {"lr": 3e-4, "warmup_steps": 1, "total_steps": 3}}
+MESH_CKPT_ARCH = "qwen3-4b"  # (d): its smoke config
+MESH_TIMEOUT_S = 600  # a rank stuck in a collective fails the phase
+
+
+def mesh_backend(ranks: int, cards: int) -> str:
+    """NCCL refuses two ranks on one card ("duplicate GPU"): ranks that
+    share a card talk through gloo carrying CUDA tensors; one card a rank
+    takes NCCL."""
+    return "gloo" if ranks > cards else "nccl"
+
+
+def mesh_prompt(cfg, batch, prompt, dev):
+    """Phase 13's seeded prompts."""
+    host = torch.Generator().manual_seed(1)
+    return torch.randint(0, cfg.vocab_size, (batch, prompt),
+                         generator=host).to(dev)
+
+
+def sha(t: torch.Tensor) -> str:
+    import hashlib
+
+    t = t.detach().contiguous()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+
+def ep_spy(records, xs):
+    """``moe._moe_apply_ep`` wrapped: after each call, the (token, slot)
+    ids this rank dropped (``_ep_route`` on its shard, the function the
+    dispatch ran) and a hash of the layer's input; ``xs`` keeps the
+    inputs when it is a list.  Returns the original, to put back."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.sharding import axis_index
+
+    orig = moe_mod._moe_apply_ep
+
+    def spy(p, cfg, x, mesh):
+        out = orig(p, cfg, x, mesh)
+        b, s, d = x.shape
+        e_pad, e_loc, batch_ax, nb, cap = moe_mod._ep_layout(cfg, b, s, mesh)
+        di = axis_index(batch_ax, mesh) if batch_ax else 0
+        lo = axis_index("model", mesh) * e_loc
+        bl = b // nb
+        xf = x[di * bl:(di + 1) * bl].reshape(-1, d)
+        router = F.pad(p.router, (0, e_pad - cfg.n_experts))
+        _, _, mine, keep, _ = moe_mod._ep_route(cfg, xf, router, e_pad, lo,
+                                                e_loc, cap)
+        drop = torch.nonzero(mine & ~keep)[:, 0] + di * bl * s * cfg.top_k
+        records.append({"dropped": drop.cpu().numpy(), "x": sha(x),
+                        "cap": cap})
+        if xs is not None:
+            xs.append(x.clone())
+        return out
+
+    moe_mod._moe_apply_ep = spy
+    return orig
+
+
+def mesh_granite(dev, rank, root, params, tokens, shape) -> dict:
+    """(a) on one mesh: a warm-up prefill (its dropped sets recorded),
+    then a timed one, K7's count set to 0 before each and read after;
+    rank 0 replays each MoE layer's routing on the captured inputs with
+    the dense ``_route``, per data shard, and holds the ranks' dropped
+    sets, together, equal to it."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.sharding import logical_sharding, single_pod_rules
+
+    cfg = params.cfg
+    tag = f"{shape[0]}x{shape[1]}"
+    mesh = make_host_mesh(*shape, device=dev)
+    step = make_prefill_step(cfg, use_flash=True)
+    records, xs = [], [] if rank == 0 else None
+    orig = ep_spy(records, xs)
+    row = {"mesh": list(shape)}
+    try:
+        with logical_sharding(mesh, single_pod_rules()):
+            fa.reset_launches()
+            t0 = time.perf_counter()
+            logits, _ = step(params, tokens, max_len=MESH_MOE["max_len"])
+            torch.cuda.synchronize()
+            row["warm_prefill_s"] = time.perf_counter() - t0
+            row["k7_launches_warm"] = fa.LAUNCHES["flash"]
+    finally:
+        moe_mod._moe_apply_ep = orig
+    with logical_sharding(mesh, single_pod_rules()):
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        logits, _ = step(params, tokens, max_len=MESH_MOE["max_len"])
+        torch.cuda.synchronize()
+        row["prefill_s"] = time.perf_counter() - t0
+        row["k7_launches"] = fa.LAUNCHES["flash"]
+    assert row["k7_launches"] == row["k7_launches_warm"] == cfg.n_layers, row
+    assert logits.shape == (tokens.shape[0], cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all()), "EP prefill not finite"
+    assert len(records) == cfg.n_layers
+    np.savez(os.path.join(root, f"drop_{tag}_{rank}.npz"),
+             *[r["dropped"] for r in records])
+    with open(os.path.join(root, f"xhash_{tag}_{rank}.json"), "w") as fh:
+        json.dump([r["x"] for r in records], fh)
+    row["logits"] = sha(logits)
+    if rank == 0:
+        torch.save(logits.cpu(), os.path.join(root, f"granite_{tag}.pt"))
+    dist.barrier()
+    if rank != 0:
+        return row
+    # the replay: one process, the dense routing per data shard
+    drops = [np.load(os.path.join(root, f"drop_{tag}_{r}.npz"))
+             for r in range(MESH_RANKS)]
+    hashes = [json.load(open(os.path.join(root, f"xhash_{tag}_{r}.json")))
+              for r in range(MESH_RANKS)]
+    assert all(h == hashes[0] for h in hashes), "ranks' MoE inputs differ"
+    b, s = tokens.shape
+    nb = shape[0]
+    bl = b // nb
+    n_dropped = []
+    for i, x in enumerate(xs):
+        got = np.sort(np.concatenate([d[f"arr_{i}"] for d in drops]))
+        want = []
+        for di in range(nb):
+            xf = x[di * bl:(di + 1) * bl].reshape(bl * s, -1)
+            _, _, keep, _, _, cap = moe_mod._route(params.layers[i].mlp, cfg,
+                                                   xf)
+            assert cap == records[i]["cap"], (cap, records[i]["cap"])
+            want.append(torch.nonzero(~keep)[:, 0].cpu().numpy()
+                        + di * bl * s * cfg.top_k)
+        want = np.sort(np.concatenate(want))
+        assert np.array_equal(got, want), (tag, i, got.size, want.size)
+        n_dropped.append(int(got.size))
+    row["dropped_per_layer"] = n_dropped
+    row["capacity"] = records[0]["cap"]
+    row["dropped_equal_replay"] = True
+    return row
+
+
+def mesh_hymba(dev, rank, root) -> dict:
+    """(b): Hymba's 2-layer prefill under (1, 4): its heads padded to 36 /
+    6, K7 launched at 36 query heads over 6 KV heads (a spy records each
+    launch's shape)."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import attention, init_params
+    from repro_torch.models.sharding import logical_sharding, single_pod_rules
+
+    h = MESH_HYMBA
+    cfg = family_config(h["arch"], n_layers=h["layers"])
+    params = init_params(cfg, seed=0, device=dev)
+    tokens = mesh_prompt(cfg, h["batch"], h["prompt"], dev)
+    mesh = make_host_mesh(*h["mesh"], device=dev)
+    seen = []
+    orig = fa._launch_flash
+
+    def spy(q, k, v, causal=True, window=None, n_rep=1):
+        seen.append([q.shape[0], k.shape[0], n_rep, q.shape[1], window])
+        return orig(q, k, v, causal, window, n_rep)
+
+    fa._launch_flash = spy
+    try:
+        with logical_sharding(mesh, single_pod_rules()):
+            pads = attention._head_padding(cfg)
+            fa.reset_launches()
+            t0 = time.perf_counter()
+            logits, _ = make_prefill_step(cfg, use_flash=True)(
+                params, tokens, max_len=h["max_len"])
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            launches = fa.LAUNCHES["flash"]
+    finally:
+        fa._launch_flash = orig
+    assert tuple(pads) == h["pads"], pads
+    kv, rep = pads
+    want = [h["batch"] * kv * rep, h["batch"] * kv, rep, h["prompt"],
+            cfg.sliding_window]
+    assert launches == cfg.n_layers and all(sh_ == want for sh_ in seen), seen
+    assert bool(torch.isfinite(logits).all()), "padded prefill not finite"
+    if rank == 0:
+        torch.save(logits.cpu(), os.path.join(root, "hymba.pt"))
+    return {"pads": list(pads), "k7_launches": launches, "k7_launch": want,
+            "prefill_s": prefill_s, "logits": sha(logits)}
+
+
+def mesh_wire(dev, rank, root) -> dict:
+    """(c): the wire train step on (4, 1) from seed-0 weights (each rank
+    keeps its data shard of every leaf), 3 steps over this rank's row of
+    ``synth_batch``; each step's loss, grad norm and host s; the wire
+    bytes a step (int8 codes against bf16 gradients); a hash of every
+    final shard."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenDataConfig, synth_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.shardings import param_pspecs
+    from repro_torch.launch.steps import make_wire_train_step
+    from repro_torch.models import init_params
+    from repro_torch.models.sharding import single_pod_rules
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.optim.compression import _groups
+
+    w = MESH_WIRE
+    cfg = dataclasses.replace(get_config(w["arch"]), n_layers=w["layers"])
+    mesh = make_host_mesh(*w["mesh"], device=dev)
+    d_size = w["mesh"][0]
+    pspecs = param_pspecs(cfg, mesh)
+    dims = {n: next((i for i, a in enumerate(sp) if a == "data"), None)
+            for n, sp in pspecs.items()}
+    full = init_params(cfg, seed=0, device=dev)
+    shards = {}
+    for n, p in full.named_parameters():
+        d = dims[n]
+        k = p.shape[d] // d_size if d is not None else None
+        shards[n] = (p.detach().clone() if d is None
+                     else p.detach().narrow(d, rank * k, k).clone())
+    numel = sum(p.numel() for p in full.parameters())
+    groups = len(_groups(dict(full.named_parameters())))
+    del full
+    torch.cuda.empty_cache()
+    opt = init_opt_state(shards)
+    step = make_wire_train_step(cfg, AdamWConfig(**w["opt"]), mesh, pspecs,
+                                bits=w["bits"], remat=None,
+                                rules=single_pod_rules())
+    data = TokenDataConfig(cfg.vocab_size, w["seq"], d_size, seed=0)
+    rows = []
+    for i in range(w["steps"]):
+        batch = {k: torch.from_numpy(v[rank:rank + 1]).to(dev)
+                 for k, v in synth_batch(data, i).items()}
+        t0 = time.perf_counter()
+        shards, opt, met = step(shards, opt, batch)
+        torch.cuda.synchronize()
+        rows.append({"loss": float(met["loss"]),
+                     "grad_norm": float(met["grad_norm"]),
+                     "s": time.perf_counter() - t0})
+    return {"steps": rows, "numel": numel,
+            "wire_bytes_per_step": {"int8_codes": numel + 4 * groups,
+                                    "bf16_gradients": 2 * numel},
+            "shards": {n: sha(t) for n, t in shards.items()},
+            "dims": {n: d for n, d in dims.items()}}
+
+
+def mesh_ckpt(dev, rank, root) -> dict:
+    """(d): qwen3-4b's smoke train state saved by rank 0, loaded by every
+    rank onto (4, 1) with ``shardings``: each leaf's local shard equal,
+    bit for bit, to its slice of the saved leaf; the shards tile it."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.shardings import (
+        opt_pspecs,
+        param_pspecs,
+        reference_pspecs,
+        to_named,
+    )
+    from repro_torch.launch.train import build_state
+    from repro_torch.models.sharding import PartitionSpec, axis_index, axis_size
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg = get_config(MESH_CKPT_ARCH).smoke()
+    mesh = make_host_mesh(4, 1, device=dev)
+    d = os.path.join(root, "ckpt")
+    if rank == 0:
+        save_checkpoint(d, 1, build_state(cfg, AdamWConfig(), 0, device=dev),
+                        device=dev)
+    dist.barrier()
+    pspecs = param_pspecs(cfg, mesh)
+    opt = opt_pspecs(cfg, mesh, pspecs)
+    shardings = to_named(mesh, {
+        "params": reference_pspecs(pspecs),
+        "opt": {"m": reference_pspecs(opt["m"]),
+                "v": reference_pspecs(opt["v"]), "step": PartitionSpec()}})
+    state, _ = load_checkpoint(d, shardings=shardings, device=dev)
+    saved = np.load(os.path.join(d, "step_00000001", "state.npz"))
+    flat, specs = flat_tree(state), flat_tree(shardings)
+    assert set(flat) == set(saved.files)
+    n_cut = 0
+    for k, t in flat.items():
+        want = torch.from_numpy(saved[k])
+        for dim, axis in enumerate(specs[k].spec):
+            if axis is not None:
+                n = want.shape[dim] // axis_size(axis, mesh)
+                want = want.narrow(dim, axis_index(axis, mesh) * n, n)
+                n_cut += 1
+        local = t.to_local().cpu()
+        assert local.shape == want.shape and torch.equal(local, want), k
+    return {"leaves": len(flat), "sharded_leaves": n_cut}
+
+
+def flat_tree(tree, prefix=""):
+    """{"/"-joined path: leaf} of nested dicts."""
+    if not isinstance(tree, dict):
+        return {prefix.rstrip("/"): tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(flat_tree(v, f"{prefix}{k}/"))
+    return out
+
+
+def mesh_rank(rank, root, device):
+    """One of the MESH_RANKS ranks of phase 15, all on ``device`` (the
+    parent's card)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.models import init_params
+    from repro_torch.models.sharding import TRANSPORTS
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    backend = mesh_backend(MESH_RANKS, torch.cuda.device_count())
+    dist.init_process_group(
+        backend, init_method=f"file://{os.path.join(root, 'rendezvous')}",
+        rank=rank, world_size=MESH_RANKS,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        out = {"rank": rank, "backend": backend}
+        clock = {}
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        cfg = family_config(MESH_MOE["arch"])
+        params = init_params(cfg, seed=0, device=dev)
+        tokens = mesh_prompt(cfg, MESH_MOE["batch"], MESH_MOE["prompt"], dev)
+        out["granite"] = [mesh_granite(dev, rank, root, params, tokens, sh_)
+                          for sh_ in MESH_MOE["meshes"]]
+        del params
+        torch.cuda.empty_cache()
+        clock["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["hymba"] = mesh_hymba(dev, rank, root)
+        torch.cuda.empty_cache()
+        clock["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["wire"] = mesh_wire(dev, rank, root)
+        torch.cuda.empty_cache()
+        clock["c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["ckpt"] = mesh_ckpt(dev, rank, root)
+        clock["d"] = time.perf_counter() - t0
+        out["part_s"] = clock
+        out["transports"] = dict(TRANSPORTS)
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+        with open(os.path.join(root, f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_granite_check(dev, root) -> dict:
+    """(a)'s (1, 4) logits against a single-process dense prefill on the
+    card (no mesh installed: ``_moe_apply_dense``), in bf16, within
+    FAMILY_BF16_OVER_FLOOR times the witness, the dense bf16 prefill's
+    distance from the float32 one on the same weights upcast."""
+    import dataclasses
+
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import TransformerLM, init_params
+
+    cfg = family_config(MESH_MOE["arch"])
+    params = init_params(cfg, seed=0, device=dev)
+    tokens = mesh_prompt(cfg, MESH_MOE["batch"], MESH_MOE["prompt"], dev)
+    dense, _ = make_prefill_step(cfg, use_flash=True)(
+        params, tokens, max_len=MESH_MOE["max_len"])
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = TransformerLM(cfg32, dev)
+    with torch.no_grad():
+        for p32, p in zip(params32.parameters(), params.parameters()):
+            p32.copy_(p.float())
+    del params
+    torch.cuda.empty_cache()
+    dense32, _ = make_prefill_step(cfg32, use_flash=True)(
+        params32, tokens, max_len=MESH_MOE["max_len"])
+    del params32
+    torch.cuda.empty_cache()
+    ep = torch.load(os.path.join(root, "granite_1x4.pt")).to(dev)
+    row = {"ep_vs_dense_rel_l2": rel_l2(ep, dense),
+           "dense_vs_f32_rel_l2": rel_l2(dense, dense32),
+           "ep_vs_f32_rel_l2": rel_l2(ep, dense32),
+           "bound": FAMILY_BF16_OVER_FLOOR}
+    assert row["ep_vs_dense_rel_l2"] <= (
+        FAMILY_BF16_OVER_FLOOR * row["dense_vs_f32_rel_l2"]), row
+    return row
+
+
+def mesh_hymba_check(dev, root) -> dict:
+    """(b)'s padded prefill against the unpadded one in one process (no
+    mesh): K7 at 25 / 5 heads there, 36 / 6 on the ranks; the logits
+    within K7's bf16 tolerance."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_params
+
+    h = MESH_HYMBA
+    cfg = family_config(h["arch"], n_layers=h["layers"])
+    params = init_params(cfg, seed=0, device=dev)
+    tokens = mesh_prompt(cfg, h["batch"], h["prompt"], dev)
+    plain, _ = make_prefill_step(cfg, use_flash=True)(params, tokens,
+                                                      max_len=h["max_len"])
+    padded = torch.load(os.path.join(root, "hymba.pt")).to(dev)
+    err = close_err(padded, plain, FLASH_TOL[torch.bfloat16])
+    return {"max_abs_err": err, "tol": FLASH_TOL[torch.bfloat16],
+            "bit_equal": bool(torch.equal(padded, plain)),
+            "rel_l2": rel_l2(padded, plain)}
+
+
+def mesh_wire_replay(dev, ranks) -> dict:
+    """(c) in one process: the 4 ranks' gradients from the whole model,
+    their 4-bit codes with each rank's Generator (seeded step * 4 + rank,
+    drawn in the step's order), the integer sum, the decode, the clip and
+    AdamW on whole tensors; each step's mean loss within 2 float32 ulps
+    of the ranks' (gloo's four-way sum has its own order) and every final
+    shard's hash equal to the rank's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenDataConfig, synth_batch
+    from repro_torch.launch.steps import deterministic_algorithms, loss_and_grads
+    from repro_torch.models import init_params
+    from repro_torch.optim import compression
+    from repro_torch.optim.adamw import (
+        AdamWConfig,
+        adamw_update,
+        clip_by_global_norm,
+        init_opt_state,
+    )
+
+    w = MESH_WIRE
+    d_size = w["mesh"][0]
+    cfg = dataclasses.replace(get_config(w["arch"]), n_layers=w["layers"])
+    opt_cfg = AdamWConfig(**w["opt"])
+    no_clip = dataclasses.replace(opt_cfg, clip_norm=float("inf"))
+    params = init_params(cfg, seed=0, device=dev)
+    opt = init_opt_state(params)
+    data = TokenDataConfig(cfg.vocab_size, w["seq"], d_size, seed=0)
+    qmax = (1 << (w["bits"] - 1)) - 1
+    one = torch.ones((), device=dev)
+    losses = []
+    for i in range(w["steps"]):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in synth_batch(data, i).items()}
+        with deterministic_algorithms():
+            per_rank, local = [], []
+            for r in range(d_size):
+                loss, g = loss_and_grads(
+                    cfg, params, {k: v[r:r + 1] for k, v in batch.items()},
+                    remat=None)
+                per_rank.append(g)
+                local.append(loss.detach())
+            gens = [torch.Generator(device=dev).manual_seed(i * d_size + r)
+                    for r in range(d_size)]
+            grads = {}
+            for members in compression._groups(per_rank[0]).values():
+                scale = torch.clamp(torch.stack([
+                    g[m].float().abs().max() for g in per_rank
+                    for m in members]).max(), min=1e-30)
+                for m in members:
+                    total = sum(compression._wire_codes(
+                        per_rank[r][m], scale, qmax, torch.int32, gen=gens[r])
+                        for r in range(d_size))
+                    grads[m] = total.float().mul_(scale).mul_(one / qmax).mul_(
+                        one / d_size).to(per_rank[0][m].dtype)
+            del per_rank
+            grads, _ = clip_by_global_norm(grads, opt_cfg.clip_norm)
+            params, opt, _ = adamw_update(no_clip, params, grads, opt)
+        losses.append(float(torch.stack(local).sum() / d_size))
+    out = {"losses": losses}
+    for i, want in enumerate(losses):
+        got = ranks[0]["wire"]["steps"][i]["loss"]
+        assert abs(got - want) <= 2 * np.spacing(np.float32(want)), (
+            i, got, want)
+    named = dict(params.named_parameters())
+    n_rep = 0
+    for r, rk in enumerate(ranks):
+        for n, h in rk["wire"]["shards"].items():
+            d = rk["wire"]["dims"][n]
+            t = named[n]
+            if d is None:
+                n_rep += r == 0
+                assert h == ranks[0]["wire"]["shards"][n], (n, r)
+            else:
+                k = t.shape[d] // d_size
+                t = t.narrow(d, r * k, k)
+            assert sha(t) == h, (n, r)
+    out["replicated_leaves"] = n_rep
+    out["shards_equal_replay"] = True
+    return out
+
+
+def mesh_k7_timing(dev) -> dict:
+    """K7 at (b)'s padded launch (72 query heads over 12 KV heads, n_rep
+    6, S 4,096, hd 64, window 2,048, bf16, seeded inputs) against its
+    plain version, timed beside its bound, its plain version and SDPA
+    (the KV heads repeated, the window as a boolean mask)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    h = MESH_HYMBA
+    kv, rep = h["pads"]
+    bh, s, hd, window = h["batch"] * kv * rep, h["prompt"], 64, 2048
+    gen = torch.Generator(device=dev).manual_seed(15)
+    q = torch.randn((bh, s, hd), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((bh // rep, s, hd), generator=gen,
+                        device=dev).bfloat16() for _ in range(2))
+    got = fa._flash_attention_grouped(q, k, v, rep, True, window)
+    err = close_err(got, fa._flash_plain(q, k, v, True, window, n_rep=rep),
+                    FLASH_TOL[q.dtype])
+    bms, by, work = flash_bound(q, k, window=window)
+    kr, vr = k.repeat_interleave(rep, 0), v.repeat_interleave(rep, 0)
+    idx = torch.arange(s, device=dev)
+    mask = ((idx[:, None] >= idx[None, :])
+            & (idx[:, None] - idx[None, :] < window))
+    return {
+        "launch": {"bh": bh, "kv_heads": bh // rep, "n_rep": rep, "s": s,
+                   "hd": hd, "window": window, "dtype": "bfloat16"},
+        "max_abs_err": err,
+        "ms": time_ms(lambda: fa._launch_flash(q, k, v, True, window, rep)),
+        "plain_ms": time_ms(lambda: fa._flash_plain(q, k, v, True, window,
+                                                    n_rep=rep)),
+        "bound_ms": bms, "bound_by": by, "work": work,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], kr[None], vr[None], attn_mask=mask)),
+    }
+
+
+def phase_mesh(dev) -> tuple[dict, list]:
+    """Phase 15: MESH_RANKS ranks spawned on the one card (the kernels
+    are built before, in this process), running (a)-(d) (``mesh_rank``);
+    then this process's checks: (a)'s logits against a dense prefill,
+    (b)'s against the unpadded prefill, (c) against its one-process
+    replay.  Returns the ``{"mesh"}`` row and each rank's K7 launches in
+    the timed prefills of (a) and (b)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    backend = mesh_backend(MESH_RANKS, torch.cuda.device_count())
+    row = {"card": smi_line(), "ranks": MESH_RANKS,
+           "cards": torch.cuda.device_count(), "backend": backend}
+    log(json.dumps({"mesh_backend": backend, "ranks": MESH_RANKS,
+                    "cards": row["cards"], "why": mesh_backend.__doc__}))
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        mp.spawn(mesh_rank, args=(root, str(dev)), nprocs=MESH_RANKS,
+                 join=True)
+        row["ranks_s"] = time.perf_counter() - t0
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(root, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        for rk in ranks[1:]:  # every rank returns the whole output
+            for a, b in zip(rk["granite"], ranks[0]["granite"]):
+                assert a["logits"] == b["logits"], "ranks' logits differ"
+            assert rk["hymba"]["logits"] == ranks[0]["hymba"]["logits"]
+            assert [(x["loss"], x["grad_norm"]) for x in rk["wire"]["steps"]
+                    ] == [(x["loss"], x["grad_norm"])
+                          for x in ranks[0]["wire"]["steps"]]
+        t0 = time.perf_counter()
+        row["granite_vs_dense"] = mesh_granite_check(dev, root)
+        torch.cuda.empty_cache()
+        row["hymba_vs_unpadded"] = mesh_hymba_check(dev, root)
+        torch.cuda.empty_cache()
+        row["wire_replay"] = mesh_wire_replay(dev, ranks)
+        torch.cuda.empty_cache()
+        row["checks_s"] = time.perf_counter() - t0
+    row["k7_padded_launch"] = mesh_k7_timing(dev)
+    r0 = ranks[0]
+    row["granite"] = [{k: v for k, v in g.items() if k != "logits"}
+                      for g in r0["granite"]]
+    row["hymba"] = {k: v for k, v in r0["hymba"].items() if k != "logits"}
+    row["wire"] = {k: r0["wire"][k] for k in ("steps", "numel",
+                                              "wire_bytes_per_step")}
+    row["ckpt"] = r0["ckpt"]
+    row["transports"] = r0["transports"]
+    for key, how in r0["transports"].items():
+        log(json.dumps({"mesh_transport": key, "carried": how}))
+    row["part_s"] = r0["part_s"]
+    row["max_memory_allocated"] = [rk["max_memory_allocated"] for rk in ranks]
+    row["max_memory_allocated_sum"] = sum(row["max_memory_allocated"])
+    k7 = [sum(g["k7_launches"] for g in rk["granite"])
+          + rk["hymba"]["k7_launches"] for rk in ranks]
+    row["k7_launches_per_rank"] = k7
+    row["phase_s"] = time.perf_counter() - t_phase
+    return row, k7
+
+
+def mesh_main() -> None:
+    """``--mesh``: K7's parity cases and phase 15 alone."""
+    from repro_torch.kernels import build
+
+    dev = phase_environment()
+    build.build(["flash_attention"])
+    errs = []
+    phase_flash_parity(dev, errs)
+    row, launches = phase_mesh(dev)
+    log(json.dumps({"mesh": row}))
+    log(json.dumps({"k7_mesh_launches": launches,
+                    "k7_max_abs_err": max(errs)}))
+    print(json.dumps({"ok": True}), flush=True)
+
+
 def main() -> None:
     dev = phase_environment()
     phase_build()
@@ -5340,9 +5997,9 @@ def main() -> None:
     clock["parity"] = time.perf_counter()
     servers, serve_launches = phase_main_path(dev)
     clock["serving"] = time.perf_counter()
-    models, train_launches, train_blobs = phase_training(dev)
+    models, train_launches = phase_training(dev)
     clock["training"] = time.perf_counter()
-    phase_train_again(dev, models["regression"][0], train_blobs["regression"])
+    phase_train_again(dev, models["regression"][0])
     phase_train_card_vs_cpu(dev)
     clock["card_vs_cpu"] = time.perf_counter()
 
@@ -5481,6 +6138,14 @@ def main() -> None:
     train = phase_train(dev)
     log(json.dumps({"train": train}))
     clock["train"] = time.perf_counter()
+
+    mesh, mesh_launches = phase_mesh(dev)
+    for entry in out:
+        if entry["name"] == K7["name"]:
+            entry["mesh_launches_per_rank"] = mesh_launches
+    assert min(mesh_launches) > 0, mesh_launches
+    log(json.dumps({"mesh": mesh}))
+    clock["mesh"] = time.perf_counter()
     marks = list(clock.items())
     log(json.dumps({"phase_s": {b[0]: b[1] - a[1]
                                 for a, b in zip(marks, marks[1:])}}))
@@ -5510,5 +6175,7 @@ if __name__ == "__main__":
         families_main()
     elif len(sys.argv) > 1 and sys.argv[1] == "--train":
         train_main()
+    elif len(sys.argv) > 1 and sys.argv[1] == "--mesh":
+        mesh_main()
     else:
         main()

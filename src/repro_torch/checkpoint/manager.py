@@ -18,9 +18,12 @@ bfloat16 on load.
 
 ``load_checkpoint`` returns the reference's pytree (nested dicts) with
 torch tensors on ``device``; ``convert.train_state_from_arrays`` turns
-that into a train state.  The reference's elastic re-shard
-(``shardings``) needs a device mesh, which the port does not have yet
-(ROADMAP Queue 1 item 12.3): a non-``None`` ``shardings`` raises.
+that into a train state.  ``shardings`` is the reference's elastic
+re-shard: a tree shaped like the state whose leaves are
+``launch.shardings.NamedSharding``s (``to_named(mesh,
+reference_pspecs(...))``); each leaf becomes a DTensor on that mesh,
+every rank cutting its own shard from the leaf it read (each rank reads
+the checkpoint, so nothing is sent), its full tensor the saved leaf.
 
 Guarantees exercised by tests:
   * a save interrupted anywhere leaves no COMMIT -> restore picks the
@@ -137,13 +140,9 @@ def _npz_leaf(a: np.ndarray, dtype: str) -> torch.Tensor:
 def load_checkpoint(directory, step: int | None = None, shardings=None,
                     device="cuda"):
     """Load (state pytree, step): the reference's nested dicts, every leaf
-    a torch tensor on ``device``.  ``shardings`` (the reference's elastic
-    re-shard) raises ``NotImplementedError``."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "re-sharding a checkpoint needs a device mesh, which is not "
-            "ported to repro_torch yet (ROADMAP Queue 1 item 12.3)"
-        )
+    a torch tensor on ``device``.  ``shardings``: optional tree of
+    ``NamedSharding``s (or ``None`` leaves, kept whole) to place the
+    leaves onto a mesh as DTensors (elastic re-shard path)."""
     dev = resolve_device(device)
     directory = Path(directory)
     if step is None:
@@ -160,7 +159,23 @@ def load_checkpoint(directory, step: int | None = None, shardings=None,
         comp = CompressedTensors.from_bytes((d / "state.ctz").read_bytes())
         flat = decompress_tensors(comp)
     state = unflatten_pytree({k: v.to(dev) for k, v in flat.items()})
+    if shardings is not None:
+        state = _place(state, shardings)
     return state, step
+
+
+def _place(state, shardings):
+    """``state``'s leaves as DTensors under ``shardings`` (same tree)."""
+    if isinstance(state, dict):
+        if not isinstance(shardings, dict) or set(state) != set(shardings):
+            raise ValueError("shardings must have the state's structure")
+        return {k: _place(v, shardings[k]) for k, v in state.items()}
+    if shardings is None:
+        return state
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(state, shardings.mesh, shardings.placements,
+                             src_data_rank=None)
 
 
 class CheckpointManager:

@@ -1,2 +1,2 @@
-"""Launch layer of the port: the LM prefill / decode steps and the serving
-driver."""
+"""Launch layer of the port: the LM train / prefill / decode steps, the
+drivers, the mesh, the partition specs and the dry-run estimator."""

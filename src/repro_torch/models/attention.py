@@ -13,15 +13,25 @@ The decode step writes the new key and value into the cache IN PLACE
 JAX's ``.at[].set`` returns a fresh array: that saves a whole cache copy
 per layer per step.  A slot past the cache is dropped, as JAX's scatter
 drops it.
+
+Under a mesh (``models.sharding.logical_sharding``) the heads are padded
+as the reference pads them (``_head_padding``): to the smallest
+(kv_pad, rep_pad) whose product divides the ``heads`` axis, zero query
+heads in each group and zero KV groups.  The padded q / k / v go to K7 or
+to the plain routes at their padded shapes, and the output keeps its real
+heads only (``_unpad_heads``); the decode cache holds the real KV heads.
+Without a mesh the padding is the identity.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ModelConfig
 from .blockwise import chunked_attention
 from .layers import apply_rope, rms_norm
+from .sharding import _axis_size, ax, current_mesh, current_rules
 
 __all__ = [
     "Attention",
@@ -118,12 +128,69 @@ def _sdpa(q, k, v, mask, n_rep: int):
     return out.reshape(b, s, h, hd)
 
 
+def _head_padding(cfg: ModelConfig) -> tuple[int, int]:
+    """(kv_pad, rep_pad) so kv_pad*rep_pad divides the model axis evenly.
+
+    Archs whose head count doesn't divide the 16-way model axis
+    (starcoder2/granite: 24H, hymba: 25H/5KV) would otherwise be
+    replicated by the ax() divisibility guard.  Padding heads to the next
+    layout that divides costs only the pad ratio; the reference's search,
+    smallest product first.
+    """
+    mesh = current_mesh()
+    kv, rep = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    if mesh is None:
+        return kv, rep
+    axis = _axis_size(mesh, (current_rules() or {}).get("heads"))
+    if (kv * rep) % axis == 0:
+        return kv, rep
+    best = None
+    for kv_pad in range(kv, kv + axis + 1):
+        for rep_pad in range(rep, rep + axis + 1):
+            if (kv_pad * rep_pad) % axis == 0:
+                if best is None or kv_pad * rep_pad < best[0] * best[1]:
+                    best = (kv_pad, rep_pad)
+    return best if best else (kv, rep)
+
+
+def _shard_qkv(cfg: ModelConfig, q, k, v):
+    """Pad the heads for the model axis (see ``_head_padding``).
+
+    Returns (q, k, v, (kv_pad, rep_pad)); padded q/k/v have
+    kv_pad*rep_pad total / kv_pad kv heads, zeros in the padding.
+    Callers slice the output back with _unpad_heads.
+    """
+    b, s, _, hd = q.shape
+    kv, rep = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    kv_pad, rep_pad = _head_padding(cfg)
+    if (kv_pad, rep_pad) != (kv, rep):
+        q = q.reshape(b, s, kv, rep, hd)
+        q = F.pad(q, (0, 0, 0, rep_pad - rep, 0, kv_pad - kv))
+        q = q.reshape(b, s, kv_pad * rep_pad, hd)
+        k = F.pad(k, (0, 0, 0, kv_pad - kv))
+        v = F.pad(v, (0, 0, 0, kv_pad - kv))
+    q = ax(q, "batch", None, "heads", None)
+    k = ax(k, "batch", None, "kv_heads", None)
+    v = ax(v, "batch", None, "kv_heads", None)
+    return q, k, v, (kv_pad, rep_pad)
+
+
+def _unpad_heads(cfg: ModelConfig, out, pads):
+    """out (B,S,kv_pad*rep_pad,hd) -> (B,S,H,hd) real heads only."""
+    kv, rep = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    kv_pad, rep_pad = pads
+    if (kv_pad, rep_pad) == (kv, rep):
+        return out
+    b, s, _, hd = out.shape
+    out = out.reshape(b, s, kv_pad, rep_pad, hd)[:, :, :kv, :rep]
+    return out.reshape(b, s, kv * rep, hd)
+
+
 def _attend_full(q, k, v, cfg: ModelConfig, use_flash: bool):
     """Causal self-attention over the full sequence: the flash kernel (K7,
     on any length) when ``use_flash``, else the chunked online softmax
-    from BLOCKWISE_THRESHOLD on, else dense attention.  The reference's
-    head padding (``_shard_qkv``) applies only under a mesh and is the
-    identity without one, so it is not ported."""
+    from BLOCKWISE_THRESHOLD on, else dense attention.  Shapes may carry
+    padded heads (see _head_padding)."""
     s = q.shape[1]
     n_rep = q.shape[2] // k.shape[2]
     if use_flash:
@@ -148,7 +215,9 @@ def attention_train(p: Attention, cfg: ModelConfig, x, positions,
     """Full-sequence causal attention (train / prefill)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions)
+    q, k, v, pads = _shard_qkv(cfg, q, k, v)
     out = _attend_full(q, k, v, cfg, use_flash)
+    out = _unpad_heads(cfg, ax(out, "batch", None, "heads", None), pads)
     return out.reshape(b, s, -1) @ p.wo
 
 
@@ -162,9 +231,14 @@ def attention_prefill(p: Attention, cfg: ModelConfig, x, positions,
     """
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions)
+    q, k, v, pads = _shard_qkv(cfg, q, k, v)
     out = _attend_full(q, k, v, cfg, use_flash)
+    out = _unpad_heads(cfg, ax(out, "batch", None, "heads", None), pads)
     out = out.reshape(b, s, -1) @ p.wo
 
+    # the decode cache stores REAL kv heads only (init_kv_cache layout)
+    k = k[:, :, : cfg.n_kv_heads]
+    v = v[:, :, : cfg.n_kv_heads]
     length = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     if length < s:
         assert s % length == 0, (s, length)
@@ -208,6 +282,8 @@ def attention_decode(p: Attention, cfg: ModelConfig, x, cache, position):
     k, v = cache["k"], cache["v"]
     k.index_put_((rows, slot), torch.where(inside, k_new[:, 0], k[rows, slot]))
     v.index_put_((rows, slot), torch.where(inside, v_new[:, 0], v[rows, slot]))
+    k = ax(k, "batch", None, "kv_heads", None)
+    v = ax(v, "batch", None, "kv_heads", None)
 
     idx = torch.arange(t, device=x.device)[None, :]  # (1, T)
     if cfg.sliding_window:

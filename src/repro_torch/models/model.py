@@ -177,15 +177,25 @@ class MTP(nn.Module):
         self.norm = _param((d,), dtype, device)
 
 
+def _abstract_or(device) -> torch.device:
+    """``device`` resolved, or the ``meta`` device: shapes and types with
+    no storage, for the partition specs and the dry-run
+    (``launch.shardings.abstract_train_state``)."""
+    if torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
 class TransformerLM(nn.Module):
     """The whole LM's parameters: embed (V, d), final_norm (d,), lm_head
     (d, V) unless tied, ``layers_dense``, ``layers`` and ``mtp``
-    (``None`` without ``mtp_depth``)."""
+    (``None`` without ``mtp_depth``).  On ``device="meta"`` nothing is
+    allocated."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
         _check_supported(cfg)
-        dev = resolve_device(device)
+        dev = _abstract_or(device)
         dtype = _dtype(cfg)
         d, v = cfg.d_model, cfg.vocab_size
         moe = cfg.mlp_type == "moe"
@@ -595,9 +605,10 @@ def _init_layer_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
-    """Per-layer caches + current position (zeros), on ``device``."""
+    """Per-layer caches + current position (zeros), on ``device``
+    (``"meta"``: shapes only)."""
     _check_supported(cfg)
-    dev = resolve_device(device)
+    dev = _abstract_or(device)
     dtype = _dtype(cfg)
     n_dense, n_main = _n_layers(cfg)
     cache: dict[str, Any] = {

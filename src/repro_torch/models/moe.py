@@ -14,10 +14,22 @@ shared expert (DeepSeek-V3) added after the routed ones; the Switch-style
 aux load-balance loss E * sum(me * ce).
 
 The reference computes all of this with XLA outside any Pallas kernel,
-so the port is plain PyTorch.  Its expert-parallel ``_moe_apply_ep``
-(a ``shard_map`` over a mesh's model axis) waits for the port's mesh
-(``models/sharding.py``, ROADMAP Queue 1 item 12.3); ``moe_apply`` takes
-the dense dispatch.
+so the port is plain PyTorch.
+
+Two dispatch paths, as in the reference: ``_moe_apply_dense`` without a
+mesh (or with a model axis of 1), and the expert-parallel
+``_moe_apply_ep`` whenever a mesh is installed
+(``models.sharding.logical_sharding``) and its ``model`` axis is larger
+than 1.  There every rank routes its data shard's tokens to its own
+slice of the experts (padded to a multiple of the model axis: -inf router
+logits, zero weights), counts positions over those local tokens for its
+local experts into a local capacity, moves only token ids in the
+dispatch and the combine, and one ``psum`` over ``model`` adds the
+partial outputs.  The reference runs that body under ``shard_map``; the
+port runs it on every rank of a ``DeviceMesh``, with the whole
+(B, S, d) activation on every rank: a rank takes its data shard's rows
+and the outputs are gathered back over the batch axes, so every rank
+returns the whole output, as the reference's global array.
 """
 from __future__ import annotations
 
@@ -28,6 +40,17 @@ from torch import nn
 from ..configs.base import ModelConfig
 from .attention import _param
 from .layers import swiglu
+from .sharding import (
+    _axis_size,
+    all_gather,
+    axis_index,
+    batch_axes_in,
+    current_mesh,
+    mesh_axis_names,
+    mesh_shape,
+    pmean,
+    psum,
+)
 
 __all__ = ["MoE", "SharedExpert", "init_moe", "moe_apply"]
 
@@ -79,7 +102,130 @@ def init_moe(p: MoE, cfg: ModelConfig, gen: torch.Generator) -> MoE:
 
 def moe_apply(p: MoE, cfg: ModelConfig, x):
     """x: (B,S,d) -> (out (B,S,d), aux load-balance loss)."""
+    mesh = current_mesh()
+    if mesh is not None and mesh_shape(mesh).get("model", 1) > 1:
+        return _moe_apply_ep(p, cfg, x, mesh)
     return _moe_apply_dense(p, cfg, x)
+
+
+def _ep_layout(cfg: ModelConfig, b: int, s: int, mesh):
+    """(e_pad, e_loc, batch axes or None, their size, cap_loc) of the
+    expert-parallel dispatch of a (b, s) batch, as the reference sizes
+    them."""
+    e, k = cfg.n_experts, cfg.top_k
+    tp = mesh_shape(mesh)["model"]
+    e_pad = -(-e // tp) * tp
+    batch_ax = batch_axes_in()
+    if batch_ax is not None and b % _axis_size(mesh, batch_ax) != 0:
+        batch_ax = None
+    nb = _axis_size(mesh, batch_ax)
+    cap_loc = max(int((b // max(nb, 1)) * s * k / e * cfg.capacity_factor),
+                  1)
+    return e_pad, e_pad // tp, batch_ax, nb, cap_loc
+
+
+def _ep_route(cfg: ModelConfig, xf, router, e_pad: int, lo: int,
+              e_loc: int, cap_loc: int):
+    """One rank's routing of its (n, d) tokens over the padded router
+    (d, e_pad) to its experts [lo, lo + e_loc).  Returns (tok_of, gate_of,
+    mine, keep, aux): the (e_loc, cap_loc) token id of each slot (``n``
+    where empty) and its gate; per (token, slot) token-major, whether
+    its expert is local and whether it keeps a slot; the shard's aux
+    loss before the means over ranks."""
+    n = xf.shape[0]
+    e, k = cfg.n_experts, cfg.top_k
+    logits = xf.float() @ router
+    live = torch.arange(e_pad, device=xf.device) < e
+    logits = torch.where(live, logits, -torch.inf)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_ids = torch.topk(probs, k, dim=-1)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+
+    me = probs.mean(0)
+    ce = _counts(top_ids[:, 0], e_pad, probs.dtype) / n
+    aux = e * torch.sum(me * ce)
+
+    flat_ids = top_ids.reshape(n * k)
+    gate = top_p.reshape(n * k).to(xf.dtype)
+    mine = (flat_ids >= lo) & (flat_ids < lo + e_loc)
+    # LOCAL position-in-expert over this shard's tokens only: a stable
+    # sort by local expert (the others in a spare bucket e_loc) ranks each
+    # expert's assignments in token-major order, the reference's masked
+    # one-hot cumsum
+    le = torch.where(mine, flat_ids - lo, e_loc)
+    order = torch.argsort(le, stable=True)
+    counts = _counts(le, e_loc + 1, le.dtype)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(n * k, device=xf.device) - starts[le[order]]
+    pos = torch.empty_like(rank).scatter_(0, order, rank)
+    keep = mine & (pos < cap_loc)
+
+    # index-only dispatch: each kept (token, slot) writes its token id and
+    # gate into its expert's slot; the others go to a spare slot past the
+    # end, which is cut off
+    slot = torch.where(keep, le * cap_loc + pos, e_loc * cap_loc)
+    token = torch.arange(n * k, device=xf.device) // k
+    tok_of = torch.full((e_loc * cap_loc + 1,), n, dtype=torch.long,
+                        device=xf.device).scatter_(0, slot, token)
+    gate_of = xf.new_zeros(e_loc * cap_loc + 1).scatter_(0, slot, gate)
+    return (tok_of[:-1].view(e_loc, cap_loc),
+            gate_of[:-1].view(e_loc, cap_loc), mine, keep, aux)
+
+
+def _moe_apply_ep(p: MoE, cfg: ModelConfig, x, mesh):
+    """Expert-parallel dispatch on the ranks of ``mesh`` (see the module
+    docstring).
+
+    Experts are padded up to a multiple of the model axis when needed
+    (granite's 40 -> 48 on a 16-way axis); padded experts get -inf router
+    logits and all-zero weights, so they are never selected.  The aux
+    loss is the mean over the other axes, then over ``model``, of each
+    shard's.
+    """
+    b, s, d = x.shape
+    e = cfg.n_experts
+    e_pad, e_loc, batch_ax, nb, cap_loc = _ep_layout(cfg, b, s, mesh)
+    rank = axis_index("model", mesh)
+    lo = rank * e_loc
+    router = F.pad(p.router, (0, e_pad - e))
+    # this rank's experts: the real ones of [lo, lo + e_loc), then zeros
+    hi = min(lo + e_loc, e)
+    w1, w3, w2 = (_pad_experts(w[lo:hi], e_loc) for w in (p.w1, p.w3, p.w2))
+
+    bl = b // nb
+    xb = x
+    if batch_ax is not None:
+        i = axis_index(batch_ax, mesh)
+        xb = x[i * bl:(i + 1) * bl]
+    n = bl * s
+    xf = xb.reshape(n, d)
+    tok_of, gate_of, _, _, aux = _ep_route(cfg, xf, router, e_pad, lo,
+                                           e_loc, cap_loc)
+    other = tuple(a for a in mesh_axis_names(mesh) if a != "model")
+    if other:
+        aux = pmean(aux, other, mesh)
+    aux = pmean(aux, "model", mesh)  # identical on every model rank
+
+    buf = xf.index_select(0, tok_of.clamp(max=n - 1).reshape(-1))
+    y = _experts(buf.view(e_loc, cap_loc, d), w1, w3, w2)
+    # combine: add slots back to their tokens (empty slots have gate 0 and
+    # the spare token id n, whose row is cut off)
+    part = xf.new_zeros((n + 1, d)).index_add_(
+        0, tok_of.reshape(-1), (y * gate_of[..., None]).reshape(-1, d))[:n]
+    out = psum(part, "model", mesh).reshape(bl, s, d)
+    if batch_ax is not None:
+        out = all_gather(out, batch_ax, dim=0, mesh=mesh)
+    if p.shared is not None:
+        sp = p.shared
+        out = out + swiglu(x, sp.w1, sp.w3, sp.w2)
+    return out, aux
+
+
+def _pad_experts(w, e_loc: int):
+    """``w`` (e', ...) with zero experts appended up to ``e_loc``."""
+    if w.shape[0] == e_loc:
+        return w
+    return torch.cat([w, w.new_zeros((e_loc - w.shape[0], *w.shape[1:]))])
 
 
 def _route(p: MoE, cfg: ModelConfig, xf):

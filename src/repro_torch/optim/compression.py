@@ -22,9 +22,14 @@ a block, so it groups them the same way (``models.reference_path``): lo
 and hi are the group's min and max, and each member is quantized with
 the group's scalars — the reference's codes and wire format exactly.
 
-``wire_quantized_psum`` is the reference's shard_map-level collective; it
-needs a mesh, which the port does not have yet (ROADMAP Queue 1 item
-12.3).
+``wire_quantized_psum`` is the reference's shard_map-level collective:
+§7's dithered quantizer on the wire of the data-parallel gradient sum,
+over a mesh axis (``models.sharding``'s collectives).  Its arithmetic is
+XLA's: the codes from a true float32 division by the shared scale, the
+decoded sum multiplied by the float32 reciprocals of ``qmax`` and of the
+rank count (XLA rewrites those two divisions by constants).  JAX's
+threefry dither cannot be drawn by a ``torch.Generator``: ``key`` is a
+``torch.Generator`` or a seed, and ``dither=`` takes given draws.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from dataclasses import dataclass
 import torch
 
 from ..models.model import reference_path
+from ..models.sharding import axis_size, pmax, psum
 from .adamw import named_tensors
 
 __all__ = [
@@ -104,15 +110,63 @@ def compress_gradients(cfg: GradCompressionConfig, grads, error_feedback):
 
 
 def wire_quantized_psum(
-    grads, axis: str, bits: int = 4, key=None, n_ranks: int | None = None
+    grads, axis: str, bits: int = 4, key=None, n_ranks: int | None = None,
+    *, dither=None, mesh=None,
 ):
-    """§7's dithered quantizer at the wire level of a data-parallel
-    gradient sum: a collective over a mesh axis, which the port does not
-    have yet."""
-    raise NotImplementedError(
-        "wire_quantized_psum needs a device mesh, which is not ported to "
-        "repro_torch yet (ROADMAP Queue 1 item 12.3)"
-    )
+    """§7's dithered quantizer applied to the data-parallel gradient sum
+    AT THE WIRE LEVEL: the mean over the ``axis`` ranks of ``grads``
+    ({name: gradient}), as each rank's receiver decodes it.
+
+    Per leaf of the reference's pytree (the blocks of a stacked leaf share
+    it): shared scale = pmax of the local max |g| (at least 1e-30); each
+    rank quantizes its gradient to ``bits``-bit signed codes
+    ``clip(round(g / scale * qmax + dither), -qmax, qmax)`` (round half
+    to even), the integer codes are psum'd in the smallest carrier that
+    cannot overflow (int8 when ranks * qmax <= 127, else int16), and the
+    sum is decoded as ``total * scale / qmax / ranks``.
+
+    ``key``: ``None`` (no dither), a ``torch.Generator`` on the gradients'
+    device, or an int seed for one; the draws are uniform on [-0.5, 0.5),
+    leaf by leaf of the reference's pytree (a stacked leaf's blocks in
+    order).  ``dither``: {name: draws shaped like the
+    gradient}, used instead of ``key``.  ``mesh``: the ``DeviceMesh``
+    (default: the installed one).
+    """
+    n = n_ranks if n_ranks is not None else axis_size(axis, mesh)
+    qmax = (1 << (bits - 1)) - 1
+    carrier = torch.int8 if n * qmax <= 127 else torch.int16
+    grads = dict(grads)
+    gen = key
+    if key is not None and not isinstance(key, torch.Generator):
+        device = next(iter(grads.values())).device
+        gen = torch.Generator(device=device).manual_seed(int(key))
+
+    out = {}
+    for members in _groups(grads).values():
+        local = torch.stack([grads[m].float().abs().max() for m in members])
+        scale = torch.clamp(pmax(local.max(), axis, mesh), min=1e-30)
+        one = torch.ones((), dtype=torch.float32, device=scale.device)
+        recip_q, recip_n = one / qmax, one / n
+        for m in members:
+            g = grads[m]
+            codes = _wire_codes(g, scale, qmax, carrier,
+                                None if dither is None else dither[m], gen)
+            total = psum(codes, axis, mesh)  # the only cross-rank traffic
+            dec = total.float().mul_(scale).mul_(recip_q).mul_(recip_n)
+            out[m] = dec.to(g.dtype)
+    return out
+
+
+def _wire_codes(g, scale, qmax: int, carrier, dither=None, gen=None):
+    """One rank's codes ``clip(round(g / scale * qmax + dither), -qmax,
+    qmax)`` in ``carrier``: the dither given, drawn from ``gen`` (uniform
+    on [-0.5, 0.5)), or none."""
+    t = torch.div(g.float(), scale).mul_(qmax)
+    if dither is not None:
+        t.add_(dither.to(t.device, torch.float32))
+    elif gen is not None:
+        t.add_(torch.rand(t.shape, generator=gen, device=t.device).sub_(0.5))
+    return t.round_().clamp_(-qmax, qmax).to(carrier)
 
 
 def payload_bytes(params, bits: int) -> int:

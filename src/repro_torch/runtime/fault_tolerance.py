@@ -12,9 +12,10 @@ port's ``CheckpointManager``, on the manager's device).
   * STRAGGLER MITIGATION — per-step deadline derived from a running
     latency percentile; hosts whose data fetch misses the deadline are
     skipped for that step (skips are logged in the step record).
-  * ELASTIC SCALING — checkpoints carry logical (unsharded) arrays; the
-    reference re-shards them onto another mesh on load, which waits for
-    the port's mesh (ROADMAP Queue 1 item 12.3).
+  * ELASTIC SCALING — checkpoints carry logical (unsharded) arrays;
+    ``load_checkpoint(shardings=...)`` (``CheckpointManager
+    .restore_or_none(shardings)``) re-shards them onto another mesh on
+    load, as DTensors.
 
 A restored state is the checkpoint's pytree (``load_checkpoint``), not
 the live objects that were saved: ``step_fn`` takes either (the train

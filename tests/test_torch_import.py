@@ -99,6 +99,16 @@ def test_port_modules_exist():
         "repro_torch.checkpoint.manager",
         "repro_torch.runtime.fault_tolerance",
         "repro_torch.launch.train",
+        "repro_torch.models.sharding",
+        "repro_torch.launch.mesh",
+        "repro_torch.launch.shardings",
+        "repro_torch.launch.specs",
+        "repro_torch.launch.dryrun",
+        "repro_torch.launch.hlo_stats",
+        *(f"repro_torch.configs.{m}" for m in (
+            "deepseek_7b", "deepseek_v3_671b", "granite_moe_3b_a800m",
+            "hymba_1_5b", "internvl2_76b", "musicgen_large", "qwen2_5_3b",
+            "qwen3_4b", "rwkv6_1_6b", "starcoder2_3b")),
     ):
         assert name in mods
 
@@ -189,6 +199,13 @@ KNOWN_DIFFERENCES = {
     ("launch/serve_forest.py", "main"): "argv added",
     ("launch/serve_store.py", "main"): "argv added",
     ("launch/train.py", "main"): "argv added",
+    ("launch/dryrun.py", "main"): "argv added",
+    # JAX's threefry dither cannot be drawn by a torch.Generator: ``key``
+    # is a Generator or a seed, and the draws can be given instead; the
+    # collective takes its DeviceMesh (the reference's is implicit in
+    # shard_map)
+    ("optim/compression.py", "wire_quantized_psum"): "dither= and mesh= added",
+    ("launch/steps.py", "make_wire_train_step"): "dither= added",
 }
 
 

@@ -39,7 +39,7 @@ from repro_torch.convert import lm_params_from_arrays
 from repro_torch.core.tensor_codec import flatten_pytree
 from repro_torch.data.tokens import Prefetcher, TokenDataConfig, synth_batch
 from repro_torch.kernels import KernelGradientError
-from repro_torch.launch.steps import make_train_step, make_wire_train_step
+from repro_torch.launch.steps import make_train_step
 from repro_torch.launch.train import build_state
 from repro_torch.models import decode_step, init_cache, loss_fn, mtp_loss
 from repro_torch.models import model as port_model
@@ -563,14 +563,6 @@ def test_error_feedback_preserves_signal():
     resid = (total_dec - total_true).abs().max()
     step_bound = torch.stack([g["w"] for g in g_true]).abs().max() / 4
     assert resid < step_bound
-
-
-def test_mesh_entries_raise_naming_item_12_3():
-    cfg = get_config("qwen3-4b").smoke()
-    with pytest.raises(NotImplementedError, match="item 12.3"):
-        comp.wire_quantized_psum({}, "data")
-    with pytest.raises(NotImplementedError, match="item 12.3"):
-        make_wire_train_step(cfg, AdamWConfig(), None, None)
 
 
 # ---------------------------------------------------------------------------
