@@ -264,14 +264,18 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    before, in this process) talk through gloo carrying CUDA tensors (NCCL
    refuses two ranks on one card; the backend is chosen and printed, and
    each collective's transport printed: direct, or an int16 sum carried
-   as int32). (a) granite-moe-3b-a800m uncut, bf16, seed 0, phase 13's 4 x
-   2,048 prompts prefilled through K7 on every rank and its MoE layers
-   through ``_moe_apply_ep`` on meshes (1, 4) and (2, 2): K7's count per
-   prefill equals the 32 layers on every rank; every layer's dropped
-   (token, slot) set, over the ranks, equals a one-process replay of the
-   per-shard routing (the dense ``_route`` on each data shard's tokens);
-   the (1, 4) logits against a single-process dense prefill within 1.5x
-   bf16's floor (the dense bf16 prefill's distance from a float32 one).
+   as int32). (a) granite-moe-3b-a800m uncut, bf16, seed 0, tensor-parallel
+   (each rank its shards, ``shard_params``), phase 13's 4 x 2,048 prompts
+   prefilled through K7 at each rank's heads and its MoE layers through
+   the expert-parallel ``_moe_ep_partial`` on meshes (1, 4) and (2, 2),
+   then with the whole model on every rank on (1, 4) (whole activations,
+   its MoE layers through ``moe_apply``'s expert-parallel dispatch):
+   K7's count per prefill equals the 32 layers on every rank; every
+   layer's dropped (token, slot) set, over the ranks, equals a
+   one-process replay of the per-shard routing (the dense ``_route`` on
+   each data shard's tokens); both (1, 4) runs' logits against a
+   single-process dense prefill within 1.5x bf16's floor (the dense bf16
+   prefill's distance from a float32 one).
    (b) hymba-1.5b at full width cut to 2 layers under (1, 4): its 25 / 5
    heads padded to 36 / 6, K7 launched at 72 query heads over 12 KV
    heads; the logits within K7's bf16 tolerance of the unpadded
@@ -282,9 +286,22 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    Generator draws and every final shard bit-equal to it; the wire bytes
    a step (int8 codes against bf16 gradients). (d) qwen3-4b's smoke
    state saved, then ``load_checkpoint(shardings=...)`` onto (4, 1):
-   every local shard bit-equal to its slice of the saved leaf. One
-   ``{"mesh": ...}`` line: each rank's peak memory, K7's launches per
-   rank, the phase's seconds.
+   every local shard bit-equal to its slice of the saved leaf. (e)
+   tensor-parallel qwen3-4b: first, in this process, the whole model's
+   bf16 prefill and greedy decode and the same weights' float32 runs;
+   then on the ranks its shards cut leaf by leaf (stored bytes equal to
+   the sum of ``shard_shape`` bytes, the init's peak below the whole
+   model), at full width and depth on (1, 4) (a 4 x 2,048 prefill
+   through K7 at 32 / 8 heads a rank, 8 decode steps fed the whole
+   run's tokens), cut to 4 layers on (2, 2) and float32 cut to 2 layers
+   on (1, 4): the gathered logits within 1.5x bf16's floor (1e-4 in
+   float32); K7 at that launch against its plain version, timed beside
+   its bound and SDPA. (e)'s timed prefill and decode run under
+   ``collective_timing``: each collective's calls, bytes, barrier and own
+   seconds per kind. One ``{"mesh": ...}`` line: each rank's peak
+   memory, (e)'s bytes, prefill s and decode ms a step with the
+   collectives' shares, K7's launches per rank, the transports, the
+   phase's seconds.
 
 ``python3 chip_smoke.py --forest-times`` runs only K3 and K4 at the two
 Liberty shapes and the large one (the same command times a parent tree's
@@ -318,6 +335,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -5363,7 +5381,10 @@ def train_main() -> None:
 
 MESH_RANKS = 4
 # (a) granite-moe-3b-a800m uncut, phase 13's prompts, on two meshes
+# tensor-parallel on both, and with whole parameters on every rank on
+# (1, 4) (the path of an MoE model that tensor parallelism does not cut)
 MESH_MOE = {"arch": "granite-moe-3b-a800m", "meshes": ((1, 4), (2, 2)),
+            "whole_meshes": ((1, 4),),
             "batch": 4, "prompt": 2048, "max_len": 2080}
 # (b) hymba-1.5b at full width cut to 2 layers, phase 13's prompts (the
 # ring buffer needs window | S): 25 / 5 heads pad to 36 / 6 on (1, 4)
@@ -5375,6 +5396,18 @@ MESH_WIRE = {"arch": "qwen3-4b", "layers": 2, "mesh": (4, 1), "bits": 4,
              "seq": 1024, "steps": 3,
              "opt": {"lr": 3e-4, "warmup_steps": 1, "total_steps": 3}}
 MESH_CKPT_ARCH = "qwen3-4b"  # (d): its smoke config
+# (e) tensor-parallel serving of qwen3-4b, seeded weights cut leaf by leaf
+# on each rank (``shard_params``): (name, mesh, layers (None: all 36),
+# dtype).  A 4 x 2,048 prefill, then 8 decode steps fed the one-process
+# run's greedy tokens; held to the one-process prefill and decode of the
+# same weights (bf16: within 1.5x the bf16 floor read against float32;
+# float32: 1e-4 relative L2)
+MESH_TP = {"arch": "qwen3-4b", "batch": 4, "prompt": 2048, "max_len": 2056,
+           "steps": 8, "warm_prompt": 64,
+           "runs": (("full", (1, 4), None, "bfloat16"),
+                    ("cut4", (2, 2), 4, "bfloat16"),
+                    ("f32", (1, 4), 2, "float32"))}
+MESH_TP_F32_TOL = 1e-4
 MESH_TIMEOUT_S = 600  # a rank stuck in a collective fails the phase
 
 
@@ -5402,60 +5435,77 @@ def sha(t: torch.Tensor) -> str:
 
 
 def ep_spy(records, xs):
-    """``moe._moe_apply_ep`` wrapped: after each call, the (token, slot)
-    ids this rank dropped (``_ep_route`` on its shard, the function the
-    dispatch ran) and a hash of the layer's input; ``xs`` keeps the
-    inputs when it is a list.  Returns the original, to put back."""
+    """``_moe_ep_partial`` wrapped where tensor-parallel serving calls it
+    (``models.model``) and where ``moe_apply`` reaches it under a mesh
+    (``models.moe``, through ``_moe_apply_ep``): after each call, the
+    (token, slot) ids this rank dropped (``_ep_route`` on its rows, the function the
+    dispatch ran) and a hash of the layer's whole input (the ranks' rows
+    gathered over ``data``); ``xs`` keeps those inputs when it is a list.
+    Returns a function that puts the originals back."""
     import torch.nn.functional as F
 
+    from repro_torch.models import model as model_mod
     from repro_torch.models import moe as moe_mod
-    from repro_torch.models.sharding import axis_index
+    from repro_torch.models.sharding import all_gather, axis_index
 
-    orig = moe_mod._moe_apply_ep
+    orig = model_mod._moe_ep_partial
 
-    def spy(p, cfg, x, mesh):
-        out = orig(p, cfg, x, mesh)
-        b, s, d = x.shape
-        e_pad, e_loc, batch_ax, nb, cap = moe_mod._ep_layout(cfg, b, s, mesh)
-        di = axis_index(batch_ax, mesh) if batch_ax else 0
+    def spy(p, cfg, x, mesh, with_aux=True):
+        out = orig(p, cfg, x, mesh, with_aux)
+        bl, s, d = x.shape
+        e_pad, e_loc, cap = moe_mod._ep_layout(cfg, bl, s, mesh)
+        di = axis_index("data", mesh)
         lo = axis_index("model", mesh) * e_loc
-        bl = b // nb
-        xf = x[di * bl:(di + 1) * bl].reshape(-1, d)
         router = F.pad(p.router, (0, e_pad - cfg.n_experts))
-        _, _, mine, keep, _ = moe_mod._ep_route(cfg, xf, router, e_pad, lo,
-                                                e_loc, cap)
+        _, _, mine, keep, _ = moe_mod._ep_route(cfg, x.reshape(-1, d), router,
+                                                e_pad, lo, e_loc, cap)
         drop = torch.nonzero(mine & ~keep)[:, 0] + di * bl * s * cfg.top_k
-        records.append({"dropped": drop.cpu().numpy(), "x": sha(x),
+        whole = all_gather(x, "data", dim=0, mesh=mesh)
+        records.append({"dropped": drop.cpu().numpy(), "x": sha(whole),
                         "cap": cap})
         if xs is not None:
-            xs.append(x.clone())
+            xs.append(whole)
         return out
 
-    moe_mod._moe_apply_ep = spy
-    return orig
+    model_mod._moe_ep_partial = spy
+    moe_mod._moe_ep_partial = spy
+
+    def restore():
+        model_mod._moe_ep_partial = orig
+        moe_mod._moe_ep_partial = orig
+
+    return restore
 
 
-def mesh_granite(dev, rank, root, params, tokens, shape) -> dict:
-    """(a) on one mesh: a warm-up prefill (its dropped sets recorded),
-    then a timed one, K7's count set to 0 before each and read after;
-    rank 0 replays each MoE layer's routing on the captured inputs with
-    the dense ``_route``, per data shard, and holds the ranks' dropped
-    sets, together, equal to it."""
+def mesh_granite(dev, rank, root, cfg, tokens, shape, whole=False) -> dict:
+    """(a) on one mesh, tensor-parallel (each rank its shards of the
+    seeded weights, ``shard_params``) or, with ``whole``, with the whole
+    seeded model on every rank (``init_params``; whole activations, the
+    MoE through ``moe_apply``'s expert-parallel dispatch): a warm-up
+    prefill (its dropped sets recorded), then a timed one, K7's count set
+    to 0 before each and read after; rank 0 replays each MoE layer's
+    routing on the captured inputs with the dense ``_route``, per data
+    shard, and holds the ranks' dropped sets, together, equal to it."""
     import torch.distributed as dist
 
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.launch.shardings import shard_params
+    from repro_torch.launch.steps import make_prefill_step, whole_logits
+    from repro_torch.models import init_leaves, init_params
     from repro_torch.models import moe as moe_mod
     from repro_torch.models.sharding import logical_sharding, single_pod_rules
 
-    cfg = params.cfg
-    tag = f"{shape[0]}x{shape[1]}"
+    tag = f"{shape[0]}x{shape[1]}" + ("_whole" if whole else "")
     mesh = make_host_mesh(*shape, device=dev)
+    if whole:
+        params = init_params(cfg, 0, dev)
+    else:
+        params = shard_params(cfg, init_leaves(cfg, 0, dev), mesh, dev)
     step = make_prefill_step(cfg, use_flash=True)
     records, xs = [], [] if rank == 0 else None
-    orig = ep_spy(records, xs)
-    row = {"mesh": list(shape)}
+    restore = ep_spy(records, xs)
+    row = {"mesh": list(shape), "params": "whole" if whole else "shards"}
     try:
         with logical_sharding(mesh, single_pod_rules()):
             fa.reset_launches()
@@ -5465,7 +5515,7 @@ def mesh_granite(dev, rank, root, params, tokens, shape) -> dict:
             row["warm_prefill_s"] = time.perf_counter() - t0
             row["k7_launches_warm"] = fa.LAUNCHES["flash"]
     finally:
-        moe_mod._moe_apply_ep = orig
+        restore()
     with logical_sharding(mesh, single_pod_rules()):
         fa.reset_launches()
         t0 = time.perf_counter()
@@ -5473,10 +5523,12 @@ def mesh_granite(dev, rank, root, params, tokens, shape) -> dict:
         torch.cuda.synchronize()
         row["prefill_s"] = time.perf_counter() - t0
         row["k7_launches"] = fa.LAUNCHES["flash"]
+        logits = whole_logits(cfg, logits, tokens.shape[0])
+    del params
     assert row["k7_launches"] == row["k7_launches_warm"] == cfg.n_layers, row
     assert logits.shape == (tokens.shape[0], cfg.vocab_size)
     assert bool(torch.isfinite(logits).all()), "EP prefill not finite"
-    assert len(records) == cfg.n_layers
+    assert len(records) == cfg.n_layers, (tag, len(records))
     np.savez(os.path.join(root, f"drop_{tag}_{rank}.npz"),
              *[r["dropped"] for r in records])
     with open(os.path.join(root, f"xhash_{tag}_{rank}.json"), "w") as fh:
@@ -5487,7 +5539,10 @@ def mesh_granite(dev, rank, root, params, tokens, shape) -> dict:
     dist.barrier()
     if rank != 0:
         return row
-    # the replay: one process, the dense routing per data shard
+    # the replay: one process, the dense routing per data shard, over
+    # the seeded routers (whole on every rank)
+    routers = [types.SimpleNamespace(router=t) for n, t in
+               init_leaves(cfg, 0, dev) if n.endswith(".mlp.router")]
     drops = [np.load(os.path.join(root, f"drop_{tag}_{r}.npz"))
              for r in range(MESH_RANKS)]
     hashes = [json.load(open(os.path.join(root, f"xhash_{tag}_{r}.json")))
@@ -5502,8 +5557,7 @@ def mesh_granite(dev, rank, root, params, tokens, shape) -> dict:
         want = []
         for di in range(nb):
             xf = x[di * bl:(di + 1) * bl].reshape(bl * s, -1)
-            _, _, keep, _, _, cap = moe_mod._route(params.layers[i].mlp, cfg,
-                                                   xf)
+            _, _, keep, _, _, cap = moe_mod._route(routers[i], cfg, xf)
             assert cap == records[i]["cap"], (cap, records[i]["cap"])
             want.append(torch.nonzero(~keep)[:, 0].cpu().numpy()
                         + di * bl * s * cfg.top_k)
@@ -5687,7 +5741,6 @@ def mesh_rank(rank, root, device):
 
     import torch.distributed as dist
 
-    from repro_torch.models import init_params
     from repro_torch.models.sharding import TRANSPORTS
 
     dev = torch.device(device)
@@ -5704,11 +5757,13 @@ def mesh_rank(rank, root, device):
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         cfg = family_config(MESH_MOE["arch"])
-        params = init_params(cfg, seed=0, device=dev)
         tokens = mesh_prompt(cfg, MESH_MOE["batch"], MESH_MOE["prompt"], dev)
-        out["granite"] = [mesh_granite(dev, rank, root, params, tokens, sh_)
+        out["granite"] = [mesh_granite(dev, rank, root, cfg, tokens, sh_)
                           for sh_ in MESH_MOE["meshes"]]
-        del params
+        torch.cuda.empty_cache()
+        out["granite"] += [mesh_granite(dev, rank, root, cfg, tokens, sh_,
+                                        whole=True)
+                           for sh_ in MESH_MOE["whole_meshes"]]
         torch.cuda.empty_cache()
         clock["a"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -5722,9 +5777,15 @@ def mesh_rank(rank, root, device):
         t0 = time.perf_counter()
         out["ckpt"] = mesh_ckpt(dev, rank, root)
         clock["d"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        peak = torch.cuda.max_memory_allocated(dev)  # (e) resets the stat
+        t0 = time.perf_counter()
+        out["tp"] = [mesh_tp(dev, rank, root, *run) for run in MESH_TP["runs"]]
+        clock["e"] = time.perf_counter() - t0
         out["part_s"] = clock
         out["transports"] = dict(TRANSPORTS)
-        out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+        out["max_memory_allocated"] = max(
+            [peak] + [t["peak_abs"] for t in out["tp"]])
         with open(os.path.join(root, f"rank{rank}.json"), "w") as fh:
             json.dump(out, fh)
         dist.barrier()
@@ -5732,8 +5793,239 @@ def mesh_rank(rank, root, device):
         dist.destroy_process_group()
 
 
+def mesh_tp_config(layers, dtype):
+    return family_config(MESH_TP["arch"], dtype=dtype,
+                         **({} if layers is None else {"n_layers": layers}))
+
+
+def mesh_tp_reference(dev, root) -> dict:
+    """(e)'s one-process runs, before the ranks start: each run's model
+    whole (``init_params``, seed 0), its prefill through K7 and the greedy
+    decode (bf16: the tokens the ranks are fed), then the same weights
+    in float32 fed those tokens (bf16's floor).  Saved to ``root``."""
+    import dataclasses
+
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import TransformerLM, init_params
+
+    t = MESH_TP
+    row = {}
+    for name, _, layers, dtype in t["runs"]:
+        t0 = time.perf_counter()
+        cfg = mesh_tp_config(layers, dtype)
+        params = init_params(cfg, seed=0, device=dev)
+        tokens = mesh_prompt(cfg, t["batch"], t["prompt"], dev)
+        runs = {}
+
+        def serve(cfg, params, feed=None):
+            logits, cache = make_prefill_step(cfg, use_flash=True)(
+                params, tokens, max_len=t["max_len"])
+            out, fed = [logits.float().cpu()], []
+            decode = make_decode_step(cfg)
+            for i in range(t["steps"]):
+                tok = (logits.argmax(-1) if feed is None
+                       else feed[:, i].to(dev))
+                fed.append(tok.cpu())
+                logits, cache = decode(params, tok, cache)
+                out.append(logits.float().cpu())
+            return out, torch.stack(fed, 1)
+
+        runs[dtype], fed = serve(cfg, params)
+        if dtype == "bfloat16":
+            cfg32 = dataclasses.replace(cfg, dtype="float32")
+            params32 = TransformerLM(cfg32, dev)
+            with torch.no_grad():
+                for p32, p in zip(params32.parameters(), params.parameters()):
+                    p32.copy_(p.float())
+            del params
+            torch.cuda.empty_cache()
+            runs["float32"], _ = serve(cfg32, params32, fed)
+            del params32
+        else:
+            del params
+        torch.cuda.empty_cache()
+        torch.save({"tokens": fed, **runs},
+                   os.path.join(root, f"tp_{name}_ref.pt"))
+        row[name] = {"s": time.perf_counter() - t0}
+    return row
+
+
+def mesh_tp(dev, rank, root, name, shape, layers, dtype) -> dict:
+    """(e), one run on this rank: its shards of the seeded weights cut
+    leaf by leaf (``shard_params(init_leaves(...))``; the stored bytes
+    held to the sum of ``shard_shape`` bytes and the peak of the init
+    below the whole model's), a short warm-up, the timed 4 x 2,048
+    prefill (K7's count set to 0 just before and read after), then the
+    decode steps fed the one-process tokens, each step's logits gathered
+    whole; rank 0 saves them for the parent's check.  The timed prefill
+    and decode steps run under ``collective_timing`` (each collective
+    behind a sync of the card and a barrier of its group): calls, bytes,
+    barrier and collective seconds per kind, and their shares of the
+    timed wall time."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.shardings import (
+        NamedSharding,
+        param_pspecs,
+        shard_params,
+    )
+    from repro_torch.launch.steps import (
+        make_decode_step,
+        make_prefill_step,
+        whole_logits,
+    )
+    from repro_torch.models import TransformerLM, init_leaves
+    from repro_torch.models.sharding import (
+        collective_timing,
+        logical_sharding,
+        single_pod_rules,
+    )
+
+    t = MESH_TP
+    cfg = mesh_tp_config(layers, dtype)
+    mesh = make_host_mesh(*shape, device=dev)
+    meta = dict(TransformerLM(cfg, "meta").named_parameters())
+    specs = param_pspecs(cfg, mesh)
+    whole_bytes = sum(p.numel() * p.element_size() for p in meta.values())
+    shard_bytes = sum(
+        int(np.prod(NamedSharding(mesh, specs[n]).shard_shape(p.shape)))
+        * p.element_size() for n, p in meta.items())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = shard_params(cfg, init_leaves(cfg, 0, dev), mesh, dev)
+    torch.cuda.synchronize()
+    row = {"run": name, "mesh": list(shape), "layers": cfg.n_layers,
+           "dtype": dtype, "init_s": time.perf_counter() - t0,
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in params.parameters()),
+           "shard_shape_bytes": shard_bytes, "whole_bytes": whole_bytes,
+           "init_peak_bytes": torch.cuda.max_memory_allocated(dev) - base}
+    assert row["param_bytes"] == shard_bytes, row
+    assert row["init_peak_bytes"] < whole_bytes, row
+    ref = torch.load(os.path.join(root, f"tp_{name}_ref.pt"))
+    tokens = mesh_prompt(cfg, t["batch"], t["prompt"], dev)
+    b = tokens.shape[0]
+    prefill = make_prefill_step(cfg, use_flash=True)
+    decode = make_decode_step(cfg)
+    got = []
+    with logical_sharding(mesh, single_pod_rules()):
+        prefill(params, tokens[:, :t["warm_prompt"]], max_len=t["max_len"])
+        torch.cuda.synchronize()
+        dist.barrier()
+        fa.reset_launches()
+        with collective_timing() as coll:
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, tokens, max_len=t["max_len"])
+            torch.cuda.synchronize()
+            row["prefill_s"] = time.perf_counter() - t0
+        row["prefill_collectives"] = coll
+        row["k7_launches"] = fa.LAUNCHES["flash"]
+        got.append(whole_logits(cfg, logits, b).float().cpu())
+        step_ms = []
+        decode_coll = {}
+        for i in range(t["steps"]):
+            with collective_timing() as coll:
+                t0 = time.perf_counter()
+                logits, cache = decode(params, ref["tokens"][:, i].to(dev),
+                                       cache)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            for kind, c in coll.items():
+                acc = decode_coll.setdefault(kind, dict.fromkeys(c, 0))
+                for k, v in c.items():
+                    acc[k] += v
+            got.append(whole_logits(cfg, logits, b).float().cpu())
+    row["decode_collectives"] = decode_coll
+    for part, coll, wall in (("prefill", row["prefill_collectives"],
+                              row["prefill_s"]),
+                             ("decode", decode_coll, sum(step_ms) / 1e3)):
+        row[f"{part}_collective_share"] = sum(
+            c["s"] for c in coll.values()) / wall
+        row[f"{part}_wait_share"] = sum(
+            c["wait_s"] for c in coll.values()) / wall
+    row["decode_ms"] = step_ms
+    row["decode_ms_per_step"] = float(np.median(step_ms))
+    row["peak_bytes"] = torch.cuda.max_memory_allocated(dev) - base
+    row["peak_abs"] = torch.cuda.max_memory_allocated(dev)
+    row["logits"] = [sha(g) for g in got]
+    assert row["k7_launches"] == cfg.n_layers, row
+    assert all(bool(torch.isfinite(g).all()) for g in got), name
+    if rank == 0:
+        torch.save(got, os.path.join(root, f"tp_{name}_rank.pt"))
+    del params, cache
+    torch.cuda.empty_cache()
+    return row
+
+
+def mesh_tp_check(root) -> dict:
+    """(e)'s logits against the one-process runs: bf16 runs within
+    FAMILY_BF16_OVER_FLOOR times the bf16 floor (the one-process bf16
+    logits' distance from float32 on the same weights and tokens), step
+    by step; the float32 run within MESH_TP_F32_TOL."""
+    out = {}
+    for name, _, _, dtype in MESH_TP["runs"]:
+        ref = torch.load(os.path.join(root, f"tp_{name}_ref.pt"))
+        got = torch.load(os.path.join(root, f"tp_{name}_rank.pt"))
+        errs = [rel_l2(g, w) for g, w in zip(got, ref[dtype])]
+        row = {"rel_l2": errs}
+        if dtype == "bfloat16":
+            floors = [rel_l2(a, b) for a, b in zip(ref["bfloat16"],
+                                                   ref["float32"])]
+            row["floor"] = floors
+            row["bound"] = FAMILY_BF16_OVER_FLOOR
+            row["ok"] = all(e <= FAMILY_BF16_OVER_FLOOR * f
+                            for e, f in zip(errs, floors))
+        else:
+            row["bound"] = MESH_TP_F32_TOL
+            row["ok"] = all(e <= MESH_TP_F32_TOL for e in errs)
+        out[name] = row
+    assert all(r["ok"] for r in out.values()), out
+    return out
+
+
+def mesh_k7_tp_timing(dev) -> dict:
+    """K7 at (e)'s launch on a rank of (1, 4): 4 x 8 query heads over 4 x
+    2 KV heads (n_rep 4), S 2,048, hd 128, causal, bf16, seeded inputs,
+    against its plain version, timed beside its bound, its plain version
+    and SDPA (KV heads repeated, ``is_causal``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    cfg = mesh_tp_config(None, "bfloat16")
+    model = MESH_TP["runs"][0][1][1]
+    rep = cfg.n_heads // cfg.n_kv_heads
+    bh = MESH_TP["batch"] * cfg.n_heads // model
+    s, hd = MESH_TP["prompt"], cfg.head_dim_
+    gen = torch.Generator(device=dev).manual_seed(26)
+    q = torch.randn((bh, s, hd), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((bh // rep, s, hd), generator=gen,
+                        device=dev).bfloat16() for _ in range(2))
+    got = fa._flash_attention_grouped(q, k, v, rep, True, None)
+    err = close_err(got, fa._flash_plain(q, k, v, True, None, n_rep=rep),
+                    FLASH_TOL[q.dtype])
+    bms, by, work = flash_bound(q, k)
+    kr, vr = k.repeat_interleave(rep, 0), v.repeat_interleave(rep, 0)
+    return {
+        "launch": {"bh": bh, "kv_heads": bh // rep, "n_rep": rep, "s": s,
+                   "hd": hd, "window": None, "dtype": "bfloat16"},
+        "max_abs_err": err,
+        "ms": time_ms(lambda: fa._launch_flash(q, k, v, True, None, rep)),
+        "plain_ms": time_ms(lambda: fa._flash_plain(q, k, v, True, None,
+                                                    n_rep=rep)),
+        "bound_ms": bms, "bound_by": by, "work": work,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], kr[None], vr[None], is_causal=True)),
+    }
+
+
 def mesh_granite_check(dev, root) -> dict:
-    """(a)'s (1, 4) logits against a single-process dense prefill on the
+    """(a)'s (1, 4) logits, tensor-parallel and with whole parameters,
+    each against a single-process dense prefill on the
     card (no mesh installed: ``_moe_apply_dense``), in bf16, within
     FAMILY_BF16_OVER_FLOOR times the witness, the dense bf16 prefill's
     distance from the float32 one on the same weights upcast."""
@@ -5758,13 +6050,14 @@ def mesh_granite_check(dev, root) -> dict:
         params32, tokens, max_len=MESH_MOE["max_len"])
     del params32
     torch.cuda.empty_cache()
-    ep = torch.load(os.path.join(root, "granite_1x4.pt")).to(dev)
-    row = {"ep_vs_dense_rel_l2": rel_l2(ep, dense),
-           "dense_vs_f32_rel_l2": rel_l2(dense, dense32),
-           "ep_vs_f32_rel_l2": rel_l2(ep, dense32),
+    row = {"dense_vs_f32_rel_l2": rel_l2(dense, dense32),
            "bound": FAMILY_BF16_OVER_FLOOR}
-    assert row["ep_vs_dense_rel_l2"] <= (
-        FAMILY_BF16_OVER_FLOOR * row["dense_vs_f32_rel_l2"]), row
+    for tag in ("1x4", "1x4_whole"):
+        ep = torch.load(os.path.join(root, f"granite_{tag}.pt")).to(dev)
+        row[tag] = {"ep_vs_dense_rel_l2": rel_l2(ep, dense),
+                    "ep_vs_f32_rel_l2": rel_l2(ep, dense32)}
+        assert row[tag]["ep_vs_dense_rel_l2"] <= (
+            FAMILY_BF16_OVER_FLOOR * row["dense_vs_f32_rel_l2"]), row
     return row
 
 
@@ -5909,12 +6202,14 @@ def mesh_k7_timing(dev) -> dict:
 
 
 def phase_mesh(dev) -> tuple[dict, list]:
-    """Phase 15: MESH_RANKS ranks spawned on the one card (the kernels
-    are built before, in this process), running (a)-(d) (``mesh_rank``);
-    then this process's checks: (a)'s logits against a dense prefill,
-    (b)'s against the unpadded prefill, (c) against its one-process
-    replay.  Returns the ``{"mesh"}`` row and each rank's K7 launches in
-    the timed prefills of (a) and (b)."""
+    """Phase 15: (e)'s one-process runs in this process, then MESH_RANKS
+    ranks spawned on the one card (the kernels are built before, in this
+    process), running (a)-(e) (``mesh_rank``); then this process's
+    checks: (a)'s logits against a dense prefill, (b)'s against the
+    unpadded prefill, (c) against its one-process replay, (e) against
+    its one-process runs; K7 at (b)'s and (e)'s launches against its
+    plain version.  Returns the ``{"mesh"}`` row and each rank's K7
+    launches in the timed prefills of (a), (b) and (e)."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -5927,6 +6222,9 @@ def phase_mesh(dev) -> tuple[dict, list]:
     log(json.dumps({"mesh_backend": backend, "ranks": MESH_RANKS,
                     "cards": row["cards"], "why": mesh_backend.__doc__}))
     with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        row["tp_reference"] = mesh_tp_reference(dev, root)
+        row["tp_reference_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         mp.spawn(mesh_rank, args=(root, str(dev)), nprocs=MESH_RANKS,
                  join=True)
@@ -5942,6 +6240,8 @@ def phase_mesh(dev) -> tuple[dict, list]:
             assert [(x["loss"], x["grad_norm"]) for x in rk["wire"]["steps"]
                     ] == [(x["loss"], x["grad_norm"])
                           for x in ranks[0]["wire"]["steps"]]
+            for a, b in zip(rk["tp"], ranks[0]["tp"]):
+                assert a["logits"] == b["logits"], "ranks' TP logits differ"
         t0 = time.perf_counter()
         row["granite_vs_dense"] = mesh_granite_check(dev, root)
         torch.cuda.empty_cache()
@@ -5949,8 +6249,10 @@ def phase_mesh(dev) -> tuple[dict, list]:
         torch.cuda.empty_cache()
         row["wire_replay"] = mesh_wire_replay(dev, ranks)
         torch.cuda.empty_cache()
+        row["tp_vs_one_process"] = mesh_tp_check(root)
         row["checks_s"] = time.perf_counter() - t0
     row["k7_padded_launch"] = mesh_k7_timing(dev)
+    row["k7_tp_launch"] = mesh_k7_tp_timing(dev)
     r0 = ranks[0]
     row["granite"] = [{k: v for k, v in g.items() if k != "logits"}
                       for g in r0["granite"]]
@@ -5958,6 +6260,10 @@ def phase_mesh(dev) -> tuple[dict, list]:
     row["wire"] = {k: r0["wire"][k] for k in ("steps", "numel",
                                               "wire_bytes_per_step")}
     row["ckpt"] = r0["ckpt"]
+    row["tp"] = [{k: v for k, v in t.items() if k != "logits"}
+                 for t in r0["tp"]]
+    row["tp_peak_bytes_per_rank"] = [[t["peak_bytes"] for t in rk["tp"]]
+                                     for rk in ranks]
     row["transports"] = r0["transports"]
     for key, how in r0["transports"].items():
         log(json.dumps({"mesh_transport": key, "carried": how}))
@@ -5965,7 +6271,8 @@ def phase_mesh(dev) -> tuple[dict, list]:
     row["max_memory_allocated"] = [rk["max_memory_allocated"] for rk in ranks]
     row["max_memory_allocated_sum"] = sum(row["max_memory_allocated"])
     k7 = [sum(g["k7_launches"] for g in rk["granite"])
-          + rk["hymba"]["k7_launches"] for rk in ranks]
+          + rk["hymba"]["k7_launches"]
+          + sum(t["k7_launches"] for t in rk["tp"]) for rk in ranks]
     row["k7_launches_per_rank"] = k7
     row["phase_s"] = time.perf_counter() - t_phase
     return row, k7

@@ -9,7 +9,9 @@ meta with the ``ForestMeta`` fields).  ``model_from_arrays`` carries a
 trained reference ``ForestModel`` (heap arrays, ``CartConfig``, ``Binner``)
 across the same way, and ``lm_params_from_arrays`` a reference LM's
 parameter pytree (numpy arrays or torch tensors) into the port's
-``TransformerLM``; ``lm_params_to_arrays`` is its inverse.
+``TransformerLM``; ``lm_params_to_arrays`` is its inverse, and
+``lm_shards_from_arrays`` carries the same pytree onto a rank of a mesh
+as its shards only (``launch.shardings.shard_params``).
 ``train_state_to_arrays`` / ``train_state_from_arrays`` carry a whole
 train state — parameters, the AdamW moments and step, and the gradient
 compression's error feedback ``"ef"`` — between the port's form (a
@@ -36,6 +38,7 @@ __all__ = [
     "forest_from_arrays",
     "lm_params_from_arrays",
     "lm_params_to_arrays",
+    "lm_shards_from_arrays",
     "model_from_arrays",
     "train_state_from_arrays",
     "train_state_to_arrays",
@@ -198,6 +201,28 @@ def lm_params_from_arrays(cfg, params, device="cuda") -> TransformerLM:
     if lm.mtp is not None:
         put_module(lm.mtp, params["mtp"], "mtp")
     return lm
+
+
+def lm_shards_from_arrays(cfg, params, mesh, device="cuda") -> TransformerLM:
+    """This rank's ``TransformerLM`` of shards (``shard_params``) holding
+    the numbers of a reference parameter pytree (numpy arrays or torch
+    tensors, layers stacked on a leading L axis): each leaf's slice for
+    a block (or the leaf itself) is read, cut to this rank's shard and
+    dropped, one leaf at a time.  Raises ``ValueError`` on a missing or
+    misshapen leaf."""
+    from .launch.shardings import shard_params
+
+    def leaves():
+        for name, _ in TransformerLM(cfg, "meta").named_parameters():
+            path, index = reference_path(name)
+            leaf = params
+            for part in path.split("/"):
+                if part not in leaf:
+                    raise ValueError(f"missing leaf {path!r}")
+                leaf = leaf[part]
+            yield name, leaf if index is None else leaf[index]
+
+    return shard_params(cfg, leaves(), mesh, device)
 
 
 def lm_params_to_arrays(cfg, lm: TransformerLM) -> dict:

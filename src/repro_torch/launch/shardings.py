@@ -23,16 +23,35 @@ them back into the reference's tree, the layout of a checkpoint.
 A sharding (``to_named``) is a ``NamedSharding``: the mesh and the spec,
 read as DTensor placements (``Shard(dim)`` / ``Replicate()`` per mesh
 dimension).  A mesh is a ``DeviceMesh`` or a ``launch.mesh.AbstractMesh``.
+
+``shard_params`` gives this rank of a ``DeviceMesh`` its ``TransformerLM``
+of shards, each leaf cut to ``NamedSharding.shard_shape`` at the rank's
+(data, model) coordinate, taking the whole leaves one at a time (from
+``models.init_leaves`` or ``convert.lm_shards_from_arrays``), so no rank
+holds the whole model; ``init_cache_shards`` is ``init_cache`` in
+``cache_pspecs``'s local shapes.  Tensor-parallel serving runs on them
+(``models.tensor_parallel``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any
 
+import torch
+from torch import nn
+
 from ..configs.base import ModelConfig
+from ..core.tensor_codec import _host
+from ..device import resolve_device
 from ..models.model import TransformerLM, init_cache, reference_path
 from ..models.sharding import PartitionSpec as P
-from ..models.sharding import _axis_size, mesh_axis_names, mesh_shape
+from ..models.sharding import (
+    _axis_size,
+    axis_index,
+    mesh_axis_names,
+    mesh_shape,
+)
+from ..models.tensor_parallel import TPCache
 from ..optim.adamw import init_opt_state
 
 __all__ = [
@@ -41,10 +60,13 @@ __all__ = [
     "batch_axes",
     "batch_spec",
     "cache_pspecs",
+    "init_cache_shards",
+    "local_shard",
     "opt_pspecs",
     "param_pspecs",
     "placements",
     "reference_pspecs",
+    "shard_params",
     "to_named",
 ]
 
@@ -259,3 +281,82 @@ def abstract_train_state(cfg: ModelConfig):
     """(params, opt_state) on the ``meta`` device — no allocation."""
     params = TransformerLM(cfg, "meta")
     return params, init_opt_state(params)
+
+
+# ---------------------------------------------------------------------------
+# this rank's shards
+# ---------------------------------------------------------------------------
+def local_shard(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:
+    """The view of the whole ``t`` that this rank of the ``DeviceMesh``
+    holds under ``spec``: each sharded dim cut into the axis' size and the
+    rank's block kept (``NamedSharding(mesh, spec).shard_shape``)."""
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            n = t.shape[dim] // _axis_size(mesh, axis)
+            t = t.narrow(dim, axis_index(axis, mesh) * n, n)
+    return t
+
+
+def _data_dim(spec: P) -> int | None:
+    return next((i for i, a in enumerate(spec)
+                 if a == "data" or (isinstance(a, tuple) and "data" in a)),
+                None)
+
+
+@torch.no_grad()
+def shard_params(cfg: ModelConfig, leaves, mesh,
+                 device="cuda") -> TransformerLM:
+    """This rank's ``TransformerLM`` on ``device``: every parameter its
+    local shard under ``param_pspecs(cfg, mesh)`` (``mesh`` a
+    ``DeviceMesh``).  ``leaves`` yields (parameter name, whole tensor or
+    numpy array) and is read one leaf at a time: each is cut, its shard
+    copied to ``device`` and the whole dropped (``models.init_leaves``,
+    ``convert.lm_shards_from_arrays``, or a ``TransformerLM``'s
+    ``named_parameters()``).  Raises ``ValueError`` on an unknown,
+    misshapen, repeated or missing leaf.  The model carries ``mesh`` and
+    each parameter's dim cut over ``data`` (``fsdp_dims``)."""
+    dev = resolve_device(device)
+    specs = param_pspecs(cfg, mesh)
+    lm = TransformerLM(cfg, "meta")
+    modules = dict(lm.named_modules())
+    metas = dict(lm.named_parameters())
+    seen: set[str] = set()
+    for name, whole in leaves:
+        if name not in specs or name in seen:
+            raise ValueError(f"unknown or repeated leaf {name!r}")
+        t = whole.detach() if isinstance(whole, torch.Tensor) else _host(whole)
+        meta = metas[name]
+        if tuple(t.shape) != tuple(meta.shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"{tuple(meta.shape)}")
+        local = local_shard(t, specs[name], mesh).to(dev, meta.dtype)
+        owner, _, leaf = name.rpartition(".")
+        setattr(modules[owner], leaf, nn.Parameter(
+            local.clone(memory_format=torch.contiguous_format),
+            requires_grad=False))
+        seen.add(name)
+        del t, local, whole
+    if seen != set(specs):
+        raise ValueError(f"missing leaves {sorted(set(specs) - seen)}")
+    lm.mesh = mesh
+    lm.fsdp_dims = {n: _data_dim(sp) for n, sp in specs.items()}
+    return lm
+
+
+def init_cache_shards(cfg: ModelConfig, batch: int, max_len: int, mesh,
+                      device="cuda") -> TPCache:
+    """``init_cache(cfg, batch, max_len)`` in this rank's local shapes under
+    ``cache_pspecs`` (zeros), as a ``TPCache`` that knows ``max_len``."""
+    dev = resolve_device(device)
+    specs = cache_pspecs(cfg, mesh, batch, max_len)
+    meta = init_cache(cfg, batch, max_len, device="meta")
+
+    def build(tree, spec):
+        if isinstance(tree, dict):
+            return {k: build(v, spec[k]) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [build(v, sp) for v, sp in zip(tree, spec)]
+        shape = NamedSharding(mesh, spec).shard_shape(tree.shape)
+        return torch.zeros(shape, dtype=tree.dtype, device=dev)
+
+    return TPCache(build(meta, specs), max_len=max_len)

@@ -41,6 +41,7 @@ __all__ = [
     "make_prefill_step",
     "make_train_step",
     "make_wire_train_step",
+    "whole_logits",
 ]
 
 
@@ -176,17 +177,11 @@ def make_wire_train_step(
     )
     from ..optim.adamw import clip_by_global_norm
     from ..optim.compression import wire_quantized_psum
+    from .shardings import _data_dim
 
     assert "pod" not in mesh_axis_names(mesh), "wire grad sync: single-pod demo"
     d_size = mesh_shape(mesh)["data"]
-
-    def data_dim(spec) -> int | None:
-        for i, a in enumerate(spec):
-            if a == "data" or (isinstance(a, tuple) and "data" in a):
-                return i
-        return None
-
-    dims = {n: data_dim(spec) for n, spec in pspecs.items()}
+    dims = {n: _data_dim(spec) for n, spec in pspecs.items()}
     inner_rules = dict(rules or {})
     inner_rules.update({"batch": None, "d_model_fsdp": None})
     no_clip_cfg = dataclasses.replace(opt_cfg, clip_norm=float("inf"))
@@ -235,7 +230,10 @@ def make_prefill_step(cfg: ModelConfig, *, use_flash: bool = False):
     """(params, tokens[, frontend_embeds][, max_len=]) -> (last logits,
     decode cache).  ``use_flash=True`` runs the prompt through the
     hand-written kernels: K7 for GQA and Hymba attention, K8 for the
-    RWKV6 recurrence (MLA never takes K7, as in the reference)."""
+    RWKV6 recurrence (MLA never takes K7, as in the reference).  With
+    sharded ``params`` under ``logical_sharding`` the step is this rank's
+    cut: the global batch's tokens in, this rank's logits (batch rows x
+    vocab slice) and cache shards out; K7 runs at the rank's heads."""
 
     def prefill_step(params, tokens, frontend_embeds=None,
                      max_len: int | None = None):
@@ -245,8 +243,29 @@ def make_prefill_step(cfg: ModelConfig, *, use_flash: bool = False):
     return prefill_step
 
 
+def whole_logits(cfg: ModelConfig, logits, batch: int, mesh=None):
+    """The whole (B, V) logits on every rank from a tensor-parallel step's
+    local (B / data, V / model) block: gathered over ``model`` along the
+    vocab and over ``data`` along the batch, where each was cut (the
+    mesh installed by ``logical_sharding`` unless given)."""
+    from ..models.sharding import all_gather, current_mesh, mesh_shape
+
+    mesh = mesh if mesh is not None else current_mesh()
+    shape = mesh_shape(mesh)
+    if logits.shape[1] != cfg.vocab_size:
+        logits = all_gather(logits, "model", dim=1, mesh=mesh)
+    if logits.shape[0] != batch:
+        logits = all_gather(logits, "data", dim=0, mesh=mesh)
+    assert tuple(logits.shape) == (batch, cfg.vocab_size), shape
+    return logits
+
+
 def make_decode_step(cfg: ModelConfig):
-    """(params, tokens (B,), cache) -> (logits (B,V), new cache)."""
+    """(params, tokens (B,), cache) -> (logits (B,V), new cache).  With
+    sharded ``params`` (``launch.shardings.shard_params``) under
+    ``logical_sharding``, ``tokens`` are the global batch's, and the
+    logits and cache this rank's (``whole_logits`` gathers the
+    logits)."""
 
     def serve_step(params, tokens, cache):
         return _decode_step(cfg, params, tokens, cache)

@@ -7,6 +7,7 @@ from .model import (
     embed_inputs,
     forward,
     init_cache,
+    init_leaves,
     init_params,
     loss_fn,
     mtp_loss,
@@ -19,6 +20,7 @@ __all__ = [
     "embed_inputs",
     "forward",
     "init_cache",
+    "init_leaves",
     "init_params",
     "loss_fn",
     "mtp_loss",

@@ -21,6 +21,21 @@ heads in each group and zero KV groups.  The padded q / k / v go to K7 or
 to the plain routes at their padded shapes, and the output keeps its real
 heads only (``_unpad_heads``); the decode cache holds the real KV heads.
 Without a mesh the padding is the identity.
+
+Tensor-parallel serving (``models.tensor_parallel``; the parameters are
+this rank's shards) runs ``attention_prefill_tp`` / ``attention_decode_tp``:
+the rank's query heads from its columns of ``wq`` (and of ``bq``), the KV
+heads those heads read, and its rows of ``wo``, returning the partial
+output the caller sums over ``model``.  Where the KV heads divide the
+model axis each rank holds its own, cache included.  Where they do not,
+K and V are whole on every rank (``wk`` / ``wv``'s columns, cut mid-head,
+gathered over ``model``), each rank attends with its heads against the
+KV heads they map to (``_local_kv``), and the decode cache is cut along
+TIME (``launch.shardings.cache_pspecs``): the rank owning a position
+writes it, each rank scores its slice, and a log-sum-exp combine over
+``model`` (``pmax``, then one ``psum`` of the rescaled sums and outputs)
+gives the attention; for that every rank scores all query heads (the
+one-token q gathered over ``model``) and keeps its own after.
 """
 from __future__ import annotations
 
@@ -30,13 +45,24 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from .blockwise import chunked_attention
-from .layers import apply_rope, rms_norm
-from .sharding import _axis_size, ax, current_mesh, current_rules
+from .layers import apply_rope, matmul_f32, rms_norm
+from .sharding import (
+    _axis_size,
+    all_gather,
+    ax,
+    current_mesh,
+    current_rules,
+    pmax,
+    psum,
+)
+from .tensor_parallel import TPLayout
 
 __all__ = [
     "Attention",
     "attention_decode",
+    "attention_decode_tp",
     "attention_prefill",
+    "attention_prefill_tp",
     "attention_train",
     "init_attention",
     "init_kv_cache",
@@ -95,17 +121,29 @@ def init_attention(p: Attention, cfg: ModelConfig,
     return p
 
 
-def _project_qkv(p: Attention, cfg: ModelConfig, x, positions):
-    b, s, d = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    q = x @ p.wq
-    k = x @ p.wk
-    v = x @ p.wv
+def _project_qkv(p: Attention, cfg: ModelConfig, x, positions,
+                 L: TPLayout | None = None):
+    """q (B, S, H, hd), k / v (B, S, KV, hd) of ``x`` (B, S, d).  Under a
+    tensor-parallel layout ``L`` the weights are this rank's columns: q
+    holds its H / model heads, k / v its KV heads where they divide the
+    model axis, else all of them (``wk`` / ``wv``'s columns cut mid-head
+    are gathered over ``model``)."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim_
+    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
     if cfg.qkv_bias:
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kv, hd)
-    v = v.reshape(b, s, kv, hd)
+        if L is None:
+            q, k, v = q + p.bq, k + p.bk, v + p.bv
+        else:
+            cols = _kv_cols(cfg, L)
+            q = q + p.bq[L.h_lo * hd:(L.h_lo + L.h_loc) * hd]
+            k, v = k + p.bk[cols], v + p.bv[cols]
+    if L is not None and L.kv_cols:
+        k = all_gather(k, "model", dim=-1, mesh=L.mesh)
+        v = all_gather(v, "model", dim=-1, mesh=L.mesh)
+    q = q.reshape(b, s, -1, hd)
+    k = k.reshape(b, s, -1, hd)
+    v = v.reshape(b, s, -1, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.rms_eps)
         k = rms_norm(k, p.k_norm, cfg.rms_eps)
@@ -274,14 +312,9 @@ def attention_decode(p: Attention, cfg: ModelConfig, x, cache, position):
     t = cache["k"].shape[1]
     position = position.long()
     slot = position % max(t, 1) if cfg.sliding_window > 0 else position
-    # scatter ONE slot per row in place; a slot past the cache is dropped
-    # (the old value written back), as JAX's scatter drops it
-    rows = torch.arange(b, device=x.device)
-    inside = (slot < t)[:, None, None]
-    slot = torch.where(slot < t, slot, 0)
     k, v = cache["k"], cache["v"]
-    k.index_put_((rows, slot), torch.where(inside, k_new[:, 0], k[rows, slot]))
-    v.index_put_((rows, slot), torch.where(inside, v_new[:, 0], v[rows, slot]))
+    _write_slot(k, k_new, slot, slot < t)
+    _write_slot(v, v_new, slot, slot < t)
     k = ax(k, "batch", None, "kv_heads", None)
     v = ax(v, "batch", None, "kv_heads", None)
 
@@ -295,3 +328,140 @@ def attention_decode(p: Attention, cfg: ModelConfig, x, cache, position):
     out = _sdpa(q, k, v, mask[:, None, None, :], n_rep)
     out = out.reshape(b, 1, -1) @ p.wo
     return out, {"k": k, "v": v}
+
+
+def _write_slot(buf, new, slot, inside):
+    """Write each row's one new (B, 1, KV, hd) key or value into ``buf``
+    (B, T, KV, hd) IN PLACE at its ``slot``, where ``inside``; elsewhere
+    the old value is written back (a slot past the cache is dropped, as
+    JAX's scatter drops it)."""
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    slot = torch.where(inside, slot, 0)
+    buf.index_put_((rows, slot), torch.where(inside[:, None, None],
+                                             new[:, 0], buf[rows, slot]))
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving: this rank's heads
+# ---------------------------------------------------------------------------
+def _kv_cols(cfg: ModelConfig, L: TPLayout) -> slice:
+    """This rank's columns of ``wk`` / ``wv`` (and of ``bk`` / ``bv``,
+    which are whole)."""
+    hd = cfg.head_dim_
+    if L.kv_split:
+        return slice(L.kv_lo * hd, (L.kv_lo + L.kv_loc) * hd)
+    if L.kv_cols:
+        n = cfg.n_kv_heads * hd // L.model
+        return slice(L.mi * n, (L.mi + 1) * n)
+    return slice(None)
+
+
+def _local_kv(cfg: ModelConfig, L: TPLayout, k):
+    """(the KV heads of ``k`` (B, T, KV', hd) that this rank's query heads
+    read, their n_rep).  Where the KV heads divide the model axis ``k``
+    holds this rank's already; else the rank's heads lie in one group
+    (``tp_layout`` refuses heads that straddle groups), that KV head."""
+    if L.kv_split:
+        return k, cfg.n_heads // cfg.n_kv_heads
+    g = L.h_lo // (cfg.n_heads // cfg.n_kv_heads)
+    return k[:, :, g:g + 1], L.h_loc
+
+
+def _time_split(L: TPLayout, max_len: int) -> bool:
+    """Whether the decode cache is cut along time over ``model``: the KV
+    heads do not divide it and the length does (``cache_pspecs``)."""
+    return not L.kv_split and max_len % L.model == 0
+
+
+def attention_prefill_tp(p: Attention, cfg: ModelConfig, L: TPLayout, x,
+                         positions, max_len: int, use_flash: bool = False):
+    """This rank's heads over the whole sequence ``x`` (B, S, d): (its
+    float32 partial of the output (B, S, d), to be summed over ``model``,
+    this rank's decode cache in ``cache_pspecs``'s local shape).  K7 (or the
+    plain routes) runs at the rank's heads over the KV heads they read."""
+    b, s, _ = x.shape
+    if max_len < s:
+        raise ValueError(f"max_len {max_len} < prompt {s}")
+    q, k, v = _project_qkv(p, cfg, x, positions, L)
+    q = ax(q, "batch", None, "heads", None)
+    k = ax(k, "batch", None, "kv_heads", None)
+    v = ax(v, "batch", None, "kv_heads", None)
+    kq, rep = _local_kv(cfg, L, k)
+    vq, _ = _local_kv(cfg, L, v)
+    out = ax(_attend_full(q, kq, vq, cfg, use_flash),
+             "batch", None, "heads", None)
+    part = matmul_f32(out.reshape(b, s, -1), p.wo)
+    if _time_split(L, max_len):
+        t_loc = max_len // L.model
+        lo = L.mi * t_loc
+        n = max(min(s, lo + t_loc) - lo, 0)
+        k_buf = k.new_zeros((b, t_loc, *k.shape[2:]))
+        v_buf = v.new_zeros((b, t_loc, *v.shape[2:]))
+        k_buf[:, :n] = k[:, lo:lo + n]
+        v_buf[:, :n] = v[:, lo:lo + n]
+    else:
+        k_buf = k.new_zeros((b, max_len, *k.shape[2:]))
+        v_buf = v.new_zeros((b, max_len, *v.shape[2:]))
+        k_buf[:, :s] = k
+        v_buf[:, :s] = v
+    return part, {"k": k_buf, "v": v_buf}
+
+
+def _sdpa_time_split(L: TPLayout, q, k, v, mask, n_rep: int):
+    """``_sdpa`` over a time axis cut across ``model``: each rank scores
+    every query head of ``q`` against its slice ``k`` / ``v``
+    (B, T / model, KV, hd) under ``mask`` (B, 1, S, T / model); the softmax
+    is combined by log-sum-exp (the ``pmax`` of the ranks' maxima, then
+    one ``psum`` of the outputs and the normalisers beside them), in
+    float32, cast to q's type.  Every rank gets the whole output."""
+    b, s, h, hd = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, s, kvh, n_rep, hd)
+    scores = torch.einsum("bsgrh,btgh->bgrst", qg, k) / (hd**0.5)
+    scores = torch.where(mask[:, :, None], scores.float(), _NEG_INF)
+    m = pmax(scores.amax(-1, keepdim=True), "model", mesh=L.mesh)
+    w = torch.exp(scores - m)
+    o = torch.einsum("bgrst,btgh->bgrsh", w, v.float())
+    tot = psum(torch.cat([o, w.sum(-1, keepdim=True)], -1), "model",
+               mesh=L.mesh)
+    out = tot[..., :hd] / tot[..., hd:]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd).to(q.dtype)
+
+
+def attention_decode_tp(p: Attention, cfg: ModelConfig, L: TPLayout, x,
+                        cache, position, max_len: int):
+    """One-token step of this rank's heads: x (B, 1, d) whole on every
+    model rank, ``cache`` this rank's (``cache_pspecs``'s local shape of a
+    ``max_len`` cache), written in place.  Returns (its partial of the
+    output (B, 1, d), the same cache)."""
+    b = x.shape[0]
+    q, k_new, v_new = _project_qkv(p, cfg, x, position[:, None], L)
+    q = ax(q, "batch", None, "heads", None)
+    k, v = cache["k"], cache["v"]
+    t = k.shape[1]
+    position = position.long()
+    if _time_split(L, max_len):
+        # the rank whose slice holds the position writes it; every rank
+        # scores ALL query heads over its time slice (the combine sums a
+        # head's parts across the ranks), then keeps its own heads
+        slot = position - L.mi * t
+        inside = (slot >= 0) & (slot < t)
+        _write_slot(k, k_new, slot, inside)
+        _write_slot(v, v_new, slot, inside)
+        idx = L.mi * t + torch.arange(t, device=x.device)[None, :]
+        mask = idx <= position[:, None]
+        q_all = all_gather(q, "model", dim=2, mesh=L.mesh)
+        out = _sdpa_time_split(L, q_all, k, v, mask[:, None, None, :],
+                               cfg.n_heads // cfg.n_kv_heads)
+        out = out[:, :, L.h_lo:L.h_lo + L.h_loc]
+    else:
+        _write_slot(k, k_new, position, position < t)
+        _write_slot(v, v_new, position, position < t)
+        k = ax(k, "batch", None, "kv_heads", None)
+        v = ax(v, "batch", None, "kv_heads", None)
+        kq, rep = _local_kv(cfg, L, k)
+        vq, _ = _local_kv(cfg, L, v)
+        mask = torch.arange(t, device=x.device)[None, :] <= position[:, None]
+        out = _sdpa(q, kq, vq, mask[:, None, None, :], rep)
+    out = ax(out, "batch", None, "heads", None)
+    return matmul_f32(out.reshape(b, 1, -1), p.wo), {"k": k, "v": v}

@@ -1,19 +1,25 @@
 """Shared model primitives: RMS norm, RoPE, the SwiGLU MLP, linear init
-and the losses — the port of ``repro.models.layers``."""
+and the losses — the port of ``repro.models.layers``.  ``swiglu_partial``
+is the SwiGLU of tensor-parallel serving: this rank's FF columns, its
+partial of the output."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from .sharding import ax
+
 __all__ = [
     "apply_rope",
     "chunked_ce_loss",
     "cross_entropy_loss",
     "init_linear",
+    "matmul_f32",
     "rms_norm",
     "rope_freqs",
     "swiglu",
+    "swiglu_partial",
 ]
 
 
@@ -47,18 +53,50 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def swiglu(x, w1, w3, w2, b1=None, b3=None, b2=None):
-    """SwiGLU MLP: w2( silu(x w1) * (x w3) ); weights (d_in, d_out)."""
+def _swiglu_hidden(x, w1, w3, b1=None, b3=None):
+    """silu(x w1 + b1) * (x w3 + b3), the SwiGLU's FF activation."""
     h = x @ w1
     g = x @ w3
     if b1 is not None:
         h = h + b1
         g = g + b3
     h = F.silu(h) * g
-    out = h @ w2
+    return ax(h, "batch", None, "ff") if h.dim() == 3 else h
+
+
+def swiglu(x, w1, w3, w2, b1=None, b3=None, b2=None):
+    """SwiGLU MLP: w2( silu(x w1) * (x w3) ); weights (d_in, d_out)."""
+    out = _swiglu_hidden(x, w1, w3, b1, b3) @ w2
     if b2 is not None:
         out = out + b2
     return out
+
+
+def matmul_f32(x, w):
+    """``x @ w`` in float32: for bf16 operands the GEMM's float32
+    accumulator itself (``torch.mm(..., out_dtype=float32)`` on the card,
+    the operands widened on the CPU), not its bf16 rounding.  A
+    row-parallel partial is summed across ranks in float32 and rounded
+    once after, as the one-process product rounds once."""
+    if x.dtype == torch.float32:
+        return x @ w
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.is_cuda:
+        out = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        out = x2.float() @ w.float()
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def swiglu_partial(x, w1, w3, w2, b1=None, b3=None, cols=slice(None)):
+    """The column- / row-parallel SwiGLU of one rank: its FF columns of
+    ``w1`` / ``w3`` (``cols`` of the whole ``b1`` / ``b3``) and its rows of
+    ``w2`` give its float32 partial of the output (``matmul_f32``), which
+    the caller sums over the model axis; a ``b2`` is added once, after
+    that sum."""
+    if b1 is not None:
+        b1, b3 = b1[cols], b3[cols]
+    return matmul_f32(_swiglu_hidden(x, w1, w3, b1, b3), w2)
 
 
 def init_linear(gen: torch.Generator, d_in: int, d_out: int, dtype,

@@ -29,6 +29,18 @@ reference.  The kernels have no backward pass, so training keeps
 ``decode_step`` run under ``torch.no_grad()``, so serving keeps no
 autograd graph whatever the parameters' ``requires_grad``.
 
+Tensor-parallel serving.  ``launch.shardings.shard_params`` gives a rank
+a ``TransformerLM`` of its shards (``mesh`` set); ``prefill`` and
+``decode_step`` then run the rank's cut of the call under the installed
+``logical_sharding`` (``models.tensor_parallel``): they take the global
+batch's token ids on every rank, compute this rank's batch rows, heads,
+FF columns, vocab slice and sequence slice, and return this rank's
+logits (batch rows x vocab slice) and its cache of local shards
+(``TPCache``).  ``init_leaves`` draws ``init_params``'s numbers one block
+at a time, so a rank can cut a seeded model without ever holding it
+whole.  Training under tensor parallelism is not ported yet: the train
+functions refuse a sharded ``TransformerLM``.
+
 Training: ``loss_fn`` (dense cross entropy, or ``chunked_ce_loss`` from
 2,048 tokens in chunks of 512, plus ``aux_weight`` times the MoE aux
 loss) and ``mtp_loss`` (DeepSeek-V3's depth-1 multi-token prediction).
@@ -58,14 +70,22 @@ from .attention import (
     Attention,
     _param,
     attention_decode,
+    attention_decode_tp,
     attention_prefill,
+    attention_prefill_tp,
     attention_train,
     init_attention,
     init_kv_cache,
 )
-from .layers import chunked_ce_loss, cross_entropy_loss, rms_norm, swiglu
+from .layers import (
+    chunked_ce_loss,
+    cross_entropy_loss,
+    rms_norm,
+    swiglu,
+    swiglu_partial,
+)
 from .mla import MLA, init_mla, init_mla_cache, mla_decode, mla_prefill, mla_train
-from .moe import MoE, init_moe, moe_apply
+from .moe import MoE, _moe_ep_partial, init_moe, moe_apply
 from .rwkv6 import (
     ChannelMix,
     RWKV6TimeMix,
@@ -78,7 +98,19 @@ from .rwkv6 import (
     rwkv6_prefill,
     rwkv6_train,
 )
+from .sharding import ax, current_mesh, logical_sizes
 from .ssm import SSM, init_ssm, init_ssm_cache, ssm_decode, ssm_prefill, ssm_train
+from .tensor_parallel import (
+    TPCache,
+    column_input,
+    embed_tokens,
+    fsdp_gathered,
+    gathered,
+    last_position,
+    own_seq,
+    row_reduce,
+    tp_layout,
+)
 
 __all__ = [
     "Block",
@@ -90,6 +122,7 @@ __all__ = [
     "forward",
     "hidden_states",
     "init_cache",
+    "init_leaves",
     "init_params",
     "lm_head",
     "loss_fn",
@@ -213,6 +246,10 @@ class TransformerLM(nn.Module):
             Block(cfg, dtype, dev, moe) for _ in range(n_main)
         )
         self.mtp = MTP(cfg, dtype, dev) if cfg.mtp_depth else None
+        # set by launch.shardings.shard_params: the mesh this rank's shards
+        # were cut for, and each parameter's dim cut over ``data``
+        self.mesh = None
+        self.fsdp_dims: dict[str, int | None] = {}
 
     @property
     def device(self) -> torch.device:
@@ -257,13 +294,51 @@ def _init_block(blk: Block, cfg: ModelConfig, gen: torch.Generator):
 
 
 @torch.no_grad()
+def init_leaves(cfg: ModelConfig, seed: int = 0, device="cuda"):
+    """Every parameter of ``init_params(cfg, seed, device)`` as (name,
+    whole tensor), one at a time, drawn in ``init_params``'s order from
+    the same ``torch.Generator``: the embedding, the final norm, the head,
+    then one block at a time (a block's leaves are drawn together and the
+    block is dropped after its last leaf is handed over), then the MTP
+    head.  A consumer that keeps only a slice of each leaf never holds
+    the whole model."""
+    dev = resolve_device(device)
+    dtype = _dtype(cfg)
+    d, v = cfg.d_model, cfg.vocab_size
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    yield "embed", torch.empty((v, d), dtype=dtype, device=dev).normal_(
+        0.0, 0.02, generator=gen)
+    yield "final_norm", torch.ones((d,), dtype=dtype, device=dev)
+    if not cfg.tie_embeddings:
+        yield "lm_head", torch.empty((d, v), dtype=dtype, device=dev).normal_(
+            0.0, d**-0.5, generator=gen)
+    n_dense, n_main = _n_layers(cfg)
+    for key, n, moe in (("layers_dense", n_dense, False),
+                        ("layers", n_main, cfg.mlp_type == "moe")):
+        for i in range(n):
+            blk = Block(cfg, dtype, dev, moe)
+            _init_block(blk, cfg, gen)
+            for name, p in blk.named_parameters():
+                yield f"{key}.{i}.{name}", p.data
+            del blk
+    if cfg.mtp_depth:
+        mtp = MTP(cfg, dtype, dev)
+        mtp.proj.normal_(0.0, (2 * d) ** -0.5, generator=gen)
+        _init_block(mtp.block, cfg, gen)
+        mtp.norm.fill_(1.0)
+        for name, p in mtp.named_parameters():
+            yield f"mtp.{name}", p.data
+
+
+@torch.no_grad()
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device="cuda") -> TransformerLM:
     """A ``TransformerLM`` drawn from an explicit ``torch.Generator`` on the
     target device, at the reference's scales (normal * d_in**-0.5, the
     embedding * 0.02, unit norms and ``branch_beta``, zero biases; RWKV6's,
-    the SSM's, MLA's and MoE's own in their modules), not its bits.
-    Raises ``RuntimeError`` for CUDA on a host without a card."""
+    the SSM's, MLA's and MoE's own in their modules), not its bits,
+    drawn in place.  Raises ``RuntimeError`` for CUDA on a host without a
+    card."""
     params = TransformerLM(cfg, device)
     gen = torch.Generator(device=params.device).manual_seed(seed)
     d = cfg.d_model
@@ -372,6 +447,13 @@ def _block_decode(cfg: ModelConfig, p: Block, x, cache, position):
 # ---------------------------------------------------------------------------
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
+def _check_whole(params: TransformerLM) -> None:
+    if params.mesh is not None:
+        raise NotImplementedError(
+            "training and forward() take whole parameters; a sharded "
+            "TransformerLM serves through prefill / decode_step")
+
+
 def _tokens(params: TransformerLM, tokens) -> torch.Tensor:
     return torch.as_tensor(tokens, device=params.device).long()
 
@@ -463,6 +545,7 @@ def hidden_states(
     over the MoE layers, float32; 0 without MoE).  ``remat`` ("full",
     "dots" or None) checkpoints each block."""
     _check_supported(cfg)
+    _check_whole(params)
     block = _maybe_remat(_block_train, remat)
     x = embed_inputs(cfg, params, tokens, frontend_embeds)
     b, s = x.shape[:2]
@@ -564,9 +647,13 @@ def prefill(
     """Process the whole prompt; return (last-token logits (B,V), cache).
 
     The returned cache is layout-identical to init_cache(cfg, B, max_len)
-    so decode_step continues from position S.
+    so decode_step continues from position S.  With sharded ``params``
+    (``shard_params``) the call is this rank's cut (``_prefill_tp``).
     """
     _check_supported(cfg)
+    if params.mesh is not None:
+        return _prefill_tp(cfg, params, tokens, frontend_embeds, max_len,
+                           use_flash)
     x = embed_inputs(cfg, params, tokens, frontend_embeds)
     b, s = x.shape[:2]
     max_len = max_len or s
@@ -629,8 +716,11 @@ def decode_step(cfg: ModelConfig, params: TransformerLM, tokens, cache):
     """tokens (B,) current token ids -> (logits (B,V), new cache).  Key /
     value and latent buffers are written in place and shared with the
     returned cache; recurrent states get new tensors; ``pos`` is a new
-    tensor."""
+    tensor.  With sharded ``params`` the call is this rank's cut
+    (``_decode_step_tp``)."""
     _check_supported(cfg)
+    if params.mesh is not None:
+        return _decode_step_tp(cfg, params, tokens, cache)
     position = cache["pos"]
     x = F.embedding(_tokens(params, tokens)[:, None], params.embed)
     new_cache = dict(cache, pos=position + 1)
@@ -645,3 +735,151 @@ def decode_step(cfg: ModelConfig, params: TransformerLM, tokens, cache):
     x = rms_norm(x, params.final_norm, cfg.rms_eps)
     logits = (x @ lm_head(cfg, params))[:, 0]
     return logits, new_cache
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving: this rank's cut of prefill / decode
+# ---------------------------------------------------------------------------
+def _tp_mesh(params: TransformerLM):
+    mesh = current_mesh()
+    if mesh is not params.mesh:
+        raise RuntimeError(
+            "sharded parameters run under logical_sharding(mesh, rules) "
+            "with the mesh they were cut for")
+    return mesh
+
+
+def _res_ax(x):
+    """The residual stream between blocks: batch over data, sequence over
+    model (the reference's ``_res_ax`` for GQA)."""
+    return ax(x, "batch", "seq_sp", None)
+
+
+def _mlp_tp(cfg: ModelConfig, L, p: Block, h):
+    """This rank's MLP of the whole-sequence ``h``, summed over ``model``
+    (``row_reduce``): its FF columns (or, where they are not cut, the
+    whole MLP on every rank, then its sequence slice), or its experts;
+    ``b2`` added once, after the sum."""
+    if isinstance(p.mlp, MoE):
+        part, _ = _moe_ep_partial(p.mlp, cfg, h, L.mesh, with_aux=False)
+        return row_reduce(L, part, h.dtype)
+    m = p.mlp
+    if L.ff_cols:
+        n = cfg.d_ff // L.model
+        out = row_reduce(L, swiglu_partial(h, m.w1, m.w3, m.w2, m.b1, m.b3,
+                                           slice(L.mi * n, (L.mi + 1) * n)),
+                         h.dtype)
+    else:
+        out = own_seq(L, swiglu_partial(h, m.w1, m.w3, m.w2, m.b1,
+                                        m.b3).to(h.dtype))
+    return out if m.b2 is None else out + m.b2
+
+
+def _block_prefill_tp(cfg: ModelConfig, L, p: Block, x, positions,
+                      max_len: int, use_flash: bool):
+    """x: this rank's residual slice (B, S / model, d)."""
+    h = column_input(L, rms_norm(x, p.norm1, cfg.rms_eps))
+    a, cache = attention_prefill_tp(p.attn, cfg, L, h, positions, max_len,
+                                    use_flash)
+    x = _res_ax(x + row_reduce(L, a, x.dtype))
+    h = column_input(L, rms_norm(x, p.norm2, cfg.rms_eps))
+    return _res_ax(x + _mlp_tp(cfg, L, p, h)), cache
+
+
+def _block_decode_tp(cfg: ModelConfig, L, p: Block, x, cache, position,
+                     max_len: int):
+    """x: (B, 1, d), whole on every model rank."""
+    h = rms_norm(x, p.norm1, cfg.rms_eps)
+    a, cache = attention_decode_tp(p.attn, cfg, L, h, cache, position,
+                                   max_len)
+    x = x + row_reduce(L, a, x.dtype)
+    h = rms_norm(x, p.norm2, cfg.rms_eps)
+    return x + _mlp_tp(cfg, L, p, h), cache
+
+
+def _head_tp(cfg: ModelConfig, params: TransformerLM, L) -> torch.Tensor:
+    """(d, V / model): this rank's vocab columns of the head, gathered
+    over ``data`` (the tied embedding's rows, transposed)."""
+    if cfg.tie_embeddings:
+        return gathered(L, params.embed, params.fsdp_dims["embed"]).T
+    return gathered(L, params.lm_head, params.fsdp_dims["lm_head"])
+
+
+def _tp_layers(params: TransformerLM):
+    """(cache key, its blocks) in order, with each block's name prefix."""
+    for key in ("layers_dense", "layers"):
+        yield key, [(f"{key}.{i}.", blk)
+                    for i, blk in enumerate(getattr(params, key))]
+
+
+@torch.no_grad()
+def _prefill_tp(cfg: ModelConfig, params: TransformerLM, tokens,
+                frontend_embeds, max_len, use_flash):
+    """``prefill``'s cut on this rank: ``tokens`` (B, S) are the global
+    batch's; returns (this rank's last-token logits (B / data, V / model),
+    where each dim divides, its ``TPCache``)."""
+    mesh = _tp_mesh(params)
+    ids = _tokens(params, tokens)
+    b, s = ids.shape
+    max_len = max_len or s
+    L = tp_layout(cfg, mesh, b, s)
+    ids = ids[L.rows]
+    with logical_sizes(L.sizes(cfg)):
+        x = embed_tokens(L, gathered(L, params.embed,
+                                     params.fsdp_dims["embed"]), ids)
+        if cfg.frontend is not None and frontend_embeds is not None:
+            fe = torch.as_tensor(frontend_embeds, device=x.device)
+            fe = fe[L.rows].to(x.dtype)
+            pos = L.s_lo + torch.arange(x.shape[1], device=x.device)
+            fe = F.pad(fe, (0, 0, 0, s - fe.shape[1]))[:, pos]
+            x = torch.where((pos < frontend_embeds.shape[1])[None, :, None],
+                            fe, x)
+        x = _res_ax(x)
+        positions = _positions(x.shape[0], s, x.device)
+        cache = TPCache(max_len=max_len)
+        cache["pos"] = torch.full((x.shape[0],), s, dtype=torch.int32,
+                                  device=x.device)
+        for key, blocks in _tp_layers(params):
+            layers = []
+            for prefix, blk in blocks:
+                with fsdp_gathered(L, blk, params.fsdp_dims, prefix):
+                    x, c = _block_prefill_tp(cfg, L, blk, x, positions,
+                                             max_len, use_flash)
+                layers.append(c)
+            if layers or key == "layers":
+                cache[key] = layers
+        x = rms_norm(last_position(L, x), params.final_norm, cfg.rms_eps)
+        logits = (x @ _head_tp(cfg, params, L))[:, 0]
+        return ax(logits, "batch", "vocab"), cache
+
+
+@torch.no_grad()
+def _decode_step_tp(cfg: ModelConfig, params: TransformerLM, tokens, cache):
+    """``decode_step``'s cut on this rank: ``tokens`` (B,) are the global
+    batch's, ``cache`` this rank's ``TPCache`` (written in place).
+    Returns (its logits (B / data, V / model), the new ``TPCache``)."""
+    mesh = _tp_mesh(params)
+    if not isinstance(cache, TPCache):
+        raise TypeError("a tensor-parallel decode takes the TPCache of "
+                        "prefill or launch.shardings.init_cache_shards")
+    ids = _tokens(params, tokens)
+    L = tp_layout(cfg, mesh, ids.shape[0], 1)
+    ids = ids[L.rows]
+    position = cache["pos"]
+    with logical_sizes(L.sizes(cfg)):
+        x = embed_tokens(L, gathered(L, params.embed,
+                                     params.fsdp_dims["embed"]), ids[:, None])
+        new_cache = TPCache(cache, pos=position + 1, max_len=cache.max_len)
+        for key, blocks in _tp_layers(params):
+            if key not in cache:
+                continue
+            layers = []
+            for (prefix, blk), layer_c in zip(blocks, cache[key]):
+                with fsdp_gathered(L, blk, params.fsdp_dims, prefix):
+                    x, c = _block_decode_tp(cfg, L, blk, x, layer_c, position,
+                                            cache.max_len)
+                layers.append(c)
+            new_cache[key] = layers
+        x = rms_norm(x, params.final_norm, cfg.rms_eps)
+        logits = (x @ _head_tp(cfg, params, L))[:, 0]
+        return ax(logits, "batch", "vocab"), new_cache

@@ -20,16 +20,20 @@ Two dispatch paths, as in the reference: ``_moe_apply_dense`` without a
 mesh (or with a model axis of 1), and the expert-parallel
 ``_moe_apply_ep`` whenever a mesh is installed
 (``models.sharding.logical_sharding``) and its ``model`` axis is larger
-than 1.  There every rank routes its data shard's tokens to its own
-slice of the experts (padded to a multiple of the model axis: -inf router
-logits, zero weights), counts positions over those local tokens for its
-local experts into a local capacity, moves only token ids in the
-dispatch and the combine, and one ``psum`` over ``model`` adds the
-partial outputs.  The reference runs that body under ``shard_map``; the
-port runs it on every rank of a ``DeviceMesh``, with the whole
-(B, S, d) activation on every rank: a rank takes its data shard's rows
-and the outputs are gathered back over the batch axes, so every rank
-returns the whole output, as the reference's global array.
+than 1.  There every rank routes its own batch rows (the reference's
+data shard) to its own slice of the experts (padded to a multiple of the
+model axis: -inf router logits, zero weights), counts positions over
+those local tokens for its local experts into a local capacity, moves
+only token ids in the dispatch and the combine, and one ``psum`` over
+``model`` adds the partial outputs (``_moe_ep_partial`` is the partial;
+tensor-parallel serving sums it with a ``psum_scatter`` instead).  The
+expert weights are the rank's slice where ``launch.shardings.shard_params``
+cut them, else whole and sliced here.  The reference runs that body under
+``shard_map``; the port runs it on every rank of a ``DeviceMesh``, each
+rank keeping its rows.  ``moe_apply`` takes the whole (B, S, d)
+activation, as the reference's takes its global array: under a mesh it
+hands each rank its rows and gathers the outputs back over the batch
+axes.
 """
 from __future__ import annotations
 
@@ -101,27 +105,33 @@ def init_moe(p: MoE, cfg: ModelConfig, gen: torch.Generator) -> MoE:
 
 
 def moe_apply(p: MoE, cfg: ModelConfig, x):
-    """x: (B,S,d) -> (out (B,S,d), aux load-balance loss)."""
+    """x: (B,S,d) -> (out (B,S,d), aux load-balance loss).  Under a mesh
+    with a model axis, every rank holds ``x`` alike: where the batch axes
+    divide the batch each rank dispatches its rows (``_moe_apply_ep``)
+    and the outputs are gathered back, so every rank returns the whole
+    output."""
     mesh = current_mesh()
-    if mesh is not None and mesh_shape(mesh).get("model", 1) > 1:
+    if mesh is None or mesh_shape(mesh).get("model", 1) <= 1:
+        return _moe_apply_dense(p, cfg, x)
+    b = x.shape[0]
+    batch_ax = batch_axes_in()
+    if batch_ax is None or b % _axis_size(mesh, batch_ax) != 0:
         return _moe_apply_ep(p, cfg, x, mesh)
-    return _moe_apply_dense(p, cfg, x)
+    bl = b // _axis_size(mesh, batch_ax)
+    i = axis_index(batch_ax, mesh)
+    out, aux = _moe_apply_ep(p, cfg, x[i * bl:(i + 1) * bl], mesh)
+    return all_gather(out, batch_ax, dim=0, mesh=mesh), aux
 
 
-def _ep_layout(cfg: ModelConfig, b: int, s: int, mesh):
-    """(e_pad, e_loc, batch axes or None, their size, cap_loc) of the
-    expert-parallel dispatch of a (b, s) batch, as the reference sizes
-    them."""
+def _ep_layout(cfg: ModelConfig, bl: int, s: int, mesh):
+    """(e_pad, e_loc, cap_loc) of the expert-parallel dispatch of one
+    rank's (bl, s) rows, as the reference sizes them from its data
+    shard."""
     e, k = cfg.n_experts, cfg.top_k
     tp = mesh_shape(mesh)["model"]
     e_pad = -(-e // tp) * tp
-    batch_ax = batch_axes_in()
-    if batch_ax is not None and b % _axis_size(mesh, batch_ax) != 0:
-        batch_ax = None
-    nb = _axis_size(mesh, batch_ax)
-    cap_loc = max(int((b // max(nb, 1)) * s * k / e * cfg.capacity_factor),
-                  1)
-    return e_pad, e_pad // tp, batch_ax, nb, cap_loc
+    cap_loc = max(int(bl * s * k / e * cfg.capacity_factor), 1)
+    return e_pad, e_pad // tp, cap_loc
 
 
 def _ep_route(cfg: ModelConfig, xf, router, e_pad: int, lo: int,
@@ -172,49 +182,64 @@ def _ep_route(cfg: ModelConfig, xf, router, e_pad: int, lo: int,
             gate_of[:-1].view(e_loc, cap_loc), mine, keep, aux)
 
 
-def _moe_apply_ep(p: MoE, cfg: ModelConfig, x, mesh):
-    """Expert-parallel dispatch on the ranks of ``mesh`` (see the module
-    docstring).
+def _local_experts(w, cfg: ModelConfig, lo: int, e_loc: int):
+    """This rank's experts of the stack ``w``: ``w`` itself where the
+    experts were cut over ``model`` (``shard_params``), else experts
+    [lo, lo + e_loc) of the whole stack, zero experts appended past the
+    real ones."""
+    if w.shape[0] != cfg.n_experts:
+        return w
+    return _pad_experts(w[lo:min(lo + e_loc, cfg.n_experts)], e_loc)
 
-    Experts are padded up to a multiple of the model axis when needed
-    (granite's 40 -> 48 on a 16-way axis); padded experts get -inf router
-    logits and all-zero weights, so they are never selected.  The aux
-    loss is the mean over the other axes, then over ``model``, of each
-    shard's.
-    """
-    b, s, d = x.shape
+
+def _moe_ep_partial(p: MoE, cfg: ModelConfig, x, mesh, with_aux=True):
+    """One rank's share of the expert-parallel output for its rows ``x``
+    (bl, s, d): its experts' kept slots, gated, added back to their
+    tokens in float32.  The caller sums it over ``model`` and rounds
+    once.
+    Returns (partial, aux): the aux loss is the mean over the other axes,
+    then over ``model``, of each shard's (``None`` without
+    ``with_aux``)."""
+    bl, s, d = x.shape
     e = cfg.n_experts
-    e_pad, e_loc, batch_ax, nb, cap_loc = _ep_layout(cfg, b, s, mesh)
-    rank = axis_index("model", mesh)
-    lo = rank * e_loc
+    e_pad, e_loc, cap_loc = _ep_layout(cfg, bl, s, mesh)
+    lo = axis_index("model", mesh) * e_loc
     router = F.pad(p.router, (0, e_pad - e))
-    # this rank's experts: the real ones of [lo, lo + e_loc), then zeros
-    hi = min(lo + e_loc, e)
-    w1, w3, w2 = (_pad_experts(w[lo:hi], e_loc) for w in (p.w1, p.w3, p.w2))
-
-    bl = b // nb
-    xb = x
-    if batch_ax is not None:
-        i = axis_index(batch_ax, mesh)
-        xb = x[i * bl:(i + 1) * bl]
+    w1, w3, w2 = (_local_experts(w, cfg, lo, e_loc)
+                  for w in (p.w1, p.w3, p.w2))
     n = bl * s
-    xf = xb.reshape(n, d)
+    xf = x.reshape(n, d)
     tok_of, gate_of, _, _, aux = _ep_route(cfg, xf, router, e_pad, lo,
                                            e_loc, cap_loc)
-    other = tuple(a for a in mesh_axis_names(mesh) if a != "model")
-    if other:
-        aux = pmean(aux, other, mesh)
-    aux = pmean(aux, "model", mesh)  # identical on every model rank
+    if with_aux:
+        other = tuple(a for a in mesh_axis_names(mesh) if a != "model")
+        if other:
+            aux = pmean(aux, other, mesh)
+        aux = pmean(aux, "model", mesh)  # identical on every model rank
+    else:
+        aux = None
 
     buf = xf.index_select(0, tok_of.clamp(max=n - 1).reshape(-1))
     y = _experts(buf.view(e_loc, cap_loc, d), w1, w3, w2)
     # combine: add slots back to their tokens (empty slots have gate 0 and
     # the spare token id n, whose row is cut off)
-    part = xf.new_zeros((n + 1, d)).index_add_(
-        0, tok_of.reshape(-1), (y * gate_of[..., None]).reshape(-1, d))[:n]
-    out = psum(part, "model", mesh).reshape(bl, s, d)
-    if batch_ax is not None:
-        out = all_gather(out, batch_ax, dim=0, mesh=mesh)
+    part = xf.new_zeros((n + 1, d), dtype=torch.float32).index_add_(
+        0, tok_of.reshape(-1),
+        (y * gate_of[..., None]).reshape(-1, d).float())[:n]
+    return part.reshape(bl, s, d), aux
+
+
+def _moe_apply_ep(p: MoE, cfg: ModelConfig, x, mesh):
+    """Expert-parallel dispatch of this rank's rows ``x`` (bl, s, d) on the
+    ranks of ``mesh`` (see the module docstring); returns its rows of the
+    output and the aux loss.
+
+    Experts are padded up to a multiple of the model axis when needed
+    (granite's 40 -> 48 on a 16-way axis); padded experts get -inf router
+    logits and all-zero weights, so they are never selected.
+    """
+    part, aux = _moe_ep_partial(p, cfg, x, mesh)
+    out = psum(part, "model", mesh).to(x.dtype)
     if p.shared is not None:
         sp = p.shared
         out = out + swiglu(x, sp.w1, sp.w3, sp.w2)

@@ -6,17 +6,24 @@ installs a rules table mapping logical names -> mesh axes
 (``logical_sharding``).  Without rules every annotation is a no-op, so the
 same model code runs everywhere.
 
-The port does not execute the annotations as a tensor-parallel layout:
-under a mesh every rank holds whole activations (ROADMAP lists
-tensor-parallel execution as an item of its own).  What the mesh changes
-in the port is what the reference computes by hand under ``shard_map``:
-the head padding (``models.attention._shard_qkv``), the expert-parallel
-MoE dispatch (``models.moe._moe_apply_ep``), the wire-level gradient sum
+Under a mesh the port executes the layout SPMD: each rank of a
+``torch.distributed`` ``DeviceMesh`` holds its shard of every parameter
+(``launch.shardings.shard_params``) and computes its shard of every
+activation (``models.tensor_parallel``), where the reference's GSPMD
+partitions one global program.  ``ax`` is then the layout's check: while
+a tensor-parallel call runs it installs the global size of each logical
+axis (``logical_sizes``), and an annotated tensor whose local shape is
+not its shard shape raises ``LayoutError`` at the annotation (where the
+reference would reshard).  A model run under a mesh with whole
+parameters (the families the port does not yet split: Hymba's padded
+heads, RWKV6, MLA) keeps whole activations on every rank, and there
+``ax`` checks the names against the rank only.  The collectives
+(``psum``, ``psum_scatter``, ``pmax``, ``pmean``, ``all_gather``,
+``axis_index``, ``axis_size``) are the counterparts of ``jax.lax``'s over
+the process groups of the ``DeviceMesh``.  The expert-parallel MoE
+dispatch (``models.moe._moe_apply_ep``), the wire-level gradient sum
 (``optim.compression.wire_quantized_psum``) and the FSDP train step
-(``launch.steps.make_wire_train_step``).  They use this module's
-named-axis collectives (``psum``, ``pmax``, ``pmean``, ``all_gather``,
-``axis_index``, ``axis_size``), the counterparts of ``jax.lax``'s, over
-the process groups of a ``torch.distributed`` ``DeviceMesh``.
+(``launch.steps.make_wire_train_step``) use them too.
 
 A mesh is a ``DeviceMesh`` (``launch.mesh.make_host_mesh``) or a
 device-free ``launch.mesh.AbstractMesh``; ``mesh_shape`` reads either as
@@ -26,18 +33,28 @@ Transports.  Each collective runs on the tensor where it lies, CUDA
 tensors included (gloo, the backend of ranks that share one card, takes
 them; on the H100 it took every collective of ``chip_smoke.py``'s phase
 15 directly).  Gloo has no sum of int16 tensors: an int16 sum or max is
-carried as int32 (exact, the same integers).  ``TRANSPORTS`` records how
-each (collective, dtype, device) was carried.  The collectives carry no
-autograd.
+carried as int32 (exact, the same integers); gloo takes
+``reduce_scatter_tensor`` (``psum_scatter``) on CPU and CUDA tensors
+alike.  ``TRANSPORTS`` records how each (collective, dtype, device) was
+carried.  The collectives carry no autograd.
+
+Timing.  Inside ``collective_timing()`` each collective on this thread is
+timed on the host, the card synchronised before and after it, behind a
+barrier of its group: the barrier's time (``wait_s``: the ranks arriving
+at different times) and the collective's own (``s``) are added to its
+kind, with its calls and bytes (its input's).  Off, it costs one
+attribute read a collective.
 """
 from __future__ import annotations
 
 import threading
+import time
 from contextlib import contextmanager
 
 import torch
 
 __all__ = [
+    "LayoutError",
     "PartitionSpec",
     "TRANSPORTS",
     "all_gather",
@@ -45,15 +62,18 @@ __all__ = [
     "axis_index",
     "axis_size",
     "batch_axes_in",
+    "collective_timing",
     "current_mesh",
     "current_rules",
     "logical_sharding",
+    "logical_sizes",
     "mesh_axis_names",
     "mesh_shape",
     "multi_pod_rules",
     "pmax",
     "pmean",
     "psum",
+    "psum_scatter",
     "single_pod_rules",
     "spec_for",
 ]
@@ -135,17 +155,67 @@ def _axis_size(mesh, axis) -> int:
     return shape[axis]
 
 
+class LayoutError(ValueError):
+    """A tensor-parallel activation whose local shape is not its shard
+    shape under the installed rules."""
+
+
+def current_sizes() -> dict[str, int] | None:
+    return getattr(_state, "sizes", None)
+
+
+@contextmanager
+def logical_sizes(sizes: dict[str, int]):
+    """The global size of each logical axis in the tensor-parallel call
+    running on this thread ({"batch": B, "seq_sp": S, "heads": H, ...}):
+    what ``ax`` checks local shapes against.  Thread-local."""
+    old = getattr(_state, "sizes", None)
+    _state.sizes = dict(sizes)
+    try:
+        yield
+    finally:
+        _state.sizes = old
+
+
+def _shard_size(mesh, size: int, axis) -> int:
+    """The local size of a global ``size`` dimension sharded over ``axis``:
+    ``size / axis size`` where that divides, else ``size`` (replicated, the
+    reference's guard against ragged shards)."""
+    n = _axis_size(mesh, axis)
+    return size // n if size % n == 0 else size
+
+
 def ax(x: torch.Tensor, *logical_names: str | None) -> torch.Tensor:
     """Annotate activation ``x`` (rank must match names; None = replicated).
 
-    A layout statement only: ``x`` is returned unchanged, since the port
-    runs whole activations on every rank (the reference's GSPMD shards
-    them by the rules, with axes whose dim doesn't divide the mesh axis
-    replicated).  The names are checked against the rank.
+    Under a mesh, while a tensor-parallel call has installed its global
+    sizes (``logical_sizes``), each named dimension of ``x`` must be its
+    shard of the global size under the rules (``_shard_size``: whole where
+    the axis does not divide it): otherwise ``LayoutError``.  A dimension
+    named ``None`` is not checked.  Without sizes (whole activations on
+    every rank) only the rank is checked.  Returns ``x``.
     """
-    if current_mesh() is not None and len(logical_names) != x.dim():
+    mesh = current_mesh()
+    if mesh is None:
+        return x
+    if len(logical_names) != x.dim():
         raise ValueError(f"{len(logical_names)} names for a {x.dim()}-d "
                          "tensor")
+    sizes = current_sizes()
+    if sizes is None:
+        return x
+    rules = current_rules() or {}
+    for dim, (name, got) in enumerate(zip(logical_names, x.shape)):
+        if name is None:
+            continue
+        if name not in sizes:
+            raise LayoutError(f"no global size for logical axis {name!r}")
+        want = _shard_size(mesh, sizes[name], rules.get(name))
+        if got != want:
+            raise LayoutError(
+                f"dim {dim} ({name!r}, global {sizes[name]} over "
+                f"{rules.get(name)!r}) is {got} on this rank, its shard "
+                f"is {want}: local shape {tuple(x.shape)}")
     return x
 
 
@@ -171,6 +241,21 @@ def _axes(axis) -> tuple[str, ...]:
     return axis if isinstance(axis, tuple) else (axis,)
 
 
+@contextmanager
+def collective_timing():
+    """Time this thread's collectives while inside: yields {kind: {"calls",
+    "bytes", "wait_s", "s"}}, filled as they run (``_carry``).  Before
+    each, the card's queue is drained (``torch.cuda.synchronize()`` on a
+    CUDA tensor) and the group meets at a barrier (``wait_s``); ``s`` is
+    the collective itself, to the next synchronize."""
+    old = getattr(_state, "times", None)
+    _state.times = times = {}
+    try:
+        yield times
+    finally:
+        _state.times = old
+
+
 def _carry(kind: str, x: torch.Tensor, group, run) -> torch.Tensor:
     """``run(t, group)`` (an in-place collective on ``t``, or one returning
     its result) on a copy of ``x`` in a dtype this backend sums; the
@@ -182,9 +267,26 @@ def _carry(kind: str, x: torch.Tensor, group, run) -> torch.Tensor:
     how = f"as {str(wide).removeprefix('torch.')}" if wide else "direct"
     key = f"{kind} {str(x.dtype).removeprefix('torch.')} {x.device.type}"
     TRANSPORTS[key] = f"{backend} {how}"
+    times = getattr(_state, "times", None)
+    if times is not None:
+        if x.is_cuda:
+            torch.cuda.synchronize(x.device)
+        t0 = time.perf_counter()
+        dist.barrier(group=group)
+        t1 = time.perf_counter()
     t = x.to(wide) if wide is not None else x.clone()
     out = run(t, group)
-    return (out if out is not None else t).to(x.dtype)
+    out = (out if out is not None else t).to(x.dtype)
+    if times is not None:
+        if x.is_cuda:
+            torch.cuda.synchronize(x.device)
+        row = times.setdefault(kind, {"calls": 0, "bytes": 0, "wait_s": 0.0,
+                                      "s": 0.0})
+        row["calls"] += 1
+        row["bytes"] += x.numel() * x.element_size()
+        row["wait_s"] += t1 - t0
+        row["s"] += time.perf_counter() - t1
+    return out
 
 
 def _reduce(kind: str, op, x: torch.Tensor, axis, mesh) -> torch.Tensor:
@@ -206,6 +308,31 @@ def psum(x: torch.Tensor, axis, mesh=None) -> torch.Tensor:
     import torch.distributed as dist
 
     return _reduce("all_reduce sum", dist.ReduceOp.SUM, x, axis, mesh)
+
+
+def psum_scatter(x: torch.Tensor, axis: str, dim: int = 0,
+                 mesh=None) -> torch.Tensor:
+    """The sum of ``x`` over the mesh axis, cut along ``dim`` into axis-size
+    blocks, this rank keeping the block of its axis index:
+    ``jax.lax.psum_scatter(..., scatter_dimension=dim, tiled=True)``.
+    ``x.shape[dim]`` must divide by the axis size."""
+    import torch.distributed as dist
+
+    mesh = _mesh(mesh)
+    n = mesh_shape(mesh)[axis]
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"psum_scatter: dim {dim} of {tuple(x.shape)} "
+                         f"does not divide over {axis!r} ({n})")
+
+    def run(t, group):
+        t = t.movedim(dim, 0).contiguous()
+        out = t.new_empty((t.shape[0] // n, *t.shape[1:]))
+        dist.reduce_scatter_tensor(out, t, group=group)
+        return out.movedim(0, dim)
+
+    return _carry("reduce_scatter sum", x, mesh.get_group(axis), run)
 
 
 def pmax(x: torch.Tensor, axis, mesh=None) -> torch.Tensor:

@@ -1,0 +1,244 @@
+"""Tensor-parallel serving: one rank's cut of a prefill or decode call
+under a ``(data, model)`` mesh, the layout the reference's
+``launch/shardings.py`` states and its GSPMD executes.
+
+The parameters are this rank's shards (``launch.shardings.shard_params``:
+heads, FF columns, vocab rows and experts over ``model``, the d_model dim
+of every weight matrix over ``data``).  A call computes:
+
+* its batch rows over ``data`` (``launch.shardings.batch_spec``; a batch
+  that does not divide is computed whole on every data rank);
+* between blocks, the residual stream's sequence slice over ``model``
+  (Megatron sequence parallelism, the reference's ``_res_ax`` for GQA);
+  ``rms_norm`` runs on the slice.  A sequence that does not divide stays
+  whole.  Decode's one-token residual is whole on every model rank;
+* in a block: an ``all_gather`` over ``model`` along the sequence before
+  each column-parallel product (``wq`` / ``wk`` / ``wv``, ``w1`` /
+  ``w3``), the rank's heads and FF columns, then the row-parallel
+  product (``wo``, ``w2``; its float32 accumulator, ``matmul_f32``) and
+  one ``psum_scatter`` over ``model`` along the sequence (decode: a
+  ``psum``) in float32, rounded once to the model's type after, as the
+  one-process product rounds once.  A bias after a row-parallel product
+  is added once, after the reduce;
+* at ``data > 1`` (ZeRO-3), each block's d_model-sharded leaves gathered
+  over ``data`` just before the block and freed after it
+  (``fsdp_gathered``);
+* a vocab-parallel embedding (a masked lookup of this rank's rows, then
+  the reduce) and LM head: the logits come out as this rank's batch rows
+  and vocab slice, as ``ax(logits, "batch", "vocab")`` states.
+
+``TPLayout`` holds the cut of one call; ``tp_layout`` derives it from the
+config, the mesh and the global (batch, sequence) by the reference's
+divisibility rules.  Served families: GQA attention (no sliding window)
+with a dense or MoE MLP; the others raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from .sharding import (
+    all_gather,
+    axis_index,
+    mesh_shape,
+    psum,
+    psum_scatter,
+)
+
+__all__ = ["TPCache", "TPLayout", "fsdp_gathered", "tp_layout"]
+
+
+@dataclass(frozen=True)
+class TPLayout:
+    """This rank's cut of one tensor-parallel call.
+
+    ``rows``: its batch rows; ``seq_split``: the residual's sequence cut
+    over ``model`` (``s_lo``, ``s_loc``); ``h_lo`` / ``h_loc``: its query
+    heads; ``kv_split``: KV heads cut over ``model`` (``kv_lo`` /
+    ``kv_loc``), else every rank holds them whole (``kv_cols``: whether
+    ``wk`` / ``wv``'s columns are cut all the same, mid-head);
+    ``ff_cols``: FF columns cut; ``vocab_split``: vocab rows cut
+    (``v_lo``, ``v_loc``); ``fsdp``: d_model cut over ``data``."""
+
+    mesh: Any
+    model: int
+    mi: int
+    batch: int
+    rows: slice
+    seq: int
+    seq_split: bool
+    s_lo: int
+    s_loc: int
+    h_lo: int
+    h_loc: int
+    kv_split: bool
+    kv_lo: int
+    kv_loc: int
+    kv_cols: bool
+    ff_cols: bool
+    vocab_split: bool
+    v_lo: int
+    v_loc: int
+    fsdp: bool
+
+    def sizes(self, cfg: ModelConfig) -> dict[str, int]:
+        """The global size of each logical axis ``ax`` checks here."""
+        return {"batch": self.batch, "seq_sp": self.seq, "seq": self.seq,
+                "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+                "ff": cfg.d_ff, "vocab": cfg.vocab_size}
+
+
+class TPCache(dict):
+    """A decode cache of local shards (``cache_pspecs``'s local shapes), the
+    dict ``init_cache`` lays out, carrying the cache's global length
+    ``max_len``: a rank cannot tell from its slice alone whether time was
+    cut over ``model``."""
+
+    def __init__(self, *args, max_len: int, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.max_len = int(max_len)
+
+
+def _check_served(cfg: ModelConfig, mesh) -> None:
+    if cfg.attn_type != "gqa" or cfg.sliding_window:
+        raise NotImplementedError(
+            f"tensor-parallel serving covers GQA attention without a "
+            f"window; {cfg.name} ({cfg.attn_type}) runs with whole "
+            f"parameters under a mesh")
+    if set(mesh_shape(mesh)) != {"data", "model"}:
+        raise NotImplementedError(
+            f"tensor-parallel serving takes a (data, model) mesh, not "
+            f"{mesh_shape(mesh)}")
+    m = mesh_shape(mesh)["model"]
+    if cfg.n_heads % m:
+        raise NotImplementedError(
+            f"{cfg.n_heads} heads over a {m}-way model axis need the "
+            f"padded-head weights, which the port does not cut yet")
+    h_loc, n_rep = cfg.n_heads // m, cfg.n_heads // cfg.n_kv_heads
+    if cfg.n_kv_heads % m and n_rep % h_loc:
+        raise NotImplementedError(
+            f"a rank's {h_loc} heads straddle groups of {n_rep}")
+    if cfg.n_shared_experts:
+        raise NotImplementedError("a shared expert is not cut yet")
+
+
+def tp_layout(cfg: ModelConfig, mesh, batch: int, seq: int) -> TPLayout:
+    """The cut of a call over ``batch`` rows of ``seq`` tokens (decode:
+    ``seq`` 1) on this rank of ``mesh``, by the reference's rules."""
+    _check_served(cfg, mesh)
+    shape = mesh_shape(mesh)
+    d, m = shape["data"], shape["model"]
+    mi = axis_index("model", mesh)
+    rows = slice(0, batch)
+    if batch % d == 0:
+        b_loc = batch // d
+        rows = slice(axis_index("data", mesh) * b_loc,
+                     (axis_index("data", mesh) + 1) * b_loc)
+    seq_split = m > 1 and seq % m == 0
+    s_loc = seq // m if seq_split else seq
+    h_loc = cfg.n_heads // m
+    kv, hd = cfg.n_kv_heads, cfg.head_dim_
+    kv_split = kv % m == 0
+    kv_loc = kv // m if kv_split else kv
+    v = cfg.vocab_size
+    vocab_split = v % m == 0
+    v_loc = v // m if vocab_split else v
+    return TPLayout(
+        mesh=mesh, model=m, mi=mi, batch=batch, rows=rows,
+        seq=seq, seq_split=seq_split, s_lo=mi * s_loc if seq_split else 0,
+        s_loc=s_loc, h_lo=mi * h_loc, h_loc=h_loc, kv_split=kv_split,
+        kv_lo=mi * kv_loc if kv_split else 0, kv_loc=kv_loc,
+        kv_cols=not kv_split and (kv * hd) % m == 0,
+        ff_cols=cfg.d_ff % m == 0, vocab_split=vocab_split,
+        v_lo=mi * v_loc if vocab_split else 0, v_loc=v_loc,
+        fsdp=d > 1 and cfg.d_model % d == 0,
+    )
+
+
+# ---------------------------------------------------------------------------
+# the sequence-parallel residual
+# ---------------------------------------------------------------------------
+def column_input(L: TPLayout, h: torch.Tensor) -> torch.Tensor:
+    """A column-parallel block's input: the whole sequence, gathered over
+    ``model`` from the residual's slices (as it is when not cut)."""
+    if not L.seq_split:
+        return h
+    return all_gather(h, "model", dim=1, mesh=L.mesh)
+
+
+def row_reduce(L: TPLayout, part: torch.Tensor, dtype) -> torch.Tensor:
+    """The sum over ``model`` of a row-parallel product's partial
+    (B, S, d), cut to this rank's sequence slice when the residual is
+    cut (``psum_scatter``), else whole (``psum``), then cast to ``dtype``
+    (a float32 partial is rounded once, after the sum)."""
+    if L.seq_split:
+        return psum_scatter(part, "model", dim=1, mesh=L.mesh).to(dtype)
+    return psum(part, "model", mesh=L.mesh).to(dtype)
+
+
+def own_seq(L: TPLayout, x: torch.Tensor) -> torch.Tensor:
+    """This rank's sequence slice of a whole (B, S, d) result that every
+    model rank computed alike (a product whose dim was not cut)."""
+    if not L.seq_split:
+        return x
+    return x[:, L.s_lo:L.s_lo + L.s_loc]
+
+
+def last_position(L: TPLayout, x: torch.Tensor) -> torch.Tensor:
+    """(B, 1, d) at the sequence's last position, on every model rank:
+    the last rank's slice holds it when the residual is cut."""
+    if not L.seq_split:
+        return x[:, -1:]
+    return all_gather(x[:, -1:], "model", dim=1, mesh=L.mesh)[:, -1:]
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-3: a block's d_model-sharded leaves, gathered over data
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def fsdp_gathered(L: TPLayout, module: torch.nn.Module,
+                  dims: dict[str, int | None], prefix: str = ""):
+    """Inside the block, each parameter of ``module`` that ``dims``
+    ({full parameter name: its data-sharded dim or None}) cuts over
+    ``data`` holds its all-gathered whole; after it, its shard again (the
+    gathered copies are freed).  A no-op without FSDP."""
+    swapped = []
+    try:
+        if L.fsdp:
+            for name, p in module.named_parameters():
+                dim = dims.get(f"{prefix}{name}")
+                if dim is not None:
+                    swapped.append((p, p.data))
+                    p.data = all_gather(p.data, "data", dim, mesh=L.mesh)
+        yield module
+    finally:
+        for p, shard in swapped:
+            p.data = shard
+
+
+def gathered(L: TPLayout, t: torch.Tensor, dim: int | None) -> torch.Tensor:
+    """One leaf gathered over ``data`` along its sharded ``dim``."""
+    if not L.fsdp or dim is None:
+        return t
+    return all_gather(t, "data", dim, mesh=L.mesh)
+
+
+# ---------------------------------------------------------------------------
+# the vocab-parallel embedding
+# ---------------------------------------------------------------------------
+def embed_tokens(L: TPLayout, embed: torch.Tensor,
+                 ids: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of ``ids`` (B, S) looked up in its vocab rows of
+    ``embed`` (the others give zeros) and summed over ``model``: the
+    residual's sequence slice in prefill (``row_reduce``), decode's whole
+    one-token residual.  A replicated embedding needs no sum."""
+    if not L.vocab_split:
+        return own_seq(L, F.embedding(ids, embed))
+    mine = (ids >= L.v_lo) & (ids < L.v_lo + L.v_loc)
+    x = F.embedding(torch.where(mine, ids - L.v_lo, 0), embed)
+    return row_reduce(L, torch.where(mine[..., None], x, 0), embed.dtype)

@@ -42,6 +42,7 @@ once).  The reference's ``interpret=`` keyword is dropped.
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from collections import Counter, deque
 from dataclasses import dataclass
@@ -109,6 +110,9 @@ class SingleForestStore(ForestStore):
             comp.meta.n_features, comp.meta.n_bins_per_feature,
             arena_capacity_trees, device=self.device,
         )
+        self._serving = None
+        self._arena_drops = set()
+        self._drop_lock = threading.Lock()
 
     # ---------------- one-user registry ------------------------------------
     @property
@@ -332,6 +336,9 @@ class ForestServer:
 
         xb = concat_rows(X)
         name = plan.engine.name
+        # this thread serves: apply the arena drops that re-registrations
+        # on other threads deferred to it, before any arena read
+        self.store.serve_path()
         self.engine_counts[name] += 1
         residency = getattr(self.store, "residency", None)
         if residency is not None:

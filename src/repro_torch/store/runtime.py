@@ -28,6 +28,7 @@ reference.  The ``residency`` and ``journal`` hooks are the reference's:
 from __future__ import annotations
 
 import io
+import threading
 import zlib
 from collections import OrderedDict
 from typing import Iterable, Sequence
@@ -251,6 +252,12 @@ class ForestStore:
             shared.n_features, shared.n_bins_per_feature,
             arena_capacity_trees, device=self.device,
         )
+        # the serving thread's ident (the one thread that uses the arena,
+        # claimed by ``serve_path``) and the users re-registered off it
+        # whose arena runs it has still to drop
+        self._serving: int | None = None
+        self._arena_drops: set[str] = set()
+        self._drop_lock = threading.Lock()
 
     # ---------------- codebook generations --------------------------------
     @property
@@ -341,16 +348,42 @@ class ForestStore:
         }
         self.cache.invalidate_user(user_id)
         if self.arena is not None:
-            self.arena.invalidate(user_id)
+            self._drop_run(user_id)
         if self.residency is not None:
             self.residency.notify_registered(user_id, delta)
+
+    def _drop_run(self, user_id: str) -> None:
+        """Drop the user's arena run now on the serving thread (or before
+        any thread has served), else leave it to the serving thread's next
+        ``serve_path``: a registration on another thread (a driver
+        migration on the scheduler's pump thread) must not pull a run out
+        from under a gather in flight."""
+        with self._drop_lock:
+            if self._serving not in (None, threading.get_ident()):
+                self._arena_drops.add(user_id)
+                return
+        self.arena.invalidate(user_id)
+
+    def serve_path(self) -> None:
+        """Claim the calling thread as the serving thread, the one that
+        uses the device arena, and drop the arena runs of users that
+        were re-registered on other threads since its last batch.
+        ``ForestServer.execute`` calls this before it reads the arena, and
+        ``arena_ensure`` before it admits."""
+        with self._drop_lock:
+            self._serving = threading.get_ident()
+            drops, self._arena_drops = self._arena_drops, set()
+        if self.arena is not None:
+            for u in sorted(drops):
+                self.arena.invalidate(u)
 
     def replace_delta_relabeled(self, user_id: str, delta: UserDelta) -> None:
         """Swap in a RELABELED delta — one whose decoded artifact is
         bit-identical to the resident one (cluster ids renamed onto a new
         codebook generation, streams untouched).  Decoded tiles, arena
         runs, and the user's serving version all survive: this is what
-        lets a migration leave untouched users' warm state alone."""
+        lets a migration leave untouched users' warm state alone.  It
+        drops no arena run, so it is safe on any thread."""
         if user_id not in self._deltas:
             raise KeyError(f"unknown user {user_id!r}")
         self.codebook_for(delta.codebook_generation)  # must be resident
@@ -472,6 +505,7 @@ class ForestStore:
             raise ValueError(
                 "store schema is incompatible with the fused tile arena"
             )
+        self.serve_path()
         missing = [u for u in users if u not in self.arena]
         if missing:  # one eviction pass + one buffer append for the batch
             self.arena.admit_many(

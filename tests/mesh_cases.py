@@ -72,3 +72,49 @@ def attn_config(get_config):
 def attn_input() -> np.ndarray:
     return np.random.default_rng(ATTN_SEED).normal(
         size=ATTN_X_SHAPE).astype(np.float32)
+
+
+TP_SEED = 7
+TP_MESHES = ((1, 4), (2, 2))
+TP_DECODE_STEPS = 3
+#: case -> (arch, config overrides, batch, prompt, cache length): one case
+#: per regime where the tiling rule changes.  kv4: KV heads divide the
+#: model axis (each rank its own, cache included); kv1: one KV head, its
+#: wk / wv columns cut mid-head and the decode cache cut along time;
+#: seq_odd: a prompt that divides neither axis (residual whole), a batch
+#: of 3 that does not divide data (rows whole) and a head_dim of 30 (on a
+#: 4-way model axis one KV head's wk / wv stay whole); vocab_odd: a vocab
+#: of 509 and an FF width of 255 (embedding, head and MLP replicated over
+#: model, each rank computing the whole MLP); starcoder2: qkv and
+#: mlp biases (b2 added once after the reduce); granite: MoE through EP;
+#: internvl2: frontend embeddings on the first positions
+TP_CASES = {
+    "kv4": ("qwen3-4b", {"n_heads": 8, "n_kv_heads": 4}, 4, 16, 24),
+    "kv1": ("qwen3-4b", {}, 4, 16, 24),
+    "seq_odd": ("qwen3-4b", {"head_dim": 30}, 3, 15, 24),
+    "vocab_odd": ("deepseek-7b", {"vocab_size": 509, "d_ff": 255}, 4, 16,
+                  20),
+    "starcoder2": ("starcoder2-3b", {}, 4, 16, 24),
+    "granite": ("granite-moe-3b-a800m", {}, 4, 16, 24),
+    "internvl2": ("internvl2-76b", {}, 4, 16, 24),
+}
+
+
+def tp_config(get_config, name: str):
+    arch, over, *_ = TP_CASES[name]
+    return dataclasses.replace(get_config(arch).smoke(), **over,
+                               dtype="float32")
+
+
+def tp_inputs(cfg, name: str):
+    """(tokens (B, S + TP_DECODE_STEPS) int32: the prompt then the tokens
+    each decode step is fed, frontend embeddings (B, nf, d) or None)."""
+    _, _, b, s, _ = TP_CASES[name]
+    rng = np.random.default_rng(TP_SEED)
+    tok = rng.integers(0, cfg.vocab_size, (b, s + TP_DECODE_STEPS),
+                       dtype=np.int32)
+    fe = None
+    if cfg.frontend is not None:
+        fe = rng.normal(size=(b, cfg.n_frontend_tokens, cfg.d_model)
+                        ).astype(np.float32)
+    return tok, fe

@@ -462,13 +462,39 @@ def test_train_loop_restart_is_bit_exact(tmp_path, name):
 # ---------------------------------------------------------------------------
 # the driver
 # ---------------------------------------------------------------------------
-def test_train_driver_runs_and_resumes(tmp_path, capsys):
+class _NeverSkips:
+    """A ``StragglerMonitor`` whose deadline never passes: the driver's
+    timing of the prefetch does not decide which steps run."""
+
+    def __init__(self, *args, **kwargs):
+        self.skipped = []
+
+    def should_skip(self, step, host, seconds):
+        return False
+
+
+class _SkipsStep1(_NeverSkips):
+    """A monitor that finds step 1's fetch late, whatever it took."""
+
+    def should_skip(self, step, host, seconds):
+        if step == 1:
+            self.skipped.append((step, host))
+            return True
+        return False
+
+
+_DRIVER_ARGV = ["--arch", "qwen3-4b", "--smoke", "--steps", "6", "--batch",
+                "2", "--seq", "16", "--ckpt-every", "3", "--ckpt-codec",
+                "lossless", "--log-every", "1", "--device", "cpu"]
+
+
+def test_train_driver_runs_and_resumes(tmp_path, capsys, monkeypatch):
     """``launch.train`` in process on the CPU: 6 steps with a lossless
     checkpoint every 3, then again from the same directory, which resumes
-    at step 6 and runs none."""
-    argv = ["--arch", "qwen3-4b", "--smoke", "--steps", "6", "--batch", "2",
-            "--seq", "16", "--ckpt-dir", str(tmp_path), "--ckpt-every", "3",
-            "--ckpt-codec", "lossless", "--log-every", "1", "--device", "cpu"]
+    at step 6 and runs none.  The straggler monitor never skips here (a
+    loaded host can make a prefetch late), so every step has a loss."""
+    monkeypatch.setattr(train_driver, "StragglerMonitor", _NeverSkips)
+    argv = _DRIVER_ARGV + ["--ckpt-dir", str(tmp_path)]
     log = train_driver.main(argv)
     out = capsys.readouterr().out
     assert "arch=qwen3-4b" in out and "final loss" in out
@@ -478,6 +504,23 @@ def test_train_driver_runs_and_resumes(tmp_path, capsys):
     assert train_driver.main(argv) == []
     with pytest.raises(SystemExit):
         train_driver.main(["--arch", "qwen3-4b", "--ckpt-codec", "zip"])
+
+
+def test_train_driver_logs_a_skipped_step_and_still_resumes(
+        tmp_path, capsys, monkeypatch):
+    """A straggler skip at step 1: that step is logged as ``{"skipped":
+    1.0}`` with no loss, the other steps have finite losses, the run
+    checkpoints at 3 and 6 and a second run resumes at 6 and runs none."""
+    monkeypatch.setattr(train_driver, "StragglerMonitor", _SkipsStep1)
+    argv = _DRIVER_ARGV + ["--ckpt-dir", str(tmp_path)]
+    log = train_driver.main(argv)
+    assert "final loss" in capsys.readouterr().out
+    assert [m["step"] for m in log] == list(range(6))
+    skipped = {k: v for k, v in log[1].items() if k != "wall_s"}
+    assert skipped == {"skipped": 1.0, "step": 1}
+    assert all(np.isfinite(m["loss"]) for i, m in enumerate(log) if i != 1)
+    assert latest_step(tmp_path) == 6
+    assert train_driver.main(argv) == []
 
 
 def test_training_entries_default_to_cuda_and_raise_without_a_card(

@@ -100,6 +100,7 @@ def test_port_modules_exist():
         "repro_torch.runtime.fault_tolerance",
         "repro_torch.launch.train",
         "repro_torch.models.sharding",
+        "repro_torch.models.tensor_parallel",
         "repro_torch.launch.mesh",
         "repro_torch.launch.shardings",
         "repro_torch.launch.specs",

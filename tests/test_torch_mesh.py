@@ -153,8 +153,10 @@ def test_head_padding_equal(arch):
 
 
 def test_ax_is_a_layout_statement():
-    """``ax`` returns a plain tensor unchanged under a mesh and checks the
-    names against the rank; ``PartitionSpec`` compares as a tuple."""
+    """Without a tensor-parallel call's sizes installed (whole activations
+    on every rank), ``ax`` returns a plain tensor unchanged under a mesh
+    and checks the names against the rank; ``PartitionSpec`` compares as
+    a tuple."""
     x = torch.zeros((4, 6, 8))
     with sharding.logical_sharding(AbstractMesh((1, 4), ("data", "model")),
                                    sharding.single_pod_rules()):
@@ -168,6 +170,54 @@ def test_ax_is_a_layout_statement():
     assert pickle.loads(pickle.dumps(spec)) == spec
     assert sh.placements(("data", "model"), sharding.PartitionSpec(
         None, "data"))[0].dim == 1
+
+
+def test_ax_checks_the_local_shape_under_logical_sizes():
+    """While a tensor-parallel call's global sizes are installed, ``ax``
+    holds each named dim to its shard under the rules: cut where the axis
+    divides it (batch 4 over data 2, 8 heads over model 4), whole where
+    it does not (2 KV heads, a vocab of 509 over model 4); a dim named
+    ``None`` is not checked.  A whole tensor where a shard is due, a
+    shard where the whole is due, or a name with no size raises
+    ``LayoutError``."""
+    mesh = AbstractMesh((2, 4), ("data", "model"))
+    sizes = {"batch": 4, "heads": 8, "kv_heads": 2, "vocab": 509}
+    with sharding.logical_sharding(mesh, sharding.single_pod_rules()), \
+            sharding.logical_sizes(sizes):
+        q = torch.zeros((2, 6, 2, 16))
+        assert sharding.ax(q, "batch", None, "heads", None) is q
+        k = torch.zeros((2, 6, 2, 16))
+        assert sharding.ax(k, "batch", None, "kv_heads", None) is k
+        logits = torch.zeros((2, 509))
+        assert sharding.ax(logits, "batch", "vocab") is logits
+        for bad, names in (
+                (torch.zeros((4, 6, 2, 16)), ("batch", None, "heads", None)),
+                (torch.zeros((2, 6, 8, 16)), ("batch", None, "heads", None)),
+                (torch.zeros((2, 6, 1, 16)),
+                 ("batch", None, "kv_heads", None)),
+                (torch.zeros((2, 127)), ("batch", "vocab")),
+                (torch.zeros((2, 6, 16)), ("batch", "seq_sp", None))):
+            with pytest.raises(sharding.LayoutError):
+                sharding.ax(bad, *names)
+    with sharding.logical_sharding(mesh, sharding.single_pod_rules()):
+        whole = torch.zeros((4, 6, 8, 16))  # no sizes: a whole activation
+        assert sharding.ax(whole, "batch", None, "heads", None) is whole
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "granite-moe-3b-a800m",
+                                  "deepseek-v3-671b", "hymba-1.5b"])
+def test_init_leaves_draws_init_params(arch):
+    """``init_leaves`` hands over every parameter of ``init_params`` in
+    ``named_parameters`` order with the same numbers (one Generator, one
+    block at a time), so a rank can cut a seeded model leaf by leaf."""
+    from repro_torch.models import init_leaves, init_params
+
+    cfg = get_config(arch).smoke()
+    want = list(init_params(cfg, 3, "cpu").named_parameters())
+    got = list(init_leaves(cfg, 3, "cpu"))
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (n, a), (_, b) in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), n
 
 
 def test_host_mesh_raises_without_a_process_group():

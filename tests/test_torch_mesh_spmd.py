@@ -68,6 +68,21 @@ def test_moe_ep_matches_the_references_ep(runs, case):
     assert dropped.size > 0  # the capacity binds in every case
 
 
+@pytest.mark.parametrize("case", sorted(mc.MOE_CASES))
+def test_moe_whole_activation_matches_the_references_ep(runs, case):
+    """``moe_apply`` under a mesh, the MoE of a model run with whole
+    activations and whole experts: each rank dispatches its data shard's
+    rows, the outputs are gathered back, and every rank's whole output is
+    within rtol = atol = 1e-5 of the reference's EP (aux within 1e-6)."""
+    ref, ranks, _, _ = runs
+    for out in ranks:
+        np.testing.assert_allclose(out[f"moe/{case}/whole"],
+                                   ref[f"moe/{case}/out"], rtol=1e-5,
+                                   atol=1e-5)
+        assert abs(float(out[f"moe/{case}/whole_aux"])
+                   - float(ref[f"moe/{case}/aux"])) <= 1e-6
+
+
 @pytest.mark.parametrize("bits", mc.WIRE_BITS)
 @pytest.mark.parametrize("keyed", ["none", "key"])
 def test_wire_quantized_psum_bit_equal(runs, bits, keyed):
@@ -234,3 +249,102 @@ def test_load_checkpoint_onto_a_mesh(runs, writer):
                           if a != b]
                 assert local[dim] * RANKS == want.shape[dim], k
     assert n_cut > 0
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving against the reference's sharded jit
+# ---------------------------------------------------------------------------
+TP_KEYS = [(case, f"{d}x{m}") for case in mc.TP_CASES
+           for d, m in mc.TP_MESHES]
+
+
+def _rel_l2(got, want) -> float:
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+@pytest.mark.parametrize("case,mesh", TP_KEYS)
+def test_tp_logits_match_the_references_sharded_jit(runs, case, mesh):
+    """``make_prefill_step`` and ``make_decode_step`` on sharded parameters
+    under ``logical_sharding`` (each rank its heads, FF columns, vocab
+    slice, batch rows and sequence slice; the decode cache its KV heads
+    or its time slice): the prefill's logits and each decode step's,
+    gathered whole on every rank, within float32 1e-5 relative L2 of the
+    reference's ``prefill`` / ``decode_step`` jitted with
+    ``in_shardings`` on 4 CPU devices."""
+    ref, ranks, _, _ = runs
+    tag = f"tp/{case}/{mesh}"
+    steps_ = ["prefill"] + [f"decode{i}" for i in range(mc.TP_DECODE_STEPS)]
+    for out in ranks:
+        for step in steps_:
+            got, want = out[f"{tag}/logits/{step}"], ref[f"{tag}/logits/{step}"]
+            assert got.shape == want.shape, (step, got.shape, want.shape)
+            assert _rel_l2(got, want) <= 1e-5, (step, _rel_l2(got, want))
+
+
+@pytest.mark.parametrize("case,mesh", TP_KEYS)
+def test_tp_shards_equal_the_references_addressable_shards(runs, case, mesh):
+    """Every rank's parameter leaves (``lm_shards_from_arrays``) equal, in
+    shape and bit for bit, the reference's ``addressable_shards`` at the
+    same (data, model) coordinate under ``param_pspecs``; its prefill
+    cache's leaves have the shapes of the reference's shards under
+    ``cache_pspecs`` and their values within 1e-5; ``pos`` is equal;
+    ``init_cache_shards`` allocates those shapes.  Some leaves of each are
+    really cut."""
+    from repro_torch.models.model import reference_path
+
+    ref, ranks, _, _ = runs
+    tag = f"tp/{case}/{mesh}"
+    for out in ranks:
+        di, mi = (int(i) for i in out[f"{tag}/coord"])
+        cut = 0
+        for k in out:
+            if not k.startswith(f"{tag}/local/"):
+                continue
+            path, index = reference_path(k.removeprefix(f"{tag}/local/"))
+            want = ref[f"{tag}/pshard/{path}/{di}{mi}"]
+            want = want if index is None else want[index]
+            got = out[k]
+            assert got.shape == want.shape, (k, got.shape, want.shape)
+            np.testing.assert_array_equal(got, want, err_msg=k)
+            whole = ref[f"tp/{case}/p/{path}"]
+            cut += got.size < (whole.size if index is None else whole[0].size)
+        assert cut > 0
+        np.testing.assert_array_equal(out[f"{tag}/cache/pos"],
+                                      ref[f"{tag}/cshard/pos/{di}{mi}"])
+        n_layers = sum(1 for k in out if k.startswith(f"{tag}/cache/layers/")
+                       and k.endswith("/k"))
+        assert n_layers > 0
+        for i in range(n_layers):
+            for leaf in ("k", "v"):
+                got = out[f"{tag}/cache/layers/{i}/{leaf}"]
+                want = ref[f"{tag}/cshard/layers/{leaf}/{di}{mi}"][i]
+                assert got.shape == want.shape, (i, leaf, got.shape,
+                                                 want.shape)
+                assert tuple(out[f"{tag}/zeros/layers/{i}/{leaf}"]) \
+                    == want.shape
+                np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        assert tuple(out[f"{tag}/zeros/pos"]) == out[f"{tag}/cache/pos"].shape
+
+
+def test_tp_prefill_collectives_are_timed_per_kind(runs):
+    """``collective_timing`` around the kv4 prefill on (1, 4) (heads, FF
+    columns, vocab and sequence all cut over ``model``) counts on every
+    rank the Megatron schedule: the embedding's and each block's two
+    row-parallel sums as ``reduce_scatter`` of the float32 (B, S, d)
+    partial, each block's two column-parallel ``all_gather`` of the
+    (B, S / 4, d) slice and the last position's (B, 1, d) gather; no
+    ``all_reduce``; every kind took time."""
+    from repro_torch.configs import get_config
+
+    cfg = mc.tp_config(get_config, "kv4")
+    _, _, b, s, _ = mc.TP_CASES["kv4"]
+    d, n = cfg.d_model, cfg.n_layers
+    tag = "tp/kv4/1x4/coll/"
+    want = {"reduce_scatter sum": [2 * n + 1, (2 * n + 1) * b * s * d * 4],
+            "all_gather": [2 * n + 1, (2 * n * s // 4 + 1) * b * d * 4]}
+    _, ranks, _, _ = runs
+    for out in ranks:
+        got = {k.removeprefix(tag): out[k] for k in out if k.startswith(tag)}
+        assert set(got) == set(want), sorted(got)
+        for kind, (calls, nbytes) in want.items():
+            assert list(got[kind]) == [calls, nbytes, 1], (kind, got[kind])

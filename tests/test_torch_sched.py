@@ -908,6 +908,65 @@ def test_overlapped_scheduler_with_prefetch_on_real_threads(
     assert not alive & {"sched-executor", "residency-prefetch"}
 
 
+def test_driver_migration_on_real_threads_leaves_the_arena_to_the_executor():
+    """S3: a ``LifecycleDriver`` reclustering and migrating on the pump
+    thread while ``sched-executor`` serves (``WallClock``, overlap on).
+    Re-registered users' arena runs are dropped on ``sched-executor``
+    (``ForestStore.serve_path``), never on the pump thread that migrated
+    them; every ticket is answered and equals the per-user oracle of the
+    store as left."""
+    server, store, users = drifted_server(n_users=12, late_fraction=0.5,
+                                          seed=3)
+    calls = []
+    arena = store.arena
+    for name in ("admit_many", "gather", "run_token", "invalidate",
+                 "touch_users"):
+        real = getattr(arena, name)
+
+        def spy(*a, _real=real, _name=name, **k):
+            calls.append((_name, threading.current_thread().name))
+            return _real(*a, **k)
+
+        setattr(arena, name, spy)
+    clock = WallClock()
+    driver = LifecycleDriver(
+        server, clock, poll_interval_s=0.0, low_load_rows=10**6,
+        migrate_users_per_s=1e6, max_users_per_tick=2,
+    )
+    sched = Scheduler(server, clock=clock, batcher=MicroBatcher(max_rows=48),
+                      lifecycle=driver)
+    assert sched.executor.overlap
+    rng = np.random.default_rng(5)
+    gen0 = store.generation
+    tickets = []
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        # the executor serves (and so claims the arena) before the first
+        # tick, then the driver migrates while batches are in flight
+        u = users[0]
+        rows = make_rows(rng, store, 8)
+        tickets.append((u, rows, sched.submit(u, rows)))
+        sched.flush()
+        for i in range(400):
+            u = users[int(rng.integers(len(users)))]
+            rows = make_rows(rng, store, 8)
+            tickets.append((u, rows, sched.submit(u, rows)))
+            sched.pump()
+            if driver.n_migrated and driver.state == "watching":
+                break
+        sched.close()
+    finally:
+        sys.setswitchinterval(switch)
+    assert store.generation == gen0 + 1 and driver.n_migrated > 0
+    for u, rows, t in tickets:
+        assert t.status == "ok", (t.status, t.detail)
+        np.testing.assert_array_equal(t.prediction, oracle(store, u, rows))
+    off = sorted({c for c in calls if c[1] != "sched-executor"})
+    assert off == [], off
+    assert sum(name == "invalidate" for name, _ in calls) > 0
+
+
 # ---------------------------------------------------------------------------
 # DET004: only clock.py may read the wall clock
 # ---------------------------------------------------------------------------

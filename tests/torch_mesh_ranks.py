@@ -11,11 +11,13 @@ import torch.distributed as dist
 import mesh_cases as mc
 from repro_torch.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.configs import get_config
-from repro_torch.convert import lm_params_from_arrays
+from repro_torch.convert import lm_params_from_arrays, lm_shards_from_arrays
 from repro_torch.core.tensor_codec import unflatten_pytree
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.shardings import (
+    init_cache_shards,
+    local_shard,
     opt_pspecs,
     param_pspecs,
     reference_pspecs,
@@ -27,6 +29,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.model import reference_path
 from repro_torch.models.sharding import (
     PartitionSpec,
+    all_gather,
+    collective_timing,
     logical_sharding,
     pmax,
     single_pod_rules,
@@ -43,27 +47,46 @@ def _t(a) -> torch.Tensor:
 
 def moe_cases(ref, out, rank):
     """Each case's EP output and aux on this rank, and the (token, slot)
-    ids this rank drops."""
+    ids this rank drops.  Each rank gets its data shard's rows and the
+    expert weights ``param_pspecs`` gives it (its experts where they
+    divide the model axis, else all of them); the output is gathered
+    back over ``data``."""
     x = _t(mc.moe_input())
     for name, (data, model, n_experts) in mc.MOE_CASES.items():
         cfg = mc.moe_config(get_config, n_experts)
+        mesh = make_host_mesh(data, model, device="cpu")
+        specs = param_pspecs(cfg, mesh)
         p = moe_mod.MoE(cfg, torch.float32, CPU)
         for k in ("router", "w1", "w3", "w2"):
-            getattr(p, k).copy_(_t(ref[f"moe/{name}/p/{k}"]))
-        mesh = make_host_mesh(data, model, device="cpu")
+            whole = _t(ref[f"moe/{name}/p/{k}"])
+            spec = specs[f"layers.0.mlp.{k}"]
+            # the expert dim only: ``_moe_apply_ep`` takes whole d_model
+            # rows (the block gathers a d_model cut over data before it)
+            spec = PartitionSpec(spec[0], *[None] * (len(spec) - 1))
+            setattr(p, k, torch.nn.Parameter(
+                local_shard(whole, spec, mesh).clone(), requires_grad=False))
+        b, s, d = x.shape
+        di = mesh.get_local_rank("data")
+        bl = b // data
+        xb = x[di * bl:(di + 1) * bl]
         with logical_sharding(mesh, single_pod_rules()):
-            y, aux = moe_mod.moe_apply(p, cfg, x)
-            b, s, d = x.shape
-            e_pad, e_loc, batch_ax, nb, cap = moe_mod._ep_layout(cfg, b, s,
-                                                                 mesh)
-            di = mesh.get_local_rank("data") if batch_ax else 0
+            y, aux = moe_mod._moe_apply_ep(p, cfg, xb, mesh)
+            y = all_gather(y, "data", dim=0, mesh=mesh)
+            e_pad, e_loc, cap = moe_mod._ep_layout(cfg, bl, s, mesh)
             mi = mesh.get_local_rank("model")
-            bl = b // nb
-            xf = x[di * bl:(di + 1) * bl].reshape(-1, d)
-            router = torch.nn.functional.pad(p.router, (0, e_pad - cfg.n_experts))
+            router = torch.nn.functional.pad(p.router,
+                                             (0, e_pad - cfg.n_experts))
             _, _, mine, keep, _ = moe_mod._ep_route(
-                cfg, xf, router, e_pad, mi * e_loc, e_loc, cap)
+                cfg, xb.reshape(-1, d), router, e_pad, mi * e_loc, e_loc,
+                cap)
+            # the whole activation and whole experts on every rank
+            whole = moe_mod.MoE(cfg, torch.float32, CPU)
+            for k in ("router", "w1", "w3", "w2"):
+                getattr(whole, k).copy_(_t(ref[f"moe/{name}/p/{k}"]))
+            yw, auxw = moe_mod.moe_apply(whole, cfg, x)
         drop = torch.nonzero(mine & ~keep)[:, 0].numpy() + di * bl * s * cfg.top_k
+        out[f"moe/{name}/whole"] = yw.numpy()
+        out[f"moe/{name}/whole_aux"] = auxw.numpy()
         out[f"moe/{name}/out"] = y.numpy()
         out[f"moe/{name}/aux"] = aux.numpy()
         out[f"moe/{name}/dropped"] = drop.astype(np.int64)
@@ -196,6 +219,52 @@ def attention_case(ref, out, rank):
     out["attn/plain"] = attn_mod.attention_train(p, cfg, x, pos).numpy()
 
 
+def tp_cases(ref, out, rank):
+    """Each regime of ``mc.TP_CASES`` on (1, 4) and (2, 2) from the
+    reference's weights: this rank's parameter shards
+    (``lm_shards_from_arrays``), the prefill and decode steps through
+    ``make_prefill_step`` / ``make_decode_step`` (logits gathered whole),
+    and the prefill cache's local leaves."""
+    for name, (_, _, b, s, t) in mc.TP_CASES.items():
+        cfg = mc.tp_config(get_config, name)
+        pre = f"tp/{name}/p/"
+        tree = unflatten_pytree({k.removeprefix(pre): ref[k]
+                                 for k in ref.files if k.startswith(pre)})
+        tok, fe = mc.tp_inputs(cfg, name)
+        prefill = steps.make_prefill_step(cfg)
+        decode = steps.make_decode_step(cfg)
+        for shape in mc.TP_MESHES:
+            tag = f"tp/{name}/{shape[0]}x{shape[1]}"
+            mesh = make_host_mesh(*shape, device="cpu")
+            out[f"{tag}/coord"] = np.array([mesh.get_local_rank("data"),
+                                            mesh.get_local_rank("model")])
+            params = lm_shards_from_arrays(cfg, tree, mesh, device="cpu")
+            for n, p in params.named_parameters():
+                out[f"{tag}/local/{n}"] = p.numpy()
+            zeros = init_cache_shards(cfg, b, t, mesh, device="cpu")
+            out[f"{tag}/zeros/pos"] = np.array(zeros["pos"].shape)
+            for i, layer in enumerate(zeros["layers"]):
+                for k, v in layer.items():
+                    out[f"{tag}/zeros/layers/{i}/{k}"] = np.array(v.shape)
+            with logical_sharding(mesh, single_pod_rules()):
+                with collective_timing() as times:
+                    logits, cache = prefill(params, tok[:, :s], fe,
+                                            max_len=t)
+                for kind, row in times.items():
+                    out[f"{tag}/coll/{kind}"] = np.array(
+                        [row["calls"], row["bytes"], row["s"] > 0])
+                out[f"{tag}/logits/prefill"] = steps.whole_logits(
+                    cfg, logits, b).numpy()
+                out[f"{tag}/cache/pos"] = cache["pos"].numpy()
+                for i, layer in enumerate(cache["layers"]):
+                    for k, v in layer.items():
+                        out[f"{tag}/cache/layers/{i}/{k}"] = v.numpy().copy()
+                for i in range(mc.TP_DECODE_STEPS):
+                    logits, cache = decode(params, tok[:, s + i], cache)
+                    out[f"{tag}/logits/decode{i}"] = steps.whole_logits(
+                        cfg, logits, b).numpy()
+
+
 def _specs_tree(cfg, mesh):
     """The shardings of a train state's checkpoint tree."""
     pspecs = param_pspecs(cfg, mesh)
@@ -252,6 +321,7 @@ def run(rank, init_file, ref_path, out_dir, ckpt_dir):
         wire_cases(ref, out, rank)
         wire_step_case(ref, out, rank)
         attention_case(ref, out, rank)
+        tp_cases(ref, out, rank)
         checkpoint_cases(out, rank, os.path.join(out_dir, "port_ckpt"),
                          ckpt_dir)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)

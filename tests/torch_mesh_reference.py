@@ -19,15 +19,22 @@ from functools import partial  # noqa: E402
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
+from jax.sharding import NamedSharding  # noqa: E402
 from jax.sharding import PartitionSpec as P  # noqa: E402
 
 import mesh_cases as mc  # noqa: E402
 from repro.checkpoint import save_checkpoint  # noqa: E402
 from repro.configs import get_config  # noqa: E402
 from repro.core.tensor_codec import flatten_pytree  # noqa: E402
-from repro.launch.shardings import param_pspecs  # noqa: E402
+from repro.launch.shardings import (  # noqa: E402
+    batch_spec,
+    cache_pspecs,
+    param_pspecs,
+    to_named,
+)
 from repro.launch.steps import make_wire_train_step  # noqa: E402
 from repro.launch.train import build_state  # noqa: E402
+from repro.models import decode_step, init_params, prefill  # noqa: E402
 from repro.models.attention import attention_train, init_attention  # noqa: E402
 from repro.models.moe import init_moe, moe_apply  # noqa: E402
 from repro.models.sharding import logical_sharding, single_pod_rules  # noqa: E402
@@ -188,6 +195,67 @@ def attention_case(out):
         out[f"attn/p/{k}"] = v
 
 
+def jax_leaves(tree) -> dict:
+    """{"/"-joined path: array} of a pytree of jax arrays (the keys of
+    ``flatten_pytree``), the arrays left placed."""
+    leaves, _ = jax.tree_util.tree_flatten_with_path(tree)
+    return {"/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                     for k in path): v for path, v in leaves}
+
+
+def shards_by_coordinate(m, arr) -> dict:
+    """{(data index, model index): this device's shard} of a placed array."""
+    out = {}
+    for sh in arr.addressable_shards:
+        di, mi = (int(i) for i in np.argwhere(m.devices == sh.device)[0])
+        out[(di, mi)] = np.asarray(sh.data)
+    return out
+
+
+def tp_cases(out):
+    """Each regime of ``mc.TP_CASES`` on (1, 4) and (2, 2): ``prefill`` and
+    ``decode_step`` jitted with ``in_shardings`` from ``param_pspecs`` /
+    ``cache_pspecs`` under ``logical_sharding``; the logits of the prefill
+    and of each decode step (fed the case's tokens), and every parameter
+    and prefill-cache leaf's shard at each device's mesh coordinate."""
+    for name, (_, _, b, s, t) in mc.TP_CASES.items():
+        cfg = mc.tp_config(get_config, name)
+        params = np_tree(init_params(cfg, jax.random.PRNGKey(mc.TP_SEED)))
+        for k, v in flatten_pytree(params).items():
+            out[f"tp/{name}/p/{k}"] = v
+        tok, fe = mc.tp_inputs(cfg, name)
+        for shape in mc.TP_MESHES:
+            m = mesh(*shape)
+            tag = f"tp/{name}/{shape[0]}x{shape[1]}"
+            with logical_sharding(m, single_pod_rules()):
+                p_sh = to_named(m, param_pspecs(cfg, m))
+                c_sh = to_named(m, cache_pspecs(cfg, m, b, t))
+                tok_sh = NamedSharding(m, batch_spec(m, b, 2))
+                args = (params, tok[:, :s])
+                shard = (p_sh, tok_sh)
+                if fe is not None:
+                    args += (fe,)
+                    shard += (NamedSharding(m, batch_spec(m, b, 3)),)
+                pf = jax.jit(lambda p, x, *f: prefill(
+                    cfg, p, x, f[0] if f else None, max_len=t),
+                    in_shardings=shard)
+                logits, cache = pf(*args)
+                cache = jax.device_put(cache, c_sh)
+                out[f"{tag}/logits/prefill"] = np.asarray(logits)
+                placed = jax.device_put(params, p_sh)
+                for kind, tree in (("p", placed), ("c", cache)):
+                    for k, v in jax_leaves(tree).items():
+                        for (di, mi), a in shards_by_coordinate(m, v).items():
+                            out[f"{tag}/{kind}shard/{k}/{di}{mi}"] = a
+                dec = jax.jit(lambda p, x, c: decode_step(cfg, p, x, c),
+                              in_shardings=(p_sh, NamedSharding(
+                                  m, batch_spec(m, b, 1)), c_sh))
+                for i in range(mc.TP_DECODE_STEPS):
+                    logits, cache = dec(params, tok[:, s + i], cache)
+                    cache = jax.device_put(cache, c_sh)
+                    out[f"{tag}/logits/decode{i}"] = np.asarray(logits)
+
+
 def main():
     path, ckpt_dir = sys.argv[1], sys.argv[2]
     assert jax.device_count() == 4, jax.devices()
@@ -196,6 +264,7 @@ def main():
     wire_cases(out)
     wire_step_case(out)
     attention_case(out)
+    tp_cases(out)
     cfg = mc.step_config(get_config)
     state = build_state(cfg, ref_adamw.AdamWConfig(), seed=mc.CKPT_SEED)
     save_checkpoint(ckpt_dir, 3, state)
