@@ -125,8 +125,9 @@ Phases, in order; any failure propagates and the exit code is non-zero:
 10. the fleet store (the subscriber scenario): (a) ``build_store`` of
    ``benchmarks/store_bench.py``'s 100-user fleets on the card and on the
    CPU — RFT1 bytes equal, and ``ForestStore.from_bytes`` of them
-   re-serializes to them on both; (b) a 1,000-user classification fleet
-   (~12,000 trees) and the 100-user regression fleet, each served 256
+   re-serializes to them on both; (b) a 500-user classification fleet
+   (~6,000 trees; cut from 1,000 users to pay for phase 15 (f)) and the 100-user
+   regression fleet, each served 256
    ragged requests of 256 rows through ``ForestServer(store,
    device="cuda").serve`` with ``pipelined`` (K1), ``simple`` (K2) and
    ``sharded`` (K5) over ``devices=["cuda:0"]`` and ``["cuda:0"] * 4``,
@@ -141,7 +142,7 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    K1's share, and K5 at S = 1 and 4, in one ``{"fleet": ...}`` line;
 11. the store's life on disk and across codebook generations (its K1
    count set to 0 before and read after, positive): (a) durable: phase
-   10's 1,000-user classification store written by
+   10's 500-user classification store written by
    ``DurableStore.create`` (slabs, XOR parity, the RFN1 manifest), opened
    lazily and eagerly with ``load_store(device="cuda")``, and the fleet
    batch served from the lazy store through ``pipelined``, equal to
@@ -172,7 +173,7 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    ``{"store_lifecycle": ...}`` line with the card's name and power
    limit;
 12. online serving through ``repro_torch.sched`` (its K1 count set to 0
-   before and read after, positive), over phase 10's 1,000-user
+   before and read after, positive), over phase 10's 500-user
    classification store, every answer held to the CPU's from the store's
    RFT1 bytes: (a) throughput: ``benchmarks/sched_bench.py``'s trace (a
    seeded Poisson trace, 4 s at 150 requests/s, bursts of 2x, Zipf skew
@@ -238,11 +239,11 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    4.41 B parameters, bf16, seeded weights) through
    ``make_train_step(cfg, AdamWConfig(lr=3e-4, warmup_steps=2,
    total_steps=10), remat="full")`` on ``synth_batch`` of 2 x 2,048
-   tokens (chunked cross entropy): a warm-up step and 10 timed ones
+   tokens (chunked cross entropy): a warm-up step and 8 timed ones
    (host clock, median / min / max; forward / backward / optimizer by
    CUDA events, each part's peak memory), tokens/s, mfu, every loss and
    gradient norm finite, the last three losses' mean below the first;
-   2 more steps with deterministic algorithms off (their cost) and one
+   1 more step with deterministic algorithms off (its cost) and one
    under ``torch.profiler``; (b) card against CPU in float32 (TF32 off)
    with 8-bit gradient compression: every family's smoke config for 2
    steps (loss and every gradient leaf at 1e-4 relative L2, the update
@@ -250,8 +251,8 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    qwen3-4b at full width cut to 2 layers over 1 x 256 tokens for 3
    steps (loss and gradients); (c) ``TrainLoop`` with a lossless
    ``CheckpointManager`` over qwen3-4b's and granite-moe-3b-a800m's
-   smoke configs, 12 steps, a checkpoint every 4, preempted at steps 5
-   and 9: the final state bit-equal to an uninterrupted run's, and a
+   smoke configs, 12 steps, a checkpoint every 4, preempted at step 5:
+   the final state bit-equal to an uninterrupted run's, and a
    final checkpoint (the reference's layout) decoded exactly; (d)
    ``compress_tensors`` lossless on (a)'s layer 0 (bf16, ~101 M values),
    its float32 first moments and the embedding: exact decode, bytes
@@ -269,7 +270,8 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    prefilled through K7 at each rank's heads and its MoE layers through
    the expert-parallel ``_moe_ep_partial`` on meshes (1, 4) and (2, 2),
    then with the whole model on every rank on (1, 4) (whole activations,
-   its MoE layers through ``moe_apply``'s expert-parallel dispatch):
+   its MoE layers through ``moe_apply``'s expert-parallel dispatch; a
+   warm-up prefill each, and a timed one on (1, 4) tensor-parallel):
    K7's count per prefill equals the 32 layers on every rank; every
    layer's dropped (token, slot) set, over the ranks, equals a
    one-process replay of the per-shard routing (the dense ``_route`` on
@@ -281,7 +283,7 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    heads; the logits within K7's bf16 tolerance of the unpadded
    single-process prefill. (c) ``make_wire_train_step`` on (4, 1),
    qwen3-4b at full width cut to 2 layers, 4-bit codes, 1 x 1,024 tokens
-   a rank, 3 steps: the replicated leaves bit-equal across ranks, the
+   a rank, 2 steps: the replicated leaves bit-equal across ranks, the
    losses within 2 float32 ulps of a one-process replay with the same
    Generator draws and every final shard bit-equal to it; the wire bytes
    a step (int8 codes against bf16 gradients). (d) qwen3-4b's smoke
@@ -292,16 +294,40 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    then on the ranks its shards cut leaf by leaf (stored bytes equal to
    the sum of ``shard_shape`` bytes, the init's peak below the whole
    model), at full width and depth on (1, 4) (a 4 x 2,048 prefill
-   through K7 at 32 / 8 heads a rank, 8 decode steps fed the whole
+   through K7 at 32 / 8 heads a rank, 2 decode steps fed the whole
    run's tokens), cut to 4 layers on (2, 2) and float32 cut to 2 layers
    on (1, 4): the gathered logits within 1.5x bf16's floor (1e-4 in
    float32); K7 at that launch against its plain version, timed beside
    its bound and SDPA. (e)'s timed prefill and decode run under
    ``collective_timing``: each collective's calls, bytes, barrier and own
-   seconds per kind. One ``{"mesh": ...}`` line: each rank's peak
+   seconds per kind. (f) tensor-parallel training of qwen3-4b at full
+   width (plain attention: K7's and K8's counts set to 0 before and read
+   0 after): float32 cut to 2 layers on (1, 4), 2 x 256 tokens, 2 steps,
+   TF32 off, against one process's steps of the same weights (losses and
+   grad norms within 1e-5 relative, every gradient shard within 1e-4
+   relative L2 of the one-process gradients' slice, the first step's
+   updated parameter, m and v shards within 1e-5 of that step's update
+   of the same slices, the parameters but for the elements whose Adam
+   denominator lies within 300 eps of zero on both sides, which must
+   outnumber the elements off and are counted by leaf, the head's split
+   by label columns; the replicated leaves bit-equal across ranks); bf16
+   cut to 4 layers, AdamW, remat "full", 2 x 2,048 tokens (the chunked
+   vocab-parallel cross entropy) on (1, 4) and on (2, 2) (ZeRO-3): a
+   warm-up step and 3 timed ones under ``collective_timing`` (the
+   backward's collectives timed too), step s, tokens/s, forward /
+   backward / optimizer ms, the collectives' share per kind, the stored
+   bytes of parameters, m and v a rank equal to the sum of
+   ``shard_shape`` bytes, each rank's peak; every loss finite and equal
+   on every rank, the first step's loss and grad norm within 1.5x bf16's
+   floor of one process's bf16 step; the smoke config's train state of
+   shards on (2, 2) through ``TrainLoop``, a checkpoint every 2 steps,
+   preempted at step 3 and resumed: the final shards bit-equal to an
+   uninterrupted run's, the last checkpoint's leaves equal to them
+   gathered whole. One ``{"mesh": ...}`` line: each rank's peak
    memory, (e)'s bytes, prefill s and decode ms a step with the
-   collectives' shares, K7's launches per rank, the transports, the
-   phase's seconds.
+   collectives' shares, (f) under ``train_tp`` with the card's name and
+   power limit, K7's launches per rank, the transports, the phase's
+   seconds.
 
 ``python3 chip_smoke.py --forest-times`` runs only K3 and K4 at the two
 Liberty shapes and the large one (the same command times a parent tree's
@@ -313,7 +339,7 @@ and 4, K1 and K2 at the large classification and regression shapes, each
 held against its plain version (the same command times a parent tree's
 kernels); ``--seg-profile`` adds ``max_depth`` cut to 0, 2, ..., 8 at the
 single-forest batch, with each call's device time from ``torch.profiler``.
-``--lifecycle`` runs phase 11 alone, over phase 10's 1,000-user fleet
+``--lifecycle`` runs phase 11 alone, over phase 10's 500-user fleet
 built for it; ``--online`` runs phase 12 alone, likewise; ``--families``
 runs K7's parity cases and phase 13 alone; ``--train`` runs phase 14
 alone; ``--mesh`` runs K7's parity cases and phase 15 alone.
@@ -332,6 +358,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -538,12 +565,14 @@ FLASH_PARITY_CASES = [
 # Fleet serving (phase 10): the subscriber scenario — one ForestStore per
 # task (one shared codebook, one delta per user) serving ragged mixed-user
 # batches.  benchmarks/store_bench.py's 100-user fleets (depth 6, 8
-# features) for the RFT1 round trip; for serving, a 1,000-user
-# classification fleet (~12,000 trees, inside the arena's default
+# features) for the RFT1 round trip; for serving, a 500-user
+# classification fleet (~6,000 trees, inside the arena's default
 # 16,384-tree capacity) and the 100-user regression fleet, each sent 256
 # requests of 256 rows (65,536 rows) of make_request_batch(seed=1).
 FLEET_BENCH_USERS = 100
-FLEET_SERVE_USERS = {"classification": 1000, "regression": 100}
+# (classification cut from 1,000 users, whose build took 43-61 s, to pay
+# for phase 15 (f))
+FLEET_SERVE_USERS = {"classification": 500, "regression": 100}
 FLEET_REQUESTS = 256
 FLEET_ROWS = 256
 # store_total_bytes of those 100-user fleets in BENCH_store.json: a
@@ -1671,7 +1700,7 @@ def forest_times_main(profile: bool) -> None:
 def seg_shapes(dev):
     """K1's, K2's and K5's inputs at the shapes ``--seg-times`` times: the
     single-forest 1,024-row batch of phase 4 (K1, and K2's first tree
-    chunk), the 65,536-row batch of phase 10's 1,000-user fleet (K1; K5 at
+    chunk), the 65,536-row batch of phase 10's 500-user fleet (K1; K5 at
     S = 1 and 4) and the large parity shapes."""
     from repro_torch.serving import ForestServer
     from repro_torch.store import (
@@ -3016,7 +3045,8 @@ def fleet_entry(served, launches, build_rows, fleet_rows):
         "route_note": "no kernel of its own: K1 (tp_seg_packed) per tree "
                       "shard on each device, then an ordered sum",
         "timed_at": "one 65,536-row fleet batch at S = 4 shards on one card, "
-                    "classification (1,000 users); bound: K1's for the same "
+                    f"classification ({FLEET_SERVE_USERS['classification']:,} "
+                    "users); bound: K1's for the same "
                     "rows and trees",
         "main_path": per_task,
     })
@@ -3470,7 +3500,7 @@ def life_recluster(dev, root):
 
 
 def life_streaming(dev, root, fleet, requests, want):
-    """``build_store_streaming`` of phase 10's 1,000-user fleet in waves,
+    """``build_store_streaming`` of phase 10's 500-user fleet in waves,
     with extend; the durable store it writes loads bit-exact on the card
     and serves phase 10's batch to its CPU answer ``want``."""
     from repro_torch.serving import ForestServer
@@ -3549,7 +3579,7 @@ def phase_store_lifecycle(dev, store, fleet, requests, want):
 
 
 def lifecycle_main() -> None:
-    """``--lifecycle``: phase 11 alone, over phase 10's 1,000-user
+    """``--lifecycle``: phase 11 alone, over phase 10's 500-user
     classification fleet built here."""
     from repro_torch.kernels import build
     from repro_torch.store import (
@@ -4144,7 +4174,7 @@ def phase_online(dev, store):
 
 
 def online_main() -> None:
-    """``--online``: phase 12 alone, over phase 10's 1,000-user
+    """``--online``: phase 12 alone, over phase 10's 500-user
     classification fleet built here."""
     from repro_torch.kernels import build
     from repro_torch.store import build_store, make_synthetic_fleet
@@ -4195,7 +4225,7 @@ FAMILY_DSV3_CHECK_EXPERTS = 32
 FAMILY_BF16_OVER_FLOOR = 1.5
 # timed prefills per model after the warm-up: the median is reported with
 # its min and max (a prefill is host-bound where the plain scan runs)
-FAMILY_PREFILL_REPS = 5
+FAMILY_PREFILL_REPS = 3  # timed prefills a model (cut from 5 for phase 15 (f))
 # the labelled regions of a profiled prefill: (label, module, function)
 FAMILY_REGIONS = (
     ("ssm.selective_scan", "ssm", "selective_scan"),
@@ -4755,9 +4785,9 @@ TRAIN_ARCH = "qwen3-4b"
 TRAIN_SHAPE = (36, 2560, 151936, "bfloat16", False)
 TRAIN_BATCH = 2
 TRAIN_SEQ = 2048  # >= 2,048: loss_fn takes chunked_ce_loss
-TRAIN_STEPS = 10  # timed, after one warm-up step
+TRAIN_STEPS = 8  # timed, after one warm-up step (cut from 10 for phase 15 (f))
 TRAIN_OPT = {"lr": 3e-4, "warmup_steps": 2, "total_steps": 10}
-TRAIN_DET_OFF_STEPS = 2  # timed with deterministic algorithms off
+TRAIN_DET_OFF_STEPS = 1  # timed with deterministic algorithms off (cut from 2)
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 (NVIDIA's data sheet)
 TRAIN_CHECK_BATCH = (2, 32)  # (b): every family's smoke config, 8-bit
 TRAIN_CHECK_STEPS = 2  # compression, for 2 steps
@@ -4766,7 +4796,7 @@ TRAIN_CHECK_WIDE = (1, 256)  # ... over 1 x 256 tokens ...
 TRAIN_CHECK_WIDE_STEPS = 3  # ... for 3 steps with 8-bit compression
 TRAIN_GRAD_TOL = 1e-4  # relative L2, card against CPU, float32
 TRAIN_RESTART = {"archs": ("qwen3-4b", "granite-moe-3b-a800m"), "steps": 12,
-                 "save_every": 4, "fail_at": (5, 9), "batch": 2, "seq": 64}
+                 "save_every": 4, "fail_at": (5,), "batch": 2, "seq": 64}
 TRAIN_CLI = ["--arch", "qwen3-4b", "--smoke", "--steps", "20",
              "--ckpt-codec", "lossless"]
 
@@ -4867,9 +4897,9 @@ def train_main_path(dev):
     """(a): qwen3-4b at full width and depth (bf16, seeded weights),
     ``make_train_step(cfg, AdamWConfig(lr=3e-4, warmup_steps=2,
     total_steps=10), remat="full")`` on ``synth_batch`` of 2 x 2,048: one
-    warm-up step, then 10 timed steps on the host clock (each ends in a
-    synchronise), split by CUDA events; then 3 steps with deterministic
-    algorithms off (their cost).  K7's and K8's counts are set to 0 just
+    warm-up step, then TRAIN_STEPS timed steps on the host clock (each
+    ends in a synchronise), split by CUDA events; then
+    TRAIN_DET_OFF_STEPS with deterministic algorithms off (their cost).  K7's and K8's counts are set to 0 just
     before and read just after: training launches neither.  Returns the
     row and the state (for (d))."""
     from repro_torch.data.tokens import TokenDataConfig
@@ -5176,7 +5206,9 @@ def train_restart(dev, root):
     """(c): ``TrainLoop`` with ``CheckpointManager(codec="lossless")``
     over qwen3-4b's and granite-moe-3b-a800m's smoke configs on the card:
     12 steps (remat "full", the batch of step k ``synth_batch(k)``), a
-    checkpoint every 4, preempted at steps 5 and 9; the final state equal
+    checkpoint every 4, preempted at step 5 (cut from 5 and 9: each
+    restart decodes a checkpoint on the host, ~10 s); the final state
+    equal
     to an uninterrupted run's bit for bit, every loss equal, and (for the
     first model) the last checkpoint, in the reference's layout, decoded
     equal to the final state.  Deterministic-algorithm alerts other than
@@ -5382,28 +5414,31 @@ def train_main() -> None:
 MESH_RANKS = 4
 # (a) granite-moe-3b-a800m uncut, phase 13's prompts, on two meshes
 # tensor-parallel on both, and with whole parameters on every rank on
-# (1, 4) (the path of an MoE model that tensor parallelism does not cut)
+# (1, 4) (the path of an MoE model that tensor parallelism does not cut);
+# each run's warm-up prefill is checked, and the "timed" mesh's
+# tensor-parallel run times a second one (cut from all three runs)
 MESH_MOE = {"arch": "granite-moe-3b-a800m", "meshes": ((1, 4), (2, 2)),
-            "whole_meshes": ((1, 4),),
+            "whole_meshes": ((1, 4),), "timed": (1, 4),
             "batch": 4, "prompt": 2048, "max_len": 2080}
 # (b) hymba-1.5b at full width cut to 2 layers, phase 13's prompts (the
 # ring buffer needs window | S): 25 / 5 heads pad to 36 / 6 on (1, 4)
 MESH_HYMBA = {"arch": "hymba-1.5b", "layers": 2, "mesh": (1, 4),
               "batch": 2, "prompt": 4096, "max_len": 4128, "pads": (6, 6)}
 # (c) the wire train step: qwen3-4b at full width cut to 2 layers (phase
-# 14's (b) cut), 4-bit codes, 1 x 1,024 tokens a rank, 3 steps
+# 14's (b) cut), 4-bit codes, 1 x 1,024 tokens a rank, 2 steps (cut from
+# 3 to pay for (f))
 MESH_WIRE = {"arch": "qwen3-4b", "layers": 2, "mesh": (4, 1), "bits": 4,
-             "seq": 1024, "steps": 3,
+             "seq": 1024, "steps": 2,
              "opt": {"lr": 3e-4, "warmup_steps": 1, "total_steps": 3}}
 MESH_CKPT_ARCH = "qwen3-4b"  # (d): its smoke config
 # (e) tensor-parallel serving of qwen3-4b, seeded weights cut leaf by leaf
 # on each rank (``shard_params``): (name, mesh, layers (None: all 36),
-# dtype).  A 4 x 2,048 prefill, then 8 decode steps fed the one-process
-# run's greedy tokens; held to the one-process prefill and decode of the
-# same weights (bf16: within 1.5x the bf16 floor read against float32;
+# dtype).  A 4 x 2,048 prefill, then 2 decode steps (cut from 8 to pay
+# for (f)) fed the one-process run's greedy tokens; held to the
+# one-process prefill and decode of the same weights (bf16: within 1.5x the bf16 floor read against float32;
 # float32: 1e-4 relative L2)
 MESH_TP = {"arch": "qwen3-4b", "batch": 4, "prompt": 2048, "max_len": 2056,
-           "steps": 8, "warm_prompt": 64,
+           "steps": 2, "warm_prompt": 64,
            "runs": (("full", (1, 4), None, "bfloat16"),
                     ("cut4", (2, 2), 4, "bfloat16"),
                     ("f32", (1, 4), 2, "float32"))}
@@ -5450,8 +5485,8 @@ def ep_spy(records, xs):
 
     orig = model_mod._moe_ep_partial
 
-    def spy(p, cfg, x, mesh, with_aux=True):
-        out = orig(p, cfg, x, mesh, with_aux)
+    def spy(p, cfg, x, mesh, *args, **kw):
+        out = orig(p, cfg, x, mesh, *args, **kw)
         bl, s, d = x.shape
         e_pad, e_loc, cap = moe_mod._ep_layout(cfg, bl, s, mesh)
         di = axis_index("data", mesh)
@@ -5482,8 +5517,9 @@ def mesh_granite(dev, rank, root, cfg, tokens, shape, whole=False) -> dict:
     seeded weights, ``shard_params``) or, with ``whole``, with the whole
     seeded model on every rank (``init_params``; whole activations, the
     MoE through ``moe_apply``'s expert-parallel dispatch): a warm-up
-    prefill (its dropped sets recorded), then a timed one, K7's count set
-    to 0 before each and read after; rank 0 replays each MoE layer's
+    prefill (its dropped sets recorded), then, on ``MESH_MOE["timed"]``'s
+    tensor-parallel run, a timed one, K7's count set to 0 before each and
+    read after; rank 0 replays each MoE layer's
     routing on the captured inputs with the dense ``_route``, per data
     shard, and holds the ranks' dropped sets, together, equal to it."""
     import torch.distributed as dist
@@ -5516,13 +5552,16 @@ def mesh_granite(dev, rank, root, cfg, tokens, shape, whole=False) -> dict:
             row["k7_launches_warm"] = fa.LAUNCHES["flash"]
     finally:
         restore()
+    row["k7_launches"] = row["k7_launches_warm"]
+    if tuple(shape) == MESH_MOE["timed"] and not whole:
+        with logical_sharding(mesh, single_pod_rules()):
+            fa.reset_launches()
+            t0 = time.perf_counter()
+            logits, _ = step(params, tokens, max_len=MESH_MOE["max_len"])
+            torch.cuda.synchronize()
+            row["prefill_s"] = time.perf_counter() - t0
+            row["k7_launches"] = fa.LAUNCHES["flash"]
     with logical_sharding(mesh, single_pod_rules()):
-        fa.reset_launches()
-        t0 = time.perf_counter()
-        logits, _ = step(params, tokens, max_len=MESH_MOE["max_len"])
-        torch.cuda.synchronize()
-        row["prefill_s"] = time.perf_counter() - t0
-        row["k7_launches"] = fa.LAUNCHES["flash"]
         logits = whole_logits(cfg, logits, tokens.shape[0])
     del params
     assert row["k7_launches"] == row["k7_launches_warm"] == cfg.n_layers, row
@@ -5619,7 +5658,7 @@ def mesh_hymba(dev, rank, root) -> dict:
 
 def mesh_wire(dev, rank, root) -> dict:
     """(c): the wire train step on (4, 1) from seed-0 weights (each rank
-    keeps its data shard of every leaf), 3 steps over this rank's row of
+    keeps its data shard of every leaf), MESH_WIRE["steps"] steps over this rank's row of
     ``synth_batch``; each step's loss, grad norm and host s; the wire
     bytes a step (int8 codes against bf16 gradients); a hash of every
     final shard."""
@@ -5734,9 +5773,10 @@ def flat_tree(tree, prefix=""):
     return out
 
 
-def mesh_rank(rank, root, device):
+def mesh_rank(rank, root, device, train_ref):
     """One of the MESH_RANKS ranks of phase 15, all on ``device`` (the
-    parent's card)."""
+    parent's card); ``train_ref``: (f)'s one-process gradients and
+    scalars (``mesh_train_reference``)."""
     import datetime
 
     import torch.distributed as dist
@@ -5782,6 +5822,9 @@ def mesh_rank(rank, root, device):
         t0 = time.perf_counter()
         out["tp"] = [mesh_tp(dev, rank, root, *run) for run in MESH_TP["runs"]]
         clock["e"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["train_tp"] = mesh_train(dev, root, train_ref)
+        clock["f"] = time.perf_counter() - t0
         out["part_s"] = clock
         out["transports"] = dict(TRANSPORTS)
         out["max_memory_allocated"] = max(
@@ -6201,13 +6244,541 @@ def mesh_k7_timing(dev) -> dict:
     }
 
 
+# (f) tensor-parallel training of qwen3-4b on the 4 ranks, after (a)-(e):
+# float32 cut to 2 layers held to a one-process step of the same weights
+# (TF32 off); bf16 cut to 4 layers, remat
+# "full", 2 x 2,048 tokens (the chunked vocab-parallel cross entropy), a
+# warm-up step and MESH_TRAIN["bf16"]["timed"] timed steps on each mesh;
+# the smoke config on (2, 2) preempted at step 3 and resumed from its
+# step-2 checkpoint
+MESH_TRAIN = {
+    "arch": "qwen3-4b", "seed": 0,
+    "opt": {"lr": 3e-4, "warmup_steps": 1, "total_steps": 10},
+    "f32": {"layers": 2, "mesh": (1, 4), "batch": 2, "seq": 256,
+            "steps": 2},
+    "bf16": {"layers": 4, "meshes": ((1, 4), (2, 2)), "batch": 2,
+             "seq": 2048, "timed": 3},
+    "resume": {"mesh": (2, 2), "batch": 4, "seq": 64, "steps": 5,
+               "save_every": 2, "fail_at": 3},
+}
+MESH_TRAIN_TOL = {"loss": 1e-5, "grad": 1e-4, "update": 1e-5}
+# an updated element is "near" when Adam's denominator sqrt(v^) (on the
+# first step the clipped gradient's magnitude) is within this many eps of
+# zero on both sides (the test suite's rule, tests/test_torch_mesh_train.py;
+# its bound on the near share is for the smoke configs' 512-token vocab:
+# at 151,936, most of the head's columns get gradients of a few eps)
+MESH_NEAR_EPS = 300
+
+
+def mesh_train_batch(cfg, batch, seq, step, dev) -> dict:
+    """(f)'s seeded next-token batch of a step, the same on every rank."""
+    host = torch.Generator().manual_seed(1000 + step)
+    tok = torch.randint(0, cfg.vocab_size, (batch, seq + 1), generator=host)
+    return {"tokens": tok[:, :-1].to(dev), "labels": tok[:, 1:].to(dev)}
+
+
+@contextlib.contextmanager
+def tf32_off():
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def mesh_train_reference(dev) -> tuple[dict, dict]:
+    """(f)'s one-process runs, in this process before the ranks start.
+    float32, 2 layers (TF32 off): the first step's gradients, then its
+    ``make_train_step``, then the second step's loss and grad norm at the
+    updated weights; the gradients are kept on the card and handed to
+    the ranks (CUDA IPC through spawn's arguments), each of which
+    recomputes the one-process step's update of its slices from them
+    (AdamW is elementwise but for the norm, which is passed).  bf16, 4
+    layers: the first step's loss and grad norm, and those of the same
+    weights in float32 (bf16's floor)."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import TransformerLM, init_params
+    from repro_torch.optim.adamw import AdamWConfig, _global_norm
+    from repro_torch.optim.adamw import init_opt_state
+
+    t = MESH_TRAIN
+    f = t["f32"]
+    scalars = {}
+    with tf32_off():
+        cfg = mesh_tp_config(f["layers"], "float32")
+        params = init_params(cfg, seed=t["seed"], device=dev)
+        step = make_train_step(cfg, AdamWConfig(**t["opt"]), remat="full")
+        batches = [mesh_train_batch(cfg, f["batch"], f["seq"], i, dev)
+                   for i in range(f["steps"])]
+        _, grads = train_grads(cfg, params, batches[0])
+        params, _, met = step(params, init_opt_state(params), batches[0])
+        scalars["f32_loss"] = [float(met["loss"])]
+        scalars["f32_grad_norm"] = [float(met["grad_norm"])]
+        loss, g1 = train_grads(cfg, params, batches[1])
+        scalars["f32_loss"].append(loss)
+        scalars["f32_grad_norm"].append(float(_global_norm(g1)))
+        del g1, params
+        torch.cuda.empty_cache()
+    b = t["bf16"]
+    cfg = mesh_tp_config(b["layers"], "bfloat16")
+    batch = mesh_train_batch(cfg, b["batch"], b["seq"], 0, dev)
+    params = init_params(cfg, seed=t["seed"], device=dev)
+    loss, g = train_grads(cfg, params, batch)
+    scalars["bf16_loss"], scalars["bf16_grad_norm"] = (
+        loss, float(_global_norm(g)))
+    del g
+    cfg32 = mesh_tp_config(b["layers"], "float32")
+    params32 = TransformerLM(cfg32, dev)
+    with torch.no_grad():
+        for p32, p in zip(params32.parameters(), params.parameters()):
+            p32.copy_(p.float())
+    del params
+    torch.cuda.empty_cache()
+    with tf32_off():
+        loss, g = train_grads(cfg32, params32, batch)
+    scalars["f32_4_loss"], scalars["f32_4_grad_norm"] = (
+        loss, float(_global_norm(g)))
+    del g, params32
+    torch.cuda.empty_cache()
+    return grads, scalars
+
+
+def adam_near(got, want, v_pair, step, opt_cfg):
+    """An AdamW step's updated shard ``got`` against ``want`` from the same
+    state: (the elements ``near``, a bool tensor, and {"near", "off",
+    "size", "rel_l2"}).  Near: Adam's denominator sqrt(v^) within
+    MESH_NEAR_EPS eps of zero on both sides (``v_pair``), not zero on
+    both, where the gradient's last bits can flip the step; off: a gap
+    past 1e-6 relative plus 1e-7; ``rel_l2``: the other elements'
+    relative L2, held to MESH_TRAIN_TOL["update"] (the test suite's rule,
+    ``tests/test_torch_mesh_train.py``)."""
+    c2 = 1 - opt_cfg.beta2 ** step
+    denom = torch.maximum(*((v.double() / c2).sqrt() for v in v_pair))
+    near = (denom > 0) & (denom <= MESH_NEAR_EPS * opt_cfg.eps)
+    want = want.double()
+    diff = got.double() - want
+    off = diff.abs() > 1e-6 * want.abs() + 1e-7
+    rest = ~near
+    rel = diff[rest].norm() / want[rest].norm().clamp(min=1e-30)
+    return near, {"near": int(near.sum()), "off": int(off.sum()),
+                  "size": want.numel(), "rel_l2": float(rel)}
+
+
+def mesh_train_f32(dev, mesh, grads_ref, scalars) -> dict:
+    """(f) float32 on this rank: its shards of the 2-layer model's seeded
+    weights; the first step's gradient shards against the one-process
+    gradients' slices (``grads_ref``), its updated parameter and moment
+    shards against the one-process step's update of the same slices
+    (``adamw_update`` from the initial shard and the clipped one-process
+    gradient slice, the one-process norm's clip scale: the update is
+    elementwise; ``adam_near``), both steps' losses and grad norms
+    against the one-process ones, and the digests of the leaves every
+    rank holds whole.  Where the near elements lie: their count, the off
+    ones' and the size a leaf kind (the layer index dropped), and the
+    head's near elements in the columns of labels the batch has against
+    the others."""
+    import dataclasses
+
+    from repro_torch.launch.shardings import local_shard, shard_train_state
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_leaves
+    from repro_torch.models.sharding import logical_sharding, single_pod_rules
+    from repro_torch.optim.adamw import AdamWConfig, _clip_scale, adamw_update
+
+    t = MESH_TRAIN
+    f = t["f32"]
+    tol = MESH_TRAIN_TOL
+    opt_cfg = AdamWConfig(**t["opt"])
+    cfg = mesh_tp_config(f["layers"], "float32")
+    row = {"mesh": list(f["mesh"]), "layers": f["layers"],
+           "tokens": [f["batch"], f["seq"]]}
+    with tf32_off(), logical_sharding(mesh, single_pod_rules()):
+        state = shard_train_state(cfg, init_leaves(cfg, t["seed"], dev), mesh,
+                                  dev)
+        params, opt = state["params"], state["opt"]
+        specs = params.pspecs
+        initial = {n: p.detach().clone() for n, p in params.named_parameters()}
+        step = make_train_step(cfg, opt_cfg, remat="full")
+        batches = [mesh_train_batch(cfg, f["batch"], f["seq"], i, dev)
+                   for i in range(f["steps"])]
+        _, grads = train_grads(cfg, params, batches[0])
+        row["grad_rel_l2_max"] = max(
+            rel_l2(g, local_shard(grads_ref[n], specs[n], mesh))
+            for n, g in grads.items())
+        del grads
+        losses, norms = [], []
+        for i, batch in enumerate(batches):
+            params, opt, met = step(params, opt, batch)
+            losses.append(float(met["loss"]))
+            norms.append(float(met["grad_norm"]))
+            if i:
+                continue
+            scale = _clip_scale(torch.tensor(scalars["f32_grad_norm"][0],
+                                             device=dev), opt_cfg.clip_norm)
+            no_clip = dataclasses.replace(opt_cfg, clip_norm=float("inf"))
+            checks = {}
+            labels = torch.zeros(cfg.vocab_size, dtype=torch.bool,
+                                 device=dev)
+            labels[batch["labels"].reshape(-1)] = True
+            for n, p in params.named_parameters():
+                g = local_shard(grads_ref[n], specs[n], mesh)
+                want, st, _ = adamw_update(
+                    no_clip, {n: initial.pop(n)}, {n: g * scale},
+                    {"m": {n: torch.zeros_like(g)},
+                     "v": {n: torch.zeros_like(g)},
+                     "step": torch.zeros((), dtype=torch.int32, device=dev)})
+                near, checks[n] = adam_near(p, want[n],
+                                            [opt["v"][n], st["v"][n]], 1,
+                                            opt_cfg)
+                if n == "lm_head":
+                    mine = local_shard(labels[None], specs[n], mesh)[0]
+                    row["head_near"] = {
+                        "label_cols": int(mine.sum()),
+                        "near_in_label_cols": int(near[:, mine].sum()),
+                        "near_in_other_cols": int(near[:, ~mine].sum())}
+                for k in ("m", "v"):
+                    checks[n][f"{k}_rel_l2"] = rel_l2(opt[k][n], st[k][n])
+                del want, st, g
+        row["losses"], row["grad_norms"] = losses, norms
+        row["one_process"] = {"losses": scalars["f32_loss"],
+                              "grad_norms": scalars["f32_grad_norm"]}
+        row["loss_rel"] = max(abs(a / b - 1) for a, b in
+                              zip(losses, scalars["f32_loss"]))
+        row["grad_norm_rel"] = max(abs(a / b - 1) for a, b in
+                                   zip(norms, scalars["f32_grad_norm"]))
+        row["update"] = {
+            "rel_l2_max": max(c["rel_l2"] for c in checks.values()),
+            "m_rel_l2_max": max(c["m_rel_l2"] for c in checks.values()),
+            "v_rel_l2_max": max(c["v_rel_l2"] for c in checks.values()),
+            "near": sum(c["near"] for c in checks.values()),
+            "off": sum(c["off"] for c in checks.values()),
+            "size": sum(c["size"] for c in checks.values())}
+        by_kind = {}
+        for n, c in checks.items():
+            kind = re.sub(r"^layers\.\d+\.", "", n)
+            acc = by_kind.setdefault(kind, [0, 0, 0])
+            for j, k in enumerate(("near", "off", "size")):
+                acc[j] += c[k]
+        row["near_by_leaf"] = by_kind
+        row["replicated"] = {
+            n: [sha(p), sha(opt["m"][n]), sha(opt["v"][n])]
+            for n, p in params.named_parameters()
+            if all(a is None for a in specs[n])}
+    u = row["update"]
+    row["ok"] = (row["loss_rel"] <= tol["loss"]
+                 and row["grad_norm_rel"] <= tol["loss"]
+                 and row["grad_rel_l2_max"] <= tol["grad"]
+                 and u["rel_l2_max"] <= tol["update"]
+                 and u["m_rel_l2_max"] <= tol["update"]
+                 and u["v_rel_l2_max"] <= tol["update"]
+                 and u["off"] <= u["near"])
+    assert row["ok"], row
+    del params, opt, state
+    torch.cuda.empty_cache()
+    return row
+
+
+def mesh_train_bf16(dev, mesh) -> dict:
+    """(f) bf16 on this rank of ``shape``: its shards of the 4-layer
+    model's seeded weights and zero moments (the stored bytes held to the
+    sum of ``shard_shape`` bytes), a warm-up step (the first step, whose
+    loss and grad norm the parent holds to the one-process ones), then
+    the timed steps under ``collective_timing`` (each collective behind a
+    sync of the card and a barrier of its group; the backward's kinds end
+    in `` bwd``), split into forward / backward / optimizer by CUDA
+    events (``StepSplit``), with the peak memory."""
+    from repro_torch.launch.shardings import (
+        NamedSharding,
+        opt_pspecs,
+        shard_train_state,
+    )
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import TransformerLM, init_leaves
+    from repro_torch.models.sharding import (
+        collective_timing,
+        logical_sharding,
+        single_pod_rules,
+    )
+    from repro_torch.optim.adamw import AdamWConfig
+
+    t = MESH_TRAIN
+    b = t["bf16"]
+    cfg = mesh_tp_config(b["layers"], "bfloat16")
+    shape = tuple(mesh.shape)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = shard_train_state(cfg, init_leaves(cfg, t["seed"], dev), mesh,
+                              dev)
+    torch.cuda.synchronize()
+    params, opt = state.pop("params"), state.pop("opt")
+    specs = opt_pspecs(cfg, mesh, params.pspecs)
+    step = make_train_step(cfg, AdamWConfig(**t["opt"]), remat="full")
+    row = {"mesh": list(shape), "layers": b["layers"], "dtype": "bfloat16",
+           "tokens": [b["batch"], b["seq"]], "remat": "full",
+           "init_s": time.perf_counter() - t0}
+    losses, norms, step_s, splits = [], [], [], []
+    coll = {}
+    with logical_sharding(mesh, single_pod_rules()), StepSplit() as split:
+        for i in range(1 + b["timed"]):
+            batch = mesh_train_batch(cfg, b["batch"], b["seq"], i, dev)
+            timing = (collective_timing() if i else contextlib.nullcontext())
+            torch.cuda.synchronize()
+            with timing as times:
+                t0 = time.perf_counter()
+                params, opt, met = step(params, opt, batch)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            losses.append(float(met["loss"]))
+            norms.append(float(met["grad_norm"]))
+            if i == 0:
+                row["warmup_step_s"] = dt
+                continue
+            step_s.append(dt)
+            splits.append(split.split_ms())
+            for kind, c in times.items():
+                acc = coll.setdefault(kind, dict.fromkeys(c, 0))
+                for k, v in c.items():
+                    acc[k] += v
+    meta = dict(TransformerLM(cfg, "meta").named_parameters())
+    stored = sum(p.numel() * p.element_size() for p in params.parameters())
+    stored += sum(t_.numel() * t_.element_size() for k in ("m", "v")
+                  for t_ in opt[k].values())
+    want = sum(
+        int(np.prod(NamedSharding(mesh, specs["m"][n]).shard_shape(p.shape)))
+        * (p.element_size() + 8) for n, p in meta.items())
+    wall = sum(step_s)
+    tokens = b["batch"] * b["seq"]
+    med = float(np.median(step_s))
+    row.update({
+        "losses": losses, "grad_norms": norms, "step_s": stats(step_s),
+        "tokens_per_s": tokens / med,
+        "split_ms": {k: stats([s[k] for s in splits]) for k in splits[0]},
+        "collectives": coll,
+        "collective_share": {k: c["s"] / wall for k, c in coll.items()},
+        "collective_share_total": sum(c["s"] for c in coll.values()) / wall,
+        "wait_share_total": sum(c["wait_s"] for c in coll.values()) / wall,
+        "backward_kinds": sorted(k for k in coll if k.endswith(" bwd")),
+        "state_bytes": stored, "shard_shape_bytes": want,
+        "peak_bytes": torch.cuda.max_memory_allocated(dev) - base,
+        "peak_abs": torch.cuda.max_memory_allocated(dev),
+    })
+    assert all(np.isfinite(losses)) and all(np.isfinite(norms)), row
+    assert stored == want, (stored, want)
+    assert row["backward_kinds"], coll
+    del params, opt
+    torch.cuda.empty_cache()
+    return row
+
+
+def mesh_train_resume(dev, mesh, root) -> dict:
+    """(f) the smoke config's train state of shards on (2, 2) through
+    ``TrainLoop`` with a checkpoint every 2 steps, uninterrupted and
+    preempted at step 3 then resumed from the step-2 checkpoint (gathered
+    whole and written by rank 0, restored onto the mesh as DTensors and
+    cut again): whether the final shards are bit-equal, and whether the
+    last checkpoint's leaves equal the final shards gathered whole."""
+    import dataclasses
+
+    from repro_torch.checkpoint import (
+        CheckpointConfig,
+        CheckpointManager,
+        load_checkpoint,
+    )
+    from repro_torch.configs import get_config
+    from repro_torch.convert import train_state_shards_from_arrays
+    from repro_torch.core.tensor_codec import flatten_pytree
+    from repro_torch.launch.shardings import (
+        gather_whole,
+        opt_pspecs,
+        param_pspecs,
+        reference_pspecs,
+        shard_train_state,
+        to_named,
+    )
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import TransformerLM, init_leaves
+    from repro_torch.models.sharding import (
+        PartitionSpec,
+        logical_sharding,
+        single_pod_rules,
+    )
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.fault_tolerance import (
+        PreemptionSchedule,
+        TrainLoop,
+    )
+
+    t = MESH_TRAIN
+    r = t["resume"]
+    cfg = dataclasses.replace(get_config(t["arch"]).smoke(), dtype="float32")
+    step = make_train_step(cfg, AdamWConfig(**t["opt"]), remat="full")
+    pspecs = param_pspecs(cfg, mesh)
+    ospecs = opt_pspecs(cfg, mesh, pspecs)
+    shardings = to_named(mesh, {
+        "params": reference_pspecs(pspecs),
+        "opt": {"m": reference_pspecs(ospecs["m"]),
+                "v": reference_pspecs(ospecs["v"]), "step": PartitionSpec()}})
+
+    def step_fn(state, i):
+        if not isinstance(state["params"], TransformerLM):
+            state = train_state_shards_from_arrays(cfg, state, mesh, dev)
+        batch = mesh_train_batch(cfg, r["batch"], r["seq"], i, dev)
+        with logical_sharding(mesh, single_pod_rules()):
+            params, opt, met = step(state["params"], state["opt"], batch)
+        return {"params": params, "opt": opt}, {"loss": float(met["loss"])}
+
+    t0 = time.perf_counter()
+    runs = {}
+    for tag, fail in (("whole", ()), ("preempted", (r["fail_at"],))):
+        loop = TrainLoop(step_fn, CheckpointManager(
+            CheckpointConfig(os.path.join(root, f"resume_{tag}")),
+            device=dev), save_every=r["save_every"],
+            preemption=PreemptionSchedule(fail_at=fail))
+        state = shard_train_state(cfg, init_leaves(cfg, t["seed"], dev), mesh,
+                                  dev)
+        runs[tag] = (loop.run(state, r["steps"], shardings=shardings), loop)
+    (a, la), (b, lb) = runs["whole"], runs["preempted"]
+
+    def leaves(s):
+        out = [p for _, p in s["params"].named_parameters()]
+        return out + [s["opt"][k][n] for k in ("m", "v") for n in s["opt"][k]]
+
+    bit_equal = all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+    ckpt, saved = load_checkpoint(os.path.join(root, "resume_preempted"),
+                                  device=dev)
+    whole = {"params": {}, "opt": {"m": {}, "v": {}, "step": b["opt"]["step"]}}
+    for n, p in b["params"].named_parameters():
+        whole["params"][n] = gather_whole(p, pspecs[n], mesh)
+        for k in ("m", "v"):
+            whole["opt"][k][n] = gather_whole(b["opt"][k][n], pspecs[n], mesh)
+    got, want = flatten_pytree(ckpt), flatten_pytree(whole)
+    ckpt_equal = set(got) == set(want) and all(
+        torch.equal(got[k], want[k]) for k in got)
+    row = {"mesh": list(r["mesh"]), "steps": r["steps"],
+           "fail_at": r["fail_at"], "restarts": lb.restarts,
+           "bit_equal": bit_equal, "ckpt_step": saved,
+           "ckpt_equal": ckpt_equal,
+           "losses": [m["loss"] for m in la.metrics_log],
+           "s": time.perf_counter() - t0}
+    assert lb.restarts == 1 and bit_equal and ckpt_equal, row
+    assert saved == r["steps"], row
+    return row
+
+
+def mesh_train(dev, root, ref) -> dict:
+    """(f) on this rank: float32 against one process, bf16 timed on each
+    mesh, the preempted run resumed; K7's and K8's counts set to 0 before
+    and read after (training launches neither).  ``ref``: the parent's
+    one-process float32 gradients (shared through CUDA IPC) and
+    scalars."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    grads_ref, scalars = ref
+    meshes = {}
+
+    def mesh_of(shape):
+        if shape not in meshes:
+            meshes[shape] = make_host_mesh(*shape, device=dev)
+        return meshes[shape]
+
+    reset_kernel_launches()
+    out, clock = {}, {}
+    t0 = time.perf_counter()
+    out["f32"] = mesh_train_f32(dev, mesh_of(MESH_TRAIN["f32"]["mesh"]),
+                                grads_ref, scalars)
+    clock["f32"] = time.perf_counter() - t0
+    out["bf16"] = []
+    for shape in MESH_TRAIN["bf16"]["meshes"]:
+        t0 = time.perf_counter()
+        out["bf16"].append(mesh_train_bf16(dev, mesh_of(shape)))
+        clock[f"bf16_{shape[0]}x{shape[1]}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["resume"] = mesh_train_resume(dev, mesh_of(MESH_TRAIN["resume"]["mesh"]),
+                                      root)
+    clock["resume"] = time.perf_counter() - t0
+    out["kernel_launches"] = kernel_launch_counts()
+    out["part_s"] = clock
+    return out
+
+
+def mesh_train_check(root, scalars) -> dict:
+    """(f) across the ranks: every rank's losses and grad norms equal (the
+    metrics are global), the replicated leaves' digests equal, the bf16
+    first step's loss and grad norm within FAMILY_BF16_OVER_FLOOR times
+    bf16's floor (the one-process bf16 value's distance from float32's on
+    the same weights) of the one-process bf16 step's, K7 and K8 launched
+    0 times.  Returns the ``train_tp`` row (rank 0's figures, each rank's
+    peak, the near elements' places summed over the ranks: [near, off,
+    size] a leaf kind with any, and the head's split)."""
+    ranks = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(root, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh)["train_tp"])
+    r0 = ranks[0]
+    for rk in ranks[1:]:
+        assert rk["f32"]["losses"] == r0["f32"]["losses"]
+        assert rk["f32"]["grad_norms"] == r0["f32"]["grad_norms"]
+        assert rk["f32"]["replicated"] == r0["f32"]["replicated"]
+        for a, b in zip(rk["bf16"], r0["bf16"]):
+            assert (a["losses"], a["grad_norms"]) == (b["losses"],
+                                                      b["grad_norms"])
+        assert rk["resume"]["losses"] == r0["resume"]["losses"]
+    for rk in ranks:
+        assert rk["kernel_launches"] == {"k7": 0, "k8": 0}, rk
+    floor = {"loss": abs(scalars["bf16_loss"] - scalars["f32_4_loss"]),
+             "grad_norm": abs(scalars["bf16_grad_norm"]
+                              - scalars["f32_4_grad_norm"])}
+    first = []
+    for b in r0["bf16"]:
+        row = {"mesh": b["mesh"], "loss": b["losses"][0],
+               "grad_norm": b["grad_norms"][0]}
+        for k in ("loss", "grad_norm"):
+            row[f"{k}_gap"] = abs(row[k] - scalars[f"bf16_{k}"])
+            row[f"{k}_bound"] = FAMILY_BF16_OVER_FLOOR * floor[k]
+        row["ok"] = all(row[f"{k}_gap"] <= row[f"{k}_bound"]
+                        for k in ("loss", "grad_norm"))
+        first.append(row)
+    assert all(r["ok"] for r in first), first
+    near = {}
+    for rk in ranks:
+        for kind, counts in rk["f32"]["near_by_leaf"].items():
+            near[kind] = [a + b for a, b in zip(near.get(kind, [0, 0, 0]),
+                                                counts)]
+    head = {k: sum(rk["f32"]["head_near"][k] for rk in ranks)
+            for k in r0["f32"]["head_near"]}
+    return {
+        "f32": {k: v for k, v in r0["f32"].items()
+                if k not in ("replicated", "near_by_leaf", "head_near")},
+        "f32_near_by_leaf": {k: v for k, v in near.items() if v[0] or v[1]},
+        "f32_head_near": head,
+        "replicated_leaves_equal": len(r0["f32"]["replicated"]),
+        "bf16": [{k: v for k, v in b.items()} for b in r0["bf16"]],
+        "bf16_one_process": {k: scalars[k] for k in (
+            "bf16_loss", "bf16_grad_norm", "f32_4_loss", "f32_4_grad_norm")},
+        "bf16_floor": floor, "bf16_first_step": first,
+        "bf16_peak_bytes_per_rank": [[b["peak_abs"] for b in rk["bf16"]]
+                                     for rk in ranks],
+        "resume": r0["resume"],
+        "kernel_launches": [rk["kernel_launches"] for rk in ranks],
+        "part_s": r0["part_s"],
+    }
+
+
 def phase_mesh(dev) -> tuple[dict, list]:
-    """Phase 15: (e)'s one-process runs in this process, then MESH_RANKS
-    ranks spawned on the one card (the kernels are built before, in this
-    process), running (a)-(e) (``mesh_rank``); then this process's
-    checks: (a)'s logits against a dense prefill, (b)'s against the
-    unpadded prefill, (c) against its one-process replay, (e) against
-    its one-process runs; K7 at (b)'s and (e)'s launches against its
+    """Phase 15: (e)'s and (f)'s one-process runs in this process, then
+    MESH_RANKS ranks spawned on the one card (the kernels are built
+    before, in this process), running (a)-(f) (``mesh_rank``; (f)'s
+    float32 gradients shared with them through CUDA IPC); then this
+    process's checks: (a)'s logits against a dense prefill, (b)'s
+    against the unpadded prefill, (c) against its one-process replay,
+    (e) against its one-process runs, (f) across the ranks
+    (``mesh_train_check``); K7 at (b)'s and (e)'s launches against its
     plain version.  Returns the ``{"mesh"}`` row and each rank's K7
     launches in the timed prefills of (a), (b) and (e)."""
     import tempfile
@@ -6226,8 +6797,14 @@ def phase_mesh(dev) -> tuple[dict, list]:
         row["tp_reference"] = mesh_tp_reference(dev, root)
         row["tp_reference_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        mp.spawn(mesh_rank, args=(root, str(dev)), nprocs=MESH_RANKS,
-                 join=True)
+        train_ref = mesh_train_reference(dev)
+        row["train_reference_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mp.spawn(mesh_rank, args=(root, str(dev), train_ref),
+                 nprocs=MESH_RANKS, join=True)
+        train_scalars = train_ref[1]
+        del train_ref
+        torch.cuda.empty_cache()
         row["ranks_s"] = time.perf_counter() - t0
         ranks = []
         for r in range(MESH_RANKS):
@@ -6251,6 +6828,8 @@ def phase_mesh(dev) -> tuple[dict, list]:
         torch.cuda.empty_cache()
         row["tp_vs_one_process"] = mesh_tp_check(root)
         row["checks_s"] = time.perf_counter() - t0
+        row["train_tp"] = mesh_train_check(root, train_scalars)
+        row["train_tp"]["card"] = row["card"]
     row["k7_padded_launch"] = mesh_k7_timing(dev)
     row["k7_tp_launch"] = mesh_k7_tp_timing(dev)
     r0 = ranks[0]

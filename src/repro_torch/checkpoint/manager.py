@@ -25,6 +25,14 @@ reference_pspecs(...))``); each leaf becomes a DTensor on that mesh,
 every rank cutting its own shard from the leaf it read (each rank reads
 the checkpoint, so nothing is sent), its full tensor the saved leaf.
 
+A train state of shards (its ``"params"`` a ``TransformerLM`` cut by
+``launch.shardings.shard_params``, its moments the matching shards) is
+saved in the same layout: each leaf is gathered whole over the axes its
+spec cuts it over, one leaf at a time, and rank 0 alone writes the
+checkpoint while the others wait at a barrier (and only rank 0 removes
+old steps).  Restoring it onto a mesh is ``load_checkpoint(shardings=
+...)``, then ``convert.train_state_shards_from_arrays``.
+
 Guarantees exercised by tests:
   * a save interrupted anywhere leaves no COMMIT -> restore picks the
     previous step (atomicity),
@@ -83,13 +91,70 @@ def _npz_array(t: torch.Tensor) -> np.ndarray:
     return a.view(np.dtype("V2")) if t.dtype == torch.bfloat16 else a
 
 
+def _sharded(state) -> bool:
+    """Whether ``state`` is a train state of a rank's shards."""
+    params = state.get("params") if isinstance(state, dict) else None
+    return getattr(params, "mesh", None) is not None
+
+
+def _writer(state) -> bool:
+    """Whether this process writes ``state``'s checkpoint: always, but for
+    a state of shards only on rank 0."""
+    if not _sharded(state):
+        return True
+    import torch.distributed as dist
+
+    return dist.get_rank() == 0
+
+
+def _gathered_state(state):
+    """A train state of shards as the whole one (``{"params": {name:
+    tensor}, "opt": {"m", "v", "step"}}``, CPU tensors) on rank 0, None
+    on the other ranks: each leaf all-gathered over its spec's axes, one
+    at a time."""
+    from ..launch.shardings import gather_whole
+
+    params = state["params"]
+    mesh, specs = params.mesh, params.pspecs
+    keep = _writer(state)
+    if set(state["opt"]) - {"m", "v", "step"}:
+        raise ValueError("a state of shards carries m, v and step only")
+
+    def whole(named):
+        out = {}
+        for name, t in named.items():
+            w = gather_whole(t, specs[name], mesh)
+            if keep:
+                out[name] = w.cpu()
+            del w
+        return out
+
+    out = {"params": whole(dict(params.named_parameters())),
+           "opt": {"m": whole(state["opt"]["m"]),
+                   "v": whole(state["opt"]["v"]),
+                   "step": state["opt"]["step"].cpu()}}
+    return out if keep else None
+
+
 def save_checkpoint(directory, step: int, state, codec: str | None = None,
                     device="cuda"):
     """Atomic: write to tmp dir, fsync payload, COMMIT marker, rename.
-    ``device`` is where the codec's clustering runs."""
+    ``device`` is where the codec's clustering runs.  A state of shards is
+    gathered whole and written by rank 0; every rank returns after the
+    commit."""
     directory = Path(directory)
-    directory.mkdir(parents=True, exist_ok=True)
     final = directory / f"step_{step:08d}"
+    if _sharded(state):
+        import torch.distributed as dist
+
+        whole = _gathered_state(state)
+        try:
+            if whole is not None:
+                save_checkpoint(directory, step, whole, codec, device)
+        finally:
+            dist.barrier()
+        return final
+    directory.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix=".tmp_ckpt_", dir=directory))
     try:
         flat = flatten_pytree(state)
@@ -189,7 +254,8 @@ class CheckpointManager:
     def save(self, step: int, state):
         path = save_checkpoint(self.dir, step, state, self.cfg.codec,
                                self.device)
-        self._gc()
+        if _writer(state):
+            self._gc()
         return path
 
     def restore_or_none(self, shardings=None):

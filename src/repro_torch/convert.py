@@ -11,7 +11,11 @@ across the same way, and ``lm_params_from_arrays`` a reference LM's
 parameter pytree (numpy arrays or torch tensors) into the port's
 ``TransformerLM``; ``lm_params_to_arrays`` is its inverse, and
 ``lm_shards_from_arrays`` carries the same pytree onto a rank of a mesh
-as its shards only (``launch.shardings.shard_params``).
+as its shards only (``launch.shardings.shard_params``), and
+``train_state_shards_from_arrays`` a whole train state (the AdamW
+moments and step too; ``launch.shardings.shard_train_state``), from the
+reference's arrays or from a checkpoint restored onto the mesh as
+DTensors (``load_checkpoint(shardings=...)``).
 ``train_state_to_arrays`` / ``train_state_from_arrays`` carry a whole
 train state — parameters, the AdamW moments and step, and the gradient
 compression's error feedback ``"ef"`` — between the port's form (a
@@ -40,6 +44,7 @@ __all__ = [
     "lm_params_to_arrays",
     "lm_shards_from_arrays",
     "model_from_arrays",
+    "train_state_shards_from_arrays",
     "train_state_from_arrays",
     "train_state_to_arrays",
 ]
@@ -203,6 +208,35 @@ def lm_params_from_arrays(cfg, params, device="cuda") -> TransformerLM:
     return lm
 
 
+def _block_leaves(cfg, tree, mesh=None):
+    """(parameter name, its whole leaf) of a reference-layout ``tree``, one
+    at a time: a block's slice of its stacked leaf.  A DTensor's slice is
+    a DTensor of its local slice, placed as the block's spec places it
+    (the L axis is never cut)."""
+    specs = None
+    for name, _ in TransformerLM(cfg, "meta").named_parameters():
+        path, index = reference_path(name)
+        leaf = tree
+        for part in path.split("/"):
+            if part not in leaf:
+                raise ValueError(f"missing leaf {path!r}")
+            leaf = leaf[part]
+        if index is not None:
+            if hasattr(leaf, "to_local"):
+                from torch.distributed.tensor import DTensor
+
+                from .launch.shardings import param_pspecs, placements
+
+                specs = specs or param_pspecs(cfg, mesh)
+                leaf = DTensor.from_local(
+                    leaf.to_local()[index], mesh,
+                    placements(tuple(mesh.mesh_dim_names), specs[name]),
+                    run_check=False)
+            else:
+                leaf = leaf[index]
+        yield name, leaf
+
+
 def lm_shards_from_arrays(cfg, params, mesh, device="cuda") -> TransformerLM:
     """This rank's ``TransformerLM`` of shards (``shard_params``) holding
     the numbers of a reference parameter pytree (numpy arrays or torch
@@ -212,17 +246,22 @@ def lm_shards_from_arrays(cfg, params, mesh, device="cuda") -> TransformerLM:
     misshapen leaf."""
     from .launch.shardings import shard_params
 
-    def leaves():
-        for name, _ in TransformerLM(cfg, "meta").named_parameters():
-            path, index = reference_path(name)
-            leaf = params
-            for part in path.split("/"):
-                if part not in leaf:
-                    raise ValueError(f"missing leaf {path!r}")
-                leaf = leaf[part]
-            yield name, leaf if index is None else leaf[index]
+    return shard_params(cfg, _block_leaves(cfg, params, mesh), mesh, device)
 
-    return shard_params(cfg, leaves(), mesh, device)
+
+def train_state_shards_from_arrays(cfg, state, mesh, device="cuda") -> dict:
+    """This rank's train state of shards (``shard_train_state``) from the
+    reference's pytree ``{"params", "opt": {"m", "v", "step"}}`` (numpy
+    arrays, torch tensors, or the DTensors ``load_checkpoint(shardings=
+    ...)`` places on ``mesh``, whose local shards are taken as they
+    are)."""
+    from .launch.shardings import shard_train_state
+
+    opt = state["opt"]
+    return shard_train_state(
+        cfg, _block_leaves(cfg, state["params"], mesh), mesh, device,
+        opt={"m": _block_leaves(cfg, opt["m"], mesh),
+             "v": _block_leaves(cfg, opt["v"], mesh), "step": opt["step"]})
 
 
 def lm_params_to_arrays(cfg, lm: TransformerLM) -> dict:

@@ -28,9 +28,15 @@ dimension).  A mesh is a ``DeviceMesh`` or a ``launch.mesh.AbstractMesh``.
 of shards, each leaf cut to ``NamedSharding.shard_shape`` at the rank's
 (data, model) coordinate, taking the whole leaves one at a time (from
 ``models.init_leaves`` or ``convert.lm_shards_from_arrays``), so no rank
-holds the whole model; ``init_cache_shards`` is ``init_cache`` in
-``cache_pspecs``'s local shapes.  Tensor-parallel serving runs on them
-(``models.tensor_parallel``).
+holds the whole model; a leaf that is already a DTensor under the
+leaf's spec (``load_checkpoint(shardings=...)``) gives its local shard.
+``init_cache_shards`` is ``init_cache`` in ``cache_pspecs``'s local
+shapes.  ``shard_train_state`` is a train state of shards: the
+parameters by ``shard_params``, the AdamW moments by ``opt_pspecs`` (like
+the parameters: ``init_opt_state`` of the shards, or cut from given
+moments) and the step replicated.  ``gather_whole`` is ``local_shard``'s
+inverse.  Tensor-parallel serving and training run on them
+(``models.tensor_parallel``, ``launch.steps``).
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ from ..models.model import TransformerLM, init_cache, reference_path
 from ..models.sharding import PartitionSpec as P
 from ..models.sharding import (
     _axis_size,
+    all_gather,
     axis_index,
     mesh_axis_names,
     mesh_shape,
@@ -60,6 +67,7 @@ __all__ = [
     "batch_axes",
     "batch_spec",
     "cache_pspecs",
+    "gather_whole",
     "init_cache_shards",
     "local_shard",
     "opt_pspecs",
@@ -67,6 +75,7 @@ __all__ = [
     "placements",
     "reference_pspecs",
     "shard_params",
+    "shard_train_state",
     "to_named",
 ]
 
@@ -297,6 +306,31 @@ def local_shard(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     return t
 
 
+def gather_whole(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:
+    """The whole tensor from this rank's ``local_shard`` under ``spec``:
+    each sharded dim all-gathered over its axes (every rank gets it)."""
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            t = all_gather(t, axis, dim, mesh=mesh)
+    return t
+
+
+def _local(whole, spec: P, mesh) -> torch.Tensor:
+    """This rank's shard of a leaf: cut from a whole tensor or numpy
+    array, or a DTensor's local shard (its placements must be
+    ``spec``'s)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(whole, DTensor):
+        want = placements(mesh_axis_names(mesh), spec)
+        if tuple(whole.placements) != want:
+            raise ValueError(f"DTensor placed {whole.placements}, the spec "
+                             f"{spec} places {want}")
+        return whole.to_local()
+    t = whole.detach() if isinstance(whole, torch.Tensor) else _host(whole)
+    return local_shard(t, spec, mesh)
+
+
 def _data_dim(spec: P) -> int | None:
     return next((i for i, a in enumerate(spec)
                  if a == "data" or (isinstance(a, tuple) and "data" in a)),
@@ -312,9 +346,10 @@ def shard_params(cfg: ModelConfig, leaves, mesh,
     numpy array) and is read one leaf at a time: each is cut, its shard
     copied to ``device`` and the whole dropped (``models.init_leaves``,
     ``convert.lm_shards_from_arrays``, or a ``TransformerLM``'s
-    ``named_parameters()``).  Raises ``ValueError`` on an unknown,
-    misshapen, repeated or missing leaf.  The model carries ``mesh`` and
-    each parameter's dim cut over ``data`` (``fsdp_dims``)."""
+    ``named_parameters()``); a DTensor leaf gives its local shard.
+    Raises ``ValueError`` on an unknown, misshapen, repeated or missing
+    leaf.  The model carries ``mesh``, each parameter's spec
+    (``pspecs``) and its dim cut over ``data`` (``fsdp_dims``)."""
     dev = resolve_device(device)
     specs = param_pspecs(cfg, mesh)
     lm = TransformerLM(cfg, "meta")
@@ -324,23 +359,53 @@ def shard_params(cfg: ModelConfig, leaves, mesh,
     for name, whole in leaves:
         if name not in specs or name in seen:
             raise ValueError(f"unknown or repeated leaf {name!r}")
-        t = whole.detach() if isinstance(whole, torch.Tensor) else _host(whole)
         meta = metas[name]
-        if tuple(t.shape) != tuple(meta.shape):
-            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                             f"{tuple(meta.shape)}")
-        local = local_shard(t, specs[name], mesh).to(dev, meta.dtype)
+        if tuple(whole.shape) != tuple(meta.shape):
+            raise ValueError(f"{name}: shape {tuple(whole.shape)}, "
+                             f"expected {tuple(meta.shape)}")
+        local = _local(whole, specs[name], mesh).to(dev, meta.dtype)
         owner, _, leaf = name.rpartition(".")
         setattr(modules[owner], leaf, nn.Parameter(
             local.clone(memory_format=torch.contiguous_format),
             requires_grad=False))
         seen.add(name)
-        del t, local, whole
+        del local, whole
     if seen != set(specs):
         raise ValueError(f"missing leaves {sorted(set(specs) - seen)}")
     lm.mesh = mesh
+    lm.pspecs = specs
     lm.fsdp_dims = {n: _data_dim(sp) for n, sp in specs.items()}
     return lm
+
+
+def shard_train_state(cfg: ModelConfig, leaves, mesh, device="cuda",
+                      opt=None) -> dict:
+    """This rank's train state ``{"params": TransformerLM, "opt": {"m",
+    "v", "step"}}``: the parameters by ``shard_params`` from ``leaves``;
+    without ``opt`` the moments zero in the shards' shapes and types
+    (``init_opt_state`` of the shards: ``opt_pspecs``' shard shapes),
+    else cut from ``opt`` = {"m": (name, whole) pairs, "v": likewise,
+    "step": a scalar}, a leaf at a time, in each leaf's own type (DTensor
+    leaves give their local shards); the step an int32 0-d tensor."""
+    dev = resolve_device(device)
+    params = shard_params(cfg, leaves, mesh, dev)
+    if opt is None:
+        return {"params": params, "opt": init_opt_state(params)}
+    specs = opt_pspecs(cfg, mesh, params.pspecs)
+    new = {}
+    for key in ("m", "v"):
+        new[key] = {}
+        for name, whole in opt[key]:
+            if name not in specs[key] or name in new[key]:
+                raise ValueError(f"unknown or repeated {key} leaf {name!r}")
+            new[key][name] = _local(whole, specs[key][name], mesh).to(
+                dev).clone(memory_format=torch.contiguous_format)
+        if set(new[key]) != set(specs[key]):
+            raise ValueError(f"missing {key} leaves "
+                             f"{sorted(set(specs[key]) - set(new[key]))}")
+    new["step"] = _local(opt["step"], specs["step"], mesh).to(
+        dev, torch.int32).reshape(())
+    return {"params": params, "opt": new}
 
 
 def init_cache_shards(cfg: ModelConfig, batch: int, max_len: int, mesh,

@@ -11,7 +11,21 @@ The train step differentiates ``loss_fn`` with ``torch.autograd.grad``
 gets a zero gradient, as ``jax.value_and_grad`` gives it), then
 optionally compresses the gradients and takes one AdamW step, updating
 the parameters and the float32 moments in place where the reference
-donates them.  Parameters require grad only inside the step.  The step
+donates them.
+
+With sharded parameters (``launch.shardings.shard_params``) under
+``logical_sharding`` the step is this rank's part of the reference's
+sharded ``jit`` of the same step: ``loss_and_grads`` differentiates the
+tensor-parallel loss (the collectives' transposes run in the backward,
+where a leaf every model rank holds enters one rank's heads, experts or
+FF columns too) and adds the sums the batch's and the sequence's cut
+leave (``models.tensor_parallel.sum_partial_grads``), so it returns
+this rank's gradient shards (ZeRO-3: reduce-scattered over ``data``);
+AdamW clips by the global norm of the global arrays and updates the
+shards and their moments (``launch.shardings.shard_train_state``).
+Gradient compression under a mesh is refused: the mesh's compressed
+step is ``make_wire_train_step``, as in the reference.  Parameters
+require grad only inside the step.  The step
 runs under deterministic algorithms (``deterministic_algorithms``): on a
 card, the one sum of the train path that PyTorch otherwise adds with
 atomics in no fixed order — the gradient of the MoE dispatch's gather
@@ -73,7 +87,10 @@ def loss_and_grads(cfg: ModelConfig, params, batch, *,
                    aux_weight: float = 0.01):
     """(loss, {parameter name: gradient}) of ``loss_fn`` on ``batch``, as
     ``jax.value_and_grad`` gives them (an unused parameter's gradient is
-    zero).  The parameters require grad only inside."""
+    zero).  The parameters require grad only inside.  Sharded ``params``
+    under ``logical_sharding``: ``batch`` is the global batch on every
+    rank, the loss the global one and the gradients this rank's shards
+    of the global gradients."""
     names, plist = zip(*params.named_parameters())
     params.requires_grad_(True)
     try:
@@ -86,7 +103,14 @@ def loss_and_grads(cfg: ModelConfig, params, batch, *,
                                     materialize_grads=True)
     finally:
         params.requires_grad_(False)
-    return loss, dict(zip(names, grads))
+    grads = dict(zip(names, grads))
+    if params.mesh is not None:
+        from ..models.tensor_parallel import sum_partial_grads, tp_layout
+
+        b, s = batch["tokens"].shape
+        grads = sum_partial_grads(tp_layout(cfg, params.mesh, b, s), grads,
+                                  params.pspecs)
+    return loss, grads
 
 
 def make_train_step(
@@ -105,9 +129,18 @@ def make_train_step(
     ``"frontend_embeds"``.  When grad compression is on, opt_state
     additionally carries the ``"ef"`` error-feedback dict (init with
     ``optim.compression.init_error_feedback``).  Metrics are 0-d tensors:
-    ``"loss"``, ``"grad_norm"``, ``"lr"``."""
+    ``"loss"``, ``"grad_norm"``, ``"lr"``.  Sharded ``params`` (and an
+    ``opt_state`` of shards, ``launch.shardings.shard_train_state``)
+    under ``logical_sharding``: the rank's updated shards, the metrics
+    equal on every rank; compression is refused there."""
 
     def train_step(params, opt_state, batch):
+        if params.mesh is not None and grad_comp is not None \
+                and grad_comp.enabled:
+            raise NotImplementedError(
+                "gradient compression under a mesh is make_wire_train_step "
+                "(the data-parallel sum quantized on the wire), as in the "
+                "reference")
         with deterministic_algorithms():
             loss, grads = loss_and_grads(cfg, params, batch, remat=remat,
                                          use_flash=use_flash,

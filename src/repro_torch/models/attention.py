@@ -22,11 +22,14 @@ to the plain routes at their padded shapes, and the output keeps its real
 heads only (``_unpad_heads``); the decode cache holds the real KV heads.
 Without a mesh the padding is the identity.
 
-Tensor-parallel serving (``models.tensor_parallel``; the parameters are
-this rank's shards) runs ``attention_prefill_tp`` / ``attention_decode_tp``:
-the rank's query heads from its columns of ``wq`` (and of ``bq``), the KV
-heads those heads read, and its rows of ``wo``, returning the partial
-output the caller sums over ``model``.  Where the KV heads divide the
+Tensor parallelism (``models.tensor_parallel``; the parameters are this
+rank's shards) runs ``attention_train_tp`` / ``attention_prefill_tp`` /
+``attention_decode_tp``: the rank's query heads from its columns of
+``wq`` (and of ``bq``), the KV heads those heads read, and its rows of
+``wo``, returning the partial output the caller sums over ``model``.
+Training takes the plain attention (K7 has no backward, and the
+reference's train step does not take its Pallas kernel either); prefill
+shares its body and adds the cache.  Where the KV heads divide the
 model axis each rank holds its own, cache included.  Where they do not,
 K and V are whole on every rank (``wk`` / ``wv``'s columns, cut mid-head,
 gathered over ``model``), each rank attends with its heads against the
@@ -38,6 +41,8 @@ gives the attention; for that every rank scores all query heads (the
 one-token q gathered over ``model``) and keeps its own after.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -55,7 +60,7 @@ from .sharding import (
     pmax,
     psum,
 )
-from .tensor_parallel import TPLayout
+from .tensor_parallel import TPLayout, partitioned_leaf
 
 __all__ = [
     "Attention",
@@ -64,6 +69,7 @@ __all__ = [
     "attention_prefill",
     "attention_prefill_tp",
     "attention_train",
+    "attention_train_tp",
     "init_attention",
     "init_kv_cache",
 ]
@@ -127,17 +133,24 @@ def _project_qkv(p: Attention, cfg: ModelConfig, x, positions,
     tensor-parallel layout ``L`` the weights are this rank's columns: q
     holds its H / model heads, k / v its KV heads where they divide the
     model axis, else all of them (``wk`` / ``wv``'s columns cut mid-head
-    are gathered over ``model``)."""
+    are gathered over ``model``).  The leaves whole on every rank enter
+    its heads through ``partitioned_leaf``: the biases, the q / k norms
+    and a ``wk`` / ``wv`` whose columns are not cut."""
     b, s, _ = x.shape
     hd = cfg.head_dim_
-    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    leaf = (lambda t: t) if L is None else functools.partial(
+        partitioned_leaf, L)
+    wk, wv = p.wk, p.wv
+    if L is not None and not (L.kv_split or L.kv_cols):
+        wk, wv = leaf(wk), leaf(wv)
+    q, k, v = x @ p.wq, x @ wk, x @ wv
     if cfg.qkv_bias:
         if L is None:
             q, k, v = q + p.bq, k + p.bk, v + p.bv
         else:
             cols = _kv_cols(cfg, L)
-            q = q + p.bq[L.h_lo * hd:(L.h_lo + L.h_loc) * hd]
-            k, v = k + p.bk[cols], v + p.bv[cols]
+            q = q + leaf(p.bq)[L.h_lo * hd:(L.h_lo + L.h_loc) * hd]
+            k, v = k + leaf(p.bk)[cols], v + leaf(p.bv)[cols]
     if L is not None and L.kv_cols:
         k = all_gather(k, "model", dim=-1, mesh=L.mesh)
         v = all_gather(v, "model", dim=-1, mesh=L.mesh)
@@ -145,8 +158,8 @@ def _project_qkv(p: Attention, cfg: ModelConfig, x, positions,
     k = k.reshape(b, s, -1, hd)
     v = v.reshape(b, s, -1, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p.q_norm, cfg.rms_eps)
-        k = rms_norm(k, p.k_norm, cfg.rms_eps)
+        q = rms_norm(q, leaf(p.q_norm), cfg.rms_eps)
+        k = rms_norm(k, leaf(p.k_norm), cfg.rms_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -373,15 +386,11 @@ def _time_split(L: TPLayout, max_len: int) -> bool:
     return not L.kv_split and max_len % L.model == 0
 
 
-def attention_prefill_tp(p: Attention, cfg: ModelConfig, L: TPLayout, x,
-                         positions, max_len: int, use_flash: bool = False):
+def _attend_tp(p: Attention, cfg: ModelConfig, L: TPLayout, x, positions,
+               use_flash: bool):
     """This rank's heads over the whole sequence ``x`` (B, S, d): (its
-    float32 partial of the output (B, S, d), to be summed over ``model``,
-    this rank's decode cache in ``cache_pspecs``'s local shape).  K7 (or the
-    plain routes) runs at the rank's heads over the KV heads they read."""
+    float32 partial of the output (B, S, d), its k, v)."""
     b, s, _ = x.shape
-    if max_len < s:
-        raise ValueError(f"max_len {max_len} < prompt {s}")
     q, k, v = _project_qkv(p, cfg, x, positions, L)
     q = ax(q, "batch", None, "heads", None)
     k = ax(k, "batch", None, "kv_heads", None)
@@ -390,7 +399,27 @@ def attention_prefill_tp(p: Attention, cfg: ModelConfig, L: TPLayout, x,
     vq, _ = _local_kv(cfg, L, v)
     out = ax(_attend_full(q, kq, vq, cfg, use_flash),
              "batch", None, "heads", None)
-    part = matmul_f32(out.reshape(b, s, -1), p.wo)
+    return matmul_f32(out.reshape(b, s, -1), p.wo), k, v
+
+
+def attention_train_tp(p: Attention, cfg: ModelConfig, L: TPLayout, x,
+                       positions, use_flash: bool = False):
+    """This rank's heads over the whole sequence ``x`` (B, S, d): its
+    float32 partial of the output, to be summed over ``model``.  The
+    plain attention trains; ``use_flash`` takes K7, which refuses
+    autograd (``KernelGradientError``), as ``attention_train`` does."""
+    return _attend_tp(p, cfg, L, x, positions, use_flash)[0]
+
+
+def attention_prefill_tp(p: Attention, cfg: ModelConfig, L: TPLayout, x,
+                         positions, max_len: int, use_flash: bool = False):
+    """``attention_train_tp``'s partial (K7 or the plain routes at the
+    rank's heads over the KV heads they read), and this rank's decode
+    cache in ``cache_pspecs``'s local shape."""
+    b, s, _ = x.shape
+    if max_len < s:
+        raise ValueError(f"max_len {max_len} < prompt {s}")
+    part, k, v = _attend_tp(p, cfg, L, x, positions, use_flash)
     if _time_split(L, max_len):
         t_loc = max_len // L.model
         lo = L.mi * t_loc

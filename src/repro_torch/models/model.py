@@ -29,17 +29,28 @@ reference.  The kernels have no backward pass, so training keeps
 ``decode_step`` run under ``torch.no_grad()``, so serving keeps no
 autograd graph whatever the parameters' ``requires_grad``.
 
-Tensor-parallel serving.  ``launch.shardings.shard_params`` gives a rank
-a ``TransformerLM`` of its shards (``mesh`` set); ``prefill`` and
-``decode_step`` then run the rank's cut of the call under the installed
-``logical_sharding`` (``models.tensor_parallel``): they take the global
-batch's token ids on every rank, compute this rank's batch rows, heads,
-FF columns, vocab slice and sequence slice, and return this rank's
-logits (batch rows x vocab slice) and its cache of local shards
-(``TPCache``).  ``init_leaves`` draws ``init_params``'s numbers one block
-at a time, so a rank can cut a seeded model without ever holding it
-whole.  Training under tensor parallelism is not ported yet: the train
-functions refuse a sharded ``TransformerLM``.
+Tensor parallelism.  ``launch.shardings.shard_params`` gives a rank a
+``TransformerLM`` of its shards (``mesh`` set); ``prefill``,
+``decode_step``, ``hidden_states``, ``forward`` and ``loss_fn`` then run
+the rank's cut of the call under the installed ``logical_sharding``
+(``models.tensor_parallel``): they take the global batch's token ids on
+every rank and compute this rank's batch rows, heads, FF columns, vocab
+slice and sequence slice.  Serving returns this rank's logits (batch
+rows x vocab slice) and its cache of local shards (``TPCache``);
+``hidden_states`` this rank's residual slice, ``forward`` its logits
+(batch rows x whole sequence x vocab slice), ``loss_fn`` the global loss
+on every rank through the vocab-parallel cross entropy, differentiable
+into the rank's shards (``launch.steps.loss_and_grads`` sums the partial
+gradients).  The train block and the prefill block are one body
+(``_block_tp``); prefill adds the cache.  ``remat`` checkpoints each
+tensor-parallel block with its ZeRO-3 gathers inside, so the recompute
+gathers the weights again; the block carries this thread's layout state
+into the recompute, which the card's autograd engine runs on a thread of
+its own.  Hymba, RWKV6, MLA and a shared expert are not cut yet:
+sharded, every entry point raises ``NotImplementedError`` with the
+reason (``tensor_parallel.check_cut``).  ``init_leaves`` draws
+``init_params``'s numbers one block at a time, so a rank can cut a
+seeded model without ever holding it whole.
 
 Training: ``loss_fn`` (dense cross entropy, or ``chunked_ce_loss`` from
 2,048 tokens in chunks of 512, plus ``aux_weight`` times the MoE aux
@@ -52,6 +63,7 @@ keeps its matmul outputs and recomputes the rest, as the reference's
 from __future__ import annotations
 
 import functools
+import math
 import re
 from typing import Any
 
@@ -74,6 +86,7 @@ from .attention import (
     attention_prefill,
     attention_prefill_tp,
     attention_train,
+    attention_train_tp,
     init_attention,
     init_kv_cache,
 )
@@ -98,7 +111,14 @@ from .rwkv6 import (
     rwkv6_prefill,
     rwkv6_train,
 )
-from .sharding import ax, current_mesh, logical_sizes
+from .sharding import (
+    ax,
+    current_mesh,
+    layout_installed,
+    layout_state,
+    logical_sizes,
+    psum,
+)
 from .ssm import SSM, init_ssm, init_ssm_cache, ssm_decode, ssm_prefill, ssm_train
 from .tensor_parallel import (
     TPCache,
@@ -108,6 +128,7 @@ from .tensor_parallel import (
     gathered,
     last_position,
     own_seq,
+    partitioned_leaf,
     row_reduce,
     tp_layout,
 )
@@ -247,8 +268,9 @@ class TransformerLM(nn.Module):
         )
         self.mtp = MTP(cfg, dtype, dev) if cfg.mtp_depth else None
         # set by launch.shardings.shard_params: the mesh this rank's shards
-        # were cut for, and each parameter's dim cut over ``data``
+        # were cut for, each parameter's spec and its dim cut over ``data``
         self.mesh = None
+        self.pspecs: dict[str, tuple] = {}
         self.fsdp_dims: dict[str, int | None] = {}
 
     @property
@@ -447,13 +469,6 @@ def _block_decode(cfg: ModelConfig, p: Block, x, cache, position):
 # ---------------------------------------------------------------------------
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
-def _check_whole(params: TransformerLM) -> None:
-    if params.mesh is not None:
-        raise NotImplementedError(
-            "training and forward() take whole parameters; a sharded "
-            "TransformerLM serves through prefill / decode_step")
-
-
 def _tokens(params: TransformerLM, tokens) -> torch.Tensor:
     return torch.as_tensor(tokens, device=params.device).long()
 
@@ -543,9 +558,12 @@ def hidden_states(
 ):
     """tokens (B,S) -> (final-normed hidden (B,S,d), moe aux loss: the sum
     over the MoE layers, float32; 0 without MoE).  ``remat`` ("full",
-    "dots" or None) checkpoints each block."""
+    "dots" or None) checkpoints each block.  Sharded ``params``: this
+    rank's residual slice (``_hidden_tp``)."""
     _check_supported(cfg)
-    _check_whole(params)
+    if params.mesh is not None:
+        return _hidden_tp(cfg, params, tokens, frontend_embeds, use_flash,
+                          remat)[1:]
     block = _maybe_remat(_block_train, remat)
     x = embed_inputs(cfg, params, tokens, frontend_embeds)
     b, s = x.shape[:2]
@@ -570,7 +588,16 @@ def forward(
     use_flash: bool = False,
     remat: str | None = None,
 ):
-    """tokens (B,S) -> logits (B,S,V), aux (moe load-balance loss)."""
+    """tokens (B,S) -> logits (B,S,V), aux (moe load-balance loss).
+    Sharded ``params``: this rank's batch rows and vocab slice of the
+    logits, the whole sequence."""
+    if params.mesh is not None:
+        L, x, aux = _hidden_tp(cfg, params, tokens, frontend_embeds,
+                               use_flash, remat)
+        with logical_sizes(L.sizes(cfg)):
+            x = column_input(L, x, partitioned=L.vocab_split)
+            return ax(x @ _head_tp(cfg, params, L), "batch", None,
+                      "vocab"), aux
     x, aux = hidden_states(cfg, params, tokens, frontend_embeds, use_flash,
                            remat)
     logits = x @ lm_head(cfg, params)
@@ -596,7 +623,12 @@ def loss_fn(
     """Mean next-token cross entropy (float32, a 0-d tensor), plus
     ``aux_weight`` times the MoE aux loss for an MoE config.  From 2,048
     tokens (a multiple of 512) the loss never holds the whole (B, S, V)
-    logits (``chunked_ce_loss``)."""
+    logits (``chunked_ce_loss``).  Sharded ``params``: the global loss on
+    every rank, through the vocab-parallel cross entropy
+    (``_loss_tp``)."""
+    if params.mesh is not None:
+        return _loss_tp(cfg, params, tokens, labels, frontend_embeds,
+                        aux_weight, use_flash, remat)
     s = _tokens(params, tokens).shape[1]
     x, aux = hidden_states(cfg, params, tokens, frontend_embeds, use_flash,
                            remat)
@@ -615,7 +647,12 @@ def mtp_loss(cfg: ModelConfig, params: TransformerLM, tokens, labels_next,
              labels_next2):
     """Main next-token loss + depth-1 MTP loss sharing the embedding and
     the head: the MTP block reads the token's embedding beside the next
-    token's (teacher forcing) through ``mtp.proj``."""
+    token's (teacher forcing) through ``mtp.proj``.  Whole parameters
+    only: the MTP head is DeepSeek-V3's, whose MLA is not cut."""
+    if params.mesh is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the MTP loss takes whole parameters (MLA is not "
+            f"cut by tensor parallelism yet)")
     logits, aux = forward(cfg, params, tokens)
     labels_next = _tokens(params, labels_next)
     main = cross_entropy_loss(logits, labels_next)
@@ -738,7 +775,7 @@ def decode_step(cfg: ModelConfig, params: TransformerLM, tokens, cache):
 
 
 # ---------------------------------------------------------------------------
-# tensor-parallel serving: this rank's cut of prefill / decode
+# tensor parallelism: this rank's cut of train / prefill / decode
 # ---------------------------------------------------------------------------
 def _tp_mesh(params: TransformerLM):
     mesh = current_mesh()
@@ -755,35 +792,51 @@ def _res_ax(x):
     return ax(x, "batch", "seq_sp", None)
 
 
-def _mlp_tp(cfg: ModelConfig, L, p: Block, h):
-    """This rank's MLP of the whole-sequence ``h``, summed over ``model``
-    (``row_reduce``): its FF columns (or, where they are not cut, the
-    whole MLP on every rank, then its sequence slice), or its experts;
-    ``b2`` added once, after the sum."""
+def _mlp_tp(cfg: ModelConfig, L, p: Block, h, with_aux: bool = False):
+    """This rank's MLP of the residual slice ``h`` (normed), summed over
+    ``model`` (``row_reduce``): its FF columns (or, where they are not
+    cut, the whole MLP on every rank, then its sequence slice), or its
+    experts; ``b2`` added once, after the sum.  Returns (output, the MoE
+    aux loss or None)."""
     if isinstance(p.mlp, MoE):
-        part, _ = _moe_ep_partial(p.mlp, cfg, h, L.mesh, with_aux=False)
-        return row_reduce(L, part, h.dtype)
+        h = column_input(L, h)
+        part, aux = _moe_ep_partial(
+            p.mlp, cfg, h, L.mesh, with_aux=with_aux,
+            token_axes=("data",) if L.rows_cut else (),
+            whole_leaf=functools.partial(partitioned_leaf, L))
+        return row_reduce(L, part, h.dtype), aux
     m = p.mlp
+    h = column_input(L, h, partitioned=L.ff_cols)
     if L.ff_cols:
         n = cfg.d_ff // L.model
-        out = row_reduce(L, swiglu_partial(h, m.w1, m.w3, m.w2, m.b1, m.b3,
-                                           slice(L.mi * n, (L.mi + 1) * n)),
-                         h.dtype)
+        out = row_reduce(L, swiglu_partial(
+            h, m.w1, m.w3, m.w2, partitioned_leaf(L, m.b1),
+            partitioned_leaf(L, m.b3), slice(L.mi * n, (L.mi + 1) * n)),
+            h.dtype)
     else:
         out = own_seq(L, swiglu_partial(h, m.w1, m.w3, m.w2, m.b1,
                                         m.b3).to(h.dtype))
-    return out if m.b2 is None else out + m.b2
+    return (out if m.b2 is None else out + m.b2), None
 
 
-def _block_prefill_tp(cfg: ModelConfig, L, p: Block, x, positions,
-                      max_len: int, use_flash: bool):
-    """x: this rank's residual slice (B, S / model, d)."""
+def _block_tp(cfg: ModelConfig, L, p: Block, x, positions,
+              max_len: int | None = None, use_flash: bool = False,
+              with_aux: bool = False):
+    """One block on this rank: x its residual slice (B / data, S / model,
+    d).  Its attention takes the flash kernel when ``use_flash`` (which
+    refuses autograd), else the plain one; a prefill block (``max_len``
+    given) also builds its cache.  Returns (x, the cache or None, the MoE
+    aux loss or None)."""
     h = column_input(L, rms_norm(x, p.norm1, cfg.rms_eps))
-    a, cache = attention_prefill_tp(p.attn, cfg, L, h, positions, max_len,
-                                    use_flash)
+    if max_len is None:
+        a, cache = attention_train_tp(p.attn, cfg, L, h, positions,
+                                      use_flash), None
+    else:
+        a, cache = attention_prefill_tp(p.attn, cfg, L, h, positions,
+                                        max_len, use_flash)
     x = _res_ax(x + row_reduce(L, a, x.dtype))
-    h = column_input(L, rms_norm(x, p.norm2, cfg.rms_eps))
-    return _res_ax(x + _mlp_tp(cfg, L, p, h)), cache
+    m, aux = _mlp_tp(cfg, L, p, rms_norm(x, p.norm2, cfg.rms_eps), with_aux)
+    return _res_ax(x + m), cache, aux
 
 
 def _block_decode_tp(cfg: ModelConfig, L, p: Block, x, cache, position,
@@ -793,8 +846,8 @@ def _block_decode_tp(cfg: ModelConfig, L, p: Block, x, cache, position,
     a, cache = attention_decode_tp(p.attn, cfg, L, h, cache, position,
                                    max_len)
     x = x + row_reduce(L, a, x.dtype)
-    h = rms_norm(x, p.norm2, cfg.rms_eps)
-    return x + _mlp_tp(cfg, L, p, h), cache
+    m, _ = _mlp_tp(cfg, L, p, rms_norm(x, p.norm2, cfg.rms_eps))
+    return x + m, cache
 
 
 def _head_tp(cfg: ModelConfig, params: TransformerLM, L) -> torch.Tensor:
@@ -812,6 +865,92 @@ def _tp_layers(params: TransformerLM):
                     for i, blk in enumerate(getattr(params, key))]
 
 
+def _embed_tp(cfg: ModelConfig, params: TransformerLM, L, ids,
+              frontend_embeds):
+    """The residual slice of this rank's rows ``ids`` (B / data, S): the
+    vocab-parallel lookup, frontend embeddings on the first positions."""
+    x = embed_tokens(L, gathered(L, params.embed, params.fsdp_dims["embed"]),
+                     ids)
+    if cfg.frontend is not None and frontend_embeds is not None:
+        fe = torch.as_tensor(frontend_embeds, device=x.device)
+        fe = fe[L.rows].to(x.dtype)
+        pos = L.s_lo + torch.arange(x.shape[1], device=x.device)
+        fe = F.pad(fe, (0, 0, 0, L.seq - fe.shape[1]))[:, pos]
+        x = torch.where((pos < frontend_embeds.shape[1])[None, :, None],
+                        fe, x)
+    return _res_ax(x)
+
+
+def _hidden_tp(cfg: ModelConfig, params: TransformerLM, tokens,
+               frontend_embeds, use_flash: bool, remat: str | None):
+    """``hidden_states``' cut on this rank: (its ``TPLayout``, its
+    final-normed residual slice (B / data, S / model, d), the MoE aux
+    loss summed over the layers).  Each block, its ZeRO-3 gathers
+    inside, runs under ``remat``'s checkpoint with this thread's layout
+    state."""
+    mesh = _tp_mesh(params)
+    ids = _tokens(params, tokens)
+    b, s = ids.shape
+    L = tp_layout(cfg, mesh, b, s)
+    moe = cfg.mlp_type == "moe"
+    with logical_sizes(L.sizes(cfg)):
+        x = _embed_tp(cfg, params, L, ids[L.rows], frontend_embeds)
+        positions = _positions(x.shape[0], s, x.device)
+        state = layout_state()
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for _, blocks in _tp_layers(params):
+            for prefix, blk in blocks:
+                def run(x, prefix=prefix, blk=blk):
+                    with layout_installed(state), fsdp_gathered(
+                            L, blk, params.fsdp_dims, prefix):
+                        x, _, a = _block_tp(cfg, L, blk, x, positions,
+                                            use_flash=use_flash,
+                                            with_aux=moe)
+                    return x, a
+                x, a = _maybe_remat(run, remat)(x)
+                if a is not None:
+                    aux = aux + a
+        return L, rms_norm(x, params.final_norm, cfg.rms_eps), aux
+
+
+def _loss_tp(cfg: ModelConfig, params: TransformerLM, tokens, labels,
+             frontend_embeds, aux_weight: float, use_flash: bool,
+             remat: str | None):
+    """``loss_fn``'s cut on this rank: the global mean over the B S tokens
+    on every rank.  Vocab cut over ``model``: the whole sequence of the
+    rank's rows against its vocab columns of the head (the vocab-parallel
+    cross entropy; chunked from 2,048 tokens).  Vocab whole: the rank's
+    sequence slice against the whole head, its sum added over ``model``.
+    The rows' sums are added over ``data``."""
+    b, s = _tokens(params, tokens).shape
+    L, x, aux = _hidden_tp(cfg, params, tokens, frontend_embeds, use_flash,
+                           remat)
+    labels = _tokens(params, labels)[L.rows]
+    with logical_sizes(L.sizes(cfg)):
+        head = _head_tp(cfg, params, L)
+        axes = ["data"] if L.rows_cut else []
+        if L.vocab_split:
+            x = column_input(L, x)
+            vocab = (L.mesh, L.v_lo)
+        else:
+            labels = own_seq(L, labels)
+            vocab = None
+            if L.seq_split:
+                axes.append("model")
+        n = x.shape[1]
+        if s >= _CE_CHUNK_THRESHOLD and s % _CE_CHUNK == 0:
+            loss = chunked_ce_loss(x, head, labels, math.gcd(n, _CE_CHUNK),
+                                   vocab=vocab, count=b * s)
+        else:
+            loss = cross_entropy_loss(x @ head, labels, vocab=vocab,
+                                      count=b * s)
+        if axes:
+            loss = psum(loss, tuple(axes), mesh=L.mesh)
+    if cfg.mlp_type == "moe":
+        loss = loss + aux_weight * aux
+    return loss
+
+
 @torch.no_grad()
 def _prefill_tp(cfg: ModelConfig, params: TransformerLM, tokens,
                 frontend_embeds, max_len, use_flash):
@@ -823,18 +962,8 @@ def _prefill_tp(cfg: ModelConfig, params: TransformerLM, tokens,
     b, s = ids.shape
     max_len = max_len or s
     L = tp_layout(cfg, mesh, b, s)
-    ids = ids[L.rows]
     with logical_sizes(L.sizes(cfg)):
-        x = embed_tokens(L, gathered(L, params.embed,
-                                     params.fsdp_dims["embed"]), ids)
-        if cfg.frontend is not None and frontend_embeds is not None:
-            fe = torch.as_tensor(frontend_embeds, device=x.device)
-            fe = fe[L.rows].to(x.dtype)
-            pos = L.s_lo + torch.arange(x.shape[1], device=x.device)
-            fe = F.pad(fe, (0, 0, 0, s - fe.shape[1]))[:, pos]
-            x = torch.where((pos < frontend_embeds.shape[1])[None, :, None],
-                            fe, x)
-        x = _res_ax(x)
+        x = _embed_tp(cfg, params, L, ids[L.rows], frontend_embeds)
         positions = _positions(x.shape[0], s, x.device)
         cache = TPCache(max_len=max_len)
         cache["pos"] = torch.full((x.shape[0],), s, dtype=torch.int32,
@@ -843,8 +972,8 @@ def _prefill_tp(cfg: ModelConfig, params: TransformerLM, tokens,
             layers = []
             for prefix, blk in blocks:
                 with fsdp_gathered(L, blk, params.fsdp_dims, prefix):
-                    x, c = _block_prefill_tp(cfg, L, blk, x, positions,
-                                             max_len, use_flash)
+                    x, c, _ = _block_tp(cfg, L, blk, x, positions, max_len,
+                                        use_flash)
                 layers.append(c)
             if layers or key == "layers":
                 cache[key] = layers

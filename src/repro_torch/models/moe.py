@@ -192,27 +192,45 @@ def _local_experts(w, cfg: ModelConfig, lo: int, e_loc: int):
     return _pad_experts(w[lo:min(lo + e_loc, cfg.n_experts)], e_loc)
 
 
-def _moe_ep_partial(p: MoE, cfg: ModelConfig, x, mesh, with_aux=True):
+def _moe_ep_partial(p: MoE, cfg: ModelConfig, x, mesh, with_aux=True,
+                    token_axes=None, whole_leaf=None):
     """One rank's share of the expert-parallel output for its rows ``x``
     (bl, s, d): its experts' kept slots, gated, added back to their
     tokens in float32.  The caller sums it over ``model`` and rounds
     once.
-    Returns (partial, aux): the aux loss is the mean over the other axes,
-    then over ``model``, of each shard's (``None`` without
-    ``with_aux``)."""
+    Returns (partial, aux): the aux loss is the mean over the other axes
+    (``token_axes``, the axes the tokens are cut over, when given), then
+    over ``model``, of each shard's (``None`` without ``with_aux``), as
+    the reference's ``pmean``s give it.
+
+    Differentiable: the gates and the aux loss carry the router's
+    gradient, the gather and the combine the activation's and the
+    experts'.  The mean over ``model`` of the aux loss every model rank
+    computes alike gives each rank 1 / model of its gradient, so its
+    router gradient is partial over ``model`` like the gates'.  The
+    router, and an expert stack no spec cut over ``model``, pass through
+    ``whole_leaf`` as they enter (the tensor-parallel step's
+    ``partitioned_leaf``, which sums their gradients); a mean over an
+    axis the tokens are not cut over would leave its gradient partial
+    there too, so ``token_axes`` leaves it out.  The dispatch's backward
+    (``index_select``'s, an ``index_add`` over repeated rows) adds in a
+    fixed order under ``launch.steps.deterministic_algorithms``."""
     bl, s, d = x.shape
     e = cfg.n_experts
     e_pad, e_loc, cap_loc = _ep_layout(cfg, bl, s, mesh)
     lo = axis_index("model", mesh) * e_loc
-    router = F.pad(p.router, (0, e_pad - e))
-    w1, w3, w2 = (_local_experts(w, cfg, lo, e_loc)
+    leaf = whole_leaf or (lambda t: t)
+    router = F.pad(leaf(p.router), (0, e_pad - e))
+    w1, w3, w2 = (_local_experts(leaf(w) if w.shape[0] == e else w, cfg,
+                                 lo, e_loc)
                   for w in (p.w1, p.w3, p.w2))
     n = bl * s
     xf = x.reshape(n, d)
     tok_of, gate_of, _, _, aux = _ep_route(cfg, xf, router, e_pad, lo,
                                            e_loc, cap_loc)
     if with_aux:
-        other = tuple(a for a in mesh_axis_names(mesh) if a != "model")
+        other = (tuple(a for a in mesh_axis_names(mesh) if a != "model")
+                 if token_axes is None else tuple(token_axes))
         if other:
             aux = pmean(aux, other, mesh)
         aux = pmean(aux, "model", mesh)  # identical on every model rank

@@ -36,7 +36,26 @@ them; on the H100 it took every collective of ``chip_smoke.py``'s phase
 carried as int32 (exact, the same integers); gloo takes
 ``reduce_scatter_tensor`` (``psum_scatter``) on CPU and CUDA tensors
 alike.  ``TRANSPORTS`` records how each (collective, dtype, device) was
-carried.  The collectives carry no autograd.
+carried.
+
+Autograd.  ``psum``, ``psum_scatter`` and ``all_gather`` are
+differentiable when their input requires grad (``torch.autograd.Function``s
+whose backward is the JAX transpose): ``all_gather`` along ``dim``
+transposes to ``psum_scatter`` along ``dim`` (``grad="sum"``: the ranks'
+cotangents are partial), or to the rank's own block of a cotangent every
+rank holds whole (``grad="slice"``); ``psum_scatter`` transposes to
+``all_gather``; ``psum`` of partials that every rank then consumes alike
+transposes to the identity.  ``psum_grad`` is the identity whose
+backward is ``psum``: a replicated tensor entering rank-partitioned work
+(Megatron's f; ``psum`` is its g).  ``pmax`` has no gradient (the
+vocab-parallel max is a detached shift).  A ``Function`` keeps its mesh
+and this thread's ``collective_timing`` table in ``ctx``: on a card the
+autograd engine runs the backward on a worker thread of its own, which
+sees none of this module's thread-local state; the backward's
+collectives are timed under their kind with `` bwd`` appended.
+``layout_state`` / ``layout_installed`` carry the whole thread-local
+state (rules, mesh, sizes, timing) into such a thread, as the
+tensor-parallel blocks' recompute under remat needs.
 
 Timing.  Inside ``collective_timing()`` each collective on this thread is
 timed on the host, the card synchronised before and after it, behind a
@@ -65,6 +84,8 @@ __all__ = [
     "collective_timing",
     "current_mesh",
     "current_rules",
+    "layout_installed",
+    "layout_state",
     "logical_sharding",
     "logical_sizes",
     "mesh_axis_names",
@@ -73,8 +94,10 @@ __all__ = [
     "pmax",
     "pmean",
     "psum",
+    "psum_grad",
     "psum_scatter",
     "single_pod_rules",
+    "spec_axes",
     "spec_for",
 ]
 
@@ -129,6 +152,16 @@ def batch_axes_in():
 def spec_for(*logical_names: str | None) -> PartitionSpec:
     rules = current_rules() or {}
     return P(*(rules.get(n) if n is not None else None for n in logical_names))
+
+
+def spec_axes(spec) -> tuple[str, ...]:
+    """The mesh axes a partition spec cuts its tensor over, in order."""
+    out: list[str] = []
+    for e in spec:
+        for a in (e if isinstance(e, tuple) else (e,)):
+            if a is not None and a not in out:
+                out.append(a)
+    return tuple(out)
 
 
 def mesh_shape(mesh) -> dict[str, int]:
@@ -256,10 +289,39 @@ def collective_timing():
         _state.times = old
 
 
-def _carry(kind: str, x: torch.Tensor, group, run) -> torch.Tensor:
+def layout_state() -> dict:
+    """This thread's layout state: the rules, the mesh, the global sizes
+    and the timing table (``layout_installed`` puts them on another
+    thread)."""
+    return {k: getattr(_state, k, None)
+            for k in ("rules", "mesh", "sizes", "times")}
+
+
+@contextmanager
+def layout_installed(state: dict):
+    """``layout_state()``'s values on this thread inside the block, the
+    previous ones after it: the autograd engine's worker thread on a card
+    runs a checkpointed block's recompute without them."""
+    old = layout_state()
+    for k, v in state.items():
+        setattr(_state, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(_state, k, v)
+
+
+def _timing_table():
+    """This thread's ``collective_timing`` table, or None."""
+    return getattr(_state, "times", None)
+
+
+def _carry(kind: str, x: torch.Tensor, group, run, times) -> torch.Tensor:
     """``run(t, group)`` (an in-place collective on ``t``, or one returning
     its result) on a copy of ``x`` in a dtype this backend sums; the
-    result in ``x``'s dtype."""
+    result in ``x``'s dtype.  ``times``: the ``collective_timing`` table
+    to add to, or None (a backward passes its forward's)."""
     import torch.distributed as dist
 
     backend = dist.get_backend(group)
@@ -267,7 +329,6 @@ def _carry(kind: str, x: torch.Tensor, group, run) -> torch.Tensor:
     how = f"as {str(wide).removeprefix('torch.')}" if wide else "direct"
     key = f"{kind} {str(x.dtype).removeprefix('torch.')} {x.device.type}"
     TRANSPORTS[key] = f"{backend} {how}"
-    times = getattr(_state, "times", None)
     if times is not None:
         if x.is_cuda:
             torch.cuda.synchronize(x.device)
@@ -289,36 +350,23 @@ def _carry(kind: str, x: torch.Tensor, group, run) -> torch.Tensor:
     return out
 
 
-def _reduce(kind: str, op, x: torch.Tensor, axis, mesh) -> torch.Tensor:
+def _reduce(kind: str, op, x: torch.Tensor, axis, mesh,
+            times) -> torch.Tensor:
     import torch.distributed as dist
-
-    mesh = _mesh(mesh)
 
     def run(t, group):
         dist.all_reduce(t, op=op, group=group)
 
     for a in _axes(axis):
         if mesh_shape(mesh)[a] > 1:
-            x = _carry(kind, x, mesh.get_group(a), run)
+            x = _carry(kind, x, mesh.get_group(a), run, times)
     return x
 
 
-def psum(x: torch.Tensor, axis, mesh=None) -> torch.Tensor:
-    """Sum of ``x`` over the mesh axis (or tuple of axes), on every rank."""
+def _scatter_sum(x: torch.Tensor, axis: str, dim: int, mesh, times,
+                 kind="reduce_scatter sum") -> torch.Tensor:
     import torch.distributed as dist
 
-    return _reduce("all_reduce sum", dist.ReduceOp.SUM, x, axis, mesh)
-
-
-def psum_scatter(x: torch.Tensor, axis: str, dim: int = 0,
-                 mesh=None) -> torch.Tensor:
-    """The sum of ``x`` over the mesh axis, cut along ``dim`` into axis-size
-    blocks, this rank keeping the block of its axis index:
-    ``jax.lax.psum_scatter(..., scatter_dimension=dim, tiled=True)``.
-    ``x.shape[dim]`` must divide by the axis size."""
-    import torch.distributed as dist
-
-    mesh = _mesh(mesh)
     n = mesh_shape(mesh)[axis]
     if n == 1:
         return x
@@ -332,14 +380,139 @@ def psum_scatter(x: torch.Tensor, axis: str, dim: int = 0,
         dist.reduce_scatter_tensor(out, t, group=group)
         return out.movedim(0, dim)
 
-    return _carry("reduce_scatter sum", x, mesh.get_group(axis), run)
+    return _carry(kind, x, mesh.get_group(axis), run, times)
+
+
+def _gather(x: torch.Tensor, axis: str, dim: int, mesh, times,
+            kind="all_gather") -> torch.Tensor:
+    import torch.distributed as dist
+
+    if mesh_shape(mesh)[axis] == 1:
+        return x
+
+    def run(t, group):
+        parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, t.contiguous(), group=group)
+        return torch.cat(parts, dim)
+
+    return _carry(kind, x, mesh.get_group(axis), run, times)
+
+
+class _Psum(torch.autograd.Function):
+    """psum forward; identity backward (the partials' sum is consumed
+    alike on every rank, so each rank's cotangent is the whole one)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, mesh, times):
+        import torch.distributed as dist
+
+        return _reduce("all_reduce sum", dist.ReduceOp.SUM, x, axis, mesh, times)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+class _PsumGrad(torch.autograd.Function):
+    """Identity forward; psum backward (Megatron's f)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, mesh, times):
+        ctx.args = (axis, mesh, times)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        axis, mesh, times = ctx.args
+        return (_reduce("all_reduce sum bwd", dist.ReduceOp.SUM, g, axis,
+                        mesh, times), None, None, None)
+
+
+class _PsumScatter(torch.autograd.Function):
+    """psum_scatter forward; all_gather of the cotangent backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim, mesh, times):
+        ctx.args = (axis, dim, mesh, times)
+        return _scatter_sum(x, axis, dim, mesh, times)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, dim, mesh, times = ctx.args
+        return (_gather(g, axis, dim, mesh, times, "all_gather bwd"),
+                None, None, None, None)
+
+
+class _AllGather(torch.autograd.Function):
+    """all_gather along ``dim`` forward; backward the psum_scatter of the
+    cotangent (``grad="sum"``) or this rank's block of it
+    (``"slice"``)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim, mesh, grad, times):
+        ctx.args = (axis, dim, mesh, grad, times, x.shape[dim])
+        return _gather(x, axis, dim, mesh, times)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, dim, mesh, grad, times, n = ctx.args
+        if grad == "sum":
+            gx = _scatter_sum(g, axis, dim, mesh, times,
+                              "reduce_scatter sum bwd")
+        else:
+            gx = g.narrow(dim, mesh.get_local_rank(axis) * n, n)
+        return gx, None, None, None, None, None
+
+
+def _differentiable(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def psum(x: torch.Tensor, axis, mesh=None) -> torch.Tensor:
+    """Sum of ``x`` over the mesh axis (or tuple of axes), on every rank.
+    Differentiable: the backward is the identity (every rank consumes the
+    sum alike)."""
+    import torch.distributed as dist
+
+    mesh, times = _mesh(mesh), _timing_table()
+    if _differentiable(x):
+        return _Psum.apply(x, axis, mesh, times)
+    return _reduce("all_reduce sum", dist.ReduceOp.SUM, x, axis, mesh, times)
+
+
+def psum_grad(x: torch.Tensor, axis, mesh=None) -> torch.Tensor:
+    """``x`` itself, whose gradient is summed over the mesh axis (or tuple
+    of axes): where a tensor every rank holds alike enters work each rank
+    does for its own part (its heads, its FF columns), each rank's
+    cotangent is partial.  Without grad, ``x``."""
+    if not _differentiable(x):
+        return x
+    return _PsumGrad.apply(x, axis, _mesh(mesh), _timing_table())
+
+
+def psum_scatter(x: torch.Tensor, axis: str, dim: int = 0,
+                 mesh=None) -> torch.Tensor:
+    """The sum of ``x`` over the mesh axis, cut along ``dim`` into axis-size
+    blocks, this rank keeping the block of its axis index:
+    ``jax.lax.psum_scatter(..., scatter_dimension=dim, tiled=True)``.
+    ``x.shape[dim]`` must divide by the axis size.  Differentiable: the
+    backward all-gathers the cotangent."""
+    mesh, times = _mesh(mesh), _timing_table()
+    if _differentiable(x):
+        return _PsumScatter.apply(x, axis, dim, mesh, times)
+    return _scatter_sum(x, axis, dim, mesh, times)
 
 
 def pmax(x: torch.Tensor, axis, mesh=None) -> torch.Tensor:
-    """Elementwise max of ``x`` over the mesh axis, on every rank."""
+    """Elementwise max of ``x`` over the mesh axis, on every rank.  No
+    gradient: the result is detached."""
     import torch.distributed as dist
 
-    return _reduce("all_reduce max", dist.ReduceOp.MAX, x, axis, mesh)
+    with torch.no_grad():
+        return _reduce("all_reduce max", dist.ReduceOp.MAX, x.detach(), axis,
+                       _mesh(mesh), _timing_table())
 
 
 def pmean(x: torch.Tensor, axis, mesh=None) -> torch.Tensor:
@@ -348,25 +521,25 @@ def pmean(x: torch.Tensor, axis, mesh=None) -> torch.Tensor:
 
 
 def all_gather(x: torch.Tensor, axis, dim: int = 0, tiled: bool = True,
-               mesh=None) -> torch.Tensor:
+               mesh=None, grad: str = "sum") -> torch.Tensor:
     """The ranks' ``x`` along ``dim`` in axis-index order: concatenated
     (``tiled``) or stacked on a new ``dim``, as ``jax.lax.all_gather``.
     A tuple of axes gathers its minor axis first, so the order is the
-    tuple's combined index."""
-    import torch.distributed as dist
-
-    mesh = _mesh(mesh)
+    tuple's combined index.  Differentiable: the backward is the
+    ``psum_scatter`` of the cotangent along ``dim`` (``grad="sum"``, the
+    ranks' cotangents partial) or this rank's block of it (``"slice"``,
+    every rank's cotangent the whole one)."""
+    mesh, times = _mesh(mesh), _timing_table()
+    if grad not in ("sum", "slice"):
+        raise ValueError(f"grad must be 'sum' or 'slice', not {grad!r}")
     if not tiled:
         x = x.unsqueeze(dim)
-
-    def run(t, group):
-        parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-        dist.all_gather(parts, t.contiguous(), group=group)
-        return torch.cat(parts, dim)
-
     for a in reversed(_axes(axis)):
         if mesh_shape(mesh)[a] > 1:
-            x = _carry("all_gather", x, mesh.get_group(a), run)
+            if _differentiable(x):
+                x = _AllGather.apply(x, a, dim, mesh, grad, times)
+            else:
+                x = _gather(x, a, dim, mesh, times)
     return x
 
 

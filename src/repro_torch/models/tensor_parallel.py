@@ -1,4 +1,4 @@
-"""Tensor-parallel serving: one rank's cut of a prefill or decode call
+"""Tensor parallelism: one rank's cut of a prefill, decode or train call
 under a ``(data, model)`` mesh, the layout the reference's
 ``launch/shardings.py`` states and its GSPMD executes.
 
@@ -22,15 +22,33 @@ of every weight matrix over ``data``).  A call computes:
   is added once, after the reduce;
 * at ``data > 1`` (ZeRO-3), each block's d_model-sharded leaves gathered
   over ``data`` just before the block and freed after it
-  (``fsdp_gathered``);
+  (``fsdp_gathered``; under remat the recompute gathers them again);
 * a vocab-parallel embedding (a masked lookup of this rank's rows, then
   the reduce) and LM head: the logits come out as this rank's batch rows
   and vocab slice, as ``ax(logits, "batch", "vocab")`` states.
 
 ``TPLayout`` holds the cut of one call; ``tp_layout`` derives it from the
 config, the mesh and the global (batch, sequence) by the reference's
-divisibility rules.  Served families: GQA attention (no sliding window)
-with a dense or MoE MLP; the others raise ``NotImplementedError``.
+divisibility rules (a train call is a (B, S) call without a cache).
+Families cut: GQA attention (no sliding window) with a dense or MoE MLP;
+the others raise ``NotImplementedError`` (``check_cut``).
+
+Training differentiates through the same cut: the collectives are
+``torch.autograd.Function``s (``models.sharding``).  Where the residual is
+whole, a tensor every model rank holds alike that enters work each rank
+does for its own heads, experts or FF columns has its gradient summed
+over ``model`` where it enters: an activation in ``column_input``, a
+leaf no spec cuts over ``model`` (``bq``, ``k_norm``, a whole ``wk``, the
+router, ``b1``) in ``partitioned_leaf``, at its use.  The ZeRO-3
+gather's backward is the reduce-scatter over ``data`` where the batch is
+cut over ``data`` (the data-parallel sum of those leaves' gradients) and
+the rank's block of the gradient where it is not.  ``sum_partial_grads``
+then adds the structural sums, once a leaf: over ``data`` where the
+batch rows are cut over it, over ``model`` where the residual's sequence
+is cut over it, for each leaf no spec cuts over that axis.  The leaves
+every rank computes alike (a replicated embedding, head or MLP over a
+whole residual) get no sum, so the replicated leaves stay bit-equal
+across ranks.
 """
 from __future__ import annotations
 
@@ -47,10 +65,13 @@ from .sharding import (
     axis_index,
     mesh_shape,
     psum,
+    psum_grad,
     psum_scatter,
+    spec_axes,
 )
 
-__all__ = ["TPCache", "TPLayout", "fsdp_gathered", "tp_layout"]
+__all__ = ["TPCache", "TPLayout", "check_cut", "fsdp_gathered",
+           "partitioned_leaf", "sum_partial_grads", "tp_layout"]
 
 
 @dataclass(frozen=True)
@@ -86,6 +107,12 @@ class TPLayout:
     v_loc: int
     fsdp: bool
 
+    @property
+    def rows_cut(self) -> bool:
+        """Whether the batch rows are cut over ``data`` (each data rank
+        its own rows), so gradients are partial over ``data``."""
+        return self.rows.stop - self.rows.start != self.batch
+
     def sizes(self, cfg: ModelConfig) -> dict[str, int]:
         """The global size of each logical axis ``ax`` checks here."""
         return {"batch": self.batch, "seq_sp": self.seq, "seq": self.seq,
@@ -104,15 +131,25 @@ class TPCache(dict):
         self.max_len = int(max_len)
 
 
-def _check_served(cfg: ModelConfig, mesh) -> None:
+def check_cut(cfg: ModelConfig, mesh) -> None:
+    """Raise ``NotImplementedError``, with the reason, for a config or mesh
+    tensor parallelism does not cut yet (serving and training alike)."""
+    why = {"hymba": "Hymba's SSM branch and its padded-head weights are "
+                    "not cut yet",
+           "rwkv6": "RWKV6's time-mix and channel-mix are not cut yet",
+           "mla": "MLA's latent projections are not cut yet"}
+    if cfg.attn_type in why:
+        raise NotImplementedError(
+            f"{cfg.name}: {why[cfg.attn_type]}; tensor parallelism covers "
+            f"GQA attention without a window; run it with whole parameters "
+            f"under a mesh")
     if cfg.attn_type != "gqa" or cfg.sliding_window:
         raise NotImplementedError(
-            f"tensor-parallel serving covers GQA attention without a "
-            f"window; {cfg.name} ({cfg.attn_type}) runs with whole "
-            f"parameters under a mesh")
+            f"{cfg.name}: a sliding window is not cut yet; tensor "
+            f"parallelism covers GQA attention without a window")
     if set(mesh_shape(mesh)) != {"data", "model"}:
         raise NotImplementedError(
-            f"tensor-parallel serving takes a (data, model) mesh, not "
+            f"tensor parallelism takes a (data, model) mesh, not "
             f"{mesh_shape(mesh)}")
     m = mesh_shape(mesh)["model"]
     if cfg.n_heads % m:
@@ -124,13 +161,14 @@ def _check_served(cfg: ModelConfig, mesh) -> None:
         raise NotImplementedError(
             f"a rank's {h_loc} heads straddle groups of {n_rep}")
     if cfg.n_shared_experts:
-        raise NotImplementedError("a shared expert is not cut yet")
+        raise NotImplementedError(
+            f"{cfg.name}: a shared expert is not cut yet")
 
 
 def tp_layout(cfg: ModelConfig, mesh, batch: int, seq: int) -> TPLayout:
     """The cut of a call over ``batch`` rows of ``seq`` tokens (decode:
     ``seq`` 1) on this rank of ``mesh``, by the reference's rules."""
-    _check_served(cfg, mesh)
+    check_cut(cfg, mesh)
     shape = mesh_shape(mesh)
     d, m = shape["data"], shape["model"]
     mi = axis_index("model", mesh)
@@ -163,11 +201,17 @@ def tp_layout(cfg: ModelConfig, mesh, batch: int, seq: int) -> TPLayout:
 # ---------------------------------------------------------------------------
 # the sequence-parallel residual
 # ---------------------------------------------------------------------------
-def column_input(L: TPLayout, h: torch.Tensor) -> torch.Tensor:
+def column_input(L: TPLayout, h: torch.Tensor,
+                 partitioned: bool = True) -> torch.Tensor:
     """A column-parallel block's input: the whole sequence, gathered over
-    ``model`` from the residual's slices (as it is when not cut)."""
+    ``model`` from the residual's slices (its backward sums the ranks'
+    partial gradients and keeps this rank's slice).  A residual that is
+    not cut is whole already; when ``partitioned`` (the rank computes its
+    own heads, experts or FF columns from it) its gradient is summed
+    over ``model`` (``psum_grad``), else (every rank computes the same
+    whole product) it is the whole one already."""
     if not L.seq_split:
-        return h
+        return psum_grad(h, "model", L.mesh) if partitioned else h
     return all_gather(h, "model", dim=1, mesh=L.mesh)
 
 
@@ -205,27 +249,87 @@ def fsdp_gathered(L: TPLayout, module: torch.nn.Module,
                   dims: dict[str, int | None], prefix: str = ""):
     """Inside the block, each parameter of ``module`` that ``dims``
     ({full parameter name: its data-sharded dim or None}) cuts over
-    ``data`` holds its all-gathered whole; after it, its shard again (the
-    gathered copies are freed).  A no-op without FSDP."""
+    ``data`` reads as its all-gathered whole (``gathered``:
+    differentiable, the shard a leaf of the graph); after it, the shard
+    again, and the gathered copies are dropped.  A no-op without
+    FSDP."""
     swapped = []
     try:
         if L.fsdp:
-            for name, p in module.named_parameters():
+            for name, shard in list(module.named_parameters()):
                 dim = dims.get(f"{prefix}{name}")
-                if dim is not None:
-                    swapped.append((p, p.data))
-                    p.data = all_gather(p.data, "data", dim, mesh=L.mesh)
+                if dim is None:
+                    continue
+                owner, _, leaf = name.rpartition(".")
+                mod = module.get_submodule(owner)
+                swapped.append((mod, leaf, shard))
+                # a plain tensor in the module's table: ``mod.<leaf>``
+                # reads it, autograd sees the gather
+                mod._parameters[leaf] = gathered(L, shard, dim)
         yield module
     finally:
-        for p, shard in swapped:
-            p.data = shard
+        for mod, leaf, shard in reversed(swapped):
+            mod._parameters[leaf] = shard
 
 
 def gathered(L: TPLayout, t: torch.Tensor, dim: int | None) -> torch.Tensor:
-    """One leaf gathered over ``data`` along its sharded ``dim``."""
+    """One leaf gathered over ``data`` along its sharded ``dim``.  Its
+    backward reduce-scatters the gradient over ``data`` where the batch
+    rows are cut over it (the data-parallel sum), else keeps this rank's
+    block of the whole gradient every data rank holds."""
     if not L.fsdp or dim is None:
         return t
-    return all_gather(t, "data", dim, mesh=L.mesh)
+    return all_gather(t, "data", dim, mesh=L.mesh,
+                      grad="sum" if L.rows_cut else "slice")
+
+
+def partitioned_leaf(L: TPLayout, t: torch.Tensor | None):
+    """A leaf whole on every model rank (no spec cuts it over ``model``)
+    as it enters work this rank does for its own heads, experts or FF
+    columns: its gradient there is partial over ``model``, so it is
+    summed (``psum_grad``), as ``column_input`` sums an activation's.
+    Where the residual's sequence is cut, ``sum_partial_grads`` sums every
+    such leaf over ``model`` already, and ``t`` comes back as it is, as
+    does ``None``."""
+    if t is None or L.model == 1 or L.seq_split:
+        return t
+    return psum_grad(t, "model", L.mesh)
+
+
+def _partial_axes(L: TPLayout, spec) -> tuple[str, ...]:
+    """The mesh axes over which a leaf's gradient is partial by the cut of
+    the batch and the sequence: ``data`` where the rows are cut, ``model``
+    where the residual's sequence is, each unless ``spec`` cuts the leaf
+    over it."""
+    cut = spec_axes(spec)
+    axes = []
+    if L.rows_cut and "data" not in cut:
+        axes.append("data")
+    if L.seq_split and "model" not in cut:
+        axes.append("model")
+    return tuple(axes)
+
+
+@torch.no_grad()
+def sum_partial_grads(L: TPLayout, grads: dict[str, torch.Tensor],
+                      pspecs: dict) -> dict[str, torch.Tensor]:
+    """Each gradient summed over the axes on which the batch's and the
+    sequence's cut leave it partial (``_partial_axes``), once: the leaves
+    of one (axes, dtype) go through one ``psum`` of their
+    concatenation."""
+    groups: dict[tuple, list[str]] = {}
+    for name, g in grads.items():
+        axes = _partial_axes(L, pspecs[name])
+        if axes:
+            groups.setdefault((axes, g.dtype), []).append(name)
+    out = dict(grads)
+    for (axes, _), names in groups.items():
+        flat = psum(torch.cat([grads[n].reshape(-1) for n in names]), axes,
+                    mesh=L.mesh)
+        for n, part in zip(names, flat.split([grads[n].numel()
+                                              for n in names])):
+            out[n] = part.view_as(grads[n])
+    return out
 
 
 # ---------------------------------------------------------------------------

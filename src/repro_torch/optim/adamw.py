@@ -18,6 +18,14 @@ zero moments of each parameter's type, as the reference's ``zeros_like``
 does; the first update makes them float32.  ``adamw_update`` writes the
 new parameters, and the float32 moments, IN PLACE: that stands in for
 the reference's donated buffers.
+
+On shards (a ``TransformerLM`` cut by ``launch.shardings.shard_params``,
+``mesh`` set): the global norm is the reference's norm of the global
+arrays.  Each leaf's sum of squares is summed over the mesh axes its
+spec cuts it over (one float64 ``psum`` for the leaves cut alike), and
+a replicated leaf counts once; the float64 total is rounded once, as
+without a mesh.  The update itself is elementwise, so it runs on each
+shard unchanged.
 """
 from __future__ import annotations
 
@@ -26,6 +34,8 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+
+from ..models.sharding import psum, spec_axes
 
 __all__ = [
     "AdamWConfig",
@@ -84,13 +94,21 @@ def schedule(cfg: AdamWConfig, step):
     return cfg.lr * warm * frac
 
 
-def _global_norm(grads: dict) -> torch.Tensor:
+def _global_norm(grads: dict, params=None) -> torch.Tensor:
     """The float32 global L2 norm.  The squares are float32, as in the
     reference; they are summed in float64, so the norm does not depend on
-    the order of the sums (XLA's and torch's reductions differ)."""
-    total = sum(torch.sum(torch.square(g.float()), dtype=torch.float64)
-                for g in grads.values())
-    return torch.sqrt(total).float()
+    the order of the sums (XLA's and torch's reductions differ).  With
+    ``params`` a sharded ``TransformerLM``, ``grads`` are its shards':
+    each group of leaves cut over the same axes has its sum added over
+    those axes."""
+    mesh = getattr(params, "mesh", None)
+    groups: dict[tuple[str, ...], torch.Tensor] = {}
+    for n, g in grads.items():
+        axes = spec_axes(params.pspecs[n]) if mesh is not None else ()
+        sq = torch.sum(torch.square(g.float()), dtype=torch.float64)
+        groups[axes] = groups[axes] + sq if axes in groups else sq
+    groups = {a: psum(t, a, mesh) if a else t for a, t in groups.items()}
+    return torch.sqrt(sum(groups.values())).float()
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -114,7 +132,8 @@ def clip_by_global_norm(grads, max_norm: float):
 def adamw_update(cfg: AdamWConfig, params, grads, state):
     """Returns (params, new state, metrics ``{"grad_norm", "lr"}``).
 
-    Clips ``grads`` by their global norm, then one AdamW step a
+    Clips ``grads`` by their global norm (of the global arrays when
+    ``params`` are a rank's shards), then one AdamW step a
     parameter, one parameter at a time, in two float32 scratch tensors of
     that parameter's size (three for a bf16 parameter).  ``params`` is
     updated in place and returned; a float32 moment of ``state`` is
@@ -122,7 +141,7 @@ def adamw_update(cfg: AdamWConfig, params, grads, state):
     tensor."""
     named = named_tensors(params)
     grads = dict(grads)
-    norm = _global_norm(grads)
+    norm = _global_norm(grads, params)
     scale = _clip_scale(norm, cfg.clip_norm)
     step = state["step"] + 1
     lr = schedule(cfg, step)

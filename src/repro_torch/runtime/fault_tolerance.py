@@ -19,7 +19,11 @@ port's ``CheckpointManager``, on the manager's device).
 
 A restored state is the checkpoint's pytree (``load_checkpoint``), not
 the live objects that were saved: ``step_fn`` takes either (the train
-driver converts with ``convert.train_state_from_arrays``).
+driver converts with ``convert.train_state_from_arrays``).  A train
+state of shards (tensor-parallel training) runs the same loop on every
+rank: its checkpoints are gathered whole and written by rank 0, restored
+with ``shardings`` as DTensors, and ``step_fn`` cuts them into shards
+again (``convert.train_state_shards_from_arrays``).
 """
 from __future__ import annotations
 

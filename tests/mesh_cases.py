@@ -118,3 +118,108 @@ def tp_inputs(cfg, name: str):
         fe = rng.normal(size=(b, cfg.n_frontend_tokens, cfg.d_model)
                         ).astype(np.float32)
     return tok, fe
+
+
+TRAIN_SEED = 11
+TRAIN_STEPS = 2
+TRAIN_OPT = {"lr": 1e-3, "warmup_steps": 1, "total_steps": 4}
+#: the AdamW constants the tests recompute the normalized step with (the
+#: config's defaults)
+TRAIN_OPT_CFG = {"beta1": 0.9, "beta2": 0.95, "eps": 1e-8}
+#: case -> (TP_CASES regime, mesh, batch, sequence, remat): tensor-parallel
+#: training held against the reference's sharded jit.  kv4 on both meshes:
+#: on (1, 4) 1 x 2,048 tokens under remat "full" (the vocab-parallel
+#: chunked cross entropy), on (2, 2) ZeRO-3 over data; kv1 (wk / wv cut
+#: mid-head) under remat "dots"; vocab_odd (embedding, head and MLP
+#: replicated over model) and seq_odd (3 rows that do not divide data, 15
+#: tokens that do not divide model) on (2, 2); granite's EP with its aux
+#: loss on (2, 2); starcoder2's qkv and MLP biases (b2 added once after
+#: the reduce) on (2, 2); internvl2's frontend embeddings on (1, 4)
+TRAIN_CASES = {
+    "kv4_1x4": ("kv4", (1, 4), 1, 2048, "full"),
+    "kv4_2x2": ("kv4", (2, 2), 4, 16, None),
+    "kv1": ("kv1", (1, 4), 4, 16, "dots"),
+    "vocab_odd": ("vocab_odd", (2, 2), 4, 16, "full"),
+    "seq_odd": ("seq_odd", (2, 2), 3, 15, "full"),
+    "granite": ("granite", (2, 2), 4, 16, "full"),
+    "starcoder2": ("starcoder2", (2, 2), 4, 16, "full"),
+    "internvl2": ("internvl2", (1, 4), 4, 16, None),
+}
+#: the reference's cases in three processes run side by side (its time is
+#: the sharded jits' compiles)
+TRAIN_REFERENCE_SPLIT = (("kv4_1x4", "kv4_2x2", "internvl2"),
+                         ("kv1", "granite", "starcoder2"),
+                         ("vocab_odd", "seq_odd"))
+#: the cases whose tensor-parallel first step is also held against the
+#: port's own one-process step (granite's EP routes each data shard's
+#: tokens into capacities of its own, so its one-process step is another
+#: function, as the reference's is; kv4 on (1, 4) is the costly 2,048-token
+#: one)
+TRAIN_ONE_PROCESS = ("kv4_2x2", "kv1", "vocab_odd", "seq_odd", "starcoder2",
+                     "internvl2")
+#: preempt-and-resume on (2, 2): a checkpoint every 2 steps, preempted at
+#: step 3 of 5
+TRAIN_RESUME = {"regime": "kv4", "mesh": (2, 2), "batch": 4, "seq": 16,
+                "steps": 5, "save_every": 2, "fail_at": 3}
+
+
+def train_config(get_config, case: str, cases=None):
+    return tp_config(get_config, (cases or TRAIN_CASES)[case][0])
+
+
+def train_batch(cfg, case: str, step: int, cases=None):
+    """The case's global batch of step ``step`` (tokens, labels and, for a
+    frontend, its embeddings), numpy."""
+    _, _, b, s, _ = (cases or TRAIN_CASES)[case]
+    rng = np.random.default_rng(1000 * TRAIN_SEED + 10 * step
+                                + sorted(cases or TRAIN_CASES).index(case))
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (b, s), dtype=np.int32),
+           "labels": rng.integers(0, cfg.vocab_size, (b, s), dtype=np.int32)}
+    if cfg.frontend is not None:
+        out["frontend_embeds"] = rng.normal(
+            size=(b, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def shard_key(index) -> str:
+    """A shard's place in its global array, ``"lo:hi,lo:hi"``, from its
+    per-dim (lo, hi) bounds."""
+    return ",".join(f"{lo}:{hi}" for lo, hi in index)
+
+
+def shard_index(files) -> dict:
+    """{head: {shard key: npz key}} of the reference's shard keys
+    (``"<head>/<shard key>"``), to look shards up without loading them."""
+    out: dict = {}
+    for k in files:
+        head, _, skey = k.rpartition("/")
+        if ":" in skey:
+            out.setdefault(head, {})[skey] = k
+    return out
+
+
+def ref_shard(ref, index: dict, head: str, path: str, block, key: str):
+    """The reference's shard at the place ``key`` of the leaf at ``path``
+    (``head``: the case, kind and step): its addressable shard there, or
+    block ``block``'s slice of it under a stacked leaf (the L axis is
+    never cut)."""
+    shards = index[f"{head}/{path}"]
+    if block is None:
+        return ref[shards[key]]
+    (want,) = [k for s, k in shards.items() if s.split(",", 1)[1] == key]
+    return ref[want][block]
+
+
+class NpzFiles:
+    """Several ``.npz`` files read as one (their keys are disjoint):
+    ``files`` and ``[key]`` as ``np.load`` gives them."""
+
+    def __init__(self, paths):
+        self._where = {}
+        for path in paths:
+            z = np.load(path)
+            self._where.update(dict.fromkeys(z.files, z))
+        self.files = list(self._where)
+
+    def __getitem__(self, key):
+        return self._where[key][key]

@@ -207,6 +207,11 @@ KNOWN_DIFFERENCES = {
     # shard_map)
     ("optim/compression.py", "wire_quantized_psum"): "dither= and mesh= added",
     ("launch/steps.py", "make_wire_train_step"): "dither= added",
+    # the vocab-parallel cross entropy of tensor-parallel training: a
+    # rank's vocab rows of the logits and the global token count (the
+    # reference's GSPMD cuts the whole-array loss itself)
+    ("models/layers.py", "cross_entropy_loss"): "vocab= and count= added",
+    ("models/layers.py", "chunked_ce_loss"): "vocab= and count= added",
 }
 
 
