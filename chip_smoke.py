@@ -3061,7 +3061,8 @@ LIFE_BUDGETS = (0.15, 0.6)  # residency budgets, fractions of delta bytes
 LIFE_BATCHES = 16  # residency batches per budget (64 before the cut)
 LIFE_REQUESTS = 16  # requests per residency batch
 LIFE_ROWS = 256  # rows per request
-LIFE_USERS = 1000  # the drifted fleet (make_drifted_fleet)
+LIFE_USERS = 500  # the drifted fleet (make_drifted_fleet; 1,000 before
+# the cut that pays for phase 15 (g))
 LIFE_FULL_USERS = 300  # the full rebuild's fleet (1,000 before the cut)
 LIFE_LATE = 0.3
 LIFE_SEED = 7
@@ -4208,12 +4209,14 @@ def online_main() -> None:
 # then stays below the chunked path, which needs chunk | S (4,097 is
 # refused in both packages), and its float32 dense MLA scores fit the card.
 FAMILY_DSV3_CUT = {"n_layers": 2, "n_dense_layers": 1}
+# Each serves 8 decode steps (cut from 32, DeepSeek-V3's from 16, to pay
+# for phase 15 (g)).
 FAMILY_RUNS = [
-    ("hymba-1.5b", (32, 1600, "bfloat16"), 2, 4096, 4128, 32, 32, 4,
+    ("hymba-1.5b", (32, 1600, "bfloat16"), 2, 4096, 4128, 8, 32, 4,
      (2, 4096)),
-    ("granite-moe-3b-a800m", (32, 1536, "bfloat16"), 4, 2048, 2080, 32, 32,
+    ("granite-moe-3b-a800m", (32, 1536, "bfloat16"), 4, 2048, 2080, 8, 32,
      None, (4, 2048)),
-    ("deepseek-v3-671b", (2, 7168, "bfloat16"), 1, 4096, 4112, 16, 0, None,
+    ("deepseek-v3-671b", (2, 7168, "bfloat16"), 1, 4096, 4112, 8, 0, None,
      (1, 2047)),
 ]
 # the float32 and bf16 checks of DeepSeek-V3 run on a copy with its routed
@@ -4225,7 +4228,8 @@ FAMILY_DSV3_CHECK_EXPERTS = 32
 FAMILY_BF16_OVER_FLOOR = 1.5
 # timed prefills per model after the warm-up: the median is reported with
 # its min and max (a prefill is host-bound where the plain scan runs)
-FAMILY_PREFILL_REPS = 3  # timed prefills a model (cut from 5 for phase 15 (f))
+FAMILY_PREFILL_REPS = 2  # timed prefills a model (5 -> 3 for phase 15 (f),
+# 3 -> 2 for (g))
 # the labelled regions of a profiled prefill: (label, module, function)
 FAMILY_REGIONS = (
     ("ssm.selective_scan", "ssm", "selective_scan"),
@@ -4795,6 +4799,10 @@ TRAIN_CHECK_LAYERS = 2  # (b): qwen3-4b at full width cut to 2 layers ...
 TRAIN_CHECK_WIDE = (1, 256)  # ... over 1 x 256 tokens ...
 TRAIN_CHECK_WIDE_STEPS = 3  # ... for 3 steps with 8-bit compression
 TRAIN_GRAD_TOL = 1e-4  # relative L2, card against CPU, float32
+# (d): the float32 first moments the codec entropy-codes: wq's of layer 0
+# (10.5 M values; cut from all seven of its weights', 101 M values and ~30
+# s of host encode and decode, to pay for phase 15 (g))
+TRAIN_CODEC_MOMENTS = ("attn.wq",)
 TRAIN_RESTART = {"archs": ("qwen3-4b", "granite-moe-3b-a800m"), "steps": 12,
                  "save_every": 4, "fail_at": (5,), "batch": 2, "seq": 64}
 TRAIN_CLI = ["--arch", "qwen3-4b", "--smoke", "--steps", "20",
@@ -5011,15 +5019,17 @@ def train_step_profile(step, step_s: float) -> dict:
 
 
 def codec_leaves(state) -> dict:
-    """(d)'s leaves, copied to the host: layer 0's seven bf16 weights and
-    their float32 first moments after (a)'s steps, and the embedding."""
+    """(d)'s leaves, copied to the host: layer 0's seven bf16 weights, the
+    float32 first moments after (a)'s steps of TRAIN_CODEC_MOMENTS among
+    them, and the embedding."""
     lm = state["params"]
     out = {}
     for name, p in lm.layers[0].named_parameters():
         if p.dim() == 2:
             out[f"layers.0.{name}"] = p.detach().cpu()
-            out[f"m/layers.0.{name}"] = (
-                state["opt"]["m"][f"layers.0.{name}"].cpu())
+            if name in TRAIN_CODEC_MOMENTS:
+                out[f"m/layers.0.{name}"] = (
+                    state["opt"]["m"][f"layers.0.{name}"].cpu())
     out["embed"] = lm.embed.detach().cpu()
     return out
 
@@ -5299,8 +5309,9 @@ def train_restart(dev, root):
 def train_codec(leaves, dev) -> dict:
     """(d): ``compress_tensors`` lossless on (a)'s trained layer 0 (seven
     bf16 weights, ~101 M values; the codec passes bf16 through, ROADMAP
-    R9), their float32 first moments (entropy-coded) and the bf16
-    embedding; exact decode; bytes against raw, host seconds."""
+    R9), the float32 first moments of TRAIN_CODEC_MOMENTS (entropy-coded)
+    and the bf16 embedding; exact decode; bytes against raw, host
+    seconds."""
     from repro_torch.core.tensor_codec import (
         compress_tensors,
         decompress_tensors,
@@ -5443,6 +5454,32 @@ MESH_TP = {"arch": "qwen3-4b", "batch": 4, "prompt": 2048, "max_len": 2056,
                     ("cut4", (2, 2), 4, "bfloat16"),
                     ("f32", (1, 4), 2, "float32"))}
 MESH_TP_F32_TOL = 1e-4
+# (g) tensor-parallel serving of the recurrent families, seeded weights cut
+# leaf by leaf on each rank as in (e): (name, arch, mesh, layers (None:
+# all), dtype, batch, prompt, max_len), each a prefill then MESH_TP's
+# decode steps fed the one-process run's greedy tokens.  rwkv6-1.6b uncut
+# and hymba-1.5b at full width cut to 8 of its 32 layers, bf16 on (1, 4):
+# a 4 x 2,048 prefill (K8 on each rank's 8 heads) and a 2 x 4,096 one (K7
+# on each rank's 9 padded heads, one KV head each, with the window of
+# 2,048, which binds; decode then writes the ring of 2,048 slots, cut 512
+# a rank); float32 runs of both cut to 2 layers (Hymba at 1 x 4,096, its
+# ring cut over time); rwkv6 bf16 cut to 4 layers on (2, 2) (ZeRO-3 over
+# data).  Held to one process of the port as (e) is.  "launch": the
+# kernel each bf16 (1, 4) run's prefill launches once a layer a rank, and
+# the shape the spy must see (K8: r's (B, S, H, hd); K7: q's and k's
+# heads, n_rep, S, window)
+MESH_RECURRENT = {
+    "runs": (("rwkv6", "rwkv6-1.6b", (1, 4), None, "bfloat16", 4, 2048,
+              2056),
+             ("hymba", "hymba-1.5b", (1, 4), 8, "bfloat16", 2, 4096, 4128),
+             ("rwkv6_f32", "rwkv6-1.6b", (1, 4), 2, "float32", 2, 256, 264),
+             ("hymba_f32", "hymba-1.5b", (1, 4), 2, "float32", 1, 4096,
+              4104),
+             ("rwkv6_2x2", "rwkv6-1.6b", (2, 2), 4, "bfloat16", 4, 512,
+              520)),
+    "launch": {"rwkv6": ("wkv6", [4, 2048, 8, 64]),
+               "hymba": ("flash", [18, 18, 1, 4096, 2048])},
+}
 MESH_TIMEOUT_S = 600  # a rank stuck in a collective fails the phase
 
 
@@ -5820,15 +5857,20 @@ def mesh_rank(rank, root, device, train_ref):
         torch.cuda.empty_cache()
         peak = torch.cuda.max_memory_allocated(dev)  # (e) resets the stat
         t0 = time.perf_counter()
-        out["tp"] = [mesh_tp(dev, rank, root, *run) for run in MESH_TP["runs"]]
+        out["tp"] = [mesh_tp(dev, rank, root, *run)
+                     for run in serve_runs("e")]
         clock["e"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         out["train_tp"] = mesh_train(dev, root, train_ref)
         clock["f"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["rec"] = [mesh_tp(dev, rank, root, *run)
+                      for run in serve_runs("g")]
+        clock["g"] = time.perf_counter() - t0
         out["part_s"] = clock
         out["transports"] = dict(TRANSPORTS)
         out["max_memory_allocated"] = max(
-            [peak] + [t["peak_abs"] for t in out["tp"]])
+            [peak] + [t["peak_abs"] for t in out["tp"] + out["rec"]])
         with open(os.path.join(root, f"rank{rank}.json"), "w") as fh:
             json.dump(out, fh)
         dist.barrier()
@@ -5841,73 +5883,104 @@ def mesh_tp_config(layers, dtype):
                          **({} if layers is None else {"n_layers": layers}))
 
 
-def mesh_tp_reference(dev, root) -> dict:
-    """(e)'s one-process runs, before the ranks start: each run's model
-    whole (``init_params``, seed 0), its prefill through K7 and the greedy
-    decode (bf16: the tokens the ranks are fed), then the same weights
-    in float32 fed those tokens (bf16's floor).  Saved to ``root``."""
+def serve_runs(part: str) -> list:
+    """(e)'s or (g)'s runs, each (name, config, mesh, batch, prompt,
+    max_len)."""
+    t = MESH_TP
+    if part == "e":
+        return [(name, mesh_tp_config(layers, dtype), shape, t["batch"],
+                 t["prompt"], t["max_len"])
+                for name, shape, layers, dtype in t["runs"]]
+    return [(name, family_config(
+                arch, dtype=dtype,
+                **({} if layers is None else {"n_layers": layers})),
+             shape, batch, prompt, max_len)
+            for name, arch, shape, layers, dtype, batch, prompt, max_len
+            in MESH_RECURRENT["runs"]]
+
+
+def f32_copy(cfg, params, dev):
+    """(the float32 config, the same weights upcast), ``params`` left."""
     import dataclasses
 
+    from repro_torch.models import TransformerLM
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = TransformerLM(cfg32, dev)
+    with torch.no_grad():
+        for p32, p in zip(params32.parameters(), params.parameters()):
+            p32.copy_(p.float())
+    return cfg32, params32
+
+
+def mesh_serve(cfg, params, tokens, max_len, feed=None):
+    """One process: the prefill through the kernels, then MESH_TP's decode
+    steps, greedy or fed ``feed`` (B, steps); (each step's logits on the
+    host, the tokens fed)."""
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
-    from repro_torch.models import TransformerLM, init_params
 
-    t = MESH_TP
+    logits, cache = make_prefill_step(cfg, use_flash=True)(
+        params, tokens, max_len=max_len)
+    out, fed = [logits.float().cpu()], []
+    decode = make_decode_step(cfg)
+    for i in range(MESH_TP["steps"]):
+        tok = (logits.argmax(-1) if feed is None
+               else feed[:, i].to(tokens.device))
+        fed.append(tok.cpu())
+        logits, cache = decode(params, tok, cache)
+        out.append(logits.float().cpu())
+    return out, torch.stack(fed, 1)
+
+
+def mesh_tp_reference(dev, root, runs) -> dict:
+    """(e)'s or (g)'s one-process runs, before the ranks start: each run's
+    model whole (``init_params``, seed 0), its prefill through the kernels
+    and the greedy decode (bf16: the tokens the ranks are fed), then the
+    same weights in float32 fed those tokens (bf16's floor).  Saved to
+    ``root``."""
+    from repro_torch.models import init_params
+
     row = {}
-    for name, _, layers, dtype in t["runs"]:
+    for name, cfg, _, batch, prompt, max_len in runs:
         t0 = time.perf_counter()
-        cfg = mesh_tp_config(layers, dtype)
         params = init_params(cfg, seed=0, device=dev)
-        tokens = mesh_prompt(cfg, t["batch"], t["prompt"], dev)
-        runs = {}
-
-        def serve(cfg, params, feed=None):
-            logits, cache = make_prefill_step(cfg, use_flash=True)(
-                params, tokens, max_len=t["max_len"])
-            out, fed = [logits.float().cpu()], []
-            decode = make_decode_step(cfg)
-            for i in range(t["steps"]):
-                tok = (logits.argmax(-1) if feed is None
-                       else feed[:, i].to(dev))
-                fed.append(tok.cpu())
-                logits, cache = decode(params, tok, cache)
-                out.append(logits.float().cpu())
-            return out, torch.stack(fed, 1)
-
-        runs[dtype], fed = serve(cfg, params)
-        if dtype == "bfloat16":
-            cfg32 = dataclasses.replace(cfg, dtype="float32")
-            params32 = TransformerLM(cfg32, dev)
-            with torch.no_grad():
-                for p32, p in zip(params32.parameters(), params.parameters()):
-                    p32.copy_(p.float())
+        tokens = mesh_prompt(cfg, batch, prompt, dev)
+        runs_ = {}
+        runs_[cfg.dtype], fed = mesh_serve(cfg, params, tokens, max_len)
+        if cfg.dtype == "bfloat16":
+            cfg32, params32 = f32_copy(cfg, params, dev)
             del params
             torch.cuda.empty_cache()
-            runs["float32"], _ = serve(cfg32, params32, fed)
+            runs_["float32"], _ = mesh_serve(cfg32, params32, tokens,
+                                             max_len, fed)
             del params32
         else:
             del params
         torch.cuda.empty_cache()
-        torch.save({"tokens": fed, **runs},
+        torch.save({"tokens": fed, **runs_},
                    os.path.join(root, f"tp_{name}_ref.pt"))
         row[name] = {"s": time.perf_counter() - t0}
     return row
 
 
-def mesh_tp(dev, rank, root, name, shape, layers, dtype) -> dict:
-    """(e), one run on this rank: its shards of the seeded weights cut
-    leaf by leaf (``shard_params(init_leaves(...))``; the stored bytes
+def mesh_tp(dev, rank, root, name, cfg, shape, batch, prompt,
+            max_len) -> dict:
+    """(e) or (g), one run on this rank: its shards of the seeded weights
+    cut leaf by leaf (``shard_params(init_leaves(...))``; the stored bytes
     held to the sum of ``shard_shape`` bytes and the peak of the init
-    below the whole model's), a short warm-up, the timed 4 x 2,048
-    prefill (K7's count set to 0 just before and read after), then the
-    decode steps fed the one-process tokens, each step's logits gathered
-    whole; rank 0 saves them for the parent's check.  The timed prefill
-    and decode steps run under ``collective_timing`` (each collective
-    behind a sync of the card and a barrier of its group): calls, bytes,
-    barrier and collective seconds per kind, and their shares of the
-    timed wall time."""
+    below the whole model's), a short warm-up, the timed prefill (K7's
+    and K8's counts set to 0 just before and read after, a spy recording
+    each launch's shape; the family's kernel launched once a layer), then
+    the decode steps fed the one-process tokens, each step's logits
+    gathered whole; rank 0 saves them for the parent's check.  The timed
+    prefill and decode steps run under ``collective_timing`` (each
+    collective behind a sync of the card and a barrier of its group):
+    calls, bytes, barrier and collective seconds per kind, and their
+    shares of the timed wall time."""
     import torch.distributed as dist
 
     from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as ws
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.shardings import (
         NamedSharding,
@@ -5927,7 +6000,6 @@ def mesh_tp(dev, rank, root, name, shape, layers, dtype) -> dict:
     )
 
     t = MESH_TP
-    cfg = mesh_tp_config(layers, dtype)
     mesh = make_host_mesh(*shape, device=dev)
     meta = dict(TransformerLM(cfg, "meta").named_parameters())
     specs = param_pspecs(cfg, mesh)
@@ -5941,8 +6013,10 @@ def mesh_tp(dev, rank, root, name, shape, layers, dtype) -> dict:
     t0 = time.perf_counter()
     params = shard_params(cfg, init_leaves(cfg, 0, dev), mesh, dev)
     torch.cuda.synchronize()
-    row = {"run": name, "mesh": list(shape), "layers": cfg.n_layers,
-           "dtype": dtype, "init_s": time.perf_counter() - t0,
+    row = {"run": name, "arch": cfg.name, "mesh": list(shape),
+           "layers": cfg.n_layers, "dtype": cfg.dtype, "batch": batch,
+           "prompt": prompt, "max_len": max_len,
+           "init_s": time.perf_counter() - t0,
            "param_bytes": sum(p.numel() * p.element_size()
                               for p in params.parameters()),
            "shard_shape_bytes": shard_bytes, "whole_bytes": whole_bytes,
@@ -5950,24 +6024,43 @@ def mesh_tp(dev, rank, root, name, shape, layers, dtype) -> dict:
     assert row["param_bytes"] == shard_bytes, row
     assert row["init_peak_bytes"] < whole_bytes, row
     ref = torch.load(os.path.join(root, f"tp_{name}_ref.pt"))
-    tokens = mesh_prompt(cfg, t["batch"], t["prompt"], dev)
-    b = tokens.shape[0]
+    tokens = mesh_prompt(cfg, batch, prompt, dev)
     prefill = make_prefill_step(cfg, use_flash=True)
     decode = make_decode_step(cfg)
+    seen = {"flash": [], "wkv6": []}
+    orig = (fa._launch_flash, ws._launch_wkv6)
+
+    def flash_spy(q, k, v, causal=True, window=None, n_rep=1):
+        seen["flash"].append([q.shape[0], k.shape[0], n_rep, q.shape[1],
+                              window])
+        return orig[0](q, k, v, causal, window, n_rep)
+
+    def wkv6_spy(r, k, v, w, u, state):
+        seen["wkv6"].append(list(r.shape))
+        return orig[1](r, k, v, w, u, state)
+
     got = []
     with logical_sharding(mesh, single_pod_rules()):
-        prefill(params, tokens[:, :t["warm_prompt"]], max_len=t["max_len"])
+        prefill(params, tokens[:, :t["warm_prompt"]], max_len=max_len)
         torch.cuda.synchronize()
         dist.barrier()
         fa.reset_launches()
-        with collective_timing() as coll:
-            t0 = time.perf_counter()
-            logits, cache = prefill(params, tokens, max_len=t["max_len"])
-            torch.cuda.synchronize()
-            row["prefill_s"] = time.perf_counter() - t0
+        ws.reset_launches()
+        fa._launch_flash, ws._launch_wkv6 = flash_spy, wkv6_spy
+        try:
+            with collective_timing() as coll:
+                t0 = time.perf_counter()
+                logits, cache = prefill(params, tokens, max_len=max_len)
+                torch.cuda.synchronize()
+                row["prefill_s"] = time.perf_counter() - t0
+        finally:
+            fa._launch_flash, ws._launch_wkv6 = orig
         row["prefill_collectives"] = coll
         row["k7_launches"] = fa.LAUNCHES["flash"]
-        got.append(whole_logits(cfg, logits, b).float().cpu())
+        row["k8_launches"] = ws.LAUNCHES["wkv6"]
+        row["launch_shapes"] = {k: sorted(map(list, {tuple(x) for x in v}))
+                                for k, v in seen.items() if v}
+        got.append(whole_logits(cfg, logits, batch).float().cpu())
         step_ms = []
         decode_coll = {}
         for i in range(t["steps"]):
@@ -5981,7 +6074,7 @@ def mesh_tp(dev, rank, root, name, shape, layers, dtype) -> dict:
                 acc = decode_coll.setdefault(kind, dict.fromkeys(c, 0))
                 for k, v in c.items():
                     acc[k] += v
-            got.append(whole_logits(cfg, logits, b).float().cpu())
+            got.append(whole_logits(cfg, logits, batch).float().cpu())
     row["decode_collectives"] = decode_coll
     for part, coll, wall in (("prefill", row["prefill_collectives"],
                               row["prefill_s"]),
@@ -5995,7 +6088,10 @@ def mesh_tp(dev, rank, root, name, shape, layers, dtype) -> dict:
     row["peak_bytes"] = torch.cuda.max_memory_allocated(dev) - base
     row["peak_abs"] = torch.cuda.max_memory_allocated(dev)
     row["logits"] = [sha(g) for g in got]
-    assert row["k7_launches"] == cfg.n_layers, row
+    kernel = "wkv6" if cfg.attn_type == "rwkv6" else "flash"
+    counts = {"flash": row["k7_launches"], "wkv6": row["k8_launches"]}
+    assert counts[kernel] == cfg.n_layers == len(seen[kernel]), row
+    assert all(n == 0 for k, n in counts.items() if k != kernel), row
     assert all(bool(torch.isfinite(g).all()) for g in got), name
     if rank == 0:
         torch.save(got, os.path.join(root, f"tp_{name}_rank.pt"))
@@ -6004,18 +6100,18 @@ def mesh_tp(dev, rank, root, name, shape, layers, dtype) -> dict:
     return row
 
 
-def mesh_tp_check(root) -> dict:
-    """(e)'s logits against the one-process runs: bf16 runs within
+def mesh_tp_check(root, runs) -> dict:
+    """(e)'s or (g)'s logits against the one-process runs: bf16 runs within
     FAMILY_BF16_OVER_FLOOR times the bf16 floor (the one-process bf16
     logits' distance from float32 on the same weights and tokens), step
-    by step; the float32 run within MESH_TP_F32_TOL."""
+    by step; float32 runs within MESH_TP_F32_TOL."""
     out = {}
-    for name, _, _, dtype in MESH_TP["runs"]:
+    for name, cfg, *_ in runs:
         ref = torch.load(os.path.join(root, f"tp_{name}_ref.pt"))
         got = torch.load(os.path.join(root, f"tp_{name}_rank.pt"))
-        errs = [rel_l2(g, w) for g, w in zip(got, ref[dtype])]
+        errs = [rel_l2(g, w) for g, w in zip(got, ref[cfg.dtype])]
         row = {"rel_l2": errs}
-        if dtype == "bfloat16":
+        if cfg.dtype == "bfloat16":
             floors = [rel_l2(a, b) for a, b in zip(ref["bfloat16"],
                                                    ref["float32"])]
             row["floor"] = floors
@@ -6030,39 +6126,87 @@ def mesh_tp_check(root) -> dict:
     return out
 
 
-def mesh_k7_tp_timing(dev) -> dict:
-    """K7 at (e)'s launch on a rank of (1, 4): 4 x 8 query heads over 4 x
-    2 KV heads (n_rep 4), S 2,048, hd 128, causal, bf16, seeded inputs,
-    against its plain version, timed beside its bound, its plain version
-    and SDPA (KV heads repeated, ``is_causal``)."""
+def k7_launch_timing(dev, bh, n_rep, s, hd, window, seed) -> dict:
+    """K7 at one launch (``bh`` query heads over bh / n_rep KV heads, S
+    ``s``, causal, ``window``, bf16, seeded inputs) against its plain
+    version, timed beside its bound, its plain version and SDPA (the KV
+    heads repeated; ``is_causal``, or the window as a boolean mask)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention as fa
 
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((bh, s, hd), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((bh // n_rep, s, hd), generator=gen,
+                        device=dev).bfloat16() for _ in range(2))
+    got = fa._flash_attention_grouped(q, k, v, n_rep, True, window)
+    err = close_err(got, fa._flash_plain(q, k, v, True, window,
+                                         n_rep=n_rep), FLASH_TOL[q.dtype])
+    bms, by, work = flash_bound(q, k, window=window)
+    kr, vr = k.repeat_interleave(n_rep, 0), v.repeat_interleave(n_rep, 0)
+    if window is None:
+        sdpa = {"is_causal": True}
+    else:
+        idx = torch.arange(s, device=dev)
+        sdpa = {"attn_mask": (idx[:, None] >= idx[None, :])
+                & (idx[:, None] - idx[None, :] < window)}
+    return {
+        "launch": {"bh": bh, "kv_heads": bh // n_rep, "n_rep": n_rep,
+                   "s": s, "hd": hd, "window": window, "dtype": "bfloat16"},
+        "max_abs_err": err,
+        "ms": time_ms(lambda: fa._launch_flash(q, k, v, True, window,
+                                               n_rep)),
+        "plain_ms": time_ms(lambda: fa._flash_plain(q, k, v, True, window,
+                                                    n_rep=n_rep)),
+        "bound_ms": bms, "bound_by": by, "work": work,
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], kr[None], vr[None], **sdpa)),
+    }
+
+
+def mesh_k7_tp_timing(dev) -> dict:
+    """K7 at (e)'s launch on a rank of (1, 4): 4 x 8 query heads over 4 x
+    2 KV heads (n_rep 4), S 2,048, hd 128, causal."""
     cfg = mesh_tp_config(None, "bfloat16")
     model = MESH_TP["runs"][0][1][1]
     rep = cfg.n_heads // cfg.n_kv_heads
-    bh = MESH_TP["batch"] * cfg.n_heads // model
-    s, hd = MESH_TP["prompt"], cfg.head_dim_
-    gen = torch.Generator(device=dev).manual_seed(26)
-    q = torch.randn((bh, s, hd), generator=gen, device=dev).bfloat16()
-    k, v = (torch.randn((bh // rep, s, hd), generator=gen,
-                        device=dev).bfloat16() for _ in range(2))
-    got = fa._flash_attention_grouped(q, k, v, rep, True, None)
-    err = close_err(got, fa._flash_plain(q, k, v, True, None, n_rep=rep),
-                    FLASH_TOL[q.dtype])
-    bms, by, work = flash_bound(q, k)
-    kr, vr = k.repeat_interleave(rep, 0), v.repeat_interleave(rep, 0)
+    return k7_launch_timing(dev, MESH_TP["batch"] * cfg.n_heads // model,
+                            rep, MESH_TP["prompt"], cfg.head_dim_, None, 26)
+
+
+def mesh_k7_rec_timing(dev) -> dict:
+    """K7 at (g)'s Hymba launch on a rank of (1, 4): 2 x 9 padded query
+    heads, each over its own KV head (n_rep 1), S 4,096, hd 64, window
+    2,048."""
+    bh, _, n_rep, s, window = MESH_RECURRENT["launch"]["hymba"][1]
+    return k7_launch_timing(dev, bh, n_rep, s, 64, window, 28)
+
+
+def mesh_k8_rec_timing(dev) -> dict:
+    """K8 at (g)'s RWKV6 launch on a rank of (1, 4): r, k, v (4, 2,048, 8,
+    64) bf16 in the model's layout, w float32 in (0, 1), u (8, 64), a zero
+    float32 state, seeded; against its plain version (WKV_TOL), timed
+    beside its bound and its plain version.  No single PyTorch call
+    computes the WKV6 recurrence."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan as ws
+
+    b, s, h, hd = MESH_RECURRENT["launch"]["rwkv6"][1]
+    gen = torch.Generator(device=dev).manual_seed(29)
+    r, k, v = (torch.randn((b, s, h, hd), generator=gen,
+                           device=dev).bfloat16() * 0.5 for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn((b, s, h, hd), generator=gen,
+                                         device=dev) - 5.0))
+    u = torch.randn((h, hd), generator=gen, device=dev) * 0.1
+    state = torch.zeros((b, h, hd, hd), device=dev)
+    args = (r, k, v, w, u, state)
+    err = wkv_err(ws._launch_wkv6(*args), ws._wkv6_model_plain(*args))
+    bms, by, work = wkv_bound(args)
     return {
-        "launch": {"bh": bh, "kv_heads": bh // rep, "n_rep": rep, "s": s,
-                   "hd": hd, "window": None, "dtype": "bfloat16"},
+        "launch": {"b": b, "s": s, "h": h, "hd": hd, "dtype": "bfloat16"},
         "max_abs_err": err,
-        "ms": time_ms(lambda: fa._launch_flash(q, k, v, True, None, rep)),
-        "plain_ms": time_ms(lambda: fa._flash_plain(q, k, v, True, None,
-                                                    n_rep=rep)),
-        "bound_ms": bms, "bound_by": by, "work": work,
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q[None], kr[None], vr[None], is_causal=True)),
+        "ms": time_ms(lambda: ws._launch_wkv6(*args)),
+        "plain_ms": time_ms(lambda: ws._wkv6_model_plain(*args)),
+        "bound_ms": bms, "bound_by": by, "work": work, "library_ms": None,
     }
 
 
@@ -6072,21 +6216,15 @@ def mesh_granite_check(dev, root) -> dict:
     card (no mesh installed: ``_moe_apply_dense``), in bf16, within
     FAMILY_BF16_OVER_FLOOR times the witness, the dense bf16 prefill's
     distance from the float32 one on the same weights upcast."""
-    import dataclasses
-
     from repro_torch.launch.steps import make_prefill_step
-    from repro_torch.models import TransformerLM, init_params
+    from repro_torch.models import init_params
 
     cfg = family_config(MESH_MOE["arch"])
     params = init_params(cfg, seed=0, device=dev)
     tokens = mesh_prompt(cfg, MESH_MOE["batch"], MESH_MOE["prompt"], dev)
     dense, _ = make_prefill_step(cfg, use_flash=True)(
         params, tokens, max_len=MESH_MOE["max_len"])
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    params32 = TransformerLM(cfg32, dev)
-    with torch.no_grad():
-        for p32, p in zip(params32.parameters(), params.parameters()):
-            p32.copy_(p.float())
+    cfg32, params32 = f32_copy(cfg, params, dev)
     del params
     torch.cuda.empty_cache()
     dense32, _ = make_prefill_step(cfg32, use_flash=True)(
@@ -6208,40 +6346,12 @@ def mesh_wire_replay(dev, ranks) -> dict:
 
 
 def mesh_k7_timing(dev) -> dict:
-    """K7 at (b)'s padded launch (72 query heads over 12 KV heads, n_rep
-    6, S 4,096, hd 64, window 2,048, bf16, seeded inputs) against its
-    plain version, timed beside its bound, its plain version and SDPA
-    (the KV heads repeated, the window as a boolean mask)."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.flash_attention import flash_attention as fa
-
+    """K7 at (b)'s padded launch: 72 query heads over 12 KV heads, n_rep
+    6, S 4,096, hd 64, window 2,048."""
     h = MESH_HYMBA
     kv, rep = h["pads"]
-    bh, s, hd, window = h["batch"] * kv * rep, h["prompt"], 64, 2048
-    gen = torch.Generator(device=dev).manual_seed(15)
-    q = torch.randn((bh, s, hd), generator=gen, device=dev).bfloat16()
-    k, v = (torch.randn((bh // rep, s, hd), generator=gen,
-                        device=dev).bfloat16() for _ in range(2))
-    got = fa._flash_attention_grouped(q, k, v, rep, True, window)
-    err = close_err(got, fa._flash_plain(q, k, v, True, window, n_rep=rep),
-                    FLASH_TOL[q.dtype])
-    bms, by, work = flash_bound(q, k, window=window)
-    kr, vr = k.repeat_interleave(rep, 0), v.repeat_interleave(rep, 0)
-    idx = torch.arange(s, device=dev)
-    mask = ((idx[:, None] >= idx[None, :])
-            & (idx[:, None] - idx[None, :] < window))
-    return {
-        "launch": {"bh": bh, "kv_heads": bh // rep, "n_rep": rep, "s": s,
-                   "hd": hd, "window": window, "dtype": "bfloat16"},
-        "max_abs_err": err,
-        "ms": time_ms(lambda: fa._launch_flash(q, k, v, True, window, rep)),
-        "plain_ms": time_ms(lambda: fa._flash_plain(q, k, v, True, window,
-                                                    n_rep=rep)),
-        "bound_ms": bms, "bound_by": by, "work": work,
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q[None], kr[None], vr[None], attn_mask=mask)),
-    }
+    return k7_launch_timing(dev, h["batch"] * kv * rep, rep, h["prompt"],
+                            64, 2048, 15)
 
 
 # (f) tensor-parallel training of qwen3-4b on the 4 ranks, after (a)-(e):
@@ -6770,17 +6880,18 @@ def mesh_train_check(root, scalars) -> dict:
     }
 
 
-def phase_mesh(dev) -> tuple[dict, list]:
-    """Phase 15: (e)'s and (f)'s one-process runs in this process, then
-    MESH_RANKS ranks spawned on the one card (the kernels are built
-    before, in this process), running (a)-(f) (``mesh_rank``; (f)'s
+def phase_mesh(dev) -> tuple[dict, list, list]:
+    """Phase 15: (e)'s, (g)'s and (f)'s one-process runs in this process,
+    then MESH_RANKS ranks spawned on the one card (the kernels are built
+    before, in this process), running (a)-(g) (``mesh_rank``; (f)'s
     float32 gradients shared with them through CUDA IPC); then this
     process's checks: (a)'s logits against a dense prefill, (b)'s
     against the unpadded prefill, (c) against its one-process replay,
-    (e) against its one-process runs, (f) across the ranks
-    (``mesh_train_check``); K7 at (b)'s and (e)'s launches against its
-    plain version.  Returns the ``{"mesh"}`` row and each rank's K7
-    launches in the timed prefills of (a), (b) and (e)."""
+    (e) and (g) against their one-process runs, (f) across the ranks
+    (``mesh_train_check``); K7 at (b)'s, (e)'s and (g)'s launches and K8
+    at (g)'s against their plain versions.  Returns the ``{"mesh"}`` row
+    and each rank's K7 launches in the timed prefills of (a), (b), (e)
+    and (g), and its K8 launches in (g)'s."""
     import tempfile
 
     import torch.multiprocessing as mp
@@ -6794,8 +6905,12 @@ def phase_mesh(dev) -> tuple[dict, list]:
                     "cards": row["cards"], "why": mesh_backend.__doc__}))
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
-        row["tp_reference"] = mesh_tp_reference(dev, root)
+        row["tp_reference"] = mesh_tp_reference(dev, root, serve_runs("e"))
         row["tp_reference_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        row["rec_reference"] = mesh_tp_reference(dev, root,
+                                                 serve_runs("g"))
+        row["rec_reference_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         train_ref = mesh_train_reference(dev)
         row["train_reference_s"] = time.perf_counter() - t0
@@ -6817,7 +6932,8 @@ def phase_mesh(dev) -> tuple[dict, list]:
             assert [(x["loss"], x["grad_norm"]) for x in rk["wire"]["steps"]
                     ] == [(x["loss"], x["grad_norm"])
                           for x in ranks[0]["wire"]["steps"]]
-            for a, b in zip(rk["tp"], ranks[0]["tp"]):
+            for a, b in zip(rk["tp"] + rk["rec"],
+                            ranks[0]["tp"] + ranks[0]["rec"]):
                 assert a["logits"] == b["logits"], "ranks' TP logits differ"
         t0 = time.perf_counter()
         row["granite_vs_dense"] = mesh_granite_check(dev, root)
@@ -6826,12 +6942,15 @@ def phase_mesh(dev) -> tuple[dict, list]:
         torch.cuda.empty_cache()
         row["wire_replay"] = mesh_wire_replay(dev, ranks)
         torch.cuda.empty_cache()
-        row["tp_vs_one_process"] = mesh_tp_check(root)
+        row["tp_vs_one_process"] = mesh_tp_check(root, serve_runs("e"))
+        row["rec_vs_one_process"] = mesh_tp_check(root, serve_runs("g"))
         row["checks_s"] = time.perf_counter() - t0
         row["train_tp"] = mesh_train_check(root, train_scalars)
         row["train_tp"]["card"] = row["card"]
     row["k7_padded_launch"] = mesh_k7_timing(dev)
     row["k7_tp_launch"] = mesh_k7_tp_timing(dev)
+    row["k7_rec_launch"] = mesh_k7_rec_timing(dev)
+    row["k8_rec_launch"] = mesh_k8_rec_timing(dev)
     r0 = ranks[0]
     row["granite"] = [{k: v for k, v in g.items() if k != "logits"}
                       for g in r0["granite"]]
@@ -6843,6 +6962,15 @@ def phase_mesh(dev) -> tuple[dict, list]:
                  for t in r0["tp"]]
     row["tp_peak_bytes_per_rank"] = [[t["peak_bytes"] for t in rk["tp"]]
                                      for rk in ranks]
+    row["rec"] = [{k: v for k, v in t.items() if k != "logits"}
+                  for t in r0["rec"]]
+    row["rec_peak_bytes_per_rank"] = [[t["peak_bytes"] for t in rk["rec"]]
+                                      for rk in ranks]
+    for rk in ranks:  # each bf16 (1, 4) run's kernel at its launch shape
+        for t in rk["rec"]:
+            if t["run"] in MESH_RECURRENT["launch"]:
+                kernel, shape = MESH_RECURRENT["launch"][t["run"]]
+                assert t["launch_shapes"] == {kernel: [shape]}, t
     row["transports"] = r0["transports"]
     for key, how in r0["transports"].items():
         log(json.dumps({"mesh_transport": key, "carried": how}))
@@ -6851,10 +6979,13 @@ def phase_mesh(dev) -> tuple[dict, list]:
     row["max_memory_allocated_sum"] = sum(row["max_memory_allocated"])
     k7 = [sum(g["k7_launches"] for g in rk["granite"])
           + rk["hymba"]["k7_launches"]
-          + sum(t["k7_launches"] for t in rk["tp"]) for rk in ranks]
+          + sum(t["k7_launches"] for t in rk["tp"] + rk["rec"])
+          for rk in ranks]
+    k8 = [sum(t["k8_launches"] for t in rk["rec"]) for rk in ranks]
     row["k7_launches_per_rank"] = k7
+    row["k8_launches_per_rank"] = k8
     row["phase_s"] = time.perf_counter() - t_phase
-    return row, k7
+    return row, k7, k8
 
 
 def mesh_main() -> None:
@@ -6862,12 +6993,13 @@ def mesh_main() -> None:
     from repro_torch.kernels import build
 
     dev = phase_environment()
-    build.build(["flash_attention"])
+    build.build(["flash_attention", "rwkv6_scan"])
     errs = []
     phase_flash_parity(dev, errs)
-    row, launches = phase_mesh(dev)
+    row, launches, k8_launches = phase_mesh(dev)
     log(json.dumps({"mesh": row}))
     log(json.dumps({"k7_mesh_launches": launches,
+                    "k8_mesh_launches": k8_launches,
                     "k7_max_abs_err": max(errs)}))
     print(json.dumps({"ok": True}), flush=True)
 
@@ -7025,11 +7157,16 @@ def main() -> None:
     log(json.dumps({"train": train}))
     clock["train"] = time.perf_counter()
 
-    mesh, mesh_launches = phase_mesh(dev)
+    mesh, mesh_launches, mesh_k8 = phase_mesh(dev)
     for entry in out:
         if entry["name"] == K7["name"]:
             entry["mesh_launches_per_rank"] = mesh_launches
-    assert min(mesh_launches) > 0, mesh_launches
+            entry["mesh_tp_recurrent"] = mesh["k7_rec_launch"]
+        if entry["name"] == K8["name"]:
+            entry["mesh_launches_per_rank"] = mesh_k8
+            entry["mesh_tp_recurrent"] = mesh["k8_rec_launch"]
+    assert min(mesh_launches) > 0 and min(mesh_k8) > 0, (mesh_launches,
+                                                         mesh_k8)
     log(json.dumps({"mesh": mesh}))
     clock["mesh"] = time.perf_counter()
     marks = list(clock.items())

@@ -40,9 +40,10 @@ def bh_layout(q, k, v):
     not repeated), and n_rep = H / KV."""
     b, s, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
-    qt = q.transpose(1, 2).reshape(b * h, s, hd)
-    kt = k.transpose(1, 2).reshape(b * kv, t, hd)
-    vt = v.transpose(1, 2).reshape(b * kv, t, hd)
+    # at B = 1 the reshape is a view of the transpose, not a copy
+    qt = q.transpose(1, 2).reshape(b * h, s, hd).contiguous()
+    kt = k.transpose(1, 2).reshape(b * kv, t, hd).contiguous()
+    vt = v.transpose(1, 2).reshape(b * kv, t, hd).contiguous()
     return qt, kt, vt, h // kv
 
 

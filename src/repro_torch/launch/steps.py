@@ -108,8 +108,9 @@ def loss_and_grads(cfg: ModelConfig, params, batch, *,
         from ..models.tensor_parallel import sum_partial_grads, tp_layout
 
         b, s = batch["tokens"].shape
-        grads = sum_partial_grads(tp_layout(cfg, params.mesh, b, s), grads,
-                                  params.pspecs)
+        grads = sum_partial_grads(tp_layout(cfg, params.mesh, b, s,
+                                            training=True),
+                                  grads, params.pspecs)
     return loss, grads
 
 

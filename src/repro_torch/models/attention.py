@@ -38,7 +38,12 @@ TIME (``launch.shardings.cache_pspecs``): the rank owning a position
 writes it, each rank scores its slice, and a log-sum-exp combine over
 ``model`` (``pmax``, then one ``psum`` of the rescaled sums and outputs)
 gives the attention; for that every rank scores all query heads (the
-one-token q gathered over ``model``) and keeps its own after.
+one-token q gathered over ``model``) and keeps its own after.  Padded
+heads (Hymba's 25 / 5 on four ranks, 9 of 36 a rank) straddle KV groups:
+each reads its own KV head (n_rep 1), and since they do not line up
+with ``wq`` / ``wo``'s blocks, those weights (a prefill) or their
+products (a decode step) are made whole over ``model``.  A window's
+decode cache is the ring of its last tokens, cut along time alike.
 """
 from __future__ import annotations
 
@@ -60,7 +65,7 @@ from .sharding import (
     pmax,
     psum,
 )
-from .tensor_parallel import TPLayout, partitioned_leaf
+from .tensor_parallel import TPLayout, cols_product, pad_heads, partitioned_leaf
 
 __all__ = [
     "Attention",
@@ -186,22 +191,14 @@ def _head_padding(cfg: ModelConfig) -> tuple[int, int]:
     (starcoder2/granite: 24H, hymba: 25H/5KV) would otherwise be
     replicated by the ax() divisibility guard.  Padding heads to the next
     layout that divides costs only the pad ratio; the reference's search,
-    smallest product first.
+    smallest product first (``tensor_parallel.pad_heads``).
     """
     mesh = current_mesh()
     kv, rep = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     if mesh is None:
         return kv, rep
-    axis = _axis_size(mesh, (current_rules() or {}).get("heads"))
-    if (kv * rep) % axis == 0:
-        return kv, rep
-    best = None
-    for kv_pad in range(kv, kv + axis + 1):
-        for rep_pad in range(rep, rep + axis + 1):
-            if (kv_pad * rep_pad) % axis == 0:
-                if best is None or kv_pad * rep_pad < best[0] * best[1]:
-                    best = (kv_pad, rep_pad)
-    return best if best else (kv, rep)
+    return pad_heads(kv, rep,
+                     _axis_size(mesh, (current_rules() or {}).get("heads")))
 
 
 def _shard_qkv(cfg: ModelConfig, q, k, v):
@@ -290,7 +287,7 @@ def attention_prefill(p: Attention, cfg: ModelConfig, x, positions,
     # the decode cache stores REAL kv heads only (init_kv_cache layout)
     k = k[:, :, : cfg.n_kv_heads]
     v = v[:, :, : cfg.n_kv_heads]
-    length = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    length = _cache_len(cfg, max_len)
     if length < s:
         assert s % length == 0, (s, length)
         k_buf, v_buf = k[:, -length:].contiguous(), v[:, -length:].contiguous()
@@ -305,7 +302,7 @@ def attention_prefill(p: Attention, cfg: ModelConfig, x, positions,
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                   device) -> dict[str, torch.Tensor]:
     kv, hd = cfg.n_kv_heads, cfg.head_dim_
-    length = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    length = _cache_len(cfg, max_len)
     return {
         "k": torch.zeros((batch, length, kv, hd), dtype=dtype, device=device),
         "v": torch.zeros((batch, length, kv, hd), dtype=dtype, device=device),
@@ -332,11 +329,7 @@ def attention_decode(p: Attention, cfg: ModelConfig, x, cache, position):
     v = ax(v, "batch", None, "kv_heads", None)
 
     idx = torch.arange(t, device=x.device)[None, :]  # (1, T)
-    if cfg.sliding_window:
-        # ring buffer: every slot written within the last `t` tokens is valid
-        mask = (idx <= position[:, None]) | (position[:, None] >= t)
-    else:
-        mask = idx <= position[:, None]
+    mask = _valid_slots(cfg, idx, position, t)
     n_rep = cfg.n_heads // cfg.n_kv_heads
     out = _sdpa(q, k, v, mask[:, None, None, :], n_rep)
     out = out.reshape(b, 1, -1) @ p.wo
@@ -372,33 +365,150 @@ def _kv_cols(cfg: ModelConfig, L: TPLayout) -> slice:
 def _local_kv(cfg: ModelConfig, L: TPLayout, k):
     """(the KV heads of ``k`` (B, T, KV', hd) that this rank's query heads
     read, their n_rep).  Where the KV heads divide the model axis ``k``
-    holds this rank's already; else the rank's heads lie in one group
-    (``tp_layout`` refuses heads that straddle groups), that KV head."""
+    holds this rank's already.  Else ``k`` holds every real KV head, zero
+    KV groups are added up to the padded layout's (``L.pads``), and: the
+    rank's heads in one group read that KV head; heads that cover whole
+    groups read theirs; heads that straddle groups (Hymba's 9 padded heads
+    a rank in groups of 6) read one KV head each (n_rep 1)."""
     if L.kv_split:
         return k, cfg.n_heads // cfg.n_kv_heads
-    g = L.h_lo // (cfg.n_heads // cfg.n_kv_heads)
-    return k[:, :, g:g + 1], L.h_loc
+    rep = L.pads[1]
+    groups = [h // rep for h in range(L.h_lo, L.h_lo + L.h_loc)]
+    if groups[-1] >= k.shape[2]:
+        k = F.pad(k, (0, 0, 0, groups[-1] + 1 - k.shape[2]))
+    if groups[0] == groups[-1]:
+        return k[:, :, groups[0]:groups[0] + 1], L.h_loc
+    if L.h_lo % rep == 0 and L.h_loc % rep == 0:
+        return k[:, :, groups[0]:groups[-1] + 1], rep
+    return k[:, :, groups], 1
 
 
-def _time_split(L: TPLayout, max_len: int) -> bool:
-    """Whether the decode cache is cut along time over ``model``: the KV
-    heads do not divide it and the length does (``cache_pspecs``)."""
-    return not L.kv_split and max_len % L.model == 0
+def _cache_len(cfg: ModelConfig, max_len: int) -> int:
+    """The decode cache's time length: the ring of the window's last
+    tokens when the window is shorter than ``max_len``."""
+    if cfg.sliding_window:
+        return min(max_len, cfg.sliding_window)
+    return max_len
+
+
+def _time_split(L: TPLayout, length: int) -> bool:
+    """Whether the decode cache of ``length`` slots (``_cache_len``) is
+    cut along time over ``model``: the KV heads do not divide it and the
+    length does (``cache_pspecs``)."""
+    return not L.kv_split and length % L.model == 0
+
+
+def _valid_slots(cfg: ModelConfig, idx, position, length: int):
+    """(B, T) which cache slots ``idx`` (global, (1, T)) a decode step at
+    ``position`` (B,) attends to: those written so far; in a ring of
+    ``length`` slots every slot once the ring has filled."""
+    mask = idx <= position[:, None]
+    if cfg.sliding_window:
+        mask = mask | (position[:, None] >= length)
+    return mask
+
+
+def _padded_heads(cfg: ModelConfig, L: TPLayout) -> list[int | None]:
+    """This rank's heads of the padded layout: each one's real head index,
+    or None for a padding head (a zero query head or a zero KV group)."""
+    kv, rep = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    out = []
+    for h in range(L.h_lo, L.h_lo + L.h_loc):
+        g, r = divmod(h, L.pads[1])
+        out.append(g * rep + r if g < kv and r < rep else None)
+    return out
+
+
+def _head_cols(heads, hd: int, device) -> torch.Tensor:
+    """The columns of ``wq`` (rows of ``wo``) of the real ``heads``."""
+    real = torch.tensor([h for h in heads if h is not None], device=device)
+    return (real[:, None] * hd + torch.arange(hd, device=device)).reshape(-1)
+
+
+def _project_real(p: Attention, cfg: ModelConfig, L: TPLayout, x,
+                  positions, cols=slice(None)):
+    """q of the real heads whose ``wq`` columns are ``cols`` (B, S, n, hd)
+    and k / v of every real KV head (B, S, KV, hd), where the rank's heads
+    are padded: its real heads are not the column block of ``wq`` it
+    holds, nor is ``wk`` / ``wv``'s block a whole head, so the columns are
+    made whole over ``model`` (``cols_product``: the weights in a
+    prefill, the products in a decode step) and ``cols`` taken."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim_
+    q = cols_product(L, x, p.wq, cols)
+    k = cols_product(L, x, p.wk, cut=L.kv_cols)
+    v = cols_product(L, x, p.wv, cut=L.kv_cols)
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq[cols], k + p.bk, v + p.bv
+    q = q.reshape(b, s, -1, hd)
+    k = k.reshape(b, s, -1, hd)
+    v = v.reshape(b, s, -1, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm, cfg.rms_eps)
+        k = rms_norm(k, p.k_norm, cfg.rms_eps)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _project_qkv_padded(p: Attention, cfg: ModelConfig, L: TPLayout, x,
+                        positions):
+    """q of this rank's padded heads (B, S, h_loc, hd), zero at its
+    padding heads, and k / v of every real KV head (``_project_real``)."""
+    b, s, _ = x.shape
+    heads = _padded_heads(cfg, L)
+    q, k, v = _project_real(p, cfg, L, x, positions,
+                            _head_cols(heads, cfg.head_dim_, x.device))
+    qp = q.new_zeros((b, s, L.h_loc, cfg.head_dim_))
+    qp[:, :, [j for j, h in enumerate(heads) if h is not None]] = q
+    return qp, k, v
+
+
+def _padded_out(p: Attention, cfg: ModelConfig, L: TPLayout, out):
+    """This rank's float32 partial of the output from its padded heads'
+    attention ``out`` (B, S, h_loc, hd): its real heads against their
+    rows of ``wo`` gathered whole (``L.move_weights``), else every rank's
+    heads gathered, unpadded, and the rows of the block of ``wo`` it
+    holds."""
+    b, s = out.shape[:2]
+    heads = _padded_heads(cfg, L)
+    if L.move_weights:
+        real = out[:, :, [j for j, h in enumerate(heads) if h is not None]]
+        wo = all_gather(p.wo, "model", dim=0, mesh=L.mesh)
+        return matmul_f32(real.reshape(b, s, -1),
+                          wo[_head_cols(heads, cfg.head_dim_, out.device)])
+    whole = _unpad_heads(cfg, all_gather(out, "model", dim=2, mesh=L.mesh),
+                         L.pads)
+    return matmul_f32(_wo_block(L, whole.reshape(b, s, -1)), p.wo)
+
+
+def _wo_block(L: TPLayout, out):
+    """The block of the whole heads' output (B, S, H * hd) that this rank's
+    rows of ``wo`` take."""
+    n = out.shape[-1] // L.model
+    return out[..., L.mi * n:(L.mi + 1) * n]
 
 
 def _attend_tp(p: Attention, cfg: ModelConfig, L: TPLayout, x, positions,
                use_flash: bool):
     """This rank's heads over the whole sequence ``x`` (B, S, d): (its
-    float32 partial of the output (B, S, d), its k, v)."""
+    float32 partial of the output (B, S, d), its k, v).  Padded heads
+    (Hymba) take ``_project_qkv_padded`` / ``_padded_out``, and their k, v
+    are every real KV head."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, cfg, x, positions, L)
+    padded = L.padded(cfg)
+    if padded:
+        q, k, v = _project_qkv_padded(p, cfg, L, x, positions)
+    else:
+        q, k, v = _project_qkv(p, cfg, x, positions, L)
+        k = ax(k, "batch", None, "kv_heads", None)
+        v = ax(v, "batch", None, "kv_heads", None)
     q = ax(q, "batch", None, "heads", None)
-    k = ax(k, "batch", None, "kv_heads", None)
-    v = ax(v, "batch", None, "kv_heads", None)
     kq, rep = _local_kv(cfg, L, k)
     vq, _ = _local_kv(cfg, L, v)
     out = ax(_attend_full(q, kq, vq, cfg, use_flash),
              "batch", None, "heads", None)
+    if padded:
+        return _padded_out(p, cfg, L, out), k, v
     return matmul_f32(out.reshape(b, s, -1), p.wo), k, v
 
 
@@ -414,25 +524,31 @@ def attention_train_tp(p: Attention, cfg: ModelConfig, L: TPLayout, x,
 def attention_prefill_tp(p: Attention, cfg: ModelConfig, L: TPLayout, x,
                          positions, max_len: int, use_flash: bool = False):
     """``attention_train_tp``'s partial (K7 or the plain routes at the
-    rank's heads over the KV heads they read), and this rank's decode
-    cache in ``cache_pspecs``'s local shape."""
+    rank's heads over the KV heads they read, with the window), and this
+    rank's decode cache in ``cache_pspecs``'s local shape: with a window
+    shorter than the prompt, the ring of its last tokens (the slot of
+    position i is i mod the ring's length, as the reference lays it
+    out), cut along time where the KV heads do not divide."""
     b, s, _ = x.shape
     if max_len < s:
         raise ValueError(f"max_len {max_len} < prompt {s}")
     part, k, v = _attend_tp(p, cfg, L, x, positions, use_flash)
-    if _time_split(L, max_len):
-        t_loc = max_len // L.model
+    length = _cache_len(cfg, max_len)
+    if length < s:
+        if s % length:
+            raise ValueError(f"the ring of {length} slots needs a prompt "
+                             f"that it divides, not {s}")
+        k, v = k[:, s - length:], v[:, s - length:]
+    n = k.shape[1]
+    lo, t_loc = 0, length
+    if _time_split(L, length):
+        t_loc = length // L.model
         lo = L.mi * t_loc
-        n = max(min(s, lo + t_loc) - lo, 0)
-        k_buf = k.new_zeros((b, t_loc, *k.shape[2:]))
-        v_buf = v.new_zeros((b, t_loc, *v.shape[2:]))
-        k_buf[:, :n] = k[:, lo:lo + n]
-        v_buf[:, :n] = v[:, lo:lo + n]
-    else:
-        k_buf = k.new_zeros((b, max_len, *k.shape[2:]))
-        v_buf = v.new_zeros((b, max_len, *v.shape[2:]))
-        k_buf[:, :s] = k
-        v_buf[:, :s] = v
+    n = max(min(n, lo + t_loc) - lo, 0)
+    k_buf = k.new_zeros((b, t_loc, *k.shape[2:]))
+    v_buf = v.new_zeros((b, t_loc, *v.shape[2:]))
+    k_buf[:, :n] = k[:, lo:lo + n]
+    v_buf[:, :n] = v[:, lo:lo + n]
     return part, {"k": k_buf, "v": v_buf}
 
 
@@ -461,36 +577,50 @@ def attention_decode_tp(p: Attention, cfg: ModelConfig, L: TPLayout, x,
                         cache, position, max_len: int):
     """One-token step of this rank's heads: x (B, 1, d) whole on every
     model rank, ``cache`` this rank's (``cache_pspecs``'s local shape of a
-    ``max_len`` cache), written in place.  Returns (its partial of the
-    output (B, 1, d), the same cache)."""
+    ``max_len`` cache: with a window, the ring of its last tokens),
+    written in place at the slot of ``position`` (mod the ring's length).
+    Padded heads (Hymba) do not line up with ``wq`` / ``wo``'s blocks:
+    every rank computes every real head from the whole one-token q
+    (``cols_product``) and keeps the block of the output its rows of
+    ``wo`` take.  Returns (its partial of the output (B, 1, d), the same
+    cache)."""
     b = x.shape[0]
-    q, k_new, v_new = _project_qkv(p, cfg, x, position[:, None], L)
-    q = ax(q, "batch", None, "heads", None)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    padded = L.padded(cfg)
+    if padded:
+        q, k_new, v_new = _project_real(p, cfg, L, x, position[:, None])
+    else:
+        q, k_new, v_new = _project_qkv(p, cfg, x, position[:, None], L)
+        q = ax(q, "batch", None, "heads", None)
     k, v = cache["k"], cache["v"]
     t = k.shape[1]
+    length = _cache_len(cfg, max_len)
     position = position.long()
-    if _time_split(L, max_len):
-        # the rank whose slice holds the position writes it; every rank
+    slot = position % length if cfg.sliding_window else position
+    if _time_split(L, length):
+        # the rank whose slice holds the slot writes it; every rank
         # scores ALL query heads over its time slice (the combine sums a
-        # head's parts across the ranks), then keeps its own heads
-        slot = position - L.mi * t
-        inside = (slot >= 0) & (slot < t)
-        _write_slot(k, k_new, slot, inside)
-        _write_slot(v, v_new, slot, inside)
+        # head's parts across the ranks), then keeps its block
+        local = slot - L.mi * t
+        _write_slot(k, k_new, local, (local >= 0) & (local < t))
+        _write_slot(v, v_new, local, (local >= 0) & (local < t))
         idx = L.mi * t + torch.arange(t, device=x.device)[None, :]
-        mask = idx <= position[:, None]
-        q_all = all_gather(q, "model", dim=2, mesh=L.mesh)
-        out = _sdpa_time_split(L, q_all, k, v, mask[:, None, None, :],
-                               cfg.n_heads // cfg.n_kv_heads)
-        out = out[:, :, L.h_lo:L.h_lo + L.h_loc]
+        mask = _valid_slots(cfg, idx, position, length)
+        q_all = q if padded else all_gather(q, "model", dim=2, mesh=L.mesh)
+        out = _sdpa_time_split(L, q_all, k, v, mask[:, None, None, :], n_rep)
+        out = _wo_block(L, out.reshape(b, 1, -1))
     else:
-        _write_slot(k, k_new, position, position < t)
-        _write_slot(v, v_new, position, position < t)
+        _write_slot(k, k_new, slot, slot < t)
+        _write_slot(v, v_new, slot, slot < t)
         k = ax(k, "batch", None, "kv_heads", None)
         v = ax(v, "batch", None, "kv_heads", None)
-        kq, rep = _local_kv(cfg, L, k)
-        vq, _ = _local_kv(cfg, L, v)
-        mask = torch.arange(t, device=x.device)[None, :] <= position[:, None]
-        out = _sdpa(q, kq, vq, mask[:, None, None, :], rep)
-    out = ax(out, "batch", None, "heads", None)
-    return matmul_f32(out.reshape(b, 1, -1), p.wo), {"k": k, "v": v}
+        idx = torch.arange(t, device=x.device)[None, :]
+        mask = _valid_slots(cfg, idx, position, length)[:, None, None, :]
+        if padded:
+            out = _wo_block(L, _sdpa(q, k, v, mask, n_rep).reshape(b, 1, -1))
+        else:
+            kq, rep = _local_kv(cfg, L, k)
+            vq, _ = _local_kv(cfg, L, v)
+            out = ax(_sdpa(q, kq, vq, mask, rep), "batch", None, "heads",
+                     None).reshape(b, 1, -1)
+    return matmul_f32(out, p.wo), {"k": k, "v": v}

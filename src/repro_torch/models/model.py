@@ -46,9 +46,12 @@ gradients).  The train block and the prefill block are one body
 tensor-parallel block with its ZeRO-3 gathers inside, so the recompute
 gathers the weights again; the block carries this thread's layout state
 into the recompute, which the card's autograd engine runs on a thread of
-its own.  Hymba, RWKV6, MLA and a shared expert are not cut yet:
-sharded, every entry point raises ``NotImplementedError`` with the
-reason (``tensor_parallel.check_cut``).  ``init_leaves`` draws
+its own.  RWKV6 and Hymba are cut for serving (``prefill`` /
+``decode_step``: their residual whole on every model rank, the rank's
+heads, FF columns and d_inner channels, Hymba's two branch partials each
+summed before its norm), not for training; MLA and a shared expert not
+at all: sharded, such an entry point raises ``NotImplementedError`` with
+the reason (``tensor_parallel.check_cut``).  ``init_leaves`` draws
 ``init_params``'s numbers one block at a time, so a rank can cut a
 seeded model without ever holding it whole.
 
@@ -102,13 +105,18 @@ from .moe import MoE, _moe_ep_partial, init_moe, moe_apply
 from .rwkv6 import (
     ChannelMix,
     RWKV6TimeMix,
+    _own_d,
     channel_mix_decode,
+    channel_mix_decode_tp,
+    channel_mix_tp,
     channel_mix_train,
     init_channel_mix,
     init_rwkv6,
     init_rwkv6_cache,
     rwkv6_decode,
+    rwkv6_decode_tp,
     rwkv6_prefill,
+    rwkv6_prefill_tp,
     rwkv6_train,
 )
 from .sharding import (
@@ -119,7 +127,16 @@ from .sharding import (
     logical_sizes,
     psum,
 )
-from .ssm import SSM, init_ssm, init_ssm_cache, ssm_decode, ssm_prefill, ssm_train
+from .ssm import (
+    SSM,
+    init_ssm,
+    init_ssm_cache,
+    ssm_decode,
+    ssm_decode_tp,
+    ssm_prefill,
+    ssm_prefill_tp,
+    ssm_train,
+)
 from .tensor_parallel import (
     TPCache,
     column_input,
@@ -786,9 +803,13 @@ def _tp_mesh(params: TransformerLM):
     return mesh
 
 
-def _res_ax(x):
-    """The residual stream between blocks: batch over data, sequence over
-    model (the reference's ``_res_ax`` for GQA)."""
+def _res_ax(cfg: ModelConfig, x):
+    """The residual stream between blocks, the reference's ``_res_ax``:
+    batch over data, sequence over model for the attention families;
+    batch over data only for the recurrent ones (RWKV6, Hymba), which
+    scan over time."""
+    if cfg.attn_type in ("rwkv6", "hymba"):
+        return ax(x, "batch", None, None)
     return ax(x, "batch", "seq_sp", None)
 
 
@@ -823,29 +844,62 @@ def _block_tp(cfg: ModelConfig, L, p: Block, x, positions,
               max_len: int | None = None, use_flash: bool = False,
               with_aux: bool = False):
     """One block on this rank: x its residual slice (B / data, S / model,
-    d).  Its attention takes the flash kernel when ``use_flash`` (which
-    refuses autograd), else the plain one; a prefill block (``max_len``
-    given) also builds its cache.  Returns (x, the cache or None, the MoE
-    aux loss or None)."""
+    d; the recurrent families' whole sequence).  Its attention takes the
+    flash kernel when ``use_flash`` (which refuses autograd), else the
+    plain one; a prefill block (``max_len`` given) also builds its cache.
+    RWKV6's time-mix takes K8 on the rank's heads when ``use_flash``.
+    Hymba's attention and SSM partials are each summed over ``model``
+    before their norms.  Returns (x, the cache or None, the MoE aux loss
+    or None)."""
     h = column_input(L, rms_norm(x, p.norm1, cfg.rms_eps))
+    if cfg.attn_type == "rwkv6":
+        a, cache = rwkv6_prefill_tp(p.attn, cfg, L, h, use_flash)
+        x = _res_ax(cfg, x + row_reduce(L, a, x.dtype))
+        h = rms_norm(x, p.norm2, cfg.rms_eps)
+        cache["x_prev_cm"] = _own_d(L, h[:, -1, :])
+        return _res_ax(cfg, x + channel_mix_tp(p.mlp, L, h)), cache, None
     if max_len is None:
         a, cache = attention_train_tp(p.attn, cfg, L, h, positions,
                                       use_flash), None
     else:
         a, cache = attention_prefill_tp(p.attn, cfg, L, h, positions,
                                         max_len, use_flash)
-    x = _res_ax(x + row_reduce(L, a, x.dtype))
+    if cfg.attn_type == "hymba":
+        ssm_o, ssm_c = ssm_prefill_tp(p.ssm, cfg, L, h)
+        att, ssm_o = row_reduce(L, torch.stack([a, ssm_o]),
+                                x.dtype).unbind(0)
+        a, cache = _hymba_mix(cfg, p, att, ssm_o), {"kv": cache,
+                                                    "ssm": ssm_c}
+    else:
+        a = row_reduce(L, a, x.dtype)
+    x = _res_ax(cfg, x + a)
     m, aux = _mlp_tp(cfg, L, p, rms_norm(x, p.norm2, cfg.rms_eps), with_aux)
-    return _res_ax(x + m), cache, aux
+    return _res_ax(cfg, x + m), cache, aux
 
 
 def _block_decode_tp(cfg: ModelConfig, L, p: Block, x, cache, position,
                      max_len: int):
     """x: (B, 1, d), whole on every model rank."""
     h = rms_norm(x, p.norm1, cfg.rms_eps)
-    a, cache = attention_decode_tp(p.attn, cfg, L, h, cache, position,
-                                   max_len)
-    x = x + row_reduce(L, a, x.dtype)
+    if cfg.attn_type == "rwkv6":
+        a, state, xprev = rwkv6_decode_tp(p.attn, cfg, L, h, cache)
+        x = x + row_reduce(L, a, x.dtype)
+        m, xprev_cm = channel_mix_decode_tp(
+            p.mlp, L, rms_norm(x, p.norm2, cfg.rms_eps), cache["x_prev_cm"])
+        return x + m, {"state": state, "x_prev_tm": xprev,
+                       "x_prev_cm": xprev_cm}
+    if cfg.attn_type == "hymba":
+        a, kv = attention_decode_tp(p.attn, cfg, L, h, cache["kv"], position,
+                                    max_len)
+        ssm_o, ssm_c = ssm_decode_tp(p.ssm, cfg, L, h, cache["ssm"])
+        att, ssm_o = row_reduce(L, torch.stack([a, ssm_o]),
+                                x.dtype).unbind(0)
+        a, cache = _hymba_mix(cfg, p, att, ssm_o), {"kv": kv, "ssm": ssm_c}
+    else:
+        a, cache = attention_decode_tp(p.attn, cfg, L, h, cache, position,
+                                       max_len)
+        a = row_reduce(L, a, x.dtype)
+    x = x + a
     m, _ = _mlp_tp(cfg, L, p, rms_norm(x, p.norm2, cfg.rms_eps))
     return x + m, cache
 
@@ -878,7 +932,7 @@ def _embed_tp(cfg: ModelConfig, params: TransformerLM, L, ids,
         fe = F.pad(fe, (0, 0, 0, L.seq - fe.shape[1]))[:, pos]
         x = torch.where((pos < frontend_embeds.shape[1])[None, :, None],
                         fe, x)
-    return _res_ax(x)
+    return _res_ax(cfg, x)
 
 
 def _hidden_tp(cfg: ModelConfig, params: TransformerLM, tokens,
@@ -891,7 +945,7 @@ def _hidden_tp(cfg: ModelConfig, params: TransformerLM, tokens,
     mesh = _tp_mesh(params)
     ids = _tokens(params, tokens)
     b, s = ids.shape
-    L = tp_layout(cfg, mesh, b, s)
+    L = tp_layout(cfg, mesh, b, s, training=True)
     moe = cfg.mlp_type == "moe"
     with logical_sizes(L.sizes(cfg)):
         x = _embed_tp(cfg, params, L, ids[L.rows], frontend_embeds)

@@ -18,6 +18,16 @@ type) and the float32 w and state that ``_mix_inputs`` makes, as they
 are, and writes y contiguous in (B, S, H, hd).  Decode is one
 ``wkv_scan`` step over the (B, H, hd, hd) state, as in the reference.
 
+Tensor parallelism (``models.tensor_parallel``; the parameters are this
+rank's shards): ``rwkv6_prefill_tp`` / ``rwkv6_decode_tp`` run the
+time-mix of the rank's heads (its column blocks of ``w_r``, ``w_k``,
+``w_v``, ``w_g``; its rows of ``w_o``, a float32 partial the caller sums
+over ``model``), K8 on those heads in prefill; ``channel_mix_tp`` gathers
+the squared-ReLU k along d_ff and each rank's d_model columns of the
+output.  The residual stays whole on every model rank (the reference's
+``_res_ax`` for RWKV6); the token-shift caches hold the rank's d_model
+slice and are gathered each step.
+
 Simplifications vs the full Finch release (as in the reference): single-
 lerp token shift (not ddlerp) and RMS head-norm instead of GroupNorm.
 """
@@ -30,19 +40,24 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..kernels.rwkv6_scan.ops import wkv6
 from .attention import _param
-from .layers import rms_norm
+from .layers import matmul_f32, rms_norm
+from .sharding import all_gather
 
 __all__ = [
     "ChannelMix",
     "RWKV6TimeMix",
     "WKV_CHUNK_THRESHOLD",
     "channel_mix_decode",
+    "channel_mix_decode_tp",
+    "channel_mix_tp",
     "channel_mix_train",
     "init_channel_mix",
     "init_rwkv6",
     "init_rwkv6_cache",
     "rwkv6_decode",
+    "rwkv6_decode_tp",
     "rwkv6_prefill",
+    "rwkv6_prefill_tp",
     "rwkv6_train",
     "wkv_chunked",
     "wkv_scan",
@@ -281,3 +296,119 @@ def rwkv6_decode(p_tm: RWKV6TimeMix, cfg: ModelConfig, x, cache):
 def channel_mix_decode(p_cm: ChannelMix, x, x_prev):
     out = channel_mix_train(p_cm, x, x_prev)
     return out, x[:, 0, :]
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving: this rank's heads and FF columns
+# ---------------------------------------------------------------------------
+def _own_d(L, x):
+    """This rank's d_model slice of ``x`` (..., d): the cut
+    ``cache_pspecs`` gives the token-shift caches ``x_prev_tm`` /
+    ``x_prev_cm`` (``check_cut`` makes d_model divide the model axis)."""
+    n = x.shape[-1] // L.model
+    return x[..., L.mi * n:(L.mi + 1) * n]
+
+
+def _whole_d(L, x_prev):
+    """The whole (B, d) token-shift input from this rank's slice."""
+    return all_gather(x_prev, "model", dim=-1, mesh=L.mesh)
+
+
+def _mix_inputs_tp(p: RWKV6TimeMix, cfg: ModelConfig, L, x, x_prev):
+    """``_mix_inputs`` for this rank's heads: r, k, v (B, S, h_loc, hd) and
+    g from its column blocks of ``w_r`` / ``w_k`` / ``w_v`` / ``w_g``, the
+    decay from its columns of ``w_lora_b`` and ``w0`` (both whole), each
+    made contiguous in the model's layout as K8 reads it."""
+    xs = _token_shift(x, x_prev)
+    mu = p.mu
+
+    def mix(i):
+        return x + (xs - x) * mu[i]
+
+    xr, xk, xv, xw, xg = (mix(i) for i in range(5))
+    b, s, _ = x.shape
+    h, hd = L.h_loc, cfg.head_dim_
+    cols = slice(L.h_lo * hd, (L.h_lo + h) * hd)
+    r = (xr @ p.w_r).reshape(b, s, h, hd)
+    k = (xk @ p.w_k).reshape(b, s, h, hd)
+    v = (xv @ p.w_v).reshape(b, s, h, hd)
+    g = F.silu(xg @ p.w_g)
+    dw = torch.tanh(xw @ p.w_lora_a) @ p.w_lora_b[:, cols]
+    logw = p.w0[cols].float() + dw.float()
+    w = torch.exp(-torch.exp(logw)).reshape(b, s, h, hd)
+    return r, k, v, g, w
+
+
+def _time_mix_out(p: RWKV6TimeMix, cfg: ModelConfig, y, g, dtype):
+    """The rank's heads' WKV output, head-normed and gated, against its
+    rows of ``w_o``: its float32 partial of the time-mix (B, S, d)."""
+    b, s = y.shape[:2]
+    y = rms_norm(y, p.head_norm, cfg.rms_eps).to(dtype)
+    return matmul_f32(y.reshape(b, s, -1) * g.to(dtype), p.w_o)
+
+
+def rwkv6_prefill_tp(p: RWKV6TimeMix, cfg: ModelConfig, L, x,
+                     use_flash: bool = False):
+    """The time-mix of this rank's heads over the whole sequence ``x``
+    (B, S, d): (its float32 partial of the output, to be summed over
+    ``model``; its cache ``{"state": (B, h_loc, hd, hd), "x_prev_tm":
+    its d_model slice}``).  ``use_flash`` sends the recurrence of its
+    heads through K8 (``u`` its (h_loc, hd) rows)."""
+    b, s, d = x.shape
+    x_prev = torch.zeros((b, d), dtype=x.dtype, device=x.device)
+    r, k, v, g, w = _mix_inputs_tp(p, cfg, L, x, x_prev)
+    u = p.u[L.h_lo:L.h_lo + L.h_loc]
+    state = torch.zeros((b, L.h_loc, cfg.head_dim_, cfg.head_dim_),
+                        dtype=torch.float32, device=x.device)
+    if use_flash:
+        y, state = wkv6(r, k, v, w, u, state)
+    elif s >= WKV_CHUNK_THRESHOLD and s % 16 == 0:
+        y, state = wkv_chunked(r, k, v, w, u, state)
+    else:
+        y, state = wkv_scan(r, k, v, w, u, state)
+    return _time_mix_out(p, cfg, y, g, x.dtype), {
+        "state": state, "x_prev_tm": _own_d(L, x[:, -1, :])}
+
+
+def rwkv6_decode_tp(p: RWKV6TimeMix, cfg: ModelConfig, L, x, cache):
+    """One step of this rank's heads, x (B, 1, d) whole: (its float32
+    partial, its new state, its slice of the new ``x_prev_tm``).  The
+    token shift takes the whole previous token, gathered from the
+    ranks' slices."""
+    r, k, v, g, w = _mix_inputs_tp(p, cfg, L, x,
+                                   _whole_d(L, cache["x_prev_tm"]))
+    y, state = wkv_scan(r, k, v, w, p.u[L.h_lo:L.h_lo + L.h_loc],
+                        cache["state"])
+    return _time_mix_out(p, cfg, y, g, x.dtype), state, _own_d(L, x[:, 0])
+
+
+def channel_mix_tp(p: ChannelMix, L, x, x_prev=None):
+    """The channel-mix on this rank, x (B, S, d) whole: the whole output.
+
+    The stored cuts do not line up as Megatron's would: ``w_k`` holds the
+    rank's d_ff / model columns and ``w_r`` its d_model / model columns,
+    but ``w_v`` (d_ff, d) all of d_ff for its d_model / model columns.  So
+    the squared-ReLU k of the rank's FF columns is gathered over
+    ``model`` along d_ff, each rank computes its d_model columns of
+    ``r * (k @ w_v)`` whole (each sums all of d_ff, as one process does),
+    and those are gathered, in a prefill and a decode step alike: the
+    one site that does not follow ``TPLayout.move_weights``, for one path
+    over both.  Gathering ``w_v`` instead would move 14 % fewer bytes at
+    rwkv6-1.6b's 4 x 2,048 prefill, and 29 MB a layer in every decode
+    step."""
+    b, _, d = x.shape
+    xp = x_prev if x_prev is not None else torch.zeros(
+        (b, d), dtype=x.dtype, device=x.device)
+    xs = _token_shift(x, xp)
+    xk = x + (xs - x) * p.mu[0]
+    xr = x + (xs - x) * p.mu[1]
+    k = all_gather(torch.square(torch.relu(xk @ p.w_k)), "model", dim=-1,
+                   mesh=L.mesh)
+    r = torch.sigmoid(xr @ p.w_r)
+    return all_gather(r * (k @ p.w_v), "model", dim=-1, mesh=L.mesh)
+
+
+def channel_mix_decode_tp(p: ChannelMix, L, x, x_prev):
+    """One step, x (B, 1, d) whole: (the whole output, this rank's slice of
+    the new ``x_prev_cm``); ``x_prev`` is the rank's slice."""
+    return channel_mix_tp(p, L, x, _whole_d(L, x_prev)), _own_d(L, x[:, 0])

@@ -12,6 +12,11 @@ kernel, so the port has no kernel for it either: ``selective_scan`` is a
 plain PyTorch loop over the steps (one fused ``addcmul`` a step on the
 (B, d_inner, ssm_state) state), with each chunk's decays, inputs and
 outputs computed together.
+
+Tensor parallelism (``models.tensor_parallel``): ``ssm_prefill_tp`` /
+``ssm_decode_tp`` run the branch on the rank's d_inner channels, its
+``h`` and ``conv`` caches cut by channel as ``cache_pspecs`` cuts them,
+and return its float32 partial of ``w_out``'s product.
 """
 from __future__ import annotations
 
@@ -21,6 +26,8 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from .attention import _param
+from .layers import matmul_f32
+from .sharding import all_gather, psum, psum_scatter
 
 __all__ = [
     "SSM",
@@ -28,7 +35,9 @@ __all__ = [
     "init_ssm_cache",
     "selective_scan",
     "ssm_decode",
+    "ssm_decode_tp",
     "ssm_prefill",
+    "ssm_prefill_tp",
     "ssm_train",
 ]
 
@@ -155,3 +164,69 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, dtype, device):
 def ssm_decode(p: SSM, cfg: ModelConfig, x, cache):
     """x: (B,1,d). Returns (out (B,1,d), new cache)."""
     return _ssm_branch(p, cfg, x, cache["h"], cache["conv"])
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving: this rank's d_inner channels
+# ---------------------------------------------------------------------------
+def _ssm_branch_tp(p: SSM, cfg: ModelConfig, L, x, h0, conv_cache=None):
+    """The SSM branch on this rank's d_inner channels (``L.di_lo``,
+    ``L.di_loc``: the rows of ``w_dt`` / ``w_b`` / ``w_c`` / ``a_log`` /
+    ``w_out`` and the columns of ``conv_w`` it holds), x (B, S, d) whole.
+
+    ``w_in``'s stored column block is not the rank's u and z: of four
+    ranks, 0-1 hold u and 2-3 z.  And dt, B and C sum over every channel
+    of u.  Where the call gathers weights (``L.move_weights``, a prefill)
+    every rank gathers ``w_in``, ``conv_w``, ``w_dt``, ``w_b`` and
+    ``w_c`` and computes u over all channels, dt of its own and the
+    whole B and C with no sum; at hymba-1.5b's 2 x 4,096 prefill that
+    moves 20 + 20 MB of bf16 weights a layer, where summing the float32
+    dt activation would move 105 MB.  Else (a decode step) the products
+    are redistributed: ``x @ w_in``'s blocks gathered, then its u and z
+    channels; dt the ``psum_scatter`` of its float32 partial over the
+    channels; B and C a ``psum``.  Returns (the float32 partial of the
+    output, the cache ``{"h": (B, di_loc, st), "conv": (B, 3, di_loc)}``)."""
+    di, st = cfg.d_inner_, cfg.ssm_state
+    own = slice(L.di_lo, L.di_lo + L.di_loc)
+    z_cols = slice(di + L.di_lo, di + L.di_lo + L.di_loc)
+    mesh = L.mesh
+    if L.move_weights:
+        w_in = all_gather(p.w_in, "model", dim=1, mesh=mesh)
+        if conv_cache is not None:
+            conv_cache = all_gather(conv_cache, "model", dim=2, mesh=mesh)
+        u, conv_cache = _conv(x @ w_in[:, :di],
+                              all_gather(p.conv_w, "model", dim=1, mesh=mesh),
+                              conv_cache)
+        z = x @ w_in[:, z_cols]
+        dt = u @ all_gather(p.w_dt, "model", dim=0, mesh=mesh)[:, own]
+        bmat = u @ all_gather(p.w_b, "model", dim=0, mesh=mesh)
+        cmat = u @ all_gather(p.w_c, "model", dim=0, mesh=mesh)
+        u, conv_cache = u[..., own], conv_cache[..., own]
+    else:
+        uz = all_gather(x @ p.w_in, "model", dim=-1, mesh=mesh)
+        u, conv_cache = _conv(uz[..., own], p.conv_w, conv_cache)
+        z = uz[..., z_cols]
+        dt = psum_scatter(matmul_f32(u, p.w_dt), "model", dim=-1,
+                          mesh=mesh).to(u.dtype)
+        bc = psum(matmul_f32(u, torch.cat([p.w_b, p.w_c], 1)), "model",
+                  mesh=mesh).to(u.dtype)
+        bmat, cmat = bc[..., :st], bc[..., st:]
+    dt = F.softplus(dt + p.dt_bias[own]).float()
+    a = -torch.exp(p.a_log.float())
+    y, h = selective_scan(u, dt, bmat.float(), cmat.float(), a,
+                          p.d_skip[own], h0)
+    y = y.to(x.dtype) * F.silu(z)
+    return matmul_f32(y, p.w_out), {"h": h, "conv": conv_cache.contiguous()}
+
+
+def ssm_prefill_tp(p: SSM, cfg: ModelConfig, L, x):
+    """x (B, S, d) whole on this rank: (its float32 partial of the branch,
+    to be summed over ``model``; its cache)."""
+    h0 = torch.zeros((x.shape[0], L.di_loc, cfg.ssm_state),
+                     dtype=torch.float32, device=x.device)
+    return _ssm_branch_tp(p, cfg, L, x, h0)
+
+
+def ssm_decode_tp(p: SSM, cfg: ModelConfig, L, x, cache):
+    """x (B, 1, d) whole; ``cache`` this rank's: (its partial, new cache)."""
+    return _ssm_branch_tp(p, cfg, L, x, cache["h"], cache["conv"])

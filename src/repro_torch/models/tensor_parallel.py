@@ -11,7 +11,9 @@ of every weight matrix over ``data``).  A call computes:
 * between blocks, the residual stream's sequence slice over ``model``
   (Megatron sequence parallelism, the reference's ``_res_ax`` for GQA);
   ``rms_norm`` runs on the slice.  A sequence that does not divide stays
-  whole.  Decode's one-token residual is whole on every model rank;
+  whole, and so does the residual of the recurrent families (RWKV6,
+  Hymba), which the reference keeps batch-sharded only.  Decode's
+  one-token residual is whole on every model rank;
 * in a block: an ``all_gather`` over ``model`` along the sequence before
   each column-parallel product (``wq`` / ``wk`` / ``wv``, ``w1`` /
   ``w3``), the rank's heads and FF columns, then the row-parallel
@@ -30,8 +32,20 @@ of every weight matrix over ``data``).  A call computes:
 ``TPLayout`` holds the cut of one call; ``tp_layout`` derives it from the
 config, the mesh and the global (batch, sequence) by the reference's
 divisibility rules (a train call is a (B, S) call without a cache).
-Families cut: GQA attention (no sliding window) with a dense or MoE MLP;
-the others raise ``NotImplementedError`` (``check_cut``).
+Families cut: GQA attention (no sliding window) with a dense or MoE MLP,
+for serving and training; RWKV6 (its heads, the channel-mix's FF
+columns) and Hymba (its padded heads, the SSM's d_inner channels, the
+windowed ring cache cut along time), for serving.  The others raise
+``NotImplementedError`` (``check_cut``).
+
+Where a weight's stored cut does not line up with the rank's heads or
+channels (Hymba's ``wq`` / ``wo`` around padded heads, ``wk`` / ``wv``
+cut mid-head, the SSM's ``w_in`` whose column block holds u on ranks
+0-1 and the gate z on ranks 2-3 of four), the call redistributes the
+smaller of the two: a call of more token rows (batch rows times the
+sequence) than ``d_model`` gathers the weights over ``model``
+(``TPLayout.move_weights``: a prefill), a shorter one the products (a
+decode step).  Both give the one-process numbers.
 
 Training differentiates through the same cut: the collectives are
 ``torch.autograd.Function``s (``models.sharding``).  Where the residual is
@@ -70,8 +84,9 @@ from .sharding import (
     spec_axes,
 )
 
-__all__ = ["TPCache", "TPLayout", "check_cut", "fsdp_gathered",
-           "partitioned_leaf", "sum_partial_grads", "tp_layout"]
+__all__ = ["TPCache", "TPLayout", "check_cut", "cols_product",
+           "fsdp_gathered", "pad_heads", "partitioned_leaf",
+           "sum_partial_grads", "tp_layout"]
 
 
 @dataclass(frozen=True)
@@ -80,11 +95,17 @@ class TPLayout:
 
     ``rows``: its batch rows; ``seq_split``: the residual's sequence cut
     over ``model`` (``s_lo``, ``s_loc``); ``h_lo`` / ``h_loc``: its query
-    heads; ``kv_split``: KV heads cut over ``model`` (``kv_lo`` /
-    ``kv_loc``), else every rank holds them whole (``kv_cols``: whether
-    ``wk`` / ``wv``'s columns are cut all the same, mid-head);
-    ``ff_cols``: FF columns cut; ``vocab_split``: vocab rows cut
-    (``v_lo``, ``v_loc``); ``fsdp``: d_model cut over ``data``."""
+    heads, counted in the padded layout ``pads`` = (kv_pad, rep_pad)
+    (the real (KV, n_rep) where the heads divide the model axis);
+    ``kv_split``: KV heads cut over ``model`` (``kv_lo`` / ``kv_loc``),
+    else every rank holds them whole (``kv_cols``: whether ``wk`` /
+    ``wv``'s columns are cut all the same, mid-head); ``ff_cols``: FF
+    columns cut; ``vocab_split``: vocab rows cut (``v_lo``, ``v_loc``);
+    ``fsdp``: d_model cut over ``data``; ``di_lo`` / ``di_loc``: its
+    d_inner channels of an SSM (0 / 0 without one); ``move_weights``: a
+    weight whose cut does not line up with the rank's heads or channels
+    is gathered whole, not its product (the call has more token rows
+    than ``d_model``)."""
 
     mesh: Any
     model: int
@@ -97,6 +118,7 @@ class TPLayout:
     s_loc: int
     h_lo: int
     h_loc: int
+    pads: tuple[int, int]
     kv_split: bool
     kv_lo: int
     kv_loc: int
@@ -106,6 +128,9 @@ class TPLayout:
     v_lo: int
     v_loc: int
     fsdp: bool
+    di_lo: int
+    di_loc: int
+    move_weights: bool
 
     @property
     def rows_cut(self) -> bool:
@@ -113,10 +138,20 @@ class TPLayout:
         its own rows), so gradients are partial over ``data``."""
         return self.rows.stop - self.rows.start != self.batch
 
+    @property
+    def n_heads(self) -> int:
+        """The query heads of the padded layout, over all ranks."""
+        return self.pads[0] * self.pads[1]
+
+    def padded(self, cfg: ModelConfig) -> bool:
+        """Whether the heads are padded: the rank's heads then do not line
+        up with the column blocks of ``wq`` / ``wo``."""
+        return self.n_heads != cfg.n_heads
+
     def sizes(self, cfg: ModelConfig) -> dict[str, int]:
         """The global size of each logical axis ``ax`` checks here."""
         return {"batch": self.batch, "seq_sp": self.seq, "seq": self.seq,
-                "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+                "heads": self.n_heads, "kv_heads": cfg.n_kv_heads,
                 "ff": cfg.d_ff, "vocab": cfg.vocab_size}
 
 
@@ -131,44 +166,79 @@ class TPCache(dict):
         self.max_len = int(max_len)
 
 
-def check_cut(cfg: ModelConfig, mesh) -> None:
+def pad_heads(kv: int, rep: int, axis: int) -> tuple[int, int]:
+    """(kv_pad, rep_pad): the smallest padded (KV heads, queries a KV head)
+    whose product divides a ``heads`` axis of ``axis`` ranks, the
+    reference's search (``attention._head_padding``); (kv, rep) when it
+    divides already."""
+    if (kv * rep) % axis == 0:
+        return kv, rep
+    best = None
+    for kv_pad in range(kv, kv + axis + 1):
+        for rep_pad in range(rep, rep + axis + 1):
+            if (kv_pad * rep_pad) % axis == 0:
+                if best is None or kv_pad * rep_pad < best[0] * best[1]:
+                    best = (kv_pad, rep_pad)
+    return best if best else (kv, rep)
+
+
+_RECURRENT = ("rwkv6", "hymba")
+
+
+def check_cut(cfg: ModelConfig, mesh, training: bool = False) -> None:
     """Raise ``NotImplementedError``, with the reason, for a config or mesh
-    tensor parallelism does not cut yet (serving and training alike)."""
+    tensor parallelism does not cut yet: for serving, or for training
+    when ``training`` (RWKV6 and Hymba are cut for serving only)."""
     why = {"hymba": "Hymba's SSM branch and its padded-head weights are "
-                    "not cut yet",
-           "rwkv6": "RWKV6's time-mix and channel-mix are not cut yet",
-           "mla": "MLA's latent projections are not cut yet"}
-    if cfg.attn_type in why:
+                    "not cut for training yet",
+           "rwkv6": "RWKV6's time-mix and channel-mix are not cut for "
+                    "training yet"}
+    if training and cfg.attn_type in why:
         raise NotImplementedError(
-            f"{cfg.name}: {why[cfg.attn_type]}; tensor parallelism covers "
-            f"GQA attention without a window; run it with whole parameters "
-            f"under a mesh")
-    if cfg.attn_type != "gqa" or cfg.sliding_window:
+            f"{cfg.name}: {why[cfg.attn_type]}; tensor-parallel training "
+            f"covers GQA attention without a window; train it with whole "
+            f"parameters under a mesh")
+    if cfg.attn_type == "mla":
         raise NotImplementedError(
-            f"{cfg.name}: a sliding window is not cut yet; tensor "
+            f"{cfg.name}: MLA's latent projections are not cut yet; tensor "
+            f"parallelism covers GQA attention without a window, RWKV6 and "
+            f"Hymba; run it with whole parameters under a mesh")
+    if cfg.attn_type == "gqa" and cfg.sliding_window:
+        raise NotImplementedError(
+            f"{cfg.name}: a sliding window is cut for Hymba only; tensor "
             f"parallelism covers GQA attention without a window")
     if set(mesh_shape(mesh)) != {"data", "model"}:
         raise NotImplementedError(
             f"tensor parallelism takes a (data, model) mesh, not "
             f"{mesh_shape(mesh)}")
     m = mesh_shape(mesh)["model"]
-    if cfg.n_heads % m:
+    hd = cfg.head_dim_
+    if cfg.attn_type == "rwkv6" and (cfg.n_heads % m or cfg.d_ff % m
+                                     or cfg.d_model != cfg.n_heads * hd):
+        raise NotImplementedError(
+            f"{cfg.name}: RWKV6 is cut by whole heads and FF columns: "
+            f"{cfg.n_heads} heads of {hd} (d_model {cfg.d_model}) and "
+            f"d_ff {cfg.d_ff} over a {m}-way model axis")
+    if cfg.attn_type == "hymba" and (cfg.d_inner_ % m
+                                     or (cfg.n_heads * hd) % m):
+        raise NotImplementedError(
+            f"{cfg.name}: Hymba's SSM branch is cut by d_inner channels and "
+            f"its attention by wq's columns: d_inner {cfg.d_inner_} and "
+            f"{cfg.n_heads} x {hd} over a {m}-way model axis")
+    if cfg.n_heads % m and cfg.attn_type != "hymba":
         raise NotImplementedError(
             f"{cfg.n_heads} heads over a {m}-way model axis need the "
-            f"padded-head weights, which the port does not cut yet")
-    h_loc, n_rep = cfg.n_heads // m, cfg.n_heads // cfg.n_kv_heads
-    if cfg.n_kv_heads % m and n_rep % h_loc:
-        raise NotImplementedError(
-            f"a rank's {h_loc} heads straddle groups of {n_rep}")
+            f"padded-head weights, which the port cuts for Hymba only")
     if cfg.n_shared_experts:
         raise NotImplementedError(
             f"{cfg.name}: a shared expert is not cut yet")
 
 
-def tp_layout(cfg: ModelConfig, mesh, batch: int, seq: int) -> TPLayout:
+def tp_layout(cfg: ModelConfig, mesh, batch: int, seq: int,
+              training: bool = False) -> TPLayout:
     """The cut of a call over ``batch`` rows of ``seq`` tokens (decode:
     ``seq`` 1) on this rank of ``mesh``, by the reference's rules."""
-    check_cut(cfg, mesh)
+    check_cut(cfg, mesh, training)
     shape = mesh_shape(mesh)
     d, m = shape["data"], shape["model"]
     mi = axis_index("model", mesh)
@@ -177,25 +247,42 @@ def tp_layout(cfg: ModelConfig, mesh, batch: int, seq: int) -> TPLayout:
         b_loc = batch // d
         rows = slice(axis_index("data", mesh) * b_loc,
                      (axis_index("data", mesh) + 1) * b_loc)
-    seq_split = m > 1 and seq % m == 0
+    seq_split = m > 1 and seq % m == 0 and cfg.attn_type not in _RECURRENT
     s_loc = seq // m if seq_split else seq
-    h_loc = cfg.n_heads // m
     kv, hd = cfg.n_kv_heads, cfg.head_dim_
+    pads = pad_heads(kv, cfg.n_heads // kv, m)
+    h_loc = pads[0] * pads[1] // m
     kv_split = kv % m == 0
     kv_loc = kv // m if kv_split else kv
     v = cfg.vocab_size
     vocab_split = v % m == 0
     v_loc = v // m if vocab_split else v
+    di_loc = cfg.d_inner_ // m if cfg.attn_type == "hymba" else 0
     return TPLayout(
         mesh=mesh, model=m, mi=mi, batch=batch, rows=rows,
         seq=seq, seq_split=seq_split, s_lo=mi * s_loc if seq_split else 0,
-        s_loc=s_loc, h_lo=mi * h_loc, h_loc=h_loc, kv_split=kv_split,
-        kv_lo=mi * kv_loc if kv_split else 0, kv_loc=kv_loc,
-        kv_cols=not kv_split and (kv * hd) % m == 0,
+        s_loc=s_loc, h_lo=mi * h_loc, h_loc=h_loc, pads=pads,
+        kv_split=kv_split, kv_lo=mi * kv_loc if kv_split else 0,
+        kv_loc=kv_loc, kv_cols=not kv_split and (kv * hd) % m == 0,
         ff_cols=cfg.d_ff % m == 0, vocab_split=vocab_split,
         v_lo=mi * v_loc if vocab_split else 0, v_loc=v_loc,
-        fsdp=d > 1 and cfg.d_model % d == 0,
+        fsdp=d > 1 and cfg.d_model % d == 0, di_lo=mi * di_loc,
+        di_loc=di_loc,
+        move_weights=(rows.stop - rows.start) * seq > cfg.d_model,
     )
+
+
+def cols_product(L: TPLayout, x: torch.Tensor, w: torch.Tensor,
+                 cols=slice(None), cut: bool = True) -> torch.Tensor:
+    """``x @ W[:, cols]``, ``w`` this rank's column block of ``W`` (the
+    block of its model index; ``cut`` False: ``W`` whole).  A block that
+    does not hold ``cols`` is made whole over ``model``: the weight
+    when ``L.move_weights``, else the product ``x @ w``."""
+    if not cut:
+        return x @ w[:, cols]
+    if L.move_weights:
+        return x @ all_gather(w, "model", dim=1, mesh=L.mesh)[:, cols]
+    return all_gather(x @ w, "model", dim=-1, mesh=L.mesh)[..., cols]
 
 
 # ---------------------------------------------------------------------------

@@ -87,7 +87,18 @@ TP_DECODE_STEPS = 3
 #: of 509 and an FF width of 255 (embedding, head and MLP replicated over
 #: model, each rank computing the whole MLP); starcoder2: qkv and
 #: mlp biases (b2 added once after the reduce); granite: MoE through EP;
-#: internvl2: frontend embeddings on the first positions
+#: internvl2: frontend embeddings on the first positions; rwkv6: its
+#: heads, FF columns and d_model-cut token-shift caches; hymba: 4 heads
+#: over 1 KV head (no padding), 64 tokens (more token rows than d_model
+#: on (1, 4): the SSM gathers its weights there, its products on (2, 2))
+#: and a ring of 64 slots that decode wraps; hymba_padded: 25 / 5 heads
+#: padded to 6 x 6 (9 a rank in groups of 6 on (1, 4), 15 on (2, 2): they
+#: straddle groups), wq cut mid-head, w_in's u / z split across ranks, a
+#: window of 8 that binds in the prefill and a ring of 8 cut 2 a rank (at
+#: 16 tokens the prefill takes the products route, as a decode step does);
+#: hymba_padded_long: the same at 72 tokens, more token rows than d_model
+#: on both meshes, so the prefill gathers wq / wk / wv / wo whole (the
+#: weights route of hymba-1.5b's 2 x 4,096 prefill)
 TP_CASES = {
     "kv4": ("qwen3-4b", {"n_heads": 8, "n_kv_heads": 4}, 4, 16, 24),
     "kv1": ("qwen3-4b", {}, 4, 16, 24),
@@ -97,7 +108,19 @@ TP_CASES = {
     "starcoder2": ("starcoder2-3b", {}, 4, 16, 24),
     "granite": ("granite-moe-3b-a800m", {}, 4, 16, 24),
     "internvl2": ("internvl2-76b", {}, 4, 16, 24),
+    "rwkv6": ("rwkv6-1.6b", {}, 4, 16, 24),
+    "hymba": ("hymba-1.5b", {}, 4, 64, 72),
+    "hymba_padded": ("hymba-1.5b", {"n_heads": 25, "n_kv_heads": 5,
+                                    "head_dim": 8, "sliding_window": 8},
+                     4, 16, 24),
+    "hymba_padded_long": ("hymba-1.5b", {"n_heads": 25, "n_kv_heads": 5,
+                                         "head_dim": 8, "sliding_window": 8},
+                          4, 72, 80),
 }
+#: the straddling-group attention alone (hymba_padded's config on both
+#: meshes, both ways of redistributing wq / wo): its input (B, S, d)
+STRADDLE_CASE = "hymba_padded"
+STRADDLE_X_SHAPE = (2, 16, 128)
 
 
 def tp_config(get_config, name: str):

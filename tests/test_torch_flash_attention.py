@@ -206,6 +206,31 @@ def test_gqa_wrapper_hands_the_kernel_unrepeated_kv(kv, monkeypatch):
     assert got.shape == (b, s, h, hd)
 
 
+@pytest.mark.parametrize("b", [1, 2])
+def test_gqa_wrapper_hands_the_kernel_contiguous_heads(b, monkeypatch):
+    """What ``flash_attention`` hands K7 is contiguous, as K7 requires
+    (it raises otherwise), at a batch of one too: there the reshape of
+    the heads-first transpose is a view, not a copy (1 x 4,096 Hymba
+    prefills raised on the card before it was made contiguous)."""
+    s, h, kv, hd = 16, 8, 2, 32
+    (_, (q, k, v)) = _inputs(4, [(b, s, h, hd), (b, s, kv, hd),
+                                 (b, s, kv, hd)], "float32")
+    calls = []
+    plain = fa._flash_plain
+
+    def capture(q, k, v, causal, window, **kw):
+        calls.append((q, k, v))
+        return plain(q, k, v, causal, window, **kw)
+
+    monkeypatch.setattr(fa, "_flash_plain", capture)
+    got = flash_attention(q, k, v, causal=True, window=8)
+    (handed,) = calls
+    assert all(t.is_contiguous() for t in handed)
+    torch.testing.assert_close(got, flash_attention_reference(
+        q, k, v, causal=True, window=8), rtol=TOL["float32"],
+        atol=TOL["float32"])
+
+
 def _split_p_flash(q, k, v, causal, window, n_rep=1, split=True,
                    block_q=128, block_k=128):
     """The bf16 tensor-core route's arithmetic on the CPU: its 128 x 128

@@ -244,7 +244,7 @@ def tp_cases(ref, out, rank):
             zeros = init_cache_shards(cfg, b, t, mesh, device="cpu")
             out[f"{tag}/zeros/pos"] = np.array(zeros["pos"].shape)
             for i, layer in enumerate(zeros["layers"]):
-                for k, v in layer.items():
+                for k, v in flatten_pytree_dt(layer).items():
                     out[f"{tag}/zeros/layers/{i}/{k}"] = np.array(v.shape)
             with logical_sharding(mesh, single_pod_rules()):
                 with collective_timing() as times:
@@ -257,12 +257,70 @@ def tp_cases(ref, out, rank):
                     cfg, logits, b).numpy()
                 out[f"{tag}/cache/pos"] = cache["pos"].numpy()
                 for i, layer in enumerate(cache["layers"]):
-                    for k, v in layer.items():
+                    for k, v in flatten_pytree_dt(layer).items():
                         out[f"{tag}/cache/layers/{i}/{k}"] = v.numpy().copy()
                 for i in range(mc.TP_DECODE_STEPS):
                     logits, cache = decode(params, tok[:, s + i], cache)
                     out[f"{tag}/logits/decode{i}"] = steps.whole_logits(
                         cfg, logits, b).numpy()
+
+
+def straddle_case(out, rank):
+    """hymba_padded's attention alone on (1, 4) and (2, 2), from seeded
+    whole weights: this rank's padded heads over the KV heads they read
+    (straddling groups; plain route) and its float32 partial summed over
+    ``model``, each way of redistributing ``wq`` / ``wo`` (the weights,
+    the products), beside the one-process padded attention under the
+    same mesh (its heads' slice, its output)."""
+    import dataclasses
+
+    from repro_torch.models.sharding import psum
+    from repro_torch.models.tensor_parallel import tp_layout
+
+    cfg = mc.tp_config(get_config, mc.STRADDLE_CASE)
+    gen = torch.Generator().manual_seed(mc.ATTN_SEED)
+    whole = attn_mod.Attention(cfg, torch.float32, CPU)
+    attn_mod.init_attention(whole, cfg, gen)
+    x = torch.from_numpy(np.random.default_rng(mc.ATTN_SEED).normal(
+        size=mc.STRADDLE_X_SHAPE).astype(np.float32))
+    b, s, _ = x.shape
+    pos = torch.arange(s)[None].expand(b, -1)
+    for shape in mc.TP_MESHES:
+        mesh = make_host_mesh(*shape, device="cpu")
+        specs = param_pspecs(cfg, mesh)
+        local = attn_mod.Attention(cfg, torch.float32, CPU)
+        for k in ("wq", "wk", "wv", "wo"):
+            spec = specs[f"layers.0.attn.{k}"]
+            # the model axis only: the block gathers a d_model cut over
+            # data before its attention
+            spec = PartitionSpec(*[a if a == "model" else None for a in spec])
+            setattr(local, k, torch.nn.Parameter(
+                local_shard(getattr(whole, k), spec, mesh).clone(),
+                requires_grad=False))
+        tag = f"straddle/{shape[0]}x{shape[1]}"
+        with logical_sharding(mesh, single_pod_rules()):
+            q, k, v = attn_mod._project_qkv(whole, cfg, x, pos)
+            q, k, v, pads = attn_mod._shard_qkv(cfg, q, k, v)
+            heads = attn_mod._attend_full(q, k, v, cfg, False)
+            out[f"{tag}/one/out"] = attn_mod.attention_train(
+                whole, cfg, x, pos).numpy()
+            L = tp_layout(cfg, mesh, b, s)
+            out[f"{tag}/one/heads"] = heads[:, :, L.h_lo:L.h_lo
+                                            + L.h_loc].numpy()
+            out[f"{tag}/pads"] = np.array(pads)
+            for mode in (True, False):
+                Lm = dataclasses.replace(L, move_weights=mode)
+                q, k, v = attn_mod._project_qkv_padded(local, cfg, Lm, x,
+                                                       pos)
+                kq, rep = attn_mod._local_kv(cfg, Lm, k)
+                vq, _ = attn_mod._local_kv(cfg, Lm, v)
+                got = attn_mod._attend_full(q, kq, vq, cfg, False)
+                name = "weights" if mode else "products"
+                out[f"{tag}/{name}/heads"] = got.numpy()
+                out[f"{tag}/{name}/n_rep"] = np.array(rep)
+                out[f"{tag}/{name}/out"] = psum(
+                    attn_mod._padded_out(local, cfg, Lm, got), "model",
+                    mesh=mesh).numpy()
 
 
 def _specs_tree(cfg, mesh):
@@ -300,7 +358,7 @@ def checkpoint_cases(out, rank, port_dir, ref_dir):
 
 
 def flatten_pytree_dt(tree, prefix=""):
-    """{path: DTensor} of a nested dict of DTensors."""
+    """{path: leaf} of a nested dict (of DTensors, or tensors)."""
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -322,6 +380,7 @@ def run(rank, init_file, ref_path, out_dir, ckpt_dir):
         wire_step_case(ref, out, rank)
         attention_case(ref, out, rank)
         tp_cases(ref, out, rank)
+        straddle_case(out, rank)
         checkpoint_cases(out, rank, os.path.join(out_dir, "port_ckpt"),
                          ckpt_dir)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
