@@ -323,11 +323,24 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    shards on (2, 2) through ``TrainLoop``, a checkpoint every 2 steps,
    preempted at step 3 and resumed: the final shards bit-equal to an
    uninterrupted run's, the last checkpoint's leaves equal to them
-   gathered whole. One ``{"mesh": ...}`` line: each rank's peak
-   memory, (e)'s bytes, prefill s and decode ms a step with the
-   collectives' shares, (f) under ``train_tp`` with the card's name and
-   power limit, K7's launches per rank, the transports, the phase's
-   seconds.
+   gathered whole. (g) tensor-parallel serving of rwkv6-1.6b and
+   hymba-1.5b as (e) serves qwen3-4b (``MESH_RECURRENT``), K8 and K7 at
+   a rank's heads. (h) tensor-parallel serving of deepseek-v3-671b at
+   full width cut to 1 dense and 1 MoE layer (``MESH_DSV3``): each
+   rank's 32 of 128 MLA heads, its 64 of 256 routed experts and its
+   columns of the shared expert and the dense MLP, the latents gathered
+   along the sequence, the latent cache cut along time (1 x 4,096, the
+   chunked MLA route; decode's positions on rank 3's slice), the ranks
+   cutting their shards from the seeded leaves one rank at a time (a
+   rank holds one whole MoE block while it cuts it); the stored bytes
+   a rank equal to the ``shard_shape`` sum; logits within 1.5x the bf16
+   floor, read on the 32-expert copy one process holds in float32
+   beside bf16; a float32 32-expert run within 1e-4 and a dropless
+   32-expert run on (2, 2); no K7 or K8 launch.  One ``{"mesh": ...}``
+   line: each rank's peak memory, (e)'s, (g)'s and (h)'s bytes, prefill
+   s and decode ms a step with the collectives' shares, (f) under
+   ``train_tp`` with the card's name and power limit, K7's launches per
+   rank, the transports, the phase's seconds.
 
 ``python3 chip_smoke.py --forest-times`` runs only K3 and K4 at the two
 Liberty shapes and the large one (the same command times a parent tree's
@@ -342,7 +355,8 @@ single-forest batch, with each call's device time from ``torch.profiler``.
 ``--lifecycle`` runs phase 11 alone, over phase 10's 500-user fleet
 built for it; ``--online`` runs phase 12 alone, likewise; ``--families``
 runs K7's parity cases and phase 13 alone; ``--train`` runs phase 14
-alone; ``--mesh`` runs K7's parity cases and phase 15 alone.
+alone; ``--mesh`` runs K7's parity cases and phase 15 alone;
+``--mesh-mla`` runs phase 15 (h) alone.
 
 Votes must be equal; regression sums are held at rtol = atol = 1e-5 (the
 reference's own serving tolerance); on the card K1-K4 equal their plain
@@ -3067,7 +3081,8 @@ LIFE_FULL_USERS = 300  # the full rebuild's fleet (1,000 before the cut)
 LIFE_LATE = 0.3
 LIFE_SEED = 7
 LIFE_BATCH = (64, 256)  # the warm lifecycle batch: requests, rows
-CRASH_USERS = 100  # benchmarks/recluster_bench.py's fleet
+CRASH_USERS = 50  # benchmarks/recluster_bench.py's fleet, cut from 100
+# to pay for phase 15 (h)
 CRASH_SEED = 0
 CRASH_WORKERS = 6
 STREAM_WAVE = 256
@@ -5444,15 +5459,16 @@ MESH_WIRE = {"arch": "qwen3-4b", "layers": 2, "mesh": (4, 1), "bits": 4,
 MESH_CKPT_ARCH = "qwen3-4b"  # (d): its smoke config
 # (e) tensor-parallel serving of qwen3-4b, seeded weights cut leaf by leaf
 # on each rank (``shard_params``): (name, mesh, layers (None: all 36),
-# dtype).  A 4 x 2,048 prefill, then 2 decode steps (cut from 8 to pay
-# for (f)) fed the one-process run's greedy tokens; held to the
-# one-process prefill and decode of the same weights (bf16: within 1.5x the bf16 floor read against float32;
-# float32: 1e-4 relative L2)
-MESH_TP = {"arch": "qwen3-4b", "batch": 4, "prompt": 2048, "max_len": 2056,
+# dtype, batch).  A 4 x 2,048 prefill (the float32 run's 1 x 2,048, cut
+# from 4 rows to pay for (h)), then 2 decode steps (cut from 8 to pay for
+# (f)) fed the one-process run's greedy tokens; held to the one-process
+# prefill and decode of the same weights (bf16: within 1.5x the bf16
+# floor read against float32; float32: 1e-4 relative L2)
+MESH_TP = {"arch": "qwen3-4b", "prompt": 2048, "max_len": 2056,
            "steps": 2, "warm_prompt": 64,
-           "runs": (("full", (1, 4), None, "bfloat16"),
-                    ("cut4", (2, 2), 4, "bfloat16"),
-                    ("f32", (1, 4), 2, "float32"))}
+           "runs": (("full", (1, 4), None, "bfloat16", 4),
+                    ("cut4", (2, 2), 4, "bfloat16", 4),
+                    ("f32", (1, 4), 2, "float32", 1))}
 MESH_TP_F32_TOL = 1e-4
 # (g) tensor-parallel serving of the recurrent families, seeded weights cut
 # leaf by leaf on each rank as in (e): (name, arch, mesh, layers (None:
@@ -5479,6 +5495,29 @@ MESH_RECURRENT = {
               520)),
     "launch": {"rwkv6": ("wkv6", [4, 2048, 8, 64]),
                "hymba": ("flash", [18, 18, 1, 4096, 2048])},
+}
+# (h) tensor-parallel serving of deepseek-v3-671b at full width, cut as
+# phase 13 cuts it (FAMILY_DSV3_CUT: 1 dense and 1 MoE layer, the MTP
+# head carried), seeded weights cut leaf by leaf on each rank as in (e):
+# (name, routed experts (None: all 256), mesh, dtype, batch, prompt,
+# max_len, dropless), each a prefill then MESH_TP's decode steps fed the
+# one-process run's greedy tokens.  dsv3: bf16 on (1, 4), 32 of 128 MLA
+# heads and 64 of 256 experts a rank, 1 x 4,096 (the chunked MLA route;
+# at B = 1 the default capacity routes as one process does), the latent
+# cache of 4,112 cut 1,028 slots a rank (positions 4,096-4,097 on rank
+# 3's); its bf16 floor is read on the FAMILY_DSV3_CHECK_EXPERTS copy
+# (float32 beside bf16 at 256 experts would need ~88 GB) at the same
+# prompt.  dsv3_f32: that copy in float32, 1 x 256 (the dense route).
+# dsv3_2x2: that copy in bf16 on (2, 2), ZeRO-3 over data, 2 x 512,
+# dropless (``dropless``): at the default factor the capacity is taken per
+# data shard, so other tokens drop than in one process
+MESH_DSV3 = {
+    "arch": "deepseek-v3-671b",
+    "runs": (("dsv3", None, (1, 4), "bfloat16", 1, 4096, 4112, False),
+             ("dsv3_f32", FAMILY_DSV3_CHECK_EXPERTS, (1, 4), "float32", 1,
+              256, 264, False),
+             ("dsv3_2x2", FAMILY_DSV3_CHECK_EXPERTS, (2, 2), "bfloat16", 2,
+              512, 520, True)),
 }
 MESH_TIMEOUT_S = 600  # a rank stuck in a collective fails the phase
 
@@ -5810,15 +5849,14 @@ def flat_tree(tree, prefix=""):
     return out
 
 
-def mesh_rank(rank, root, device, train_ref):
-    """One of the MESH_RANKS ranks of phase 15, all on ``device`` (the
-    parent's card); ``train_ref``: (f)'s one-process gradients and
-    scalars (``mesh_train_reference``)."""
+@contextlib.contextmanager
+def mesh_group(rank, root, device):
+    """This rank's process group of MESH_RANKS on ``device`` (the parent's
+    card), through a rendezvous file in ``root``; yields (the device, the
+    backend) and destroys the group after."""
     import datetime
 
     import torch.distributed as dist
-
-    from repro_torch.models.sharding import TRANSPORTS
 
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -5829,6 +5867,20 @@ def mesh_rank(rank, root, device, train_ref):
         rank=rank, world_size=MESH_RANKS,
         timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
     try:
+        yield dev, backend
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_rank(rank, root, device, train_ref):
+    """One of the MESH_RANKS ranks of phase 15, all on ``device`` (the
+    parent's card); ``train_ref``: (f)'s one-process gradients and
+    scalars (``mesh_train_reference``)."""
+    import torch.distributed as dist
+
+    from repro_torch.models.sharding import TRANSPORTS
+
+    with mesh_group(rank, root, device) as (dev, backend):
         out = {"rank": rank, "backend": backend}
         clock = {}
         torch.cuda.reset_peak_memory_stats(dev)
@@ -5867,15 +5919,47 @@ def mesh_rank(rank, root, device, train_ref):
         out["rec"] = [mesh_tp(dev, rank, root, *run)
                       for run in serve_runs("g")]
         clock["g"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["mla"] = [mesh_tp(dev, rank, root, *run)
+                      for run in serve_runs("h")]
+        clock["h"] = time.perf_counter() - t0
         out["part_s"] = clock
         out["transports"] = dict(TRANSPORTS)
         out["max_memory_allocated"] = max(
-            [peak] + [t["peak_abs"] for t in out["tp"] + out["rec"]])
+            [peak] + [t["peak_abs"]
+                      for t in out["tp"] + out["rec"] + out["mla"]])
         with open(os.path.join(root, f"rank{rank}.json"), "w") as fh:
             json.dump(out, fh)
         dist.barrier()
-    finally:
-        dist.destroy_process_group()
+
+
+def mesh_mla_rank(rank, root, device):
+    """``--mesh-mla``'s rank: phase 15 (h) alone."""
+    import torch.distributed as dist
+
+    with mesh_group(rank, root, device) as (dev, backend):
+        t0 = time.perf_counter()
+        out = {"rank": rank, "backend": backend,
+               "mla": [mesh_tp(dev, rank, root, *run)
+                       for run in serve_runs("h")]}
+        out["part_s"] = {"h": time.perf_counter() - t0}
+        with open(os.path.join(root, f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+        dist.barrier()
+
+
+def mesh_mla_rows(ranks) -> dict:
+    """(h)'s part of the ``{"mesh"}`` row from the ranks' outputs: the runs
+    on rank 0 (logits hashes left out), every rank's peak a run, and (h)'s
+    seconds on the ranks; the ranks' logits must agree."""
+    for rk in ranks[1:]:
+        for a, b in zip(rk["mla"], ranks[0]["mla"]):
+            assert a["logits"] == b["logits"], "ranks' MLA logits differ"
+    return {"mla": [{k: v for k, v in t.items() if k != "logits"}
+                    for t in ranks[0]["mla"]],
+            "mla_peak_bytes_per_rank": [[t["peak_bytes"] for t in rk["mla"]]
+                                        for rk in ranks],
+            "mla_ranks_s": ranks[0]["part_s"]["h"]}
 
 
 def mesh_tp_config(layers, dtype):
@@ -5884,13 +5968,23 @@ def mesh_tp_config(layers, dtype):
 
 
 def serve_runs(part: str) -> list:
-    """(e)'s or (g)'s runs, each (name, config, mesh, batch, prompt,
+    """(e)'s, (g)'s or (h)'s runs, each (name, config, mesh, batch, prompt,
     max_len)."""
     t = MESH_TP
     if part == "e":
-        return [(name, mesh_tp_config(layers, dtype), shape, t["batch"],
+        return [(name, mesh_tp_config(layers, dtype), shape, batch,
                  t["prompt"], t["max_len"])
-                for name, shape, layers, dtype in t["runs"]]
+                for name, shape, layers, dtype, batch in t["runs"]]
+    if part == "h":
+        runs = []
+        for name, experts, shape, dtype, batch, prompt, max_len, free in \
+                MESH_DSV3["runs"]:
+            cfg = family_config(MESH_DSV3["arch"], dtype=dtype,
+                                **({} if experts is None
+                                   else {"n_experts": experts}))
+            runs.append((name, dropless(cfg) if free else cfg, shape, batch,
+                         prompt, max_len))
+        return runs
     return [(name, family_config(
                 arch, dtype=dtype,
                 **({} if layers is None else {"n_layers": layers})),
@@ -5932,12 +6026,26 @@ def mesh_serve(cfg, params, tokens, max_len, feed=None):
     return out, torch.stack(fed, 1)
 
 
+def floor_config(cfg):
+    """The config whose bf16 floor stands for ``cfg``'s: ``cfg`` itself, or
+    for a DeepSeek-V3 of more than FAMILY_DSV3_CHECK_EXPERTS routed
+    experts, that copy (phase 13's rule: float32 weights beside the bf16
+    ones would not fit the card)."""
+    import dataclasses
+
+    if cfg.attn_type == "mla" and cfg.n_experts > FAMILY_DSV3_CHECK_EXPERTS:
+        return dataclasses.replace(cfg, n_experts=FAMILY_DSV3_CHECK_EXPERTS)
+    return cfg
+
+
 def mesh_tp_reference(dev, root, runs) -> dict:
-    """(e)'s or (g)'s one-process runs, before the ranks start: each run's
-    model whole (``init_params``, seed 0), its prefill through the kernels
-    and the greedy decode (bf16: the tokens the ranks are fed), then the
-    same weights in float32 fed those tokens (bf16's floor).  Saved to
-    ``root``."""
+    """(e)'s, (g)'s or (h)'s one-process runs, before the ranks start: each
+    run's model whole (``init_params``, seed 0), its prefill through the
+    kernels and the greedy decode (bf16: the tokens the ranks are fed);
+    for a bf16 run, the bf16 floor: the same prompt and tokens through
+    ``floor_config``'s model (the run's own, or a fresh one of that
+    config) in bf16 and its weights upcast to float32, their distance a
+    step.  Saved to ``root``; every model freed before the next."""
     from repro_torch.models import init_params
 
     row = {}
@@ -5948,11 +6056,20 @@ def mesh_tp_reference(dev, root, runs) -> dict:
         runs_ = {}
         runs_[cfg.dtype], fed = mesh_serve(cfg, params, tokens, max_len)
         if cfg.dtype == "bfloat16":
-            cfg32, params32 = f32_copy(cfg, params, dev)
+            witness, wcfg = runs_["bfloat16"], floor_config(cfg)
+            if wcfg is not cfg:
+                del params
+                torch.cuda.empty_cache()
+                params = init_params(wcfg, seed=0, device=dev)
+                witness, _ = mesh_serve(wcfg, params, tokens, max_len, fed)
+            cfg32, params32 = f32_copy(wcfg, params, dev)
             del params
             torch.cuda.empty_cache()
             runs_["float32"], _ = mesh_serve(cfg32, params32, tokens,
                                              max_len, fed)
+            runs_["floor"] = [rel_l2(a, b) for a, b in zip(witness,
+                                                           runs_["float32"])]
+            runs_["floor_experts"] = wcfg.n_experts
             del params32
         else:
             del params
@@ -5965,22 +6082,26 @@ def mesh_tp_reference(dev, root, runs) -> dict:
 
 def mesh_tp(dev, rank, root, name, cfg, shape, batch, prompt,
             max_len) -> dict:
-    """(e) or (g), one run on this rank: its shards of the seeded weights
-    cut leaf by leaf (``shard_params(init_leaves(...))``; the stored bytes
-    held to the sum of ``shard_shape`` bytes and the peak of the init
-    below the whole model's), a short warm-up, the timed prefill (K7's
+    """(e), (g) or (h), one run on this rank: its shards of the seeded
+    weights cut leaf by leaf (``shard_params(init_leaves(...))``; the
+    stored bytes held to the sum of ``shard_shape`` bytes and the peak of
+    the init below the whole model's; where MESH_RANKS ranks each holding
+    the largest block whole beside their shards would fill most of the
+    card, one rank at a time), a short warm-up, the timed prefill (K7's
     and K8's counts set to 0 just before and read after, a spy recording
-    each launch's shape; the family's kernel launched once a layer), then
-    the decode steps fed the one-process tokens, each step's logits
-    gathered whole; rank 0 saves them for the parent's check.  The timed
-    prefill and decode steps run under ``collective_timing`` (each
-    collective behind a sync of the card and a barrier of its group):
-    calls, bytes, barrier and collective seconds per kind, and their
-    shares of the timed wall time."""
+    each launch's shape; the family's kernel launched once a layer, and
+    none for MLA, whose route, dense or chunked, is recorded), then the
+    decode steps fed the one-process tokens, each step's logits gathered
+    whole; rank 0 saves them for the parent's check.  The timed prefill
+    and decode steps run under ``collective_timing`` (each collective
+    behind a sync of the card and a barrier of its group): calls, bytes,
+    barrier and collective seconds per kind, and their shares of the
+    timed wall time."""
     import torch.distributed as dist
 
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan as ws
+    from repro_torch.models import mla
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.shardings import (
         NamedSharding,
@@ -6007,15 +6128,26 @@ def mesh_tp(dev, rank, root, name, cfg, shape, batch, prompt,
     shard_bytes = sum(
         int(np.prod(NamedSharding(mesh, specs[n]).shard_shape(p.shape)))
         * p.element_size() for n, p in meta.items())
+    blocks: dict[str, int] = {}
+    for n, p in meta.items():
+        key = ".".join(n.split(".")[:2])
+        blocks[key] = blocks.get(key, 0) + p.numel() * p.element_size()
+    turns = (MESH_RANKS * (max(blocks.values()) + shard_bytes) > 0.5
+             * torch.cuda.get_device_properties(dev).total_memory)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    params = shard_params(cfg, init_leaves(cfg, 0, dev), mesh, dev)
-    torch.cuda.synchronize()
+    for turn in range(MESH_RANKS if turns else 1):
+        if not turns or turn == rank:
+            params = shard_params(cfg, init_leaves(cfg, 0, dev), mesh, dev)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()  # the whole blocks go back to the card
+        if turns:
+            dist.barrier()
     row = {"run": name, "arch": cfg.name, "mesh": list(shape),
            "layers": cfg.n_layers, "dtype": cfg.dtype, "batch": batch,
-           "prompt": prompt, "max_len": max_len,
+           "prompt": prompt, "max_len": max_len, "init_in_turns": turns,
            "init_s": time.perf_counter() - t0,
            "param_bytes": sum(p.numel() * p.element_size()
                               for p in params.parameters()),
@@ -6023,12 +6155,21 @@ def mesh_tp(dev, rank, root, name, cfg, shape, batch, prompt,
            "init_peak_bytes": torch.cuda.max_memory_allocated(dev) - base}
     assert row["param_bytes"] == shard_bytes, row
     assert row["init_peak_bytes"] < whole_bytes, row
+    torch.cuda.reset_peak_memory_stats(dev)  # the serving peak from here
     ref = torch.load(os.path.join(root, f"tp_{name}_ref.pt"))
     tokens = mesh_prompt(cfg, batch, prompt, dev)
     prefill = make_prefill_step(cfg, use_flash=True)
     decode = make_decode_step(cfg)
     seen = {"flash": [], "wkv6": []}
     orig = (fa._launch_flash, ws._launch_wkv6)
+    routes = {"dense": 0, "chunked": 0}
+    orig_routes = (mla._attend_dense, mla._attend_chunked)
+
+    def route_spy(kind, fn):
+        def spy(*args, **kw):
+            routes[kind] += 1
+            return fn(*args, **kw)
+        return spy
 
     def flash_spy(q, k, v, causal=True, window=None, n_rep=1):
         seen["flash"].append([q.shape[0], k.shape[0], n_rep, q.shape[1],
@@ -6047,6 +6188,8 @@ def mesh_tp(dev, rank, root, name, cfg, shape, batch, prompt,
         fa.reset_launches()
         ws.reset_launches()
         fa._launch_flash, ws._launch_wkv6 = flash_spy, wkv6_spy
+        mla._attend_dense = route_spy("dense", orig_routes[0])
+        mla._attend_chunked = route_spy("chunked", orig_routes[1])
         try:
             with collective_timing() as coll:
                 t0 = time.perf_counter()
@@ -6055,11 +6198,21 @@ def mesh_tp(dev, rank, root, name, cfg, shape, batch, prompt,
                 row["prefill_s"] = time.perf_counter() - t0
         finally:
             fa._launch_flash, ws._launch_wkv6 = orig
+            mla._attend_dense, mla._attend_chunked = orig_routes
         row["prefill_collectives"] = coll
         row["k7_launches"] = fa.LAUNCHES["flash"]
         row["k8_launches"] = ws.LAUNCHES["wkv6"]
         row["launch_shapes"] = {k: sorted(map(list, {tuple(x) for x in v}))
                                 for k, v in seen.items() if v}
+        if cfg.attn_type == "mla":
+            slots = cache["layers"][0]["c_kv"].shape[1]
+            row["mla_route"] = {k: n for k, n in routes.items() if n}
+            row["latent_cache"] = {"slots_a_rank": slots,
+                                   "cut": "time" if slots < max_len
+                                   else "whole"}
+            assert routes == {"dense": 0, "chunked": 0, **{
+                "chunked" if prompt >= mla.MLA_CHUNKED_THRESHOLD
+                else "dense": cfg.n_layers}}, routes
         got.append(whole_logits(cfg, logits, batch).float().cpu())
         step_ms = []
         decode_coll = {}
@@ -6085,12 +6238,15 @@ def mesh_tp(dev, rank, root, name, cfg, shape, batch, prompt,
             c["wait_s"] for c in coll.values()) / wall
     row["decode_ms"] = step_ms
     row["decode_ms_per_step"] = float(np.median(step_ms))
-    row["peak_bytes"] = torch.cuda.max_memory_allocated(dev) - base
-    row["peak_abs"] = torch.cuda.max_memory_allocated(dev)
+    row["serve_peak_bytes"] = torch.cuda.max_memory_allocated(dev) - base
+    row["peak_bytes"] = max(row["init_peak_bytes"], row["serve_peak_bytes"])
+    row["peak_abs"] = base + row["peak_bytes"]
     row["logits"] = [sha(g) for g in got]
-    kernel = "wkv6" if cfg.attn_type == "rwkv6" else "flash"
+    # the family's kernel once a layer and no other; MLA reaches none
+    kernel = {"rwkv6": "wkv6", "mla": None}.get(cfg.attn_type, "flash")
     counts = {"flash": row["k7_launches"], "wkv6": row["k8_launches"]}
-    assert counts[kernel] == cfg.n_layers == len(seen[kernel]), row
+    if kernel is not None:
+        assert counts[kernel] == cfg.n_layers == len(seen[kernel]), row
     assert all(n == 0 for k, n in counts.items() if k != kernel), row
     assert all(bool(torch.isfinite(g).all()) for g in got), name
     if rank == 0:
@@ -6101,10 +6257,11 @@ def mesh_tp(dev, rank, root, name, cfg, shape, batch, prompt,
 
 
 def mesh_tp_check(root, runs) -> dict:
-    """(e)'s or (g)'s logits against the one-process runs: bf16 runs within
-    FAMILY_BF16_OVER_FLOOR times the bf16 floor (the one-process bf16
-    logits' distance from float32 on the same weights and tokens), step
-    by step; float32 runs within MESH_TP_F32_TOL."""
+    """(e)'s, (g)'s or (h)'s logits against the one-process runs: bf16 runs
+    within FAMILY_BF16_OVER_FLOOR times the bf16 floor (``mesh_tp_
+    reference``'s: the one-process bf16 logits' distance from float32 on
+    the same weights and tokens, or on ``floor_config``'s), step by step;
+    float32 runs within MESH_TP_F32_TOL."""
     out = {}
     for name, cfg, *_ in runs:
         ref = torch.load(os.path.join(root, f"tp_{name}_ref.pt"))
@@ -6112,9 +6269,9 @@ def mesh_tp_check(root, runs) -> dict:
         errs = [rel_l2(g, w) for g, w in zip(got, ref[cfg.dtype])]
         row = {"rel_l2": errs}
         if cfg.dtype == "bfloat16":
-            floors = [rel_l2(a, b) for a, b in zip(ref["bfloat16"],
-                                                   ref["float32"])]
+            floors = ref["floor"]
             row["floor"] = floors
+            row["floor_experts"] = ref["floor_experts"]
             row["bound"] = FAMILY_BF16_OVER_FLOOR
             row["ok"] = all(e <= FAMILY_BF16_OVER_FLOOR * f
                             for e, f in zip(errs, floors))
@@ -6168,9 +6325,9 @@ def mesh_k7_tp_timing(dev) -> dict:
     """K7 at (e)'s launch on a rank of (1, 4): 4 x 8 query heads over 4 x
     2 KV heads (n_rep 4), S 2,048, hd 128, causal."""
     cfg = mesh_tp_config(None, "bfloat16")
-    model = MESH_TP["runs"][0][1][1]
+    _, (_, model), _, _, batch = MESH_TP["runs"][0]
     rep = cfg.n_heads // cfg.n_kv_heads
-    return k7_launch_timing(dev, MESH_TP["batch"] * cfg.n_heads // model,
+    return k7_launch_timing(dev, batch * cfg.n_heads // model,
                             rep, MESH_TP["prompt"], cfg.head_dim_, None, 26)
 
 
@@ -6268,13 +6425,15 @@ def mesh_wire_replay(dev, ranks) -> dict:
     drawn in the step's order), the integer sum, the decode, the clip and
     AdamW on whole tensors; each step's mean loss within 2 float32 ulps
     of the ranks' (gloo's four-way sum has its own order) and every final
-    shard's hash equal to the rank's."""
+    shard's hash equal to the rank's.  The gradients are taken in the
+    step's ``manual_region``, as the ranks take theirs."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import TokenDataConfig, synth_batch
     from repro_torch.launch.steps import deterministic_algorithms, loss_and_grads
     from repro_torch.models import init_params
+    from repro_torch.models.sharding import manual_region
     from repro_torch.optim import compression
     from repro_torch.optim.adamw import (
         AdamWConfig,
@@ -6297,7 +6456,7 @@ def mesh_wire_replay(dev, ranks) -> dict:
     for i in range(w["steps"]):
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in synth_batch(data, i).items()}
-        with deterministic_algorithms():
+        with deterministic_algorithms(), manual_region():
             per_rank, local = [], []
             for r in range(d_size):
                 loss, g = loss_and_grads(
@@ -6881,13 +7040,14 @@ def mesh_train_check(root, scalars) -> dict:
 
 
 def phase_mesh(dev) -> tuple[dict, list, list]:
-    """Phase 15: (e)'s, (g)'s and (f)'s one-process runs in this process,
-    then MESH_RANKS ranks spawned on the one card (the kernels are built
-    before, in this process), running (a)-(g) (``mesh_rank``; (f)'s
-    float32 gradients shared with them through CUDA IPC); then this
-    process's checks: (a)'s logits against a dense prefill, (b)'s
-    against the unpadded prefill, (c) against its one-process replay,
-    (e) and (g) against their one-process runs, (f) across the ranks
+    """Phase 15: (e)'s, (g)'s, (h)'s and (f)'s one-process runs in this
+    process, each model freed before the next, then MESH_RANKS ranks
+    spawned on the one card (the kernels are built before, in this
+    process), running (a)-(h) (``mesh_rank``; (f)'s float32 gradients
+    shared with them through CUDA IPC); then this process's checks: (a)'s
+    logits against a dense prefill, (b)'s against the unpadded prefill,
+    (c) against its one-process replay, (e), (g) and (h) against their
+    one-process runs, (f) across the ranks
     (``mesh_train_check``); K7 at (b)'s, (e)'s and (g)'s launches and K8
     at (g)'s against their plain versions.  Returns the ``{"mesh"}`` row
     and each rank's K7 launches in the timed prefills of (a), (b), (e)
@@ -6911,6 +7071,10 @@ def phase_mesh(dev) -> tuple[dict, list, list]:
         row["rec_reference"] = mesh_tp_reference(dev, root,
                                                  serve_runs("g"))
         row["rec_reference_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        row["mla_reference"] = mesh_tp_reference(dev, root,
+                                                 serve_runs("h"))
+        row["mla_reference_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         train_ref = mesh_train_reference(dev)
         row["train_reference_s"] = time.perf_counter() - t0
@@ -6944,6 +7108,7 @@ def phase_mesh(dev) -> tuple[dict, list, list]:
         torch.cuda.empty_cache()
         row["tp_vs_one_process"] = mesh_tp_check(root, serve_runs("e"))
         row["rec_vs_one_process"] = mesh_tp_check(root, serve_runs("g"))
+        row["mla_vs_one_process"] = mesh_tp_check(root, serve_runs("h"))
         row["checks_s"] = time.perf_counter() - t0
         row["train_tp"] = mesh_train_check(root, train_scalars)
         row["train_tp"]["card"] = row["card"]
@@ -6966,6 +7131,7 @@ def phase_mesh(dev) -> tuple[dict, list, list]:
                   for t in r0["rec"]]
     row["rec_peak_bytes_per_rank"] = [[t["peak_bytes"] for t in rk["rec"]]
                                       for rk in ranks]
+    row.update(mesh_mla_rows(ranks))
     for rk in ranks:  # each bf16 (1, 4) run's kernel at its launch shape
         for t in rk["rec"]:
             if t["run"] in MESH_RECURRENT["launch"]:
@@ -6986,6 +7152,37 @@ def phase_mesh(dev) -> tuple[dict, list, list]:
     row["k8_launches_per_rank"] = k8
     row["phase_s"] = time.perf_counter() - t_phase
     return row, k7, k8
+
+
+def mesh_mla_main() -> None:
+    """``--mesh-mla``: phase 15 (h) alone (no kernel reached, none built):
+    the one-process runs, the ranks, the checks, one ``{"mesh_mla"}``
+    line."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    dev = phase_environment()
+    t_phase = time.perf_counter()
+    row = {"card": smi_line()}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        row["mla_reference"] = mesh_tp_reference(dev, root,
+                                                 serve_runs("h"))
+        row["mla_reference_s"] = time.perf_counter() - t0
+        mp.spawn(mesh_mla_rank, args=(root, str(dev)), nprocs=MESH_RANKS,
+                 join=True)
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(root, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        row["mla_vs_one_process"] = mesh_tp_check(root, serve_runs("h"))
+    row.update(mesh_mla_rows(ranks))
+    row["max_memory_allocated"] = [max(t["peak_abs"] for t in rk["mla"])
+                                   for rk in ranks]
+    row["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"mesh_mla": row}))
+    print(json.dumps({"ok": True}), flush=True)
 
 
 def mesh_main() -> None:
@@ -7200,5 +7397,7 @@ if __name__ == "__main__":
         train_main()
     elif len(sys.argv) > 1 and sys.argv[1] == "--mesh":
         mesh_main()
+    elif len(sys.argv) > 1 and sys.argv[1] == "--mesh-mla":
+        mesh_mla_main()
     else:
         main()

@@ -196,7 +196,8 @@ def make_wire_train_step(
     global clip on the rank-identical full gradients, a slice back to
     the shards and AdamW with ``clip_norm=inf``.  Inside, ``batch`` and
     ``d_model_fsdp`` map to no mesh axis, as in the reference's manual
-    region; the step runs under deterministic algorithms.
+    region, which the step runs in (``manual_region``); the step runs
+    under deterministic algorithms.
     """
     import dataclasses
 
@@ -205,6 +206,7 @@ def make_wire_train_step(
         all_gather,
         axis_index,
         logical_sharding,
+        manual_region,
         mesh_axis_names,
         mesh_shape,
         pmean,
@@ -224,7 +226,8 @@ def make_wire_train_step(
     def train_step(params_shard, opt_state, batch):
         rank = axis_index("data", mesh)
         shards = dict(params_shard)
-        with deterministic_algorithms(), logical_sharding(mesh, inner_rules):
+        with deterministic_algorithms(), logical_sharding(
+                mesh, inner_rules), manual_region():
             if "model" not in whole:
                 whole["model"] = TransformerLM(
                     cfg, next(iter(shards.values())).device)

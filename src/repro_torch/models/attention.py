@@ -337,14 +337,15 @@ def attention_decode(p: Attention, cfg: ModelConfig, x, cache, position):
 
 
 def _write_slot(buf, new, slot, inside):
-    """Write each row's one new (B, 1, KV, hd) key or value into ``buf``
-    (B, T, KV, hd) IN PLACE at its ``slot``, where ``inside``; elsewhere
-    the old value is written back (a slot past the cache is dropped, as
-    JAX's scatter drops it)."""
+    """Write each row's one new (B, 1, ...) entry (a key or value (B, 1,
+    KV, hd), an MLA latent (B, 1, r)) into ``buf`` (B, T, ...) IN PLACE at
+    its ``slot``, where ``inside``; elsewhere the old value is written
+    back (a slot past the cache is dropped, as JAX's scatter drops it)."""
     rows = torch.arange(buf.shape[0], device=buf.device)
     slot = torch.where(inside, slot, 0)
-    buf.index_put_((rows, slot), torch.where(inside[:, None, None],
-                                             new[:, 0], buf[rows, slot]))
+    keep = inside.reshape(-1, *(1,) * (buf.dim() - 2))
+    buf.index_put_((rows, slot), torch.where(keep, new[:, 0],
+                                             buf[rows, slot]))
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,14 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .sharding import ax, layout_installed, layout_state, pmax, psum
+from .sharding import (
+    ax,
+    in_manual_region,
+    layout_installed,
+    layout_state,
+    pmax,
+    psum,
+)
 
 __all__ = [
     "apply_rope",
@@ -42,10 +49,19 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    return 1.0 / (
-        theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
-                               device=device) / head_dim)
-    )
+    """theta ** -(2i / head_dim), float32, as the reference's compiled
+    programs hold it: the exponent in float32, as the reference writes it,
+    then the power and its reciprocal folded at compile time, one rounding
+    (here through float64; to the bit at the registry's thetas), or, in a
+    ``shard_map`` body (``sharding.manual_region``), computed at run time
+    in float32, two roundings.  The two are an ulp apart at some
+    frequencies, which moves a value rotated at position 4,096 by
+    ~5e-5."""
+    y = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                     device=device) / head_dim
+    if in_manual_region():
+        return 1.0 / theta ** y
+    return (1.0 / theta ** y.double()).float()
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

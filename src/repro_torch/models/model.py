@@ -49,11 +49,14 @@ into the recompute, which the card's autograd engine runs on a thread of
 its own.  RWKV6 and Hymba are cut for serving (``prefill`` /
 ``decode_step``: their residual whole on every model rank, the rank's
 heads, FF columns and d_inner channels, Hymba's two branch partials each
-summed before its norm), not for training; MLA and a shared expert not
-at all: sharded, such an entry point raises ``NotImplementedError`` with
-the reason (``tensor_parallel.check_cut``).  ``init_leaves`` draws
-``init_params``'s numbers one block at a time, so a rank can cut a
-seeded model without ever holding it whole.
+summed before its norm), and so are MLA (its heads, latents gathered
+along the sequence, the latent cache cut along time) and DeepSeek-V3's
+shared expert (its FF columns, summed with the routed experts'
+partial), not for training: a sharded training entry point raises
+``NotImplementedError`` with the reason (``tensor_parallel.check_cut``).
+The MTP head, which only training runs, takes whole parameters.
+``init_leaves`` draws ``init_params``'s numbers one block at a time, so a
+rank can cut a seeded model without ever holding it whole.
 
 Training: ``loss_fn`` (dense cross entropy, or ``chunked_ce_loss`` from
 2,048 tokens in chunks of 512, plus ``aux_weight`` times the MoE aux
@@ -100,7 +103,16 @@ from .layers import (
     swiglu,
     swiglu_partial,
 )
-from .mla import MLA, init_mla, init_mla_cache, mla_decode, mla_prefill, mla_train
+from .mla import (
+    MLA,
+    init_mla,
+    init_mla_cache,
+    mla_decode,
+    mla_decode_tp,
+    mla_prefill,
+    mla_prefill_tp,
+    mla_train,
+)
 from .moe import MoE, _moe_ep_partial, init_moe, moe_apply
 from .rwkv6 import (
     ChannelMix,
@@ -337,10 +349,11 @@ def init_leaves(cfg: ModelConfig, seed: int = 0, device="cuda"):
     """Every parameter of ``init_params(cfg, seed, device)`` as (name,
     whole tensor), one at a time, drawn in ``init_params``'s order from
     the same ``torch.Generator``: the embedding, the final norm, the head,
-    then one block at a time (a block's leaves are drawn together and the
-    block is dropped after its last leaf is handed over), then the MTP
-    head.  A consumer that keeps only a slice of each leaf never holds
-    the whole model."""
+    then one block at a time (a block's leaves are drawn together, and
+    each is dropped once it has been handed over), then the MTP head.  A
+    consumer that keeps only a slice of each leaf never holds the whole
+    model, nor the whole of a block past the leaf it is cutting (an MoE
+    block's expert stacks are most of a cut DeepSeek-V3)."""
     dev = resolve_device(device)
     dtype = _dtype(cfg)
     d, v = cfg.d_model, cfg.vocab_size
@@ -359,6 +372,7 @@ def init_leaves(cfg: ModelConfig, seed: int = 0, device="cuda"):
             _init_block(blk, cfg, gen)
             for name, p in blk.named_parameters():
                 yield f"{key}.{i}.{name}", p.data
+                p.data = p.data.new_empty(0)  # the consumer has its slice
             del blk
     if cfg.mtp_depth:
         mtp = MTP(cfg, dtype, dev)
@@ -665,11 +679,12 @@ def mtp_loss(cfg: ModelConfig, params: TransformerLM, tokens, labels_next,
     """Main next-token loss + depth-1 MTP loss sharing the embedding and
     the head: the MTP block reads the token's embedding beside the next
     token's (teacher forcing) through ``mtp.proj``.  Whole parameters
-    only: the MTP head is DeepSeek-V3's, whose MLA is not cut."""
+    only: the MTP head is DeepSeek-V3's, whose MLA is cut for serving
+    alone."""
     if params.mesh is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the MTP loss takes whole parameters (MLA is not "
-            f"cut by tensor parallelism yet)")
+            f"{cfg.name}: the MTP loss takes whole parameters (MLA and the "
+            f"MTP head are not cut for tensor-parallel training yet)")
     logits, aux = forward(cfg, params, tokens)
     labels_next = _tokens(params, labels_next)
     main = cross_entropy_loss(logits, labels_next)
@@ -813,11 +828,26 @@ def _res_ax(cfg: ModelConfig, x):
     return ax(x, "batch", "seq_sp", None)
 
 
+def _shared_expert_tp(cfg: ModelConfig, L, sp, h):
+    """A shared expert's float32 output of the whole sequence ``h`` on this
+    rank: the partial of its FF columns where ``L.shared_cols``, else the
+    whole (every rank alike); None without one.  Its hidden activation's
+    FF axis is the expert's own width."""
+    if sp is None:
+        return None
+    fs = cfg.moe_d_ff * cfg.n_shared_experts
+    with logical_sizes(dict(L.sizes(cfg), ff=fs)):
+        return swiglu_partial(h, sp.w1, sp.w3, sp.w2)
+
+
 def _mlp_tp(cfg: ModelConfig, L, p: Block, h, with_aux: bool = False):
     """This rank's MLP of the residual slice ``h`` (normed), summed over
     ``model`` (``row_reduce``): its FF columns (or, where they are not
     cut, the whole MLP on every rank, then its sequence slice), or its
-    experts; ``b2`` added once, after the sum.  Returns (output, the MoE
+    experts and a shared expert's FF columns, their float32 partials
+    added before the one sum (a shared expert whose columns are not cut
+    runs whole on every rank and is added after it, on the sequence
+    slice); ``b2`` added once, after the sum.  Returns (output, the MoE
     aux loss or None)."""
     if isinstance(p.mlp, MoE):
         h = column_input(L, h)
@@ -825,7 +855,13 @@ def _mlp_tp(cfg: ModelConfig, L, p: Block, h, with_aux: bool = False):
             p.mlp, cfg, h, L.mesh, with_aux=with_aux,
             token_axes=("data",) if L.rows_cut else (),
             whole_leaf=functools.partial(partitioned_leaf, L))
-        return row_reduce(L, part, h.dtype), aux
+        shared = _shared_expert_tp(cfg, L, p.mlp.shared, h)
+        if shared is not None and L.shared_cols:
+            part = part + shared
+        out = row_reduce(L, part, h.dtype)
+        if shared is not None and not L.shared_cols:
+            out = out + own_seq(L, shared.to(h.dtype))
+        return out, aux
     m = p.mlp
     h = column_input(L, h, partitioned=L.ff_cols)
     if L.ff_cols:
@@ -849,9 +885,17 @@ def _block_tp(cfg: ModelConfig, L, p: Block, x, positions,
     plain one; a prefill block (``max_len`` given) also builds its cache.
     RWKV6's time-mix takes K8 on the rank's heads when ``use_flash``.
     Hymba's attention and SSM partials are each summed over ``model``
-    before their norms.  Returns (x, the cache or None, the MoE aux loss
-    or None)."""
-    h = column_input(L, rms_norm(x, p.norm1, cfg.rms_eps))
+    before their norms.  MLA takes the residual slice and gathers its
+    latents, not the residual (``mla_prefill_tp``).  Returns (x, the
+    cache or None, the MoE aux loss or None)."""
+    h = rms_norm(x, p.norm1, cfg.rms_eps)
+    if cfg.attn_type == "mla":  # serving only (check_cut)
+        a, cache = mla_prefill_tp(p.attn, cfg, L, h, positions, max_len)
+        x = _res_ax(cfg, x + row_reduce(L, a, x.dtype))
+        m, aux = _mlp_tp(cfg, L, p, rms_norm(x, p.norm2, cfg.rms_eps),
+                         with_aux)
+        return _res_ax(cfg, x + m), cache, aux
+    h = column_input(L, h)
     if cfg.attn_type == "rwkv6":
         a, cache = rwkv6_prefill_tp(p.attn, cfg, L, h, use_flash)
         x = _res_ax(cfg, x + row_reduce(L, a, x.dtype))
@@ -896,8 +940,9 @@ def _block_decode_tp(cfg: ModelConfig, L, p: Block, x, cache, position,
                                 x.dtype).unbind(0)
         a, cache = _hymba_mix(cfg, p, att, ssm_o), {"kv": kv, "ssm": ssm_c}
     else:
-        a, cache = attention_decode_tp(p.attn, cfg, L, h, cache, position,
-                                       max_len)
+        attend = (mla_decode_tp if cfg.attn_type == "mla"
+                  else attention_decode_tp)
+        a, cache = attend(p.attn, cfg, L, h, cache, position, max_len)
         a = row_reduce(L, a, x.dtype)
     x = x + a
     m, _ = _mlp_tp(cfg, L, p, rms_norm(x, p.norm2, cfg.rms_eps))

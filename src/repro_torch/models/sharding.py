@@ -84,10 +84,12 @@ __all__ = [
     "collective_timing",
     "current_mesh",
     "current_rules",
+    "in_manual_region",
     "layout_installed",
     "layout_state",
     "logical_sharding",
     "logical_sizes",
+    "manual_region",
     "mesh_axis_names",
     "mesh_shape",
     "multi_pod_rules",
@@ -198,6 +200,26 @@ def current_sizes() -> dict[str, int] | None:
 
 
 @contextmanager
+def manual_region():
+    """Inside, this thread runs the body of one of the reference's
+    ``shard_map`` regions (the wire train step's).  XLA folds a program's
+    constant expressions when it compiles it, but computes them at run
+    time inside such a region; ``layers.rope_freqs`` asks, since the two
+    round differently.  Thread-local, carried by ``layout_state``."""
+    old = getattr(_state, "manual", None)
+    _state.manual = True
+    try:
+        yield
+    finally:
+        _state.manual = old
+
+
+def in_manual_region() -> bool:
+    """Whether this thread is inside ``manual_region``."""
+    return bool(getattr(_state, "manual", None))
+
+
+@contextmanager
 def logical_sizes(sizes: dict[str, int]):
     """The global size of each logical axis in the tensor-parallel call
     running on this thread ({"batch": B, "seq_sp": S, "heads": H, ...}):
@@ -290,11 +312,11 @@ def collective_timing():
 
 
 def layout_state() -> dict:
-    """This thread's layout state: the rules, the mesh, the global sizes
-    and the timing table (``layout_installed`` puts them on another
-    thread)."""
+    """This thread's layout state: the rules, the mesh, the global sizes,
+    the timing table and the manual region (``layout_installed`` puts them
+    on another thread)."""
     return {k: getattr(_state, k, None)
-            for k in ("rules", "mesh", "sizes", "times")}
+            for k in ("rules", "mesh", "sizes", "times", "manual")}
 
 
 @contextmanager

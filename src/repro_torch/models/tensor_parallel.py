@@ -34,9 +34,11 @@ config, the mesh and the global (batch, sequence) by the reference's
 divisibility rules (a train call is a (B, S) call without a cache).
 Families cut: GQA attention (no sliding window) with a dense or MoE MLP,
 for serving and training; RWKV6 (its heads, the channel-mix's FF
-columns) and Hymba (its padded heads, the SSM's d_inner channels, the
-windowed ring cache cut along time), for serving.  The others raise
-``NotImplementedError`` (``check_cut``).
+columns), Hymba (its padded heads, the SSM's d_inner channels, the
+windowed ring cache cut along time) and MLA (its heads; its latents
+replicated over ``model``; its latent cache cut along time) with
+DeepSeek-V3's shared expert (its FF columns), for serving.  The others
+raise ``NotImplementedError`` (``check_cut``).
 
 Where a weight's stored cut does not line up with the rank's heads or
 channels (Hymba's ``wq`` / ``wo`` around padded heads, ``wk`` / ``wv``
@@ -101,11 +103,11 @@ class TPLayout:
     else every rank holds them whole (``kv_cols``: whether ``wk`` /
     ``wv``'s columns are cut all the same, mid-head); ``ff_cols``: FF
     columns cut; ``vocab_split``: vocab rows cut (``v_lo``, ``v_loc``);
-    ``fsdp``: d_model cut over ``data``; ``di_lo`` / ``di_loc``: its
-    d_inner channels of an SSM (0 / 0 without one); ``move_weights``: a
-    weight whose cut does not line up with the rank's heads or channels
-    is gathered whole, not its product (the call has more token rows
-    than ``d_model``)."""
+    ``shared_cols``: a shared expert's FF columns cut; ``fsdp``: d_model
+    cut over ``data``; ``di_lo`` / ``di_loc``: its d_inner channels of an
+    SSM (0 / 0 without one); ``move_weights``: a weight whose cut does
+    not line up with the rank's heads or channels is gathered whole, not
+    its product (the call has more token rows than ``d_model``)."""
 
     mesh: Any
     model: int
@@ -124,6 +126,7 @@ class TPLayout:
     kv_loc: int
     kv_cols: bool
     ff_cols: bool
+    shared_cols: bool
     vocab_split: bool
     v_lo: int
     v_loc: int
@@ -188,21 +191,24 @@ _RECURRENT = ("rwkv6", "hymba")
 def check_cut(cfg: ModelConfig, mesh, training: bool = False) -> None:
     """Raise ``NotImplementedError``, with the reason, for a config or mesh
     tensor parallelism does not cut yet: for serving, or for training
-    when ``training`` (RWKV6 and Hymba are cut for serving only)."""
+    when ``training`` (RWKV6, Hymba, MLA and a shared expert are cut for
+    serving only)."""
     why = {"hymba": "Hymba's SSM branch and its padded-head weights are "
-                    "not cut for training yet",
-           "rwkv6": "RWKV6's time-mix and channel-mix are not cut for "
-                    "training yet"}
+                    "cut for serving only",
+           "rwkv6": "RWKV6's time-mix and channel-mix are cut for serving "
+                    "only",
+           "mla": "MLA's heads and latent projections are cut for serving "
+                  "only"}
     if training and cfg.attn_type in why:
         raise NotImplementedError(
             f"{cfg.name}: {why[cfg.attn_type]}; tensor-parallel training "
             f"covers GQA attention without a window; train it with whole "
             f"parameters under a mesh")
-    if cfg.attn_type == "mla":
+    if training and cfg.n_shared_experts:
         raise NotImplementedError(
-            f"{cfg.name}: MLA's latent projections are not cut yet; tensor "
-            f"parallelism covers GQA attention without a window, RWKV6 and "
-            f"Hymba; run it with whole parameters under a mesh")
+            f"{cfg.name}: a shared expert is cut for serving only; "
+            f"tensor-parallel training covers routed experts alone; train "
+            f"it with whole parameters under a mesh")
     if cfg.attn_type == "gqa" and cfg.sliding_window:
         raise NotImplementedError(
             f"{cfg.name}: a sliding window is cut for Hymba only; tensor "
@@ -225,13 +231,15 @@ def check_cut(cfg: ModelConfig, mesh, training: bool = False) -> None:
             f"{cfg.name}: Hymba's SSM branch is cut by d_inner channels and "
             f"its attention by wq's columns: d_inner {cfg.d_inner_} and "
             f"{cfg.n_heads} x {hd} over a {m}-way model axis")
+    if cfg.attn_type == "mla" and cfg.n_heads % m:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA is cut by whole heads: {cfg.n_heads} heads "
+            f"over a {m}-way model axis would cut w_uq's columns "
+            f"({cfg.qk_nope_dim} + {cfg.qk_rope_dim} a head) mid-head")
     if cfg.n_heads % m and cfg.attn_type != "hymba":
         raise NotImplementedError(
             f"{cfg.n_heads} heads over a {m}-way model axis need the "
             f"padded-head weights, which the port cuts for Hymba only")
-    if cfg.n_shared_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: a shared expert is not cut yet")
 
 
 def tp_layout(cfg: ModelConfig, mesh, batch: int, seq: int,
@@ -250,7 +258,9 @@ def tp_layout(cfg: ModelConfig, mesh, batch: int, seq: int,
     seq_split = m > 1 and seq % m == 0 and cfg.attn_type not in _RECURRENT
     s_loc = seq // m if seq_split else seq
     kv, hd = cfg.n_kv_heads, cfg.head_dim_
-    pads = pad_heads(kv, cfg.n_heads // kv, m)
+    # MLA: its own heads, no KV heads to group them (check_cut: H | model)
+    pads = ((cfg.n_heads, 1) if cfg.attn_type == "mla"
+            else pad_heads(kv, cfg.n_heads // kv, m))
     h_loc = pads[0] * pads[1] // m
     kv_split = kv % m == 0
     kv_loc = kv // m if kv_split else kv
@@ -264,7 +274,9 @@ def tp_layout(cfg: ModelConfig, mesh, batch: int, seq: int,
         s_loc=s_loc, h_lo=mi * h_loc, h_loc=h_loc, pads=pads,
         kv_split=kv_split, kv_lo=mi * kv_loc if kv_split else 0,
         kv_loc=kv_loc, kv_cols=not kv_split and (kv * hd) % m == 0,
-        ff_cols=cfg.d_ff % m == 0, vocab_split=vocab_split,
+        ff_cols=cfg.d_ff % m == 0,
+        shared_cols=(cfg.moe_d_ff * cfg.n_shared_experts) % m == 0,
+        vocab_split=vocab_split,
         v_lo=mi * v_loc if vocab_split else 0, v_loc=v_loc,
         fsdp=d > 1 and cfg.d_model % d == 0, di_lo=mi * di_loc,
         di_loc=di_loc,

@@ -117,14 +117,41 @@ TP_CASES = {
                                          "head_dim": 8, "sliding_window": 8},
                           4, 72, 80),
 }
+#: tensor-parallel serving of MLA and a shared expert, in the regimes of
+#: TP_CASES (held by ``test_torch_mesh_mla.py``, its reference in a
+#: process of its own).  dsv3: deepseek-v3-671b's smoke config (1 dense
+#: and 4 MoE layers, 4 MLA heads, 8 experts top 2, 1 shared expert), its
+#: latent cache of 24 cut 6 slots a rank on (1, 4): decode's positions
+#: 16-18 cross from rank 2's slice into rank 3's; dsv3_long: the same cut
+#: to 2 layers at 1 x 4,096 tokens, the chunked MLA route, and a cache of
+#: 4,102 slots (whole on (1, 4), cut on (2, 2)); granite_shared: one
+#: shared expert on Granite's GQA block
+TP_MLA_CASES = {
+    "dsv3": ("deepseek-v3-671b", {}, 4, 16, 24),
+    "dsv3_long": ("deepseek-v3-671b", {"n_layers": 2}, 1, 4096, 4102),
+    "granite_shared": ("granite-moe-3b-a800m", {"n_shared_experts": 1}, 4,
+                       16, 24),
+}
+#: MLA alone on a rank (dsv3's smoke config): its input (B, S, d), the
+#: seed of its weights and inputs, and the cache lengths that are cut
+#: along time on both meshes (24) and whole on both (25)
+MLA_X_SHAPE = (2, 16, 128)
+MLA_SEED = 9
+MLA_CACHES = {"cut": 24, "whole": 25}
 #: the straddling-group attention alone (hymba_padded's config on both
 #: meshes, both ways of redistributing wq / wo): its input (B, S, d)
 STRADDLE_CASE = "hymba_padded"
 STRADDLE_X_SHAPE = (2, 16, 128)
 
 
+def tp_case(name: str):
+    """(arch, config overrides, batch, prompt, cache length) of a regime of
+    TP_CASES or TP_MLA_CASES."""
+    return {**TP_CASES, **TP_MLA_CASES}[name]
+
+
 def tp_config(get_config, name: str):
-    arch, over, *_ = TP_CASES[name]
+    arch, over, *_ = tp_case(name)
     return dataclasses.replace(get_config(arch).smoke(), **over,
                                dtype="float32")
 
@@ -132,7 +159,7 @@ def tp_config(get_config, name: str):
 def tp_inputs(cfg, name: str):
     """(tokens (B, S + TP_DECODE_STEPS) int32: the prompt then the tokens
     each decode step is fed, frontend embeddings (B, nf, d) or None)."""
-    _, _, b, s, _ = TP_CASES[name]
+    _, _, b, s, _ = tp_case(name)
     rng = np.random.default_rng(TP_SEED)
     tok = rng.integers(0, cfg.vocab_size, (b, s + TP_DECODE_STEPS),
                        dtype=np.int32)

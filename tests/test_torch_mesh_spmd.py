@@ -262,16 +262,10 @@ def _rel_l2(got, want) -> float:
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))
 
 
-@pytest.mark.parametrize("case,mesh", TP_KEYS)
-def test_tp_logits_match_the_references_sharded_jit(runs, case, mesh):
-    """``make_prefill_step`` and ``make_decode_step`` on sharded parameters
-    under ``logical_sharding`` (each rank its heads, FF columns, vocab
-    slice, batch rows and sequence slice; the decode cache its KV heads
-    or its time slice): the prefill's logits and each decode step's,
-    gathered whole on every rank, within float32 1e-5 relative L2 of the
-    reference's ``prefill`` / ``decode_step`` jitted with
-    ``in_shardings`` on 4 CPU devices."""
-    ref, ranks, _, _ = runs
+def check_tp_logits(ref, ranks, case, mesh):
+    """Every rank's prefill and decode logits of a TP case against the
+    reference's (the logits test's body, shared with
+    ``test_torch_mesh_mla.py``)."""
     tag = f"tp/{case}/{mesh}"
     steps_ = ["prefill"] + [f"decode{i}" for i in range(mc.TP_DECODE_STEPS)]
     for out in ranks:
@@ -282,19 +276,25 @@ def test_tp_logits_match_the_references_sharded_jit(runs, case, mesh):
 
 
 @pytest.mark.parametrize("case,mesh", TP_KEYS)
-def test_tp_shards_equal_the_references_addressable_shards(runs, case, mesh):
-    """Every rank's parameter leaves (``lm_shards_from_arrays``) equal, in
-    shape and bit for bit, the reference's ``addressable_shards`` at the
-    same (data, model) coordinate under ``param_pspecs``; its prefill
-    cache's leaves (k / v, RWKV6's state and token-shift slices, the
-    SSM's h and conv) have the shapes of the reference's shards under
-    ``cache_pspecs`` and their values within 1e-5 (RWKV6's state within
-    1e-5 of its largest entry); ``pos`` is equal;
-    ``init_cache_shards`` allocates those shapes.  Some leaves of each are
-    really cut."""
+def test_tp_logits_match_the_references_sharded_jit(runs, case, mesh):
+    """``make_prefill_step`` and ``make_decode_step`` on sharded parameters
+    under ``logical_sharding`` (each rank its heads, FF columns, vocab
+    slice, batch rows and sequence slice; the decode cache its KV heads
+    or its time slice): the prefill's logits and each decode step's,
+    gathered whole on every rank, within float32 1e-5 relative L2 of the
+    reference's ``prefill`` / ``decode_step`` jitted with
+    ``in_shardings`` on 4 CPU devices."""
+    ref, ranks, _, _ = runs
+    check_tp_logits(ref, ranks, case, mesh)
+
+
+def check_tp_shards(ref, ranks, case, mesh):
+    """Every rank's parameter and prefill-cache shards of a TP case against
+    the reference's (the shards test's body, shared with
+    ``test_torch_mesh_mla.py``): the cache of ``layers`` and of
+    ``layers_dense``."""
     from repro_torch.models.model import reference_path
 
-    ref, ranks, _, _ = runs
     tag = f"tp/{case}/{mesh}"
     for out in ranks:
         di, mi = (int(i) for i in out[f"{tag}/coord"])
@@ -313,15 +313,16 @@ def test_tp_shards_equal_the_references_addressable_shards(runs, case, mesh):
         assert cut > 0
         np.testing.assert_array_equal(out[f"{tag}/cache/pos"],
                                       ref[f"{tag}/cshard/pos/{di}{mi}"])
-        leaves = [k.removeprefix(f"{tag}/cache/layers/")
-                  for k in out if k.startswith(f"{tag}/cache/layers/")]
+        leaves = [k.removeprefix(f"{tag}/cache/") for k in out
+                  if k.startswith((f"{tag}/cache/layers/",
+                                   f"{tag}/cache/layers_dense/"))]
         assert leaves
         for key in leaves:
-            i, leaf = key.split("/", 1)
-            got = out[f"{tag}/cache/layers/{key}"]
-            want = ref[f"{tag}/cshard/layers/{leaf}/{di}{mi}"][int(i)]
+            stack, i, leaf = key.split("/", 2)
+            got = out[f"{tag}/cache/{key}"]
+            want = ref[f"{tag}/cshard/{stack}/{leaf}/{di}{mi}"][int(i)]
             assert got.shape == want.shape, (key, got.shape, want.shape)
-            assert tuple(out[f"{tag}/zeros/layers/{key}"]) == want.shape
+            assert tuple(out[f"{tag}/zeros/{key}"]) == want.shape
             if leaf == "state":
                 # RWKV6's WKV state sums k v^T over the prompt (entries up
                 # to ~27 at rwkv6's layer 1): held within 1e-5 of its
@@ -333,6 +334,21 @@ def test_tp_shards_equal_the_references_addressable_shards(runs, case, mesh):
                 np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5,
                                            err_msg=key)
         assert tuple(out[f"{tag}/zeros/pos"]) == out[f"{tag}/cache/pos"].shape
+
+
+@pytest.mark.parametrize("case,mesh", TP_KEYS)
+def test_tp_shards_equal_the_references_addressable_shards(runs, case, mesh):
+    """Every rank's parameter leaves (``lm_shards_from_arrays``) equal, in
+    shape and bit for bit, the reference's ``addressable_shards`` at the
+    same (data, model) coordinate under ``param_pspecs``; its prefill
+    cache's leaves (k / v, RWKV6's state and token-shift slices, the
+    SSM's h and conv) have the shapes of the reference's shards under
+    ``cache_pspecs`` and their values within 1e-5 (RWKV6's state within
+    1e-5 of its largest entry); ``pos`` is equal;
+    ``init_cache_shards`` allocates those shapes.  Some leaves of each are
+    really cut."""
+    ref, ranks, _, _ = runs
+    check_tp_shards(ref, ranks, case, mesh)
 
 
 @pytest.mark.parametrize("mode", ["weights", "products"])

@@ -357,8 +357,9 @@ def test_sharded_families_not_cut_yet_are_refused(arch, reason):
 
 
 def test_shared_expert_and_compression_refused_under_a_mesh():
-    """A shared expert is not cut (the reason says so), and gradient
-    compression on sharded parameters is refused for the wire step."""
+    """A shared expert is cut for serving only: training refuses it (the
+    reason says so) and serving does not; gradient compression on sharded
+    parameters is refused for the wire step."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import AbstractMesh
     from repro_torch.launch.steps import make_train_step
@@ -372,7 +373,8 @@ def test_shared_expert_and_compression_refused_under_a_mesh():
     shared = dataclasses.replace(get_config("granite-moe-3b-a800m").smoke(),
                                  n_shared_experts=1)
     with pytest.raises(NotImplementedError, match="shared expert"):
-        check_cut(shared, mesh)
+        check_cut(shared, mesh, training=True)
+    check_cut(shared, mesh)
     cfg = dataclasses.replace(get_config("qwen3-4b").smoke(), dtype="float32")
     params = TransformerLM(cfg, "cpu")
     params.mesh = mesh

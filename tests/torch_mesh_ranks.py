@@ -1,5 +1,6 @@
-"""The port's side of ``tests/test_torch_mesh_spmd.py``: one function run
-by each of 4 CPU ranks (``torch.multiprocessing.spawn``, gloo through a
+"""The port's side of ``tests/test_torch_mesh_spmd.py`` (``run``) and of
+``tests/test_torch_mesh_mla.py`` (``run_mla``): one function run by each
+of 4 CPU ranks (``torch.multiprocessing.spawn``, gloo through a
 ``file://`` rendezvous).  Each rank runs every case and writes what it
 got to ``rank<r>.npz``; the test asserts.  Imports no JAX."""
 import os
@@ -219,13 +220,13 @@ def attention_case(ref, out, rank):
     out["attn/plain"] = attn_mod.attention_train(p, cfg, x, pos).numpy()
 
 
-def tp_cases(ref, out, rank):
-    """Each regime of ``mc.TP_CASES`` on (1, 4) and (2, 2) from the
-    reference's weights: this rank's parameter shards
-    (``lm_shards_from_arrays``), the prefill and decode steps through
-    ``make_prefill_step`` / ``make_decode_step`` (logits gathered whole),
-    and the prefill cache's local leaves."""
-    for name, (_, _, b, s, t) in mc.TP_CASES.items():
+def tp_cases(ref, out, rank, cases=mc.TP_CASES):
+    """Each regime of ``cases`` on (1, 4) and (2, 2) from the reference's
+    weights: this rank's parameter shards (``lm_shards_from_arrays``), the
+    prefill and decode steps through ``make_prefill_step`` /
+    ``make_decode_step`` (logits gathered whole), and the prefill cache's
+    local leaves (``layers`` and ``layers_dense``)."""
+    for name, (_, _, b, s, t) in cases.items():
         cfg = mc.tp_config(get_config, name)
         pre = f"tp/{name}/p/"
         tree = unflatten_pytree({k.removeprefix(pre): ref[k]
@@ -243,9 +244,8 @@ def tp_cases(ref, out, rank):
                 out[f"{tag}/local/{n}"] = p.numpy()
             zeros = init_cache_shards(cfg, b, t, mesh, device="cpu")
             out[f"{tag}/zeros/pos"] = np.array(zeros["pos"].shape)
-            for i, layer in enumerate(zeros["layers"]):
-                for k, v in flatten_pytree_dt(layer).items():
-                    out[f"{tag}/zeros/layers/{i}/{k}"] = np.array(v.shape)
+            for key, i, k, v in cache_leaves(zeros):
+                out[f"{tag}/zeros/{key}/{i}/{k}"] = np.array(v.shape)
             with logical_sharding(mesh, single_pod_rules()):
                 with collective_timing() as times:
                     logits, cache = prefill(params, tok[:, :s], fe,
@@ -256,13 +256,96 @@ def tp_cases(ref, out, rank):
                 out[f"{tag}/logits/prefill"] = steps.whole_logits(
                     cfg, logits, b).numpy()
                 out[f"{tag}/cache/pos"] = cache["pos"].numpy()
-                for i, layer in enumerate(cache["layers"]):
-                    for k, v in flatten_pytree_dt(layer).items():
-                        out[f"{tag}/cache/layers/{i}/{k}"] = v.numpy().copy()
+                for key, i, k, v in cache_leaves(cache):
+                    out[f"{tag}/cache/{key}/{i}/{k}"] = v.numpy().copy()
                 for i in range(mc.TP_DECODE_STEPS):
                     logits, cache = decode(params, tok[:, s + i], cache)
                     out[f"{tag}/logits/decode{i}"] = steps.whole_logits(
                         cfg, logits, b).numpy()
+
+
+def cache_leaves(cache):
+    """(key, layer, leaf path, tensor) of every leaf of a decode cache's
+    ``layers`` and ``layers_dense``."""
+    for key in ("layers", "layers_dense"):
+        for i, layer in enumerate(cache.get(key, [])):
+            for k, v in flatten_pytree_dt(layer).items():
+                yield key, i, k, v
+
+
+@torch.no_grad()
+def mla_alone_case(out, rank):
+    """dsv3's MLA alone on (1, 4) and (2, 2), from seeded whole weights,
+    with its latent cache cut along time and whole (``mc.MLA_CACHES``):
+    this rank's ``mla_prefill_tp`` on its rows' sequence slice and its
+    ``mla_decode_tp`` steps at positions S, S + 1, S + 2, each partial
+    summed over ``model``, beside the one-process ``mla_prefill`` /
+    ``mla_decode`` of the same rows; its cache slice after the prefill and
+    after each step, the slots of its slice each step changed, and its
+    slice's first slot."""
+    from repro_torch.models import mla
+    from repro_torch.models.sharding import logical_sizes, psum
+    from repro_torch.models.tensor_parallel import tp_layout
+
+    cfg = mc.tp_config(get_config, "dsv3")
+    gen = torch.Generator().manual_seed(mc.MLA_SEED)
+    whole = mla.init_mla(mla.MLA(cfg, torch.float32, CPU), cfg, gen)
+    rng = np.random.default_rng(mc.MLA_SEED)
+    x = _t(rng.normal(size=mc.MLA_X_SHAPE).astype(np.float32))
+    b, s, _ = x.shape
+    steps_ = [_t(rng.normal(size=(b, 1, cfg.d_model)).astype(np.float32))
+              for _ in range(mc.TP_DECODE_STEPS)]
+    pos = torch.arange(s)[None].expand(b, -1)
+    for shape in mc.TP_MESHES:
+        mesh = make_host_mesh(*shape, device="cpu")
+        specs = param_pspecs(cfg, mesh)
+        local = mla.MLA(cfg, torch.float32, CPU)
+        for k, p in whole.named_parameters():
+            # the model axis only: the block gathers a d_model cut over
+            # data before its attention
+            spec = specs[f"layers_dense.0.attn.{k}"]
+            spec = PartitionSpec(*[a if a == "model" else None for a in spec])
+            setattr(local, k, torch.nn.Parameter(
+                local_shard(p.detach(), spec, mesh).clone(),
+                requires_grad=False))
+        for kind, max_len in mc.MLA_CACHES.items():
+            tag = f"mla/{shape[0]}x{shape[1]}/{kind}"
+            L = tp_layout(cfg, mesh, b, s)
+            rows = x[L.rows]
+            with logical_sharding(mesh, single_pod_rules()), \
+                    logical_sizes(L.sizes(cfg)):
+                part, cache = mla.mla_prefill_tp(
+                    local, cfg, L, rows[:, L.s_lo:L.s_lo + L.s_loc],
+                    pos[L.rows], max_len)
+                out[f"{tag}/prefill/sum"] = psum(part, "model",
+                                                 mesh=mesh).numpy()
+            want, one = mla.mla_prefill(whole, cfg, rows, pos[L.rows],
+                                        max_len)
+            out[f"{tag}/prefill/want"] = want.numpy()
+            lo, t = mla._time_cut(L, max_len)
+            out[f"{tag}/lo"] = np.array(lo)
+            out[f"{tag}/one/prefill"] = one["c_kv"].numpy().copy()
+            out[f"{tag}/cache/prefill"] = cache["c_kv"].numpy().copy()
+            Ld = tp_layout(cfg, mesh, b, 1)
+            for i, xd in enumerate(steps_):
+                position = torch.full((Ld.rows.stop - Ld.rows.start,), s + i,
+                                      dtype=torch.int32)
+                before = cache["c_kv"].clone()
+                with logical_sharding(mesh, single_pod_rules()), \
+                        logical_sizes(Ld.sizes(cfg)):
+                    part, cache = mla.mla_decode_tp(local, cfg, Ld,
+                                                    xd[Ld.rows], cache,
+                                                    position, max_len)
+                    out[f"{tag}/decode{i}/sum"] = psum(part, "model",
+                                                       mesh=mesh).numpy()
+                want, one = mla.mla_decode(whole, cfg, xd[Ld.rows], one,
+                                           position)
+                out[f"{tag}/decode{i}/want"] = want.numpy()
+                changed = (cache["c_kv"] != before).any(-1).any(0)
+                out[f"{tag}/decode{i}/changed"] = torch.nonzero(
+                    changed)[:, 0].numpy()
+                out[f"{tag}/one/decode{i}"] = one["c_kv"].numpy().copy()
+                out[f"{tag}/cache/decode{i}"] = cache["c_kv"].numpy().copy()
 
 
 def straddle_case(out, rank):
@@ -366,6 +449,22 @@ def flatten_pytree_dt(tree, prefix=""):
         else:
             out[f"{prefix}{k}"] = v
     return out
+
+
+def run_mla(rank, init_file, ref_path, out_dir):
+    """``test_torch_mesh_mla.py``'s rank: ``mc.TP_MLA_CASES`` against the
+    reference's ``--mla`` outputs, then MLA alone."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=4)
+    try:
+        out = {}
+        tp_cases(np.load(ref_path), out, rank, mc.TP_MLA_CASES)
+        mla_alone_case(out, rank)
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
 
 
 def run(rank, init_file, ref_path, out_dir, ckpt_dir):

@@ -6,7 +6,9 @@ process of its own on a forced 4-device CPU mesh:
 
 Every input is made with numpy from a seed (``mesh_cases``, shared with
 the port's ranks).  Writes one ``.npz`` of every reference output the
-test needs, and a reference checkpoint into ``CKPT_DIR``.
+test needs, and a reference checkpoint into ``CKPT_DIR``.  With
+``--mla OUT.npz`` it runs ``mesh_cases.TP_MLA_CASES`` alone, for
+``tests/test_torch_mesh_mla.py``.
 """
 import os
 import sys
@@ -212,13 +214,13 @@ def shards_by_coordinate(m, arr) -> dict:
     return out
 
 
-def tp_cases(out):
-    """Each regime of ``mc.TP_CASES`` on (1, 4) and (2, 2): ``prefill`` and
+def tp_cases(out, cases=mc.TP_CASES):
+    """Each regime of ``cases`` on (1, 4) and (2, 2): ``prefill`` and
     ``decode_step`` jitted with ``in_shardings`` from ``param_pspecs`` /
     ``cache_pspecs`` under ``logical_sharding``; the logits of the prefill
     and of each decode step (fed the case's tokens), and every parameter
     and prefill-cache leaf's shard at each device's mesh coordinate."""
-    for name, (_, _, b, s, t) in mc.TP_CASES.items():
+    for name, (_, _, b, s, t) in cases.items():
         cfg = mc.tp_config(get_config, name)
         params = np_tree(init_params(cfg, jax.random.PRNGKey(mc.TP_SEED)))
         for k, v in flatten_pytree(params).items():
@@ -257,9 +259,13 @@ def tp_cases(out):
 
 
 def main():
-    path, ckpt_dir = sys.argv[1], sys.argv[2]
     assert jax.device_count() == 4, jax.devices()
     out = {}
+    if sys.argv[1] == "--mla":
+        tp_cases(out, mc.TP_MLA_CASES)
+        np.savez(sys.argv[2], **out)
+        return
+    path, ckpt_dir = sys.argv[1], sys.argv[2]
     moe_cases(out)
     wire_cases(out)
     wire_step_case(out)
