@@ -356,7 +356,8 @@ single-forest batch, with each call's device time from ``torch.profiler``.
 built for it; ``--online`` runs phase 12 alone, likewise; ``--families``
 runs K7's parity cases and phase 13 alone; ``--train`` runs phase 14
 alone; ``--mesh`` runs K7's parity cases and phase 15 alone;
-``--mesh-mla`` runs phase 15 (h) alone.
+``--mesh-mla`` runs phase 15 (h) alone; ``--mesh-train-families`` runs
+phase 15 (i) alone.
 
 Votes must be equal; regression sums are held at rtol = atol = 1e-5 (the
 reference's own serving tolerance); on the card K1-K4 equal their plain
@@ -1240,21 +1241,48 @@ def first_byte_difference(card, cpu) -> dict:
     return {"component": None}
 
 
+# the card's and the CPU's compressed bytes are compared on the forest's
+# first CPU_COMPRESS_TREES trees (the whole 50-tree regression forest took
+# 50-58 s on the CPU, cut to pay for phase 15 (i))
+CPU_COMPRESS_TREES = 5
+
+
+def forest_head(forest, k: int):
+    """The forest of ``forest``'s first ``k`` trees; a regression forest's
+    fit table cut to the values they use, their fits renumbered."""
+    import dataclasses
+
+    trees = forest.trees[:k]
+    if not len(forest.fit_values):
+        return dataclasses.replace(forest, trees=trees)
+    used = np.unique(np.concatenate([t.node_fit for t in trees]))
+    return dataclasses.replace(
+        forest, fit_values=forest.fit_values[used],
+        trees=[dataclasses.replace(t, node_fit=np.searchsorted(
+            used, t.node_fit)) for t in trees])
+
+
 def compress_on_card_and_cpu(forest, dev, what):
-    """``compress_forest`` on the card and on the CPU; the bytes must be
-    equal (the CPU bytes equal the reference's)."""
+    """``compress_forest`` of ``forest`` on the card, and of its first
+    CPU_COMPRESS_TREES trees (``forest_head``) on the card and on the CPU,
+    whose bytes must be equal (the CPU bytes equal the reference's)."""
     from repro_torch.core import compress_forest
 
     t0 = time.perf_counter()
     comp = compress_forest(forest, device=dev)
     t1 = time.perf_counter()
-    cpu = compress_forest(forest, device="cpu")
+    head = forest_head(forest, CPU_COMPRESS_TREES)
+    card = compress_forest(head, device=dev)
     t2 = time.perf_counter()
-    blob, cpu_blob = comp.to_bytes(), cpu.to_bytes()
-    info = {"bytes": len(blob), "card_compress_s": t1 - t0,
-            "cpu_compress_s": t2 - t1}
+    cpu = compress_forest(head, device="cpu")
+    t3 = time.perf_counter()
+    blob, cpu_blob = card.to_bytes(), cpu.to_bytes()
+    info = {"bytes": len(comp.to_bytes()), "card_compress_s": t1 - t0,
+            "compared_trees": head.n_trees, "compared_bytes": len(blob),
+            "card_compared_s": t2 - t1, "cpu_compress_s": t3 - t2}
     if blob != cpu_blob:
-        info.update(cpu_bytes=len(cpu_blob), **first_byte_difference(comp, cpu))
+        info.update(cpu_bytes=len(cpu_blob),
+                    **first_byte_difference(card, cpu))
         log(json.dumps({"byte_mismatch": what, **info}))
         raise AssertionError(f"{what}: card and CPU compressed bytes differ")
     return comp, info
@@ -5438,14 +5466,15 @@ def train_main() -> None:
 # ---------------------------------------------------------------------------
 
 MESH_RANKS = 4
-# (a) granite-moe-3b-a800m uncut, phase 13's prompts, on two meshes
-# tensor-parallel on both, and with whole parameters on every rank on
-# (1, 4) (the path of an MoE model that tensor parallelism does not cut);
-# each run's warm-up prefill is checked, and the "timed" mesh's
-# tensor-parallel run times a second one (cut from all three runs)
+# (a) granite-moe-3b-a800m uncut, on two meshes tensor-parallel on both,
+# and with whole parameters on every rank on (1, 4) (the path of an MoE
+# model that tensor parallelism does not cut); each run's warm-up prefill
+# is checked, and the "timed" mesh's tensor-parallel run times a second
+# one (cut from all three runs).  4 x 512 tokens (cut from phase 13's 4 x
+# 2,048 to pay for (i))
 MESH_MOE = {"arch": "granite-moe-3b-a800m", "meshes": ((1, 4), (2, 2)),
             "whole_meshes": ((1, 4),), "timed": (1, 4),
-            "batch": 4, "prompt": 2048, "max_len": 2080}
+            "batch": 4, "prompt": 512, "max_len": 544}
 # (b) hymba-1.5b at full width cut to 2 layers, phase 13's prompts (the
 # ring buffer needs window | S): 25 / 5 heads pad to 36 / 6 on (1, 4)
 MESH_HYMBA = {"arch": "hymba-1.5b", "layers": 2, "mesh": (1, 4),
@@ -6517,16 +6546,16 @@ def mesh_k7_timing(dev) -> dict:
 # float32 cut to 2 layers held to a one-process step of the same weights
 # (TF32 off); bf16 cut to 4 layers, remat
 # "full", 2 x 2,048 tokens (the chunked vocab-parallel cross entropy), a
-# warm-up step and MESH_TRAIN["bf16"]["timed"] timed steps on each mesh;
-# the smoke config on (2, 2) preempted at step 3 and resumed from its
-# step-2 checkpoint
+# warm-up step and MESH_TRAIN["bf16"]["timed"] timed steps on each mesh
+# (3 -> 2 to pay for (i)); the smoke config on (2, 2) preempted at step 3
+# and resumed from its step-2 checkpoint
 MESH_TRAIN = {
     "arch": "qwen3-4b", "seed": 0,
     "opt": {"lr": 3e-4, "warmup_steps": 1, "total_steps": 10},
     "f32": {"layers": 2, "mesh": (1, 4), "batch": 2, "seq": 256,
             "steps": 2},
     "bf16": {"layers": 4, "meshes": ((1, 4), (2, 2)), "batch": 2,
-             "seq": 2048, "timed": 3},
+             "seq": 2048, "timed": 2},
     "resume": {"mesh": (2, 2), "batch": 4, "seq": 64, "steps": 5,
                "save_every": 2, "fail_at": 3},
 }
@@ -7039,6 +7068,530 @@ def mesh_train_check(root, scalars) -> dict:
     }
 
 
+# (i) tensor-parallel training of the recurrent families and DeepSeek-V3 on
+# (1, 4), bf16, seeded weights cut leaf by leaf on each rank: (name, arch,
+# config changes, batch, sequence), each 1 + "timed" make_train_step steps
+# (AdamW, remat "full").  rwkv6-1.6b cut to 4 layers, 4 x 2,048 (the
+# chunked WKV on a rank's 8 of 32 heads); hymba-1.5b cut to 2 layers, 2 x
+# 4,096 (the window of 2,048 binds; 25 / 5 heads padded to 36 / 6, 9 a
+# rank; more token rows than d_model: the weights route);
+# deepseek-v3-671b at full width with phase 13's layer cut (1 dense, 1 MoE
+# layer, the MTP head carried) and its routed experts cut to 16 (4 a rank,
+# top 8 kept), 1 x 4,096 (the chunked MLA route), plus one
+# tensor-parallel mtp_loss gradient at its seeded weights on 1 x 2,048
+# ("mtp_tokens": mtp_loss runs no remat, and one process's float32
+# chunked scores of 128 heads at 4,096 tokens, kept for the backward,
+# outgrow the card).  Each first
+# step (and DeepSeek-V3's mtp_loss) is held to one process of the same
+# weights within FAMILY_BF16_OVER_FLOOR times bf16's floor.  "f32": the
+# float32 first step (gradients only) of a cut of each against the port's
+# one process at MESH_TRAIN_TOL: 2 layers, 2 x 256 (RWKV6's on the chunked
+# WKV, its gradients held to a float64 witness, FAMILY_F32_WITNESS);
+# DeepSeek-V3's with 8 routed experts (top 8) and a vocab of 16,384, whose
+# one-process gradients (2.1 B values) go to the ranks through a file.
+# Every run draws RWKV6's decay leaves (``rwkv6_decay_draw``)
+MESH_TRAIN_FAMILIES = {
+    "seed": 0, "mesh": (1, 4), "timed": 2,
+    "opt": {"lr": 3e-4, "warmup_steps": 1, "total_steps": 10},
+    "mtp_tokens": (1, 2048),
+    "runs": (("rwkv6", "rwkv6-1.6b", {"n_layers": 4}, 4, 2048),
+             ("hymba", "hymba-1.5b", {"n_layers": 2}, 2, 4096),
+             ("dsv3", "deepseek-v3-671b", {"n_experts": 16}, 1, 4096)),
+    "f32": (("rwkv6_f32", "rwkv6-1.6b", {"n_layers": 2}, 2, 256),
+            ("hymba_f32", "hymba-1.5b", {"n_layers": 2}, 2, 256),
+            ("dsv3_f32", "deepseek-v3-671b",
+             {"n_experts": 8, "vocab_size": 16384}, 1, 256)),
+}
+
+
+# (i)'s float32 runs held to a float64 witness of the one-process step
+# (``float64_arithmetic``) instead of MESH_TRAIN_TOL's gradient bound:
+# RWKV6's gradient of the bonus u sums terms that cancel, so every float32
+# computation of it lies far from the exact value (the CPU tests read the
+# reference's own 1.6e-5 to 1.2e-4 away, tests/mesh_cases.py
+# TRAIN_FAMILY_F32_GAPS).  The tensor-parallel gradients pass when no
+# farther from the float64 ones than F32_WITNESS_FACTOR times the
+# one-process float32 gradients are (the CPU tests' factor)
+FAMILY_F32_WITNESS = ("rwkv6_f32",)
+F32_WITNESS_FACTOR = 3.0
+
+
+@contextlib.contextmanager
+def float64_arithmetic():
+    """The port's float32 arithmetic carried out in float64 inside:
+    ``torch.float32`` and ``Tensor.float`` name float64, so the explicit
+    float32 casts of the WKV, the norms and the products widen instead.
+    What a float32 computation of the same step rounds: a witness, not a
+    route of the port."""
+    f32, flt = torch.float32, torch.Tensor.float
+    torch.float32, torch.Tensor.float = torch.float64, torch.Tensor.double
+    try:
+        yield
+    finally:
+        torch.float32, torch.Tensor.float = f32, flt
+
+
+def rwkv6_decay_draw(name: str, t: torch.Tensor, seed: int) -> torch.Tensor:
+    """RWKV6's decay leaves drawn in place of their init values, as the CPU
+    tests draw them (``tests/mesh_cases.py`` ``rwkv6_draws``): the bonus u
+    (0 at init, where a fault that depends on it could not show) 0.1
+    N(0, 1), w0 uniform in [-3, -0.5], the LoRA factors 0.1 N(0, 1); each
+    from a generator seeded by ``seed`` and the leaf's name.  Other
+    leaves unchanged."""
+    import zlib
+
+    leaf = name.rpartition(".")[2]
+    if ".attn." not in name or leaf not in ("u", "w0", "w_lora_a",
+                                            "w_lora_b"):
+        return t
+    gen = torch.Generator(device=t.device).manual_seed(
+        seed * 1_000_003 + zlib.crc32(name.encode()))
+    out = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+    if leaf == "w0":
+        out.uniform_(-3.0, -0.5, generator=gen)
+    else:
+        out.normal_(0.0, 0.1, generator=gen)
+    return out.to(t.dtype)
+
+
+def family_leaves(cfg, dev):
+    """(i)'s weights, leaf by leaf: ``init_leaves`` of its seed, RWKV6's
+    decay leaves drawn (``rwkv6_decay_draw``)."""
+    from repro_torch.models import init_leaves
+
+    seed = MESH_TRAIN_FAMILIES["seed"]
+    for name, t in init_leaves(cfg, seed, dev):
+        yield name, rwkv6_decay_draw(name, t, seed)
+
+
+def family_params(cfg, dev):
+    """``family_leaves`` as one whole ``TransformerLM``."""
+    from repro_torch.models import TransformerLM
+
+    params = TransformerLM(cfg, dev)
+    own = dict(params.named_parameters())
+    with torch.no_grad():
+        for name, t in family_leaves(cfg, dev):
+            own[name].copy_(t)
+    return params
+
+
+def family_train_batch(cfg, batch, seq, dev) -> dict:
+    """(i)'s seeded next-token batch, the same on every rank: tokens,
+    labels and, for ``mtp_loss``, the tokens two places ahead."""
+    host = torch.Generator().manual_seed(2000)
+    tok = torch.randint(0, cfg.vocab_size, (batch, seq + 2), generator=host)
+    return {"tokens": tok[:, :seq].to(dev), "labels": tok[:, 1:-1].to(dev),
+            "labels_next2": tok[:, 2:].to(dev)}
+
+
+def rel_l2_or_zero(got: torch.Tensor, want: torch.Tensor) -> float:
+    """``rel_l2``, or 0 where both are all zero (the MTP head's gradient
+    under ``loss_fn``), inf where only ``want`` is."""
+    if not bool(want.any()):
+        return 0.0 if not bool(got.any()) else float("inf")
+    return rel_l2(got, want)
+
+
+def mesh_train_families_reference(dev, root) -> dict:
+    """(i)'s one-process runs, in this process before the ranks start,
+    each model freed before the next.  float32 cuts (TF32 off): the first
+    step's loss and grad norm, the gradients written to ``root`` for the
+    ranks, and for FAMILY_F32_WITNESS the same step's gradients in
+    float64 (``float64_arithmetic``) beside them.  bf16 runs: the first
+    step's loss and grad norm, then those of the same weights in float32
+    (bf16's floor); DeepSeek-V3's mtp_loss too."""
+    import dataclasses
+
+    from repro_torch.launch.steps import mtp_loss_and_grads
+    from repro_torch.models import TransformerLM
+    from repro_torch.optim.adamw import _global_norm
+
+    t = MESH_TRAIN_FAMILIES
+    out = {}
+    with tf32_off():
+        for name, arch, changes, b, s in t["f32"]:
+            cfg = family_config(arch, dtype="float32", **changes)
+            params = family_params(cfg, dev)
+            batch = family_train_batch(cfg, b, s, dev)
+            t0 = time.perf_counter()
+            loss, grads = train_grads(cfg, params, batch)
+            out[name] = {"loss": loss, "grad_norm": float(_global_norm(grads)),
+                         "s": time.perf_counter() - t0}
+            torch.save({n: g.cpu() for n, g in grads.items()},
+                       os.path.join(root, f"{name}.pt"))
+            del grads
+            if name in FAMILY_F32_WITNESS:
+                t0 = time.perf_counter()
+                with float64_arithmetic():
+                    wide = dataclasses.replace(cfg, dtype="float64")
+                    p64 = TransformerLM(wide, dev)
+                    with torch.no_grad():
+                        for a, w in zip(p64.parameters(),
+                                        params.parameters()):
+                            a.copy_(w)
+                    loss64, g64 = train_grads(wide, p64, batch)
+                    out[name].update(f64_loss=loss64,
+                                     f64_grad_norm=float(_global_norm(g64)),
+                                     f64_s=time.perf_counter() - t0)
+                torch.save({n: g.cpu() for n, g in g64.items()},
+                           os.path.join(root, f"{name}_f64.pt"))
+                del p64, g64
+            del params
+            torch.cuda.empty_cache()
+    def scalars(cfg, params, batch, mtp_batch, tag, row):
+        with tf32_off():
+            loss, g = train_grads(cfg, params, batch)
+            row[f"{tag}_loss"] = loss
+            row[f"{tag}_grad_norm"] = float(_global_norm(g))
+            del g
+            if cfg.mtp_depth:
+                loss, g = mtp_loss_and_grads(cfg, params, mtp_batch)
+                row[f"{tag}_mtp_loss"] = float(loss.detach())
+                row[f"{tag}_mtp_grad_norm"] = float(_global_norm(g))
+                del g
+        torch.cuda.empty_cache()
+
+    for name, arch, changes, b, s in t["runs"]:
+        row = {}
+        cfg = family_config(arch, dtype="bfloat16", **changes)
+        batch = family_train_batch(cfg, b, s, dev)
+        mtp_batch = family_train_batch(cfg, *t["mtp_tokens"], dev)
+        params = family_params(cfg, dev)
+        scalars(cfg, params, batch, mtp_batch, "bf16", row)
+        cfg32 = family_config(arch, dtype="float32", **changes)
+        params32 = TransformerLM(cfg32, dev)
+        with torch.no_grad():
+            for a, w in zip(params32.parameters(), params.parameters()):
+                a.copy_(w.float())
+        del params
+        torch.cuda.empty_cache()
+        scalars(cfg32, params32, batch, mtp_batch, "f32", row)
+        del params32
+        torch.cuda.empty_cache()
+        out[name] = row
+    return out
+
+
+def family_train_f32(dev, mesh, root, run) -> dict:
+    """(i) float32 on this rank: its shards of the cut's seeded weights,
+    the first step's loss, grad norm (from the shards) and gradient
+    shards, the last against the one-process gradients' slices read from
+    ``root``; for FAMILY_F32_WITNESS each shard's and the one-process
+    slice's distance from the float64 slice too."""
+    from repro_torch.launch.shardings import local_shard, shard_params
+    from repro_torch.models.sharding import logical_sharding, single_pod_rules
+    from repro_torch.optim.adamw import _global_norm
+
+    name, arch, changes, b, s = run
+    cfg = family_config(arch, dtype="float32", **changes)
+    t0 = time.perf_counter()
+    with tf32_off(), logical_sharding(mesh, single_pod_rules()):
+        params = shard_params(cfg, family_leaves(cfg, dev), mesh, dev)
+        loss, grads = train_grads(cfg, params,
+                                  family_train_batch(cfg, b, s, dev))
+        norm = float(_global_norm(grads, params))
+
+    def slices(file):
+        whole = torch.load(os.path.join(root, file), mmap=True)
+        return {n: local_shard(whole[n], params.pspecs[n], mesh).to(dev)
+                for n in grads}
+
+    want = slices(f"{name}.pt")
+    rels = sorted(((rel_l2_or_zero(g, want[n]), n)
+                   for n, g in grads.items()), reverse=True)
+    row = {"run": name, "layers": cfg.n_layers, "tokens": [b, s],
+           "loss": loss, "grad_norm": norm, "grad_rel_l2_max": rels[0][0],
+           "worst_leaves": rels[:3]}
+    if name in FAMILY_F32_WITNESS:
+        exact = slices(f"{name}_f64.pt")
+        for who, got in (("tp", grads), ("one_process", want)):
+            gaps = sorted(((rel_l2_or_zero(got[n], x), n)
+                           for n, x in exact.items()), reverse=True)
+            row[f"{who}_f64_rel_l2_max"] = gaps[0][0]
+            row[f"{who}_f64_worst_leaves"] = gaps[:3]
+        del exact
+    del params, grads, want
+    torch.cuda.empty_cache()
+    return dict(row, s=time.perf_counter() - t0)
+
+
+def family_train_bf16(dev, mesh, run) -> dict:
+    """(i) bf16 on this rank: its train state of shards (the stored bytes
+    held to the sum of ``shard_shape`` bytes), DeepSeek-V3's mtp_loss
+    gradient at the seeded weights, then 1 + ``timed`` steps, the timed
+    ones under ``collective_timing`` and split by CUDA events
+    (``StepSplit``), with the peak memory (the ``mesh_train_bf16``
+    pattern)."""
+    from repro_torch.launch.shardings import (
+        NamedSharding,
+        opt_pspecs,
+        shard_train_state,
+    )
+    from repro_torch.launch.steps import make_train_step, mtp_loss_and_grads
+    from repro_torch.models import TransformerLM
+    from repro_torch.models.sharding import (
+        collective_timing,
+        logical_sharding,
+        single_pod_rules,
+    )
+    from repro_torch.optim.adamw import AdamWConfig, _global_norm
+
+    t = MESH_TRAIN_FAMILIES
+    name, arch, changes, b, s = run
+    cfg = family_config(arch, dtype="bfloat16", **changes)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = shard_train_state(cfg, family_leaves(cfg, dev), mesh, dev)
+    params, opt = state.pop("params"), state.pop("opt")
+    torch.cuda.synchronize()
+    row = {"run": name, "arch": arch, "mesh": list(t["mesh"]),
+           "layers": cfg.n_layers, "experts": cfg.n_experts,
+           "tokens": [b, s], "remat": "full",
+           "init_s": time.perf_counter() - t0,
+           "init_peak_bytes": torch.cuda.max_memory_allocated(dev) - base}
+    step = make_train_step(cfg, AdamWConfig(**t["opt"]), remat="full")
+    batch = family_train_batch(cfg, b, s, dev)
+    losses, norms, step_s, splits, coll = [], [], [], [], {}
+    with logical_sharding(mesh, single_pod_rules()):
+        if cfg.mtp_depth:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, g = mtp_loss_and_grads(
+                cfg, params, family_train_batch(cfg, *t["mtp_tokens"], dev))
+            norm = float(_global_norm(g, params))
+            row["mtp"] = {"tokens": list(t["mtp_tokens"]),
+                          "loss": float(loss.detach()), "grad_norm": norm,
+                          "s": time.perf_counter() - t0,
+                          "mtp_leaves_nonzero": sum(
+                              bool(x.any()) for n, x in g.items()
+                              if n.startswith("mtp."))}
+            del g, loss
+            torch.cuda.empty_cache()
+        with StepSplit() as split:
+            for i in range(1 + t["timed"]):
+                timing = (collective_timing() if i
+                          else contextlib.nullcontext())
+                torch.cuda.synchronize()
+                with timing as times:
+                    t0 = time.perf_counter()
+                    params, opt, met = step(params, opt, batch)
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0
+                losses.append(float(met["loss"]))
+                norms.append(float(met["grad_norm"]))
+                if i == 0:
+                    row["first_step_s"] = dt
+                    continue
+                step_s.append(dt)
+                splits.append(split.split_ms())
+                for kind, c in times.items():
+                    acc = coll.setdefault(kind, dict.fromkeys(c, 0))
+                    for k, v in c.items():
+                        acc[k] += v
+    # after the steps: the moments are float32 from the first update on
+    specs = opt_pspecs(cfg, mesh, params.pspecs)
+    meta = dict(TransformerLM(cfg, "meta").named_parameters())
+    stored = sum(p.numel() * p.element_size() for p in params.parameters())
+    stored += sum(x.numel() * x.element_size() for k in ("m", "v")
+                  for x in opt[k].values())
+    want = sum(
+        int(np.prod(NamedSharding(mesh, specs["m"][n]).shard_shape(p.shape)))
+        * (p.element_size() + 8) for n, p in meta.items())
+    wall = sum(step_s)
+    row.update({
+        "losses": losses, "grad_norms": norms, "step_s": stats(step_s),
+        "tokens_per_s": b * s / float(np.median(step_s)),
+        "split_ms": {k: stats([x[k] for x in splits]) for k in splits[0]},
+        "collectives": coll,
+        "collective_share": {k: c["s"] / wall for k, c in coll.items()},
+        "collective_share_total": sum(c["s"] for c in coll.values()) / wall,
+        "wait_share_total": sum(c["wait_s"] for c in coll.values()) / wall,
+        "backward_kinds": sorted(k for k in coll if k.endswith(" bwd")),
+        "state_bytes": stored, "shard_shape_bytes": want,
+        "peak_bytes": torch.cuda.max_memory_allocated(dev) - base,
+        "peak_abs": torch.cuda.max_memory_allocated(dev),
+    })
+    assert all(np.isfinite(losses)) and all(np.isfinite(norms)), row
+    assert stored == want, (stored, want)
+    assert row["backward_kinds"], coll
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    return row
+
+
+@contextlib.contextmanager
+def rank_report(rank, run):
+    """A rank's failure printed with its rank and run before it
+    propagates (the spawner reports only the first rank to fail, often
+    one whose peer had died), and the run's end with its peak memory."""
+    import traceback
+
+    try:
+        yield
+    except BaseException:
+        print(f"(i) rank {rank} run {run} failed:\n"
+              f"{traceback.format_exc()}", file=sys.stderr, flush=True)
+        raise
+    print(f"(i) rank {rank} run {run} done, peak "
+          f"{torch.cuda.max_memory_allocated()} B", file=sys.stderr,
+          flush=True)
+
+
+def mesh_train_families_rank(rank, root, device):
+    """One of (i)'s MESH_RANKS ranks on ``device``: the float32 checks,
+    then the bf16 runs; K7's and K8's counts set to 0 before and read
+    after (training launches neither)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    with mesh_group(rank, root, device) as (dev, backend):
+        mesh = make_host_mesh(*MESH_TRAIN_FAMILIES["mesh"], device=dev)
+        reset_kernel_launches()
+        out = {"rank": rank, "backend": backend, "part_s": {}}
+        t0 = time.perf_counter()
+        out["f32"] = []
+        for run in MESH_TRAIN_FAMILIES["f32"]:
+            with rank_report(rank, run[0]):
+                out["f32"].append(family_train_f32(dev, mesh, root, run))
+        out["part_s"]["f32"] = time.perf_counter() - t0
+        out["bf16"] = []
+        for run in MESH_TRAIN_FAMILIES["runs"]:
+            t0 = time.perf_counter()
+            with rank_report(rank, run[0]):
+                out["bf16"].append(family_train_bf16(dev, mesh, run))
+            out["part_s"][run[0]] = time.perf_counter() - t0
+        out["kernel_launches"] = kernel_launch_counts()
+        with open(os.path.join(root, f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+        dist.barrier()
+
+
+def mesh_train_families_check(ranks, ref) -> dict:
+    """(i) across the ranks: the metrics equal on every rank, K7 and K8
+    launched 0 times; the float32 first steps within MESH_TRAIN_TOL of one
+    process (FAMILY_F32_WITNESS's gradients within F32_WITNESS_FACTOR
+    times the one process's distance from the float64 ones); each bf16 first step's (and DeepSeek-V3's mtp_loss's) loss
+    and grad norm within FAMILY_BF16_OVER_FLOOR times bf16's floor of one
+    process's.  Returns the ``{"mesh_train_families"}`` row's figures,
+    ``ok`` whether every first step met its bound."""
+    tol = MESH_TRAIN_TOL
+    r0 = ranks[0]
+
+    def worst(run, key):
+        return max(y[key] for rk in ranks for y in rk["f32"]
+                   if y["run"] == run)
+
+    for rk in ranks[1:]:
+        for a, b in zip(rk["f32"], r0["f32"]):
+            assert (a["loss"], a["grad_norm"]) == (b["loss"], b["grad_norm"])
+        for a, b in zip(rk["bf16"], r0["bf16"]):
+            assert (a["losses"], a["grad_norms"]) == (b["losses"],
+                                                      b["grad_norms"])
+    for rk in ranks:
+        assert rk["kernel_launches"] == {"k7": 0, "k8": 0}, rk
+    f32 = []
+    for x in r0["f32"]:
+        one = ref[x["run"]]
+        row = dict(x, one_process=one,
+                   loss_rel=abs(x["loss"] / one["loss"] - 1),
+                   grad_norm_rel=abs(x["grad_norm"] / one["grad_norm"] - 1),
+                   grad_rel_l2_max=worst(x["run"], "grad_rel_l2_max"))
+        if x["run"] in FAMILY_F32_WITNESS:
+            for who in ("tp", "one_process"):
+                row[f"{who}_f64_rel_l2_max"] = worst(
+                    x["run"], f"{who}_f64_rel_l2_max")
+            row["f64_bound"] = (F32_WITNESS_FACTOR
+                                * row["one_process_f64_rel_l2_max"])
+            grads_ok = row["tp_f64_rel_l2_max"] <= row["f64_bound"]
+        else:
+            grads_ok = row["grad_rel_l2_max"] <= tol["grad"]
+        row["ok"] = (row["loss_rel"] <= tol["loss"]
+                     and row["grad_norm_rel"] <= tol["loss"] and grads_ok)
+        f32.append(row)
+    first = []
+    for x in r0["bf16"]:
+        one = ref[x["run"]]
+        got = {"loss": x["losses"][0], "grad_norm": x["grad_norms"][0]}
+        if "mtp" in x:
+            got.update(mtp_loss=x["mtp"]["loss"],
+                       mtp_grad_norm=x["mtp"]["grad_norm"])
+        row = {"run": x["run"], "one_process": one}
+        for k, v in got.items():
+            floor = abs(one[f"bf16_{k}"] - one[f"f32_{k}"])
+            row[k] = v
+            row[f"{k}_gap"] = abs(v - one[f"bf16_{k}"])
+            row[f"{k}_bound"] = FAMILY_BF16_OVER_FLOOR * floor
+        row["ok"] = all(row[f"{k}_gap"] <= row[f"{k}_bound"] for k in got)
+        first.append(row)
+    return {
+        "ok": all(r["ok"] for r in f32 + first),
+        "f32": f32, "bf16": r0["bf16"], "bf16_first_step": first,
+        "peak_bytes_per_rank": [[x["peak_abs"] for x in rk["bf16"]]
+                                for rk in ranks],
+        "kernel_launches": [rk["kernel_launches"] for rk in ranks],
+        "ranks_part_s": r0["part_s"],
+    }
+
+
+def phase_mesh_train_families(dev) -> dict:
+    """Phase 15 (i): the one-process runs in this process
+    (``mesh_train_families_reference``), then MESH_RANKS ranks spawned on
+    the one card (``mesh_train_families_rank``), then the checks
+    (``mesh_train_families_check``).  Returns the
+    ``{"mesh_train_families"}`` row."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    row = {"card": smi_line(), "ranks": MESH_RANKS,
+           "backend": mesh_backend(MESH_RANKS, torch.cuda.device_count()),
+           "parent_allocated_bytes": torch.cuda.memory_allocated(dev),
+           "parent_reserved_bytes": torch.cuda.memory_reserved(dev)}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        ref = mesh_train_families_reference(dev, root)
+        row["reference_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # the ranks' allocator maps memory in growable segments: four
+        # processes share the one card, and with fixed segments four
+        # DeepSeek-V3 ranks left 3.6 GB a rank reserved but unallocated
+        saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            mp.spawn(mesh_train_families_rank, args=(root, str(dev)),
+                     nprocs=MESH_RANKS, join=True)
+        finally:
+            if saved is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+        row["ranks_s"] = time.perf_counter() - t0
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(root, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+    row.update(mesh_train_families_check(ranks, ref))
+    row["phase_s"] = time.perf_counter() - t_phase
+    if not row["ok"]:  # the figures first, then the failure
+        log(json.dumps({"mesh_train_families": row}))
+        raise AssertionError("phase 15 (i): a first step missed its bound")
+    return row
+
+
+def mesh_train_families_main() -> None:
+    """``--mesh-train-families``: phase 15 (i) alone (training launches no
+    kernel, none is built): one ``{"mesh_train_families"}`` line."""
+    dev = phase_environment()
+    log(json.dumps({"mesh_train_families": phase_mesh_train_families(dev)}))
+    print(json.dumps({"ok": True}), flush=True)
+
+
 def phase_mesh(dev) -> tuple[dict, list, list]:
     """Phase 15: (e)'s, (g)'s, (h)'s and (f)'s one-process runs in this
     process, each model freed before the next, then MESH_RANKS ranks
@@ -7366,6 +7919,8 @@ def main() -> None:
                                                          mesh_k8)
     log(json.dumps({"mesh": mesh}))
     clock["mesh"] = time.perf_counter()
+    log(json.dumps({"mesh_train_families": phase_mesh_train_families(dev)}))
+    clock["mesh_train_families"] = time.perf_counter()
     marks = list(clock.items())
     log(json.dumps({"phase_s": {b[0]: b[1] - a[1]
                                 for a, b in zip(marks, marks[1:])}}))
@@ -7399,5 +7954,7 @@ if __name__ == "__main__":
         mesh_main()
     elif len(sys.argv) > 1 and sys.argv[1] == "--mesh-mla":
         mesh_mla_main()
+    elif len(sys.argv) > 1 and sys.argv[1] == "--mesh-train-families":
+        mesh_train_families_main()
     else:
         main()

@@ -44,7 +44,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..models import decode_step as _decode_step
-from ..models import loss_fn, prefill
+from ..models import loss_fn, mtp_loss, prefill
 from ..optim.adamw import AdamWConfig, adamw_update
 from ..optim.compression import GradCompressionConfig, compress_gradients
 
@@ -55,6 +55,7 @@ __all__ = [
     "make_prefill_step",
     "make_train_step",
     "make_wire_train_step",
+    "mtp_loss_and_grads",
     "whole_logits",
 ]
 
@@ -82,23 +83,15 @@ def deterministic_algorithms():
         torch.utils.deterministic.fill_uninitialized_memory = fill
 
 
-def loss_and_grads(cfg: ModelConfig, params, batch, *,
-                   remat: str | None = "full", use_flash: bool = False,
-                   aux_weight: float = 0.01):
-    """(loss, {parameter name: gradient}) of ``loss_fn`` on ``batch``, as
-    ``jax.value_and_grad`` gives them (an unused parameter's gradient is
-    zero).  The parameters require grad only inside.  Sharded ``params``
-    under ``logical_sharding``: ``batch`` is the global batch on every
-    rank, the loss the global one and the gradients this rank's shards
-    of the global gradients."""
+def _value_and_grads(cfg: ModelConfig, params, batch, loss_of):
+    """(``loss_of()``, {parameter name: gradient}), as ``jax.value_and_grad``
+    gives them (an unused parameter's gradient is zero), the parameters
+    requiring grad only inside; on sharded ``params`` each gradient this
+    rank's shard of the global one (``sum_partial_grads``)."""
     names, plist = zip(*params.named_parameters())
     params.requires_grad_(True)
     try:
-        loss = loss_fn(
-            cfg, params, batch["tokens"], batch["labels"],
-            batch.get("frontend_embeds"), aux_weight=aux_weight,
-            use_flash=use_flash, remat=remat,
-        )
+        loss = loss_of()
         grads = torch.autograd.grad(loss, plist, allow_unused=True,
                                     materialize_grads=True)
     finally:
@@ -108,10 +101,33 @@ def loss_and_grads(cfg: ModelConfig, params, batch, *,
         from ..models.tensor_parallel import sum_partial_grads, tp_layout
 
         b, s = batch["tokens"].shape
-        grads = sum_partial_grads(tp_layout(cfg, params.mesh, b, s,
-                                            training=True),
-                                  grads, params.pspecs)
+        grads = sum_partial_grads(tp_layout(cfg, params.mesh, b, s), grads,
+                                  params.pspecs)
     return loss, grads
+
+
+def loss_and_grads(cfg: ModelConfig, params, batch, *,
+                   remat: str | None = "full", use_flash: bool = False,
+                   aux_weight: float = 0.01):
+    """(loss, {parameter name: gradient}) of ``loss_fn`` on ``batch``, as
+    ``jax.value_and_grad`` gives them (an unused parameter's gradient is
+    zero).  The parameters require grad only inside.  Sharded ``params``
+    under ``logical_sharding``: ``batch`` is the global batch on every
+    rank, the loss the global one and the gradients this rank's shards
+    of the global gradients."""
+    return _value_and_grads(cfg, params, batch, lambda: loss_fn(
+        cfg, params, batch["tokens"], batch["labels"],
+        batch.get("frontend_embeds"), aux_weight=aux_weight,
+        use_flash=use_flash, remat=remat))
+
+
+def mtp_loss_and_grads(cfg: ModelConfig, params, batch):
+    """``loss_and_grads`` of ``mtp_loss`` (DeepSeek-V3's main plus depth-1
+    MTP loss): ``batch`` holds ``"tokens"``, ``"labels"`` (the next
+    tokens) and ``"labels_next2"`` (the tokens after them)."""
+    return _value_and_grads(cfg, params, batch, lambda: mtp_loss(
+        cfg, params, batch["tokens"], batch["labels"],
+        batch["labels_next2"]))
 
 
 def make_train_step(

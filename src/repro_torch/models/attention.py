@@ -349,7 +349,7 @@ def _write_slot(buf, new, slot, inside):
 
 
 # ---------------------------------------------------------------------------
-# tensor-parallel serving: this rank's heads
+# tensor parallelism: this rank's heads
 # ---------------------------------------------------------------------------
 def _kv_cols(cfg: ModelConfig, L: TPLayout) -> slice:
     """This rank's columns of ``wk`` / ``wv`` (and of ``bk`` / ``bv``,
@@ -433,20 +433,26 @@ def _project_real(p: Attention, cfg: ModelConfig, L: TPLayout, x,
     are padded: its real heads are not the column block of ``wq`` it
     holds, nor is ``wk`` / ``wv``'s block a whole head, so the columns are
     made whole over ``model`` (``cols_product``: the weights in a
-    prefill, the products in a decode step) and ``cols`` taken."""
+    call of more token rows than ``d_model``, else the products) and
+    ``cols`` taken.  Under autograd each rank's gradient of what was made
+    whole is partial (it feeds the rank's heads, and the KV groups they
+    read): the gathers transpose to reduce-scatters, and the leaves whole
+    on every rank (the biases, the norms, a ``wk`` / ``wv`` whose columns
+    are not cut) enter through ``partitioned_leaf``."""
     b, s, _ = x.shape
     hd = cfg.head_dim_
+    leaf = functools.partial(partitioned_leaf, L)
     q = cols_product(L, x, p.wq, cols)
-    k = cols_product(L, x, p.wk, cut=L.kv_cols)
-    v = cols_product(L, x, p.wv, cut=L.kv_cols)
+    k = cols_product(L, x, p.wk if L.kv_cols else leaf(p.wk), cut=L.kv_cols)
+    v = cols_product(L, x, p.wv if L.kv_cols else leaf(p.wv), cut=L.kv_cols)
     if cfg.qkv_bias:
-        q, k, v = q + p.bq[cols], k + p.bk, v + p.bv
+        q, k, v = q + leaf(p.bq)[cols], k + leaf(p.bk), v + leaf(p.bv)
     q = q.reshape(b, s, -1, hd)
     k = k.reshape(b, s, -1, hd)
     v = v.reshape(b, s, -1, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p.q_norm, cfg.rms_eps)
-        k = rms_norm(k, p.k_norm, cfg.rms_eps)
+        q = rms_norm(q, leaf(p.q_norm), cfg.rms_eps)
+        k = rms_norm(k, leaf(p.k_norm), cfg.rms_eps)
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 

@@ -15,8 +15,9 @@ reference does.  The decode step writes the new latent and rope key into
 the cache in place, as ``attention_decode`` does, dropping a slot past
 the cache.
 
-Tensor-parallel serving (``mla_prefill_tp`` / ``mla_decode_tp``, the
-reference's ``param_pspecs`` / ``cache_pspecs`` layout): a rank holds its
+Tensor parallelism (``_mla_attend_tp``, which the train block calls,
+``mla_prefill_tp`` / ``mla_decode_tp``, the reference's ``param_pspecs``
+/ ``cache_pspecs`` layout): a rank holds its
 heads' column blocks of ``w_uq`` / ``w_uk`` / ``w_uv`` and their rows of
 ``wo``, and every latent projection (``w_dq``, ``w_dkv``, ``w_kr`` and
 the norms) whole over ``model``.  A prefill computes the latents on the
@@ -42,7 +43,7 @@ from ..configs.base import ModelConfig
 from .attention import _param, _write_slot
 from .blockwise import chunked_attention
 from .layers import apply_rope, matmul_f32, rms_norm
-from .sharding import all_gather, ax, pmax, psum
+from .sharding import all_gather, ax, pmax, psum, psum_grad
 from .tensor_parallel import TPLayout, own_seq
 
 __all__ = [
@@ -261,26 +262,29 @@ def mla_decode(p: MLA, cfg: ModelConfig, x, cache, position):
 
 
 # ---------------------------------------------------------------------------
-# tensor-parallel serving: this rank's heads
+# tensor parallelism: this rank's heads
 # ---------------------------------------------------------------------------
 def _latents_tp(p: MLA, cfg: ModelConfig, L: TPLayout, x, positions):
     """(c_q, c_kv, k_rope) of the whole sequence from this rank's residual
     slice ``x`` (B, S / model, d) at its ``positions``: each a per-token
     projection and norm of the slice, gathered along the sequence over
     ``model`` in one ``all_gather`` of their concatenation (a residual
-    that is not cut gives them whole already)."""
+    that is not cut gives them whole already, their gradients summed
+    over ``model`` where they leave: each rank's heads read them)."""
     c_q = rms_norm(x @ p.w_dq, p.q_norm, cfg.rms_eps)
     c_kv, k_rope = _latents(p, cfg, x, positions)
-    if not L.seq_split:
-        return c_q, c_kv, k_rope
-    both = all_gather(torch.cat([c_q, c_kv, k_rope], -1), "model", dim=1,
-                      mesh=L.mesh)
+    both = torch.cat([c_q, c_kv, k_rope], -1)
+    if L.seq_split:
+        both = all_gather(both, "model", dim=1, mesh=L.mesh)
+    else:
+        both = psum_grad(both, "model", L.mesh)
     return both.split([c_q.shape[-1], c_kv.shape[-1], k_rope.shape[-1]], -1)
 
 
 def _mla_attend_tp(p: MLA, cfg: ModelConfig, L: TPLayout, x, positions):
     """The train / prefill body on this rank: ``x`` its normed residual
-    slice, ``positions`` the whole sequence's (B, S).  Returns (its float32
+    slice, ``positions`` the whole sequence's (B, S); dense below 4,096
+    global tokens, chunked from 4,096, as ``mla_train`` is.  Returns (its float32
     partial of the output (B, S / model, d) before the sum over ``model``
     — the whole sequence where the residual is not cut — and the whole
     sequence's c_kv, k_rope)."""

@@ -46,15 +46,15 @@ gradients).  The train block and the prefill block are one body
 tensor-parallel block with its ZeRO-3 gathers inside, so the recompute
 gathers the weights again; the block carries this thread's layout state
 into the recompute, which the card's autograd engine runs on a thread of
-its own.  RWKV6 and Hymba are cut for serving (``prefill`` /
-``decode_step``: their residual whole on every model rank, the rank's
-heads, FF columns and d_inner channels, Hymba's two branch partials each
-summed before its norm), and so are MLA (its heads, latents gathered
-along the sequence, the latent cache cut along time) and DeepSeek-V3's
-shared expert (its FF columns, summed with the routed experts'
-partial), not for training: a sharded training entry point raises
-``NotImplementedError`` with the reason (``tensor_parallel.check_cut``).
-The MTP head, which only training runs, takes whole parameters.
+its own.  Every family is cut, for serving and training alike: RWKV6 and
+Hymba with their residual whole on every model rank (the rank's heads,
+FF columns and d_inner channels, Hymba's two branch partials each summed
+before its norm), MLA (its heads, latents gathered along the sequence,
+the latent cache cut along time) and DeepSeek-V3's shared expert (its FF
+columns, summed with the routed experts' partial).  ``mtp_loss`` on
+shards runs the MTP head on the residual slice (``_mtp_loss_tp``).  A
+cut ``tensor_parallel.check_cut`` does not take raises
+``NotImplementedError`` with the reason.
 ``init_leaves`` draws ``init_params``'s numbers one block at a time, so a
 rank can cut a seeded model without ever holding it whole.
 
@@ -105,6 +105,7 @@ from .layers import (
 )
 from .mla import (
     MLA,
+    _mla_attend_tp,
     init_mla,
     init_mla_cache,
     mla_decode,
@@ -118,6 +119,7 @@ from .rwkv6 import (
     ChannelMix,
     RWKV6TimeMix,
     _own_d,
+    _time_mix_tp,
     channel_mix_decode,
     channel_mix_decode_tp,
     channel_mix_tp,
@@ -678,13 +680,10 @@ def mtp_loss(cfg: ModelConfig, params: TransformerLM, tokens, labels_next,
              labels_next2):
     """Main next-token loss + depth-1 MTP loss sharing the embedding and
     the head: the MTP block reads the token's embedding beside the next
-    token's (teacher forcing) through ``mtp.proj``.  Whole parameters
-    only: the MTP head is DeepSeek-V3's, whose MLA is cut for serving
-    alone."""
+    token's (teacher forcing) through ``mtp.proj``.  Sharded ``params``:
+    the global loss on every rank (``_mtp_loss_tp``)."""
     if params.mesh is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the MTP loss takes whole parameters (MLA and the "
-            f"MTP head are not cut for tensor-parallel training yet)")
+        return _mtp_loss_tp(cfg, params, tokens, labels_next, labels_next2)
     logits, aux = forward(cfg, params, tokens)
     labels_next = _tokens(params, labels_next)
     main = cross_entropy_loss(logits, labels_next)
@@ -850,12 +849,16 @@ def _mlp_tp(cfg: ModelConfig, L, p: Block, h, with_aux: bool = False):
     slice); ``b2`` added once, after the sum.  Returns (output, the MoE
     aux loss or None)."""
     if isinstance(p.mlp, MoE):
-        h = column_input(L, h)
+        hc = column_input(L, h)
         part, aux = _moe_ep_partial(
-            p.mlp, cfg, h, L.mesh, with_aux=with_aux,
+            p.mlp, cfg, hc, L.mesh, with_aux=with_aux,
             token_axes=("data",) if L.rows_cut else (),
             whole_leaf=functools.partial(partitioned_leaf, L))
-        shared = _shared_expert_tp(cfg, L, p.mlp.shared, h)
+        # a shared expert whose columns are not cut runs whole on every
+        # rank: over a whole residual its gradient is whole already
+        shared = _shared_expert_tp(
+            cfg, L, p.mlp.shared,
+            hc if L.shared_cols or L.seq_split else h)
         if shared is not None and L.shared_cols:
             part = part + shared
         out = row_reduce(L, part, h.dtype)
@@ -880,40 +883,51 @@ def _block_tp(cfg: ModelConfig, L, p: Block, x, positions,
               max_len: int | None = None, use_flash: bool = False,
               with_aux: bool = False):
     """One block on this rank: x its residual slice (B / data, S / model,
-    d; the recurrent families' whole sequence).  Its attention takes the
-    flash kernel when ``use_flash`` (which refuses autograd), else the
-    plain one; a prefill block (``max_len`` given) also builds its cache.
-    RWKV6's time-mix takes K8 on the rank's heads when ``use_flash``.
+    d; the recurrent families' whole sequence).  A prefill block
+    (``max_len`` given) also builds its cache; a train block builds none.
+    Its attention takes the flash kernel when ``use_flash`` (which
+    refuses autograd), else the plain one; RWKV6's time-mix takes K8 on
+    the rank's heads when ``use_flash`` (which refuses autograd too).
     Hymba's attention and SSM partials are each summed over ``model``
     before their norms.  MLA takes the residual slice and gathers its
-    latents, not the residual (``mla_prefill_tp``).  Returns (x, the
-    cache or None, the MoE aux loss or None)."""
+    latents, not the residual (``_mla_attend_tp``).
+    Returns (x, the cache or None, the MoE aux loss or None)."""
+    serve = max_len is not None
     h = rms_norm(x, p.norm1, cfg.rms_eps)
-    if cfg.attn_type == "mla":  # serving only (check_cut)
-        a, cache = mla_prefill_tp(p.attn, cfg, L, h, positions, max_len)
+    if cfg.attn_type == "mla":
+        if serve:
+            a, cache = mla_prefill_tp(p.attn, cfg, L, h, positions, max_len)
+        else:
+            a, cache = _mla_attend_tp(p.attn, cfg, L, h, positions)[0], None
         x = _res_ax(cfg, x + row_reduce(L, a, x.dtype))
         m, aux = _mlp_tp(cfg, L, p, rms_norm(x, p.norm2, cfg.rms_eps),
                          with_aux)
         return _res_ax(cfg, x + m), cache, aux
     h = column_input(L, h)
     if cfg.attn_type == "rwkv6":
-        a, cache = rwkv6_prefill_tp(p.attn, cfg, L, h, use_flash)
+        if serve:
+            a, cache = rwkv6_prefill_tp(p.attn, cfg, L, h, use_flash)
+        else:
+            a, cache = _time_mix_tp(p.attn, cfg, L, h, use_flash)[0], None
         x = _res_ax(cfg, x + row_reduce(L, a, x.dtype))
         h = rms_norm(x, p.norm2, cfg.rms_eps)
-        cache["x_prev_cm"] = _own_d(L, h[:, -1, :])
-        return _res_ax(cfg, x + channel_mix_tp(p.mlp, L, h)), cache, None
-    if max_len is None:
-        a, cache = attention_train_tp(p.attn, cfg, L, h, positions,
-                                      use_flash), None
-    else:
+        if serve:
+            cache["x_prev_cm"] = _own_d(L, h[:, -1, :])
+        m = channel_mix_tp(p.mlp, L, column_input(L, h))
+        return _res_ax(cfg, x + m), cache, None
+    if serve:
         a, cache = attention_prefill_tp(p.attn, cfg, L, h, positions,
                                         max_len, use_flash)
+    else:
+        a, cache = attention_train_tp(p.attn, cfg, L, h, positions,
+                                      use_flash), None
     if cfg.attn_type == "hymba":
         ssm_o, ssm_c = ssm_prefill_tp(p.ssm, cfg, L, h)
+        if serve:
+            cache = {"kv": cache, "ssm": ssm_c}
         att, ssm_o = row_reduce(L, torch.stack([a, ssm_o]),
                                 x.dtype).unbind(0)
-        a, cache = _hymba_mix(cfg, p, att, ssm_o), {"kv": cache,
-                                                    "ssm": ssm_c}
+        a = _hymba_mix(cfg, p, att, ssm_o)
     else:
         a = row_reduce(L, a, x.dtype)
     x = _res_ax(cfg, x + a)
@@ -990,7 +1004,7 @@ def _hidden_tp(cfg: ModelConfig, params: TransformerLM, tokens,
     mesh = _tp_mesh(params)
     ids = _tokens(params, tokens)
     b, s = ids.shape
-    L = tp_layout(cfg, mesh, b, s, training=True)
+    L = tp_layout(cfg, mesh, b, s)
     moe = cfg.mlp_type == "moe"
     with logical_sizes(L.sizes(cfg)):
         x = _embed_tp(cfg, params, L, ids[L.rows], frontend_embeds)
@@ -1012,42 +1026,83 @@ def _hidden_tp(cfg: ModelConfig, params: TransformerLM, tokens,
         return L, rms_norm(x, params.final_norm, cfg.rms_eps), aux
 
 
+def _ce_tp(cfg: ModelConfig, params: TransformerLM, L, x, labels, count):
+    """The mean cross entropy over ``count`` global tokens of this rank's
+    final-normed residual slice ``x`` against ``labels`` (the global
+    (B, S) ids), the global value on every rank.  Vocab cut over
+    ``model``: the whole sequence of the rank's rows against its vocab
+    columns of the head (the vocab-parallel cross entropy; chunked from
+    2,048 tokens).  Vocab whole: the rank's sequence slice against the
+    whole head, its sum added over ``model``.  The rows' sums are added
+    over ``data``.  Runs under the call's ``logical_sizes``."""
+    labels = _tokens(params, labels)[L.rows]
+    s = labels.shape[1]
+    head = _head_tp(cfg, params, L)
+    axes = ["data"] if L.rows_cut else []
+    if L.vocab_split:
+        x = column_input(L, x)
+        vocab = (L.mesh, L.v_lo)
+    else:
+        labels = own_seq(L, labels)
+        vocab = None
+        if L.seq_split:
+            axes.append("model")
+    if s >= _CE_CHUNK_THRESHOLD and s % _CE_CHUNK == 0:
+        loss = chunked_ce_loss(x, head, labels,
+                               math.gcd(x.shape[1], _CE_CHUNK),
+                               vocab=vocab, count=count)
+    else:
+        loss = cross_entropy_loss(x @ head, labels, vocab=vocab,
+                                  count=count)
+    if axes:
+        loss = psum(loss, tuple(axes), mesh=L.mesh)
+    return loss
+
+
 def _loss_tp(cfg: ModelConfig, params: TransformerLM, tokens, labels,
              frontend_embeds, aux_weight: float, use_flash: bool,
              remat: str | None):
     """``loss_fn``'s cut on this rank: the global mean over the B S tokens
-    on every rank.  Vocab cut over ``model``: the whole sequence of the
-    rank's rows against its vocab columns of the head (the vocab-parallel
-    cross entropy; chunked from 2,048 tokens).  Vocab whole: the rank's
-    sequence slice against the whole head, its sum added over ``model``.
-    The rows' sums are added over ``data``."""
+    on every rank (``_ce_tp``), plus ``aux_weight`` times the MoE aux
+    loss."""
     b, s = _tokens(params, tokens).shape
     L, x, aux = _hidden_tp(cfg, params, tokens, frontend_embeds, use_flash,
                            remat)
-    labels = _tokens(params, labels)[L.rows]
     with logical_sizes(L.sizes(cfg)):
-        head = _head_tp(cfg, params, L)
-        axes = ["data"] if L.rows_cut else []
-        if L.vocab_split:
-            x = column_input(L, x)
-            vocab = (L.mesh, L.v_lo)
-        else:
-            labels = own_seq(L, labels)
-            vocab = None
-            if L.seq_split:
-                axes.append("model")
-        n = x.shape[1]
-        if s >= _CE_CHUNK_THRESHOLD and s % _CE_CHUNK == 0:
-            loss = chunked_ce_loss(x, head, labels, math.gcd(n, _CE_CHUNK),
-                                   vocab=vocab, count=b * s)
-        else:
-            loss = cross_entropy_loss(x @ head, labels, vocab=vocab,
-                                      count=b * s)
-        if axes:
-            loss = psum(loss, tuple(axes), mesh=L.mesh)
+        loss = _ce_tp(cfg, params, L, x, labels, b * s)
     if cfg.mlp_type == "moe":
         loss = loss + aux_weight * aux
     return loss
+
+
+def _mtp_loss_tp(cfg: ModelConfig, params: TransformerLM, tokens,
+                 labels_next, labels_next2):
+    """``mtp_loss``'s cut on this rank, the global loss on every rank: the
+    main loss (``_hidden_tp``, ``_ce_tp``); the vocab-parallel lookups of
+    ``tokens`` and ``labels_next`` in one, concatenated on the residual
+    slice and taken through ``mtp.proj`` (whole over ``model``, its
+    d_model rows gathered over ``data``); the MTP block through
+    ``_block_tp`` with its ZeRO-3 gathers; its norm and the
+    vocab-parallel cross entropy against ``labels_next2``; then ``main +
+    0.3 * mtp + 0.01 * aux``, as the reference computes it."""
+    b, s = _tokens(params, tokens).shape
+    L, x, aux = _hidden_tp(cfg, params, tokens, None, False, None)
+    p = params.mtp
+    with logical_sizes(L.sizes(cfg)):
+        main = _ce_tp(cfg, params, L, x, labels_next, b * s)
+        ids = torch.cat([_tokens(params, tokens)[L.rows],
+                         _tokens(params, labels_next)[L.rows]])
+        e = embed_tokens(L, gathered(L, params.embed,
+                                     params.fsdp_dims["embed"]), ids)
+        x = torch.cat(e.chunk(2), dim=-1) @ gathered(
+            L, p.proj, params.fsdp_dims["mtp.proj"])
+        x = _res_ax(cfg, x)
+        with fsdp_gathered(L, p.block, params.fsdp_dims, "mtp.block."):
+            x, _, _ = _block_tp(cfg, L, p.block, x,
+                                _positions(x.shape[0], s, x.device))
+        x = rms_norm(x, p.norm, cfg.rms_eps)
+        mtp = _ce_tp(cfg, params, L, x, labels_next2, b * s)
+    return main + 0.3 * mtp + 0.01 * aux
 
 
 @torch.no_grad()

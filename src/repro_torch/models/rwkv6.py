@@ -19,14 +19,18 @@ are, and writes y contiguous in (B, S, H, hd).  Decode is one
 ``wkv_scan`` step over the (B, H, hd, hd) state, as in the reference.
 
 Tensor parallelism (``models.tensor_parallel``; the parameters are this
-rank's shards): ``rwkv6_prefill_tp`` / ``rwkv6_decode_tp`` run the
-time-mix of the rank's heads (its column blocks of ``w_r``, ``w_k``,
-``w_v``, ``w_g``; its rows of ``w_o``, a float32 partial the caller sums
-over ``model``), K8 on those heads in prefill; ``channel_mix_tp`` gathers
-the squared-ReLU k along d_ff and each rank's d_model columns of the
-output.  The residual stays whole on every model rank (the reference's
-``_res_ax`` for RWKV6); the token-shift caches hold the rank's d_model
-slice and are gathered each step.
+rank's shards): ``_time_mix_tp`` (the train block's) /
+``rwkv6_prefill_tp`` / ``rwkv6_decode_tp`` run the time-mix of the rank's heads (its column
+blocks of ``w_r``, ``w_k``, ``w_v``, ``w_g``; its rows of ``w_o``, a
+float32 partial the caller sums over ``model``), K8 on those heads when
+``use_flash``; ``channel_mix_tp`` gathers the squared-ReLU k along d_ff
+and each rank's d_model columns of the output.  The residual stays whole
+on every model rank (the reference's ``_res_ax`` for RWKV6); the
+token-shift caches hold the rank's d_model slice and are gathered each
+step.  In training the leaves every model rank holds whole (``mu``,
+``w0``, the LoRA factors, ``u``, ``head_norm``) enter the rank's heads
+or columns through ``partitioned_leaf``, which sums their gradients over
+``model``.
 
 Simplifications vs the full Finch release (as in the reference): single-
 lerp token shift (not ddlerp) and RMS head-norm instead of GroupNorm.
@@ -42,6 +46,7 @@ from ..kernels.rwkv6_scan.ops import wkv6
 from .attention import _param
 from .layers import matmul_f32, rms_norm
 from .sharding import all_gather
+from .tensor_parallel import partitioned_leaf
 
 __all__ = [
     "ChannelMix",
@@ -299,7 +304,7 @@ def channel_mix_decode(p_cm: ChannelMix, x, x_prev):
 
 
 # ---------------------------------------------------------------------------
-# tensor-parallel serving: this rank's heads and FF columns
+# tensor parallelism: this rank's heads and FF columns
 # ---------------------------------------------------------------------------
 def _own_d(L, x):
     """This rank's d_model slice of ``x`` (..., d): the cut
@@ -318,9 +323,10 @@ def _mix_inputs_tp(p: RWKV6TimeMix, cfg: ModelConfig, L, x, x_prev):
     """``_mix_inputs`` for this rank's heads: r, k, v (B, S, h_loc, hd) and
     g from its column blocks of ``w_r`` / ``w_k`` / ``w_v`` / ``w_g``, the
     decay from its columns of ``w_lora_b`` and ``w0`` (both whole), each
-    made contiguous in the model's layout as K8 reads it."""
+    made contiguous in the model's layout as K8 reads it.  The whole
+    leaves enter through ``partitioned_leaf``."""
     xs = _token_shift(x, x_prev)
-    mu = p.mu
+    mu = partitioned_leaf(L, p.mu)
 
     def mix(i):
         return x + (xs - x) * mu[i]
@@ -333,31 +339,32 @@ def _mix_inputs_tp(p: RWKV6TimeMix, cfg: ModelConfig, L, x, x_prev):
     k = (xk @ p.w_k).reshape(b, s, h, hd)
     v = (xv @ p.w_v).reshape(b, s, h, hd)
     g = F.silu(xg @ p.w_g)
-    dw = torch.tanh(xw @ p.w_lora_a) @ p.w_lora_b[:, cols]
-    logw = p.w0[cols].float() + dw.float()
+    dw = (torch.tanh(xw @ partitioned_leaf(L, p.w_lora_a))
+          @ partitioned_leaf(L, p.w_lora_b)[:, cols])
+    logw = partitioned_leaf(L, p.w0)[cols].float() + dw.float()
     w = torch.exp(-torch.exp(logw)).reshape(b, s, h, hd)
     return r, k, v, g, w
 
 
-def _time_mix_out(p: RWKV6TimeMix, cfg: ModelConfig, y, g, dtype):
+def _time_mix_out(p: RWKV6TimeMix, cfg: ModelConfig, L, y, g, dtype):
     """The rank's heads' WKV output, head-normed and gated, against its
     rows of ``w_o``: its float32 partial of the time-mix (B, S, d)."""
     b, s = y.shape[:2]
-    y = rms_norm(y, p.head_norm, cfg.rms_eps).to(dtype)
+    y = rms_norm(y, partitioned_leaf(L, p.head_norm), cfg.rms_eps).to(dtype)
     return matmul_f32(y.reshape(b, s, -1) * g.to(dtype), p.w_o)
 
 
-def rwkv6_prefill_tp(p: RWKV6TimeMix, cfg: ModelConfig, L, x,
-                     use_flash: bool = False):
+def _time_mix_tp(p: RWKV6TimeMix, cfg: ModelConfig, L, x, use_flash: bool):
     """The time-mix of this rank's heads over the whole sequence ``x``
-    (B, S, d): (its float32 partial of the output, to be summed over
-    ``model``; its cache ``{"state": (B, h_loc, hd, hd), "x_prev_tm":
-    its d_model slice}``).  ``use_flash`` sends the recurrence of its
-    heads through K8 (``u`` its (h_loc, hd) rows)."""
+    (B, S, d) from a zero state: (its float32 partial of the output, its
+    final state (B, h_loc, hd, hd)).  The recurrence takes the
+    reference's route (``wkv_chunked`` at S >= 64 with S a multiple of
+    16, else ``wkv_scan``), or K8 when ``use_flash`` (``u`` its (h_loc,
+    hd) rows), which refuses autograd."""
     b, s, d = x.shape
     x_prev = torch.zeros((b, d), dtype=x.dtype, device=x.device)
     r, k, v, g, w = _mix_inputs_tp(p, cfg, L, x, x_prev)
-    u = p.u[L.h_lo:L.h_lo + L.h_loc]
+    u = partitioned_leaf(L, p.u)[L.h_lo:L.h_lo + L.h_loc]
     state = torch.zeros((b, L.h_loc, cfg.head_dim_, cfg.head_dim_),
                         dtype=torch.float32, device=x.device)
     if use_flash:
@@ -366,8 +373,16 @@ def rwkv6_prefill_tp(p: RWKV6TimeMix, cfg: ModelConfig, L, x,
         y, state = wkv_chunked(r, k, v, w, u, state)
     else:
         y, state = wkv_scan(r, k, v, w, u, state)
-    return _time_mix_out(p, cfg, y, g, x.dtype), {
-        "state": state, "x_prev_tm": _own_d(L, x[:, -1, :])}
+    return _time_mix_out(p, cfg, L, y, g, x.dtype), state
+
+
+def rwkv6_prefill_tp(p: RWKV6TimeMix, cfg: ModelConfig, L, x,
+                     use_flash: bool = False):
+    """``_time_mix_tp``'s partial, to be summed over ``model``, and this
+    rank's cache ``{"state": (B, h_loc, hd, hd), "x_prev_tm": its d_model
+    slice}``."""
+    part, state = _time_mix_tp(p, cfg, L, x, use_flash)
+    return part, {"state": state, "x_prev_tm": _own_d(L, x[:, -1, :])}
 
 
 def rwkv6_decode_tp(p: RWKV6TimeMix, cfg: ModelConfig, L, x, cache):
@@ -379,7 +394,7 @@ def rwkv6_decode_tp(p: RWKV6TimeMix, cfg: ModelConfig, L, x, cache):
                                    _whole_d(L, cache["x_prev_tm"]))
     y, state = wkv_scan(r, k, v, w, p.u[L.h_lo:L.h_lo + L.h_loc],
                         cache["state"])
-    return _time_mix_out(p, cfg, y, g, x.dtype), state, _own_d(L, x[:, 0])
+    return _time_mix_out(p, cfg, L, y, g, x.dtype), state, _own_d(L, x[:, 0])
 
 
 def channel_mix_tp(p: ChannelMix, L, x, x_prev=None):
@@ -395,17 +410,25 @@ def channel_mix_tp(p: ChannelMix, L, x, x_prev=None):
     one site that does not follow ``TPLayout.move_weights``, for one path
     over both.  Gathering ``w_v`` instead would move 14 % fewer bytes at
     rwkv6-1.6b's 4 x 2,048 prefill, and 29 MB a layer in every decode
-    step."""
+    step.
+
+    In training ``x`` enters through ``column_input`` (each rank's
+    gradient of it is partial), ``mu`` through ``partitioned_leaf``; k's
+    gather transposes to a reduce-scatter of the ranks' partial
+    gradients, the output's to this rank's block of the whole gradient
+    every rank holds."""
     b, _, d = x.shape
     xp = x_prev if x_prev is not None else torch.zeros(
         (b, d), dtype=x.dtype, device=x.device)
     xs = _token_shift(x, xp)
-    xk = x + (xs - x) * p.mu[0]
-    xr = x + (xs - x) * p.mu[1]
+    mu = partitioned_leaf(L, p.mu)
+    xk = x + (xs - x) * mu[0]
+    xr = x + (xs - x) * mu[1]
     k = all_gather(torch.square(torch.relu(xk @ p.w_k)), "model", dim=-1,
                    mesh=L.mesh)
     r = torch.sigmoid(xr @ p.w_r)
-    return all_gather(r * (k @ p.w_v), "model", dim=-1, mesh=L.mesh)
+    return all_gather(r * (k @ p.w_v), "model", dim=-1, mesh=L.mesh,
+                      grad="slice")
 
 
 def channel_mix_decode_tp(p: ChannelMix, L, x, x_prev):

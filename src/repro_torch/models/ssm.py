@@ -14,9 +14,11 @@ plain PyTorch loop over the steps (one fused ``addcmul`` a step on the
 outputs computed together.
 
 Tensor parallelism (``models.tensor_parallel``): ``ssm_prefill_tp`` /
-``ssm_decode_tp`` run the branch on the rank's d_inner channels, its
-``h`` and ``conv`` caches cut by channel as ``cache_pspecs`` cuts them,
-and return its float32 partial of ``w_out``'s product.
+``ssm_decode_tp`` run the branch on the rank's
+d_inner channels, its ``h`` and ``conv`` caches cut by channel as
+``cache_pspecs`` cuts them, and return its float32 partial of
+``w_out``'s product.  Training differentiates the same body, the
+selective scan as the plain version is.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ from torch import nn
 from ..configs.base import ModelConfig
 from .attention import _param
 from .layers import matmul_f32
-from .sharding import all_gather, psum, psum_scatter
+from .sharding import all_gather, psum, psum_grad, psum_scatter
+from .tensor_parallel import partitioned_leaf
 
 __all__ = [
     "SSM",
@@ -167,7 +170,7 @@ def ssm_decode(p: SSM, cfg: ModelConfig, x, cache):
 
 
 # ---------------------------------------------------------------------------
-# tensor-parallel serving: this rank's d_inner channels
+# tensor parallelism: this rank's d_inner channels
 # ---------------------------------------------------------------------------
 def _ssm_branch_tp(p: SSM, cfg: ModelConfig, L, x, h0, conv_cache=None):
     """The SSM branch on this rank's d_inner channels (``L.di_lo``,
@@ -185,7 +188,14 @@ def _ssm_branch_tp(p: SSM, cfg: ModelConfig, L, x, h0, conv_cache=None):
     are redistributed: ``x @ w_in``'s blocks gathered, then its u and z
     channels; dt the ``psum_scatter`` of its float32 partial over the
     channels; B and C a ``psum``.  Returns (the float32 partial of the
-    output, the cache ``{"h": (B, di_loc, st), "conv": (B, 3, di_loc)}``)."""
+    output, the cache ``{"h": (B, di_loc, st), "conv": (B, 3, di_loc)}``).
+
+    Under autograd each rank's gradient of what it gathered or computed
+    whole is partial (it feeds only the rank's channels): the weights'
+    and the products' gathers transpose to reduce-scatters, B and C's
+    sum gets its cotangents summed (``psum_grad``), and ``dt_bias`` /
+    ``d_skip``, whole on every rank, enter through
+    ``partitioned_leaf``."""
     di, st = cfg.d_inner_, cfg.ssm_state
     own = slice(L.di_lo, L.di_lo + L.di_loc)
     z_cols = slice(di + L.di_lo, di + L.di_lo + L.di_loc)
@@ -208,13 +218,13 @@ def _ssm_branch_tp(p: SSM, cfg: ModelConfig, L, x, h0, conv_cache=None):
         z = uz[..., z_cols]
         dt = psum_scatter(matmul_f32(u, p.w_dt), "model", dim=-1,
                           mesh=mesh).to(u.dtype)
-        bc = psum(matmul_f32(u, torch.cat([p.w_b, p.w_c], 1)), "model",
-                  mesh=mesh).to(u.dtype)
+        bc = psum(psum_grad(matmul_f32(u, torch.cat([p.w_b, p.w_c], 1)),
+                            "model", mesh), "model", mesh=mesh).to(u.dtype)
         bmat, cmat = bc[..., :st], bc[..., st:]
-    dt = F.softplus(dt + p.dt_bias[own]).float()
+    dt = F.softplus(dt + partitioned_leaf(L, p.dt_bias)[own]).float()
     a = -torch.exp(p.a_log.float())
     y, h = selective_scan(u, dt, bmat.float(), cmat.float(), a,
-                          p.d_skip[own], h0)
+                          partitioned_leaf(L, p.d_skip)[own], h0)
     y = y.to(x.dtype) * F.silu(z)
     return matmul_f32(y, p.w_out), {"h": h, "conv": conv_cache.contiguous()}
 

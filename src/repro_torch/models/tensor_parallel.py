@@ -32,13 +32,13 @@ of every weight matrix over ``data``).  A call computes:
 ``TPLayout`` holds the cut of one call; ``tp_layout`` derives it from the
 config, the mesh and the global (batch, sequence) by the reference's
 divisibility rules (a train call is a (B, S) call without a cache).
-Families cut: GQA attention (no sliding window) with a dense or MoE MLP,
-for serving and training; RWKV6 (its heads, the channel-mix's FF
-columns), Hymba (its padded heads, the SSM's d_inner channels, the
-windowed ring cache cut along time) and MLA (its heads; its latents
+Families cut, for serving and training alike: GQA attention (no sliding
+window) with a dense or MoE MLP; RWKV6 (its heads, the channel-mix's FF
+columns); Hymba (its padded heads, the SSM's d_inner channels, the
+windowed ring cache cut along time); MLA (its heads; its latents
 replicated over ``model``; its latent cache cut along time) with
-DeepSeek-V3's shared expert (its FF columns), for serving.  The others
-raise ``NotImplementedError`` (``check_cut``).
+DeepSeek-V3's shared expert (its FF columns) and its MTP head.  Other
+cuts raise ``NotImplementedError`` (``check_cut``).
 
 Where a weight's stored cut does not line up with the rank's heads or
 channels (Hymba's ``wq`` / ``wo`` around padded heads, ``wk`` / ``wv``
@@ -55,7 +55,11 @@ whole, a tensor every model rank holds alike that enters work each rank
 does for its own heads, experts or FF columns has its gradient summed
 over ``model`` where it enters: an activation in ``column_input``, a
 leaf no spec cuts over ``model`` (``bq``, ``k_norm``, a whole ``wk``, the
-router, ``b1``) in ``partitioned_leaf``, at its use.  The ZeRO-3
+router, ``b1``, RWKV6's ``mu`` / ``u`` / ``w0`` / LoRA factors /
+``head_norm``, the SSM's ``dt_bias`` / ``d_skip``) in
+``partitioned_leaf``, at its use; a weight gathered whole over ``model``
+and used through the rank's own columns (``TPLayout.move_weights``) has
+its gradient reduce-scattered back, the ranks' partials summed.  The ZeRO-3
 gather's backward is the reduce-scatter over ``data`` where the batch is
 cut over ``data`` (the data-parallel sum of those leaves' gradients) and
 the rank's block of the gradient where it is not.  ``sum_partial_grads``
@@ -188,27 +192,11 @@ def pad_heads(kv: int, rep: int, axis: int) -> tuple[int, int]:
 _RECURRENT = ("rwkv6", "hymba")
 
 
-def check_cut(cfg: ModelConfig, mesh, training: bool = False) -> None:
+def check_cut(cfg: ModelConfig, mesh) -> None:
     """Raise ``NotImplementedError``, with the reason, for a config or mesh
-    tensor parallelism does not cut yet: for serving, or for training
-    when ``training`` (RWKV6, Hymba, MLA and a shared expert are cut for
-    serving only)."""
-    why = {"hymba": "Hymba's SSM branch and its padded-head weights are "
-                    "cut for serving only",
-           "rwkv6": "RWKV6's time-mix and channel-mix are cut for serving "
-                    "only",
-           "mla": "MLA's heads and latent projections are cut for serving "
-                  "only"}
-    if training and cfg.attn_type in why:
-        raise NotImplementedError(
-            f"{cfg.name}: {why[cfg.attn_type]}; tensor-parallel training "
-            f"covers GQA attention without a window; train it with whole "
-            f"parameters under a mesh")
-    if training and cfg.n_shared_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: a shared expert is cut for serving only; "
-            f"tensor-parallel training covers routed experts alone; train "
-            f"it with whole parameters under a mesh")
+    tensor parallelism does not cut.  Serving and training cut the same
+    families: GQA attention without a window, RWKV6, Hymba and MLA, with a
+    dense MLP, routed experts or a shared expert."""
     if cfg.attn_type == "gqa" and cfg.sliding_window:
         raise NotImplementedError(
             f"{cfg.name}: a sliding window is cut for Hymba only; tensor "
@@ -242,11 +230,10 @@ def check_cut(cfg: ModelConfig, mesh, training: bool = False) -> None:
             f"padded-head weights, which the port cuts for Hymba only")
 
 
-def tp_layout(cfg: ModelConfig, mesh, batch: int, seq: int,
-              training: bool = False) -> TPLayout:
+def tp_layout(cfg: ModelConfig, mesh, batch: int, seq: int) -> TPLayout:
     """The cut of a call over ``batch`` rows of ``seq`` tokens (decode:
     ``seq`` 1) on this rank of ``mesh``, by the reference's rules."""
-    check_cut(cfg, mesh, training)
+    check_cut(cfg, mesh)
     shape = mesh_shape(mesh)
     d, m = shape["data"], shape["model"]
     mi = axis_index("model", mesh)

@@ -16,8 +16,11 @@ under the same names (``layers.0.attn.wq``), which
 ``{"m", "v", "step"}`` pytree for a checkpoint.  ``init_opt_state`` gives
 zero moments of each parameter's type, as the reference's ``zeros_like``
 does; the first update makes them float32.  ``adamw_update`` writes the
-new parameters, and the float32 moments, IN PLACE: that stands in for
-the reference's donated buffers.
+new parameters, and the float32 moments, IN PLACE, and puts each new
+float32 moment into the state's own ``m`` / ``v`` dict as it is made,
+freeing the moment it replaces: that stands in for the reference's
+donated buffers (the first update of a bf16 model never holds every
+bf16 zero moment beside every float32 one).
 
 On shards (a ``TransformerLM`` cut by ``launch.shardings.shard_params``,
 ``mesh`` set): the global norm is the reference's norm of the global
@@ -137,8 +140,10 @@ def adamw_update(cfg: AdamWConfig, params, grads, state):
     parameter, one parameter at a time, in two float32 scratch tensors of
     that parameter's size (three for a bf16 parameter).  ``params`` is
     updated in place and returned; a float32 moment of ``state`` is
-    updated in place, a moment of another type is replaced by a float32
-    tensor."""
+    updated in place, a moment of another type is replaced, in
+    ``state["m"]`` / ``state["v"]`` itself and as soon as its parameter
+    is done, by a float32 tensor.  The returned state holds those two
+    dicts."""
     named = named_tensors(params)
     grads = dict(grads)
     norm = _global_norm(grads, params)
@@ -148,7 +153,7 @@ def adamw_update(cfg: AdamWConfig, params, grads, state):
     b1, b2 = cfg.beta1, cfg.beta2
     bc1 = 1 - _pow(b1, step)
     bc2 = 1 - _pow(b2, step)
-    new_m, new_v = {}, {}
+    new_m, new_v = state["m"], state["v"]
     for n, p in named.items():
         g = grads[n]
         gf = (g * scale.to(g.dtype)).float()

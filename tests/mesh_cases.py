@@ -273,3 +273,105 @@ class NpzFiles:
 
     def __getitem__(self, key):
         return self._where[key][key]
+
+
+#: case -> (TP_CASES / TP_MLA_CASES regime, mesh, batch, sequence, remat):
+#: tensor-parallel training of the recurrent families, MLA and a shared
+#: expert (``tests/test_torch_mesh_train_families.py``), held against the
+#: reference's sharded jit as TRAIN_CASES are.  rwkv6 on (1, 4) at 4 x 64
+#: (the chunked WKV on each rank's head) and on (2, 2) at 4 x 16 (the
+#: scan, ZeRO-3 over data); hymba at 4 x 80, past its window of 64 (4
+#: heads over 1 KV head, more token rows than d_model: the SSM gathers its
+#: weights); hymba_padded (25 / 5 heads padded to 6 x 6, a window of 8) at
+#: 4 x 16 on (1, 4), fewer token rows than d_model: wq / wk / wv / wo and
+#: the SSM's products redistributed; hymba_padded_long at 4 x 72 on
+#: (2, 2): the weights gathered; dsv3 (MLA, 1 dense and 4 MoE layers of 8
+#: experts top 2, the shared expert, the aux loss, the MTP head) on both
+#: meshes at 4 x 32 (at 4 x 16 a data shard routes 8 tokens an expert,
+#: and over 5 % of the elements, mostly experts', get clipped gradients
+#: within ``_check_update``'s few eps of zero); dsv3_long (2 layers) at
+#: 1 x 4,096 on (1, 4), the chunked MLA route; granite_shared (a shared
+#: expert on GQA) on (2, 2)
+TRAIN_FAMILY_CASES = {
+    "rwkv6_1x4": ("rwkv6", (1, 4), 4, 64, None),
+    "rwkv6_2x2": ("rwkv6", (2, 2), 4, 16, "full"),
+    "hymba": ("hymba", (1, 4), 4, 80, "dots"),
+    "hymba_padded": ("hymba_padded", (1, 4), 4, 16, "full"),
+    "hymba_padded_long": ("hymba_padded_long", (2, 2), 4, 72, None),
+    "dsv3_1x4": ("dsv3", (1, 4), 4, 32, None),
+    "dsv3_2x2": ("dsv3", (2, 2), 4, 32, None),
+    "dsv3_long": ("dsv3_long", (1, 4), 1, 4096, "full"),
+    "granite_shared": ("granite_shared", (2, 2), 4, 16, "full"),
+}
+#: the reference's family cases in processes run side by side
+TRAIN_FAMILY_REFERENCE_SPLIT = (("dsv3_1x4",), ("dsv3_2x2",), ("dsv3_long",),
+                                ("hymba", "rwkv6_1x4"),
+                                ("hymba_padded", "rwkv6_2x2"),
+                                ("hymba_padded_long", "granite_shared"))
+#: the family cases whose tensor-parallel first step is also held against
+#: the port's one-process step: every case whose batch is not cut over
+#: data (an MoE data shard routes into capacities of its own), and the
+#: recurrent families on (2, 2); dsv3_long's 4,096 tokens are left out
+TRAIN_FAMILY_ONE_PROCESS = ("rwkv6_1x4", "rwkv6_2x2", "hymba",
+                            "hymba_padded", "hymba_padded_long", "dsv3_1x4")
+#: the cases that also take ``mtp_loss``'s gradient (DeepSeek-V3's MTP
+#: head) at their first step's state
+TRAIN_FAMILY_MTP = ("dsv3_1x4", "dsv3_2x2")
+#: the family cases whose grad norm and moments are held to the
+#: reference's (the moments to the port's one-process step's too) at
+#: limits of their own, not ``test_torch_mesh_train.py``'s 1e-5, and
+#: whose every step has a float64 witness (``torch_mesh_train_ranks.
+#: _witness``).  RWKV6's gradient of the bonus u sums terms that cancel:
+#: every float32 computation of it, the reference's included, lies
+#: 1.6e-5 to 1.2e-4 (relative L2) from the float64 value, its moments
+#: likewise, and the reference's float32 grad norm on (2, 2) 1.04e-5.  Of
+#: sound runs the tensor-parallel step read at most 1.27e-6 (1x4) and
+#: 9.88e-6 (2x2) from the reference's grad norm, 3.21e-5 and 1.96e-4 from
+#: its moments, 1.04e-4 from the one-process step's; a wrong cut (u's
+#: gradient not summed over ``model``) read 1.7e-5 to 5.8e-3 and 0.86 to
+#: 1.0.  Each limit is about 3x the largest sound reading
+TRAIN_FAMILY_F32_GAPS = {"rwkv6_1x4": {"grad_norm": 1e-5, "moments": 1e-4},
+                         "rwkv6_2x2": {"grad_norm": 3e-5, "moments": 5e-4}}
+#: the witness's bound: each kind's (gradient, m, v) largest distance of
+#: the tensor-parallel step from the float64 value, over that of the
+#: reference's float32 step (sound runs read at most 1.76)
+F32_WITNESS_FACTOR = 3.0
+#: preempt-and-resume of RWKV6 on (2, 2), as TRAIN_RESUME
+TRAIN_FAMILY_RESUME = {"regime": "rwkv6", "mesh": (2, 2), "batch": 4,
+                       "seq": 16, "steps": 5, "save_every": 2, "fail_at": 3}
+
+
+def rwkv6_draws(shapes: dict) -> dict:
+    """RWKV6's decay leaves for the family cases, drawn in place of their
+    init values ({leaf: stacked shape} -> {leaf: float32 array}): the
+    bonus u (0 at init) 0.1 N(0, 1) as ``chip_smoke.py``'s phase 9 checks
+    draw it, the base log-decay w0 (-5 at init) uniform in [-3, -0.5], the
+    decay's LoRA factors (0.01 N(0, 1) at init) 0.1 N(0, 1).  From the
+    init values, a step after u = 0 the first token's head norm of an
+    output ~u put rwkv6_1x4's gradient shards up to 1.8e-4 and rwkv6_2x2's
+    grad norm 3.8e-4 apart from the reference's sharded jit, and the slow
+    uniform decay leaves most of the LoRA factors' clipped gradients
+    within ``_check_update``'s few eps of zero (over 20 % of rwkv6_1x4's
+    elements)."""
+    rng = np.random.default_rng(TRAIN_SEED + 1)
+    out = {}
+    for leaf in ("u", "w0", "w_lora_a", "w_lora_b"):
+        shape = shapes[leaf]
+        draw = (rng.uniform(-3.0, -0.5, shape) if leaf == "w0"
+                else 0.1 * rng.normal(size=shape))
+        out[leaf] = draw.astype(np.float32)
+    return out
+
+
+def train_cases(case: str) -> dict:
+    """The table (TRAIN_CASES or TRAIN_FAMILY_CASES) that holds ``case``."""
+    return TRAIN_CASES if case in TRAIN_CASES else TRAIN_FAMILY_CASES
+
+
+def mtp_labels(cfg, case: str):
+    """The tokens two places ahead for ``mtp_loss`` at the case's first
+    step, numpy (B, S)."""
+    _, _, b, s, _ = TRAIN_FAMILY_CASES[case]
+    rng = np.random.default_rng(
+        500 + sorted(TRAIN_FAMILY_CASES).index(case))
+    return rng.integers(0, cfg.vocab_size, (b, s), dtype=np.int32)

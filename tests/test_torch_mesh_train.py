@@ -3,8 +3,9 @@ reference's sharded ``jit`` on a forced 4-device CPU mesh: the
 collectives' transposes, ``loss_and_grads`` and ``make_train_step`` on a
 sharded ``TransformerLM`` (vocab-parallel cross entropy, ZeRO-3
 gradients, the shard-aware clip, AdamW on shards), a tensor-parallel
-run preempted and resumed from a checkpoint, and the families that stay
-refused.
+run preempted and resumed from a checkpoint, and gradient compression,
+which stays refused under a mesh.  The recurrent families, MLA and a
+shared expert are ``test_torch_mesh_train_families.py``'s.
 
 Both sides run once per module.  The reference runs in a process of its
 own (``torch_mesh_train_reference.py``, JAX with
@@ -322,44 +323,10 @@ def test_tp_run_preempted_and_resumed_is_bit_equal(runs):
         assert bool(out["resume/ckpt_equal"])
 
 
-@pytest.mark.parametrize("arch,reason", [
-    ("hymba-1.5b", "SSM branch"),
-    ("rwkv6-1.6b", "RWKV6"),
-    ("deepseek-v3-671b", "MLA"),
-])
-def test_sharded_families_not_cut_yet_are_refused(arch, reason):
-    """``hidden_states``, ``forward``, ``loss_fn`` and ``loss_and_grads``
-    on a sharded Hymba, RWKV6 or MLA model raise ``NotImplementedError``
-    naming what is not cut, before any collective."""
-    from repro_torch.configs import get_config
-    from repro_torch.launch.mesh import AbstractMesh
-    from repro_torch.launch.steps import loss_and_grads
-    from repro_torch.models.model import (
-        TransformerLM,
-        forward,
-        hidden_states,
-        loss_fn,
-    )
-    from repro_torch.models.sharding import logical_sharding, single_pod_rules
-
-    cfg = dataclasses.replace(get_config(arch).smoke(), dtype="float32")
-    params = TransformerLM(cfg, "cpu")
-    params.mesh = AbstractMesh((2, 2), ("data", "model"))
-    tok = np.zeros((2, 8), np.int64)
-    with logical_sharding(params.mesh, single_pod_rules()):
-        for call in (lambda: hidden_states(cfg, params, tok),
-                     lambda: forward(cfg, params, tok),
-                     lambda: loss_fn(cfg, params, tok, tok),
-                     lambda: loss_and_grads(cfg, params, {"tokens": tok,
-                                                          "labels": tok})):
-            with pytest.raises(NotImplementedError, match=reason):
-                call()
-
-
 def test_shared_expert_and_compression_refused_under_a_mesh():
-    """A shared expert is cut for serving only: training refuses it (the
-    reason says so) and serving does not; gradient compression on sharded
-    parameters is refused for the wire step."""
+    """A shared expert is cut for training as for serving (its cases are
+    ``test_torch_mesh_train_families.py``'s); gradient compression on
+    sharded parameters is refused for the wire step."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import AbstractMesh
     from repro_torch.launch.steps import make_train_step
@@ -372,8 +339,6 @@ def test_shared_expert_and_compression_refused_under_a_mesh():
     mesh = AbstractMesh((1, 4), ("data", "model"))
     shared = dataclasses.replace(get_config("granite-moe-3b-a800m").smoke(),
                                  n_shared_experts=1)
-    with pytest.raises(NotImplementedError, match="shared expert"):
-        check_cut(shared, mesh, training=True)
     check_cut(shared, mesh)
     cfg = dataclasses.replace(get_config("qwen3-4b").smoke(), dtype="float32")
     params = TransformerLM(cfg, "cpu")

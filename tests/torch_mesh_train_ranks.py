@@ -1,8 +1,12 @@
-"""The port's side of ``tests/test_torch_mesh_train.py``: one function run
-by each of 4 CPU ranks (``torch.multiprocessing.spawn``, gloo through a
-``file://`` rendezvous, each collective under a timeout).  Each rank runs
-every case and writes what it got to ``rank<r>.npz``; the test asserts.
-Imports no JAX."""
+"""The port's side of ``tests/test_torch_mesh_train.py`` and
+``tests/test_torch_mesh_train_families.py``: one function run by each of
+4 CPU ranks (``torch.multiprocessing.spawn``, gloo through a ``file://``
+rendezvous, each collective under a timeout).  Each rank runs every case
+of its suite (``"base"``: ``mesh_cases.TRAIN_CASES``; ``"families"``:
+``TRAIN_FAMILY_CASES``) and writes what it got to ``rank<r>.npz``; the
+test asserts.  Imports no JAX."""
+import contextlib
+import dataclasses
 import datetime
 import os
 import threading
@@ -80,13 +84,63 @@ def _one_process(cfg, init, name, remat):
     grad norm, its gradients, the parameters and the moments after it),
     whole."""
     lm = lm_params_from_arrays(cfg, init, device="cpu")
-    batch = mc.train_batch(cfg, name, 0)
+    batch = mc.train_batch(cfg, name, 0, mc.train_cases(name))
     _, grads = steps.loss_and_grads(cfg, lm, batch, remat=remat)
     step = steps.make_train_step(cfg, AdamWConfig(**mc.TRAIN_OPT),
                                  remat=remat)
     lm, opt, met = step(lm, init_opt_state(lm), batch)
     return (float(met["loss"]), float(met["grad_norm"]), grads,
             dict(lm.named_parameters()), opt["m"], opt["v"])
+
+
+@contextlib.contextmanager
+def float64_arithmetic():
+    """The port's float32 arithmetic carried out in float64 inside:
+    ``torch.float32`` and ``Tensor.float`` name float64, so the explicit
+    float32 casts of the WKV, the norms and the products widen instead.
+    What a float32 computation of the same step rounds: the witness of
+    the float32 gaps (``mesh_cases.TRAIN_FAMILY_F32_GAPS``), not a route
+    of the port."""
+    f32, flt = torch.float32, torch.Tensor.float
+    torch.float32, torch.Tensor.float = torch.float64, torch.Tensor.double
+    try:
+        yield
+    finally:
+        torch.float32, torch.Tensor.float = f32, flt
+
+
+def _witness(cfg, name, i, params, opt, mesh, cases, remat, out):
+    """Step ``i`` of the case in float64 on one process
+    (``float64_arithmetic``) from the state this rank's shards hold before
+    it (the reference's, ``_anchor``), gathered whole: its loss and grad
+    norm, and this rank's slices of its gradients and moments, under
+    ``{name}/f64/``."""
+    specs = params.pspecs
+    whole = {n: gather_whole(p.detach(), specs[n], mesh)
+             for n, p in params.named_parameters()}
+    mv = {k: {n: gather_whole(opt[k][n], specs[n], mesh) for n in whole}
+          for k in ("m", "v")}
+    with float64_arithmetic():
+        wide = dataclasses.replace(cfg, dtype="float64")
+        lm = TransformerLM(wide, "cpu")
+        with torch.no_grad():
+            for n, p in lm.named_parameters():
+                p.copy_(whole[n])
+        state = {k: {n: t.double() for n, t in mv[k].items()}
+                 for k in ("m", "v")}
+        state["step"] = torch.tensor(i, dtype=torch.int32)
+        batch = mc.train_batch(cfg, name, i, cases)
+        _, grads = steps.loss_and_grads(wide, lm, batch, remat=remat)
+        step = steps.make_train_step(wide, AdamWConfig(**mc.TRAIN_OPT),
+                                     remat=remat)
+        _, state, met = step(lm, state, batch)
+    out[f"{name}/f64/loss/{i}"] = met["loss"].numpy()
+    out[f"{name}/f64/grad_norm/{i}"] = met["grad_norm"].numpy()
+    for n, g in grads.items():
+        for kind, t in (("g", g), ("m", state["m"][n]),
+                        ("v", state["v"][n])):
+            out[f"{name}/f64/{kind}/{i}/{n}"] = local_shard(
+                t, specs[n], mesh).numpy()
 
 
 @torch.no_grad()
@@ -116,9 +170,13 @@ def train_case(ref, index, out, name, one_process):
     (``_anchor``); the losses, grad norms, every gradient shard, the
     parameter / m / v shards after each step and each leaf's place.  With
     ``one_process``, this rank's slices of the port's one-process first
-    step."""
-    regime, shape, b, s, remat = mc.TRAIN_CASES[name]
-    cfg = mc.train_config(get_config, name)
+    step.  A case of ``mesh_cases.TRAIN_FAMILY_MTP`` first takes
+    ``mtp_loss``'s value and gradient shards at the seeded shards; one
+    of ``TRAIN_FAMILY_F32_GAPS`` each step's float64 witness
+    (``_witness``)."""
+    cases = mc.train_cases(name)
+    regime, shape, b, s, remat = cases[name]
+    cfg = mc.train_config(get_config, name, cases)
     mesh = make_host_mesh(*shape, device="cpu")
     pre = f"{name}/init/"
     init = unflatten_pytree({k.removeprefix(pre): ref[k]
@@ -130,10 +188,19 @@ def train_case(ref, index, out, name, one_process):
     out[f"{name}/coord"] = np.array([mesh.get_local_rank("data"),
                                      mesh.get_local_rank("model")])
     with logical_sharding(mesh, single_pod_rules()):
+        if name in mc.TRAIN_FAMILY_MTP:
+            batch = dict(mc.train_batch(cfg, name, 0, cases),
+                         labels_next2=mc.mtp_labels(cfg, name))
+            loss, grads = steps.mtp_loss_and_grads(cfg, params, batch)
+            out[f"{name}/mtp/loss"] = loss.detach().numpy()
+            for n, g in grads.items():
+                out[f"{name}/mtp/g/{n}"] = g.numpy()
         for i in range(mc.TRAIN_STEPS):
             if i:
                 _anchor(ref, index, name, i - 1, params, opt, mesh)
-            batch = mc.train_batch(cfg, name, i)
+            if name in mc.TRAIN_FAMILY_F32_GAPS:
+                _witness(cfg, name, i, params, opt, mesh, cases, remat, out)
+            batch = mc.train_batch(cfg, name, i, cases)
             loss, grads = steps.loss_and_grads(cfg, params, batch,
                                                remat=remat)
             out[f"{name}/loss/{i}"] = loss.detach().numpy()
@@ -277,6 +344,54 @@ def flash_case(out):
         ops.flash_attention = real
 
 
+def family_flash_case(out):
+    """``use_flash`` on the shards of the new families on (1, 4): RWKV6
+    (K8 on each rank's heads, ``rwkv6_1x4``'s 64 tokens) and Hymba's
+    padded heads (K7 with the window, ``hymba_padded``).  Without grad
+    ``forward`` calls the kernel's wrapper once a layer (its CPU version
+    here), against the plain route's logits; under autograd
+    ``loss_and_grads`` raises ``KernelGradientError``."""
+    from repro_torch.kernels import KernelGradientError
+    from repro_torch.kernels.flash_attention import ops as k7
+    from repro_torch.models import rwkv6
+
+    mesh = make_host_mesh(1, 4, device="cpu")
+    for name, owner, attr in (("rwkv6_1x4", rwkv6, "wkv6"),
+                              ("hymba_padded", k7, "flash_attention")):
+        cases = mc.train_cases(name)
+        cfg = mc.train_config(get_config, name, cases)
+        params = lm_shards_from_arrays(cfg, unflatten_pytree(flatten_pytree(
+            init_params(cfg, mc.TRAIN_SEED, "cpu"))), mesh, device="cpu")
+        batch = mc.train_batch(cfg, name, 0, cases)
+        real, calls = getattr(owner, attr), []
+
+        def spy(*a, real=real, **k):
+            calls.append(1)
+            return real(*a, **k)
+
+        setattr(owner, attr, spy)
+        try:
+            with logical_sharding(mesh, single_pod_rules()), \
+                    torch.no_grad():
+                plain, _ = forward(cfg, params, batch["tokens"])
+                n_plain = len(calls)
+                flash, _ = forward(cfg, params, batch["tokens"],
+                                   use_flash=True)
+            out[f"fflash/{name}/calls"] = np.array(
+                [n_plain, len(calls) - n_plain, cfg.n_layers])
+            out[f"fflash/{name}/max_abs"] = np.array(
+                float((flash - plain).abs().max()))
+            try:
+                with logical_sharding(mesh, single_pod_rules()):
+                    steps.loss_and_grads(cfg, params, batch, use_flash=True)
+                refused = False
+            except KernelGradientError:
+                refused = True
+            out[f"fflash/{name}/refused"] = np.array(refused)
+        finally:
+            setattr(owner, attr, real)
+
+
 def _specs_tree(cfg, mesh):
     """The shardings of a train state's checkpoint tree."""
     pspecs = param_pspecs(cfg, mesh)
@@ -288,14 +403,14 @@ def _specs_tree(cfg, mesh):
     })
 
 
-def resume_case(out, root):
-    """``TrainLoop`` over a train state of shards on (2, 2), a checkpoint
-    every 2 steps: uninterrupted, and preempted at step 3 then resumed
-    from the step-2 checkpoint (restored onto the mesh as DTensors and
-    cut into shards again).  Whether the final shards are bit-equal, the
-    metrics of the two runs, and whether the last checkpoint's leaves
-    equal the final shards gathered whole."""
-    t = mc.TRAIN_RESUME
+def resume_case(out, root, t=mc.TRAIN_RESUME):
+    """``TrainLoop`` over a train state of shards on (2, 2) (``t``: the
+    regime and the schedule), a checkpoint every 2 steps: uninterrupted,
+    and preempted at step 3 then resumed from the step-2 checkpoint
+    (restored onto the mesh as DTensors and cut into shards again).
+    Whether the final shards are bit-equal, the metrics of the two runs,
+    and whether the last checkpoint's leaves equal the final shards
+    gathered whole."""
     cfg = mc.tp_config(get_config, t["regime"])
     mesh = make_host_mesh(*t["mesh"], device="cpu")
     step = steps.make_train_step(cfg, AdamWConfig(**mc.TRAIN_OPT),
@@ -352,7 +467,7 @@ def resume_case(out, root):
         and all(torch.equal(flat[k], want[k]) for k in flat))
 
 
-def run(rank, init_file, ref_paths, out_dir):
+def run(rank, init_file, ref_paths, out_dir, suite="base"):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             rank=rank, world_size=4,
@@ -361,13 +476,20 @@ def run(rank, init_file, ref_paths, out_dir):
         ref = mc.NpzFiles(ref_paths)
         index = mc.shard_index(ref.files)
         out = {}
-        collective_grads(out, rank)
-        for name in mc.TRAIN_CASES:
-            train_case(ref, index, out, name,
-                       one_process=name in mc.TRAIN_ONE_PROCESS)
-        flash_case(out)
-        threaded_backward(out)
-        resume_case(out, out_dir)
+        if suite == "families":
+            for name in mc.TRAIN_FAMILY_CASES:
+                train_case(ref, index, out, name, one_process=(
+                    name in mc.TRAIN_FAMILY_ONE_PROCESS))
+            family_flash_case(out)
+            resume_case(out, out_dir, mc.TRAIN_FAMILY_RESUME)
+        else:
+            collective_grads(out, rank)
+            for name in mc.TRAIN_CASES:
+                train_case(ref, index, out, name,
+                           one_process=name in mc.TRAIN_ONE_PROCESS)
+            flash_case(out)
+            threaded_backward(out)
+            resume_case(out, out_dir)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
         dist.barrier()
     finally:
