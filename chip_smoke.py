@@ -134,12 +134,15 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    every request held against ``predict_compressed`` on the CPU, and
    ``serve_safe`` with one user's delta corrupted (that user
    quarantined, the others unchanged); (c) K1, K2 and K5 launch counts
-   read around (b), positive, with 4 K1 launches per S = 4 batch; (d) K5
-   against its plain version at the S = 1 and S = 4 inputs, and K1 at the
+   read around (b), positive, with no K1 launch and one K5 launch per S =
+   4 batch on the card; (d) K5 against its plain version bit for bit at
+   the S = 1, 2 and 4 sessions' inputs (both tasks; its configuration
+   against the twin's) and at shards cut to unequal tree counts before
+   they are padded, each S timed, and K1 at the
    S = 1 session's batch timed beside its plain version and bound, with
    its configuration (part of K1's ``{"kernels"}`` entry); (e) the
    builds' seconds, each engine's cold and warm batch with its stages,
-   K1's share, and K5 at S = 1 and 4, in one ``{"fleet": ...}`` line;
+   K1's share, and K5 at S = 1, 2 and 4, in one ``{"fleet": ...}`` line;
 11. the store's life on disk and across codebook generations (its K1
    count set to 0 before and read after, positive): (a) durable: phase
    10's 500-user classification store written by
@@ -310,7 +313,16 @@ Phases, in order; any failure propagates and the exit code is non-zero:
    of the same slices, the parameters but for the elements whose Adam
    denominator lies within 300 eps of zero on both sides, which must
    outnumber the elements off and are counted by leaf, the head's split
-   by label columns; the replicated leaves bit-equal across ranks); bf16
+   by label columns; the replicated leaves bit-equal across ranks); the
+   same float32 model's first step on (2, 2) with 4-bit gradient
+   compression (each leaf's global lo / hi by one ``pmax``, the error
+   feedback cut like the gradients) beside the uncompressed step, each
+   side's first step its warm-up with its peak a rank, held to the
+   one-process compressed step by the code-flip rule of
+   ``tests/test_torch_mesh_train.py`` (its grad norm and lo / hi held
+   first, the allowance from those scalars, a control that must fail
+   it; its error feedback against the one process's, sliced), then two
+   timed steps a side, plain, compressed, compressed, plain; bf16
    cut to 4 layers, AdamW, remat "full", 2 x 2,048 tokens (the chunked
    vocab-parallel cross entropy) on (1, 4) and on (2, 2) (ZeRO-3): a
    warm-up step and 3 timed ones under ``collective_timing`` (the
@@ -347,8 +359,9 @@ Liberty shapes and the large one (the same command times a parent tree's
 kernels); ``--forest-profile`` adds ``max_depth`` cut to 0, 2, ..., 12
 and a ``torch.profiler`` split of each call by kernel.  ``--seg-times``
 runs only K1, K2 and K5: K1 and K2 at the single-forest 1,024-row batch
-of phase 4, K1 at phase 10's 65,536-row fleet batch, K5 there at S = 1
-and 4, K1 and K2 at the large classification and regression shapes, each
+of phase 4, K1 at phase 10's 65,536-row fleet batch, K5 there at S = 1,
+2 and 4 (and on the 100-user regression fleet),
+K1 and K2 at the large classification and regression shapes, each
 held against its plain version (the same command times a parent tree's
 kernels); ``--seg-profile`` adds ``max_depth`` cut to 0, 2, ..., 8 at the
 single-forest batch, with each call's device time from ``torch.profiler``.
@@ -1743,7 +1756,8 @@ def seg_shapes(dev):
     """K1's, K2's and K5's inputs at the shapes ``--seg-times`` times: the
     single-forest 1,024-row batch of phase 4 (K1, and K2's first tree
     chunk), the 65,536-row batch of phase 10's 500-user fleet (K1; K5 at
-    S = 1 and 4) and the large parity shapes."""
+    S = 1, 2 and 4) and of its 100-user regression fleet (K5 at S = 1, 2
+    and 4), and the large parity shapes."""
     from repro_torch.serving import ForestServer
     from repro_torch.store import (
         build_store,
@@ -1758,15 +1772,18 @@ def seg_shapes(dev):
                                           device="cuda")
         x = rng.integers(0, 32, (5000, 8)).astype(np.int32)
         shapes[f"main-path-{task}"] = main_path_args(server, x)
-    task = "classification"
-    store = build_store(make_synthetic_fleet(FLEET_SERVE_USERS[task], task,
-                                             seed=0), device=dev)
-    requests = make_request_batch(store, FLEET_REQUESTS, FLEET_ROWS, seed=1)
-    shapes["fleet"] = {K1["name"]: fleet_kernel_args(
-        fleet_session(store, dev, None), requests, "pipelined")[1]}
-    for shards in (1, 4):
-        shapes[f"fleet-s{shards}"] = {K5["name"]: fleet_kernel_args(
-            fleet_session(store, dev, shards), requests, "sharded")[1]}
+    for task in ("classification", "regression"):
+        store = build_store(make_synthetic_fleet(FLEET_SERVE_USERS[task],
+                                                 task, seed=0), device=dev)
+        requests = make_request_batch(store, FLEET_REQUESTS, FLEET_ROWS,
+                                      seed=1)
+        tag = "fleet" if task == "classification" else "fleet-reg"
+        if task == "classification":
+            shapes[tag] = {K1["name"]: fleet_kernel_args(
+                fleet_session(store, dev, None), requests, "pipelined")[1]}
+        for shards in (1, 2, 4):
+            shapes[f"{tag}-s{shards}"] = {K5["name"]: fleet_kernel_args(
+                fleet_session(store, dev, shards), requests, "sharded")[1]}
     for case in PARITY_CASES:
         if case["name"] in ("cls2-d8-large", "reg-d8-large"):
             shapes[case["name"]] = {
@@ -1802,7 +1819,8 @@ def seg_times_main(profile: bool) -> None:
     against its plain version, median / min / max of REPS calls, with the
     library's configuration where the tree has one.  Only the launch and
     plain functions are used, so the same command times a parent tree's
-    kernels.  ``--seg-profile`` adds ``seg_depth_profile``."""
+    K1 and K2 (K5's inputs are this tree's: one stack a device).
+    ``--seg-profile`` adds ``seg_depth_profile``."""
     from repro_torch.kernels import build
     from repro_torch.kernels.tree_predict import tree_predict as tp
 
@@ -1815,14 +1833,17 @@ def seg_times_main(profile: bool) -> None:
     for where, kernels in shapes.items():
         for name, args in kernels.items():
             launch, plain = runs[name]
+            plain_args = k5_shard_args(args) if name == K5["name"] else args
             run = bound_launch(name, launch, args)
-            max_abs_err(run(), plain(*args))
+            max_abs_err(run(), plain(*plain_args))
             line = {"seg_times": name, "shape": where, **time_stats(run)}
             if hasattr(tp, "seg_config") and name in SEG:
                 cfg = seg_config_checked(name, args)
                 line["config"] = {k: cfg[k] for k in (
                     "mode", "decode", "rows", "cols", "grid", "resident",
                     "smem")}
+            if name == K5["name"]:
+                line["config"] = k5_config_checked(args)
             log(json.dumps(line))
     if profile:
         seg_depth_profile(shapes["main-path-classification"])
@@ -2902,7 +2923,7 @@ def phase_fleet_serving(dev, bench_stores):
         fleets[task] = build_store(forests[task], device=dev)
         build_rows[task] = {"users": n_users,
                             "build_s": time.perf_counter() - t0}
-    out = {}
+    out, s4_batch = {}, None
     tp.reset_launches()
     for task, store in fleets.items():
         requests = make_request_batch(store, FLEET_REQUESTS, FLEET_ROWS, seed=1)
@@ -2922,9 +2943,11 @@ def phase_fleet_serving(dev, bench_stores):
             preds = server.serve(requests, engine=engine)
             check_fleet(task, requests, preds, want, f"{task} {label}")
             if label == "sharded_s4":
+                # one card: K5 launches once for its four shards, no K1
                 k1 = tp.LAUNCHES["seg_packed"] - before["seg_packed"]
                 k5 = tp.LAUNCHES["seg_sharded"] - before["seg_sharded"]
-                assert (k1, k5) == (4, 1), (k1, k5)
+                assert (k1, k5) == (0, 1), (k1, k5)
+                s4_batch = {"k1": k1, "k5": k5}
                 auto = server.plan(requests)
                 row["cost_model_4_devices"] = [auto.engine.name,
                                                auto.engine.reason]
@@ -2947,6 +2970,7 @@ def phase_fleet_serving(dev, bench_stores):
     log(f"fleet-path launches: {json.dumps(launches)}")
     for name in (K1["name"], K2["name"], K5["name"]):
         assert launches[name] > 0, f"kernel {name} was not launched on the fleet path"
+    launches["s4_batch"] = s4_batch
     return out, launches, build_rows, forests
 
 
@@ -2972,13 +2996,72 @@ def fleet_kernel_args(server, requests, engine):
                       pack.max_depth, store.arena.tb2, c,
                       plan.engine.block_trees, pack.block_obs)
     devs = pack.devices
-    return plan, ([T(xb, d) for d in devs], [T(plan.oseg_s, d) for d in devs],
-                  list(pack.code), list(pack.fit),
-                  [T(a, d) for a, d in zip(pack.tree_seg, devs)],
-                  [T(a, d) for a, d in zip(pack.chunk_lo, devs)],
-                  [T(a, d) for a, d in zip(pack.chunk_hi, devs)],
+    groups = {d: [i for i, e in enumerate(devs) if e == d]
+              for d in dict.fromkeys(devs)}
+    return plan, ([T(xb, d) for d in groups], [T(plan.oseg_s, d)
+                                               for d in groups],
+                  [pack.code[d] for d in groups],
+                  [pack.fit[d] for d in groups],
+                  *([T(a[idx], d) for d, idx in groups.items()]
+                    for a in (pack.tree_seg, pack.chunk_lo, pack.chunk_hi)),
                   pack.max_depth, store.arena.tb2, c,
-                  plan.engine.block_trees, pack.block_obs)
+                  plan.engine.block_trees, pack.block_obs,
+                  list(groups.values()))
+
+
+def k5_shard_args(args):
+    """K5's launch inputs (one entry a device, its shards stacked, then
+    each device's shard indices) as its plain version takes them: one
+    tensor a shard, in shard order, rows replicated."""
+    *tensors, depth, tb2, c, bt, bo, shards = args
+    per_shard = {}
+    for j, idx in enumerate(shards):
+        for r, i in enumerate(idx):
+            per_shard[i] = [a[j] if k < 2 else a[j][r]
+                            for k, a in enumerate(tensors)]
+    cols = zip(*(per_shard[i] for i in sorted(per_shard)))
+    return (*map(list, cols), depth, tb2, c, bt, bo)
+
+
+def k5_uneven(args):
+    """(K5's launch inputs, its plain version's) with each shard cut back
+    to its last chunk holding a real tree (at least one chunk): the
+    shards then differ in ``T_pad``, as the plain version takes them, and
+    the launch gets each device's shards padded to one (``_stacked``, as
+    the sharded entry pads them).  Chunk ranges never reach past a
+    shard's last real chunk, so they stay as they are."""
+    from repro_torch.kernels.tree_predict import tree_predict as tp
+
+    xb, oseg, code, fit, tseg, lo, hi, *rest = k5_shard_args(args)
+    bt = rest[3]
+    keep = []
+    for t in tseg:
+        real = torch.nonzero(t >= 0)
+        last = int(real[-1]) + 1 if len(real) else 1
+        keep.append(-(-last // bt) * bt)
+    code, fit, tseg = ([a[:k] for a, k in zip(tiles, keep)]
+                       for tiles in (code, fit, tseg))
+    shards = args[-1]
+    stacked = ([tp._stacked([tiles[i] for i in idx], fill)
+                for idx in shards]
+               for tiles, fill in ((code, 0.0), (fit, 0.0), (tseg, -1)))
+    return ((*args[:2], *stacked, *args[5:]),
+            (xb, oseg, code, fit, tseg, lo, hi, *rest))
+
+
+def k5_config_checked(args):
+    """K5's configuration as the library reports it for these inputs (one
+    card: every shard in one launch), held equal to its twin's."""
+    from repro_torch.kernels.tree_predict import tree_predict as tp
+
+    xb, _, code, _, _, _, _, depth, tb2, c, bt, bo, _ = args
+    (k, t_pad, h), = {tuple(t.shape) for t in code}
+    shape = (xb[0].shape[0], xb[0].shape[1], t_pad, h, depth, c, bt, bo,
+             tb2)
+    card = tp.seg_config(*shape, shards=k)
+    twin = tp._seg_config(*shape, resident=card["resident"], shards=k)
+    assert card == twin, (card, twin)
+    return card
 
 
 def fleet_batch_times(dev, store, requests, label, shards, engine):
@@ -3031,11 +3114,16 @@ def fleet_batch_times(dev, store, requests, label, shards, engine):
     }
 
 
+#: K5's shard counts at phase 10's fleet batch (one card)
+K5_SHARDS = (1, 2, 4)
+
+
 def fleet_entry(served, launches, build_rows, fleet_rows):
     """K5's entry of the ``{"kernels": [...]}`` line and the ``{"fleet":
-    ...}`` line: K5 against its plain version at the S = 1 and S = 4
-    sessions' inputs (both tasks), timed beside K1 at the same batch;
-    then every engine's cold and warm batch."""
+    ...}`` line: K5 against its plain version bit for bit at the S = 1, 2
+    and 4 sessions' inputs (both tasks) and at shards of unequal T_pad,
+    its configuration against the twin's, each S timed beside K1 at the
+    same batch; then every engine's cold and warm batch."""
     from repro_torch.kernels.tree_predict import tree_predict as tp
 
     errs, per_task, fleet = [], {}, {"build": {**build_rows}, "store": fleet_rows}
@@ -3047,24 +3135,31 @@ def fleet_entry(served, launches, build_rows, fleet_rows):
                        tp._seg_packed_plain, k1_parts, k1_args, reps=3)
         k1_ms, bms, by, work = (k1[k] for k in ("ms", "bound_ms",
                                                 "bound_by", "work"))
-        times = {}
-        for shards in (1, 4):
+        times, configs = {}, {}
+        for shards in K5_SHARDS:
             _plan, args = fleet_kernel_args(
                 fleet_session(store, dev, shards), requests, "sharded")
-            got = tp._launch_seg_sharded(*args)
-            torch.cuda.synchronize()
-            errs.append(max_abs_err(got, tp._seg_sharded_plain(*args)))
+            cfg = k5_config_checked(args)
+            configs[shards] = {k: cfg[k] for k in (
+                "mode", "rows", "grid", "shards", "resident")}
+            plain_args = k5_shard_args(args)
+            for case, plain in ((args, plain_args), k5_uneven(args)):
+                got = tp._launch_seg_sharded(*case)
+                torch.cuda.synchronize()
+                errs.append(max_abs_err(got, tp._seg_sharded_plain(*plain)))
+            stats = time_stats(lambda: tp._launch_seg_sharded(*args))
             times[shards] = {
-                "ms": time_ms(lambda: tp._launch_seg_sharded(*args)),
-                "plain_ms": time_ms(lambda: tp._seg_sharded_plain(*args),
-                                    reps=3),
+                "ms": stats["median"], "ms_min": stats["min"],
+                "ms_max": stats["max"],
+                "plain_ms": time_ms(
+                    lambda: tp._seg_sharded_plain(*plain_args), reps=3),
             }
         per_task[task] = {
             "shape": {"rows": plan1.n_rows, "trees": int(plan1.seg_trees.sum()),
                       "users": plan1.n_users, "t_pad": plan1.t_pad},
-            "ms_s1": times[1]["ms"], "ms_s4": times[4]["ms"],
-            "plain_ms_s1": times[1]["plain_ms"],
-            "plain_ms_s4": times[4]["plain_ms"],
+            **{f"ms_s{k}": times[k]["ms"] for k in K5_SHARDS},
+            **{f"plain_ms_s{k}": times[k]["plain_ms"] for k in K5_SHARDS},
+            "times": times, "config": configs,
             "k1_ms": k1_ms, "bound_ms": bms, "bound_by": by, "work": work,
         }
         engines_rows = [fleet_batch_times(dev, store, requests, label, shards,
@@ -3073,19 +3168,23 @@ def fleet_entry(served, launches, build_rows, fleet_rows):
         pipelined = engines_rows[0]
         fleet[task] = {"engines": engines_rows, "k1_ms": k1_ms, "k1": k1,
                        "k1_share_of_warm_batch": k1_ms / pipelined["warm_ms"],
-                       "k5_ms_s1": times[1]["ms"], "k5_ms_s4": times[4]["ms"]}
+                       **{f"k5_ms_s{k}": times[k]["ms"] for k in K5_SHARDS}}
     main = per_task["classification"]
     entry = dict(K5)
     entry.update({
         "launches": launches[K5["name"]],
-        "k1_launches_per_s4_batch": 4,
+        "k1_launches_per_s4_batch": launches["s4_batch"]["k1"],
+        "k5_launches_per_s4_batch": launches["s4_batch"]["k5"],
         "max_abs_err": max(errs),
         "ms": main["ms_s4"], "plain_ms": main["plain_ms_s4"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None,
         "library_note": "no single PyTorch call computes a tree traversal",
-        "route_note": "no kernel of its own: K1 (tp_seg_packed) per tree "
-                      "shard on each device, then an ordered sum",
+        "route_note": "one launch a device for all of its tree shards "
+                      "(tp_seg_sharded: K1's kernel with the shard as a grid "
+                      "dimension); regression partials folded in shard "
+                      "order by a kernel after the walks, votes added by "
+                      "every shard into one output",
         "timed_at": "one 65,536-row fleet batch at S = 4 shards on one card, "
                     f"classification ({FLEET_SERVE_USERS['classification']:,} "
                     "users); bound: K1's for the same "
@@ -6548,18 +6647,24 @@ def mesh_k7_timing(dev) -> dict:
 # "full", 2 x 2,048 tokens (the chunked vocab-parallel cross entropy), a
 # warm-up step and MESH_TRAIN["bf16"]["timed"] timed steps on each mesh
 # (3 -> 2 to pay for (i)); the smoke config on (2, 2) preempted at step 3
-# and resumed from its step-2 checkpoint
+# and resumed from its step-2 checkpoint; "comp": the float32 2-layer
+# model's first step with 4-bit gradient compression on (2, 2), held to
+# the one-process compressed step by the code-flip rule, and the same
+# step uncompressed beside it for its time and peak
 MESH_TRAIN = {
     "arch": "qwen3-4b", "seed": 0,
     "opt": {"lr": 3e-4, "warmup_steps": 1, "total_steps": 10},
     "f32": {"layers": 2, "mesh": (1, 4), "batch": 2, "seq": 256,
             "steps": 2},
+    "comp": {"mesh": (2, 2), "bits": 4},
     "bf16": {"layers": 4, "meshes": ((1, 4), (2, 2)), "batch": 2,
              "seq": 2048, "timed": 2},
     "resume": {"mesh": (2, 2), "batch": 4, "seq": 64, "steps": 5,
                "save_every": 2, "fail_at": 3},
 }
 MESH_TRAIN_TOL = {"loss": 1e-5, "grad": 1e-4, "update": 1e-5}
+#: elements (f)'s compressed-step check takes at a time
+MESH_COMP_CHUNK = 1 << 22
 # an updated element is "near" when Adam's denominator sqrt(v^) (on the
 # first step the clipped gradient's magnitude) is within this many eps of
 # zero on both sides (the test suite's rule, tests/test_torch_mesh_train.py;
@@ -6597,9 +6702,14 @@ def mesh_train_reference(dev) -> tuple[dict, dict]:
     recomputes the one-process step's update of its slices from them
     (AdamW is elementwise but for the norm, which is passed).  bf16, 4
     layers: the first step's loss and grad norm, and those of the same
-    weights in float32 (bf16's floor)."""
+    weights in float32 (bf16's floor).  The float32 step compressed
+    (``MESH_TRAIN["comp"]``): each leaf group's lo and hi of the first
+    gradients (the error feedback is zero) and the compressed gradients'
+    norm, from which the ranks recompute the one-process compressed
+    update of their slices."""
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import TransformerLM, init_params
+    from repro_torch.optim import compression as comp
     from repro_torch.optim.adamw import AdamWConfig, _global_norm
     from repro_torch.optim.adamw import init_opt_state
 
@@ -6613,6 +6723,19 @@ def mesh_train_reference(dev) -> tuple[dict, dict]:
         batches = [mesh_train_batch(cfg, f["batch"], f["seq"], i, dev)
                    for i in range(f["steps"])]
         _, grads = train_grads(cfg, params, batches[0])
+        groups = comp._groups(grads)
+        bounds = comp._bounds({g: [grads[n] for n in members]
+                               for g, members in groups.items()})
+        total = torch.zeros((), dtype=torch.float64, device=dev)
+        for g, members in groups.items():
+            for n in members:
+                recon = comp._quantize_in(grads[n], *bounds[g],
+                                          t["comp"]["bits"])
+                total += torch.sum(torch.square(recon), dtype=torch.float64)
+                del recon
+        scalars["comp_bounds"] = {g: [float(lo), float(hi)]
+                                  for g, (lo, hi) in bounds.items()}
+        scalars["comp_grad_norm"] = float(torch.sqrt(total).float())
         params, _, met = step(params, init_opt_state(params), batches[0])
         scalars["f32_loss"] = [float(met["loss"])]
         scalars["f32_grad_norm"] = [float(met["grad_norm"])]
@@ -6776,6 +6899,246 @@ def mesh_train_f32(dev, mesh, grads_ref, scalars) -> dict:
                  and u["off"] <= u["near"])
     assert row["ok"], row
     del params, opt, state
+    torch.cuda.empty_cache()
+    return row
+
+
+def mesh_train_comp(dev, mesh, grads_ref, scalars) -> dict:
+    """(f) compressed on this rank of (2, 2): the float32 2-layer model's
+    seeded shards, one state stepped uncompressed and one with
+    ``MESH_TRAIN["comp"]``'s gradient compression (the error feedback cut
+    like the gradients, ``shard_train_state(..., grad_comp=...)``), from
+    the same weights.  Each side's first step is its warm-up, and its
+    peak device memory is read there, over what was allocated before its
+    state was built (less the check's copies).  The compressed first step
+    is then held to the one-process compressed step of the same slices,
+    recomputed from the parent's gradients (``grads_ref``), lo, hi and
+    norm (``scalars``):
+
+    * the inputs of the rule: each leaf group's lo and hi (this rank's:
+      one ``pmax`` over the mesh) within the largest gap between the two
+      sides' gradients over the group (one ``pmax`` more), as the min and
+      max of the global leaf are; the compressed grad norm within
+      MESH_TRAIN_TOL["loss"] relative of the one process's plus what the
+      decoded values can move it by: each element's decoded value moves
+      by at most d = d_dec + |d q| step (below), so the norm by at most
+      sum(d (2 |recon| + d)) / norm (one ``psum``);
+    * an element whose bin differs between the sides is ``near``.
+      Elsewhere both decode one bin q, and the midpoints differ by at
+      most d_dec = |d lo| + (q + 1/2) |d step|, the clipped ones by d_clip
+      = s d_dec + |d s| |mid| (s the clip scales, mid the one process's
+      midpoint, all from the scalars): the parameters are held to
+      MESH_TRAIN_TOL["update"] relative L2, ``m`` to that plus the L2 of
+      (1 - b1) d_clip, ``v`` of (1 - b2) d_clip (2 |s mid| + d_clip), the
+      error feedback of |d g| + d_dec; an element is off past its
+      allowance plus 1e-6 relative plus 1e-7, and the elements off are
+      at most 4 a near one (the test suite's rule,
+      ``tests/test_torch_mesh_train.py``);
+    * the control: ``m``, ``v`` and the error feedback as this rank's
+      midpoints moved to their bins' lower edges would make them fail
+      the same rule, in every leaf;
+    * the rank's error feedback bit-equal to its corrected gradient less
+      its decoded gradient.
+
+    Then two timed steps a side, plain, compressed, compressed, plain
+    (host s around a synchronised step)."""
+    import dataclasses
+
+    from repro_torch.launch.shardings import local_shard, shard_train_state
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_leaves
+    from repro_torch.models.model import reference_path
+    from repro_torch.models.sharding import (
+        logical_sharding,
+        mesh_axis_names,
+        pmax,
+        psum,
+        single_pod_rules,
+    )
+    from repro_torch.optim import compression as comp_mod
+    from repro_torch.optim.adamw import AdamWConfig, _clip_scale, adamw_update
+    from repro_torch.optim.compression import GradCompressionConfig
+
+    t = MESH_TRAIN
+    f, c = t["f32"], t["comp"]
+    tol = MESH_TRAIN_TOL["update"]
+    opt_cfg = AdamWConfig(**t["opt"])
+    no_clip = dataclasses.replace(opt_cfg, clip_norm=float("inf"))
+    b1, b2 = opt_cfg.beta1, opt_cfg.beta2
+    cfg = mesh_tp_config(f["layers"], "float32")
+    comp = GradCompressionConfig(bits=c["bits"])
+    row = {"mesh": list(c["mesh"]), "bits": c["bits"],
+           "layers": f["layers"], "tokens": [f["batch"], f["seq"]]}
+    scale1 = _clip_scale(torch.tensor(scalars["comp_grad_norm"], device=dev),
+                         opt_cfg.clip_norm)
+    sides = {}
+    with tf32_off(), logical_sharding(mesh, single_pod_rules()):
+        batch = mesh_train_batch(cfg, f["batch"], f["seq"], 0, dev)
+        for name, gc in (("plain", None), ("compressed", comp)):
+            torch.cuda.synchronize(dev)
+            base = torch.cuda.memory_allocated(dev)
+            state = shard_train_state(cfg, init_leaves(cfg, t["seed"], dev),
+                                      mesh, dev, grad_comp=gc)
+            params, opt = state["params"], state["opt"]
+            del state
+            step = make_train_step(cfg, opt_cfg, remat="full", grad_comp=gc)
+            copies = 0
+            if gc is not None:
+                specs = params.pspecs
+                initial = {n: p.detach().clone()
+                           for n, p in params.named_parameters()}
+                _, grads = train_grads(cfg, params, batch)
+                groups = comp_mod._groups(grads)
+                bounds = comp_mod._bounds(
+                    {g: [grads[n] for n in m] for g, m in groups.items()},
+                    mesh)
+                row["ef_bytes"] = sum(e.numel() * 4
+                                      for e in opt["ef"].values())
+                copies = sum(x.numel() * x.element_size() for d in
+                             (initial, grads) for x in d.values())
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            params, opt, met = step(params, opt, batch)
+            torch.cuda.synchronize(dev)
+            row[f"{name}_first_step_s"] = time.perf_counter() - t0
+            row[f"{name}_peak_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                                         - base - copies)
+            row[f"{name}_loss"] = float(met["loss"])
+            row[f"{name}_grad_norm"] = float(met["grad_norm"])
+            sides[name] = [params, opt, step]
+        near = off = size = 0
+        kinds = ("p", "m", "v", "ef")
+        worst = dict.fromkeys(kinds, -float("inf"))
+        norm_gap = 0.0  # bounds |sum of dec^2 - sum of recon1^2|
+        control = dict.fromkeys(kinds[1:], float("inf"))
+        gap_max = dict.fromkeys(groups, 0.0)
+        ok = True
+        s1 = float(scale1)
+        s_r = float(_clip_scale(met["grad_norm"], opt_cfg.clip_norm))
+        d_s = abs(s_r - s1)
+        for n, p in params.named_parameters():
+            group = reference_path(n)[0]
+            lo1, hi1 = (torch.tensor(x, dtype=torch.float32, device=dev)
+                        for x in scalars["comp_bounds"][group])
+            lo_r, hi_r = bounds[group]
+            _, step1 = comp_mod._codes(lo1[None], lo1, hi1, c["bits"])
+            _, step_r = comp_mod._codes(lo_r[None], lo_r, hi_r, c["bits"])
+            d_lo = abs(float(lo_r) - float(lo1))
+            d_step = abs(float(step_r) - float(step1))
+            # ranks holding each element of the leaf (replicated leaves)
+            copies_n = mesh.size() * p.numel() / grads_ref[n].numel()
+            flat = {"g1": local_shard(grads_ref[n], specs[n],
+                                      mesh).reshape(-1),
+                    "g": grads[n].reshape(-1), "p": p.reshape(-1),
+                    "p0": initial.pop(n).reshape(-1),
+                    **{k: opt[k][n].reshape(-1) for k in ("m", "v", "ef")}}
+            # per kind: [gap, allowance, want] squared sums over the kept
+            # elements, the rule's and the control's
+            sq = {k: [0.0, 0.0, 0.0] for k in kinds}
+            sq_ctl = {k: [0.0, 0.0, 0.0] for k in control}
+            # a chunk at a time: the checks' float64 scratch of a whole
+            # embedding shard, on four ranks, outgrew the card
+            for a0 in range(0, flat["g"].numel(), MESH_COMP_CHUNK):
+                part = {k: t[a0:a0 + MESH_COMP_CHUNK] for k, t in flat.items()}
+                g1, g = part["g1"], part["g"]
+                q1, _ = comp_mod._codes(g1, lo1, hi1, c["bits"])
+                recon1 = comp_mod._quantize_in(g1, lo1, hi1, c["bits"])
+                q_r, _ = comp_mod._codes(g, lo_r, hi_r, c["bits"])
+                dec_r = comp_mod._quantize_in(g, lo_r, hi_r, c["bits"])
+                ok &= bool(torch.equal(part["ef"], g - dec_r))
+                d_g = (g.double() - g1.double()).abs()
+                gap_max[group] = max(gap_max[group],
+                                     float((g - g1).abs().max()))
+                keep = q_r == q1
+                zero = torch.zeros_like(g1)
+                want, st, _ = adamw_update(
+                    no_clip, {n: part["p0"].clone()}, {n: recon1 * scale1},
+                    {"m": {n: zero}, "v": {n: zero.clone()},
+                     "step": torch.zeros((), dtype=torch.int32, device=dev)})
+                mid1 = q1.double().add_(0.5).mul_(float(step1)).add_(
+                    float(lo1))
+                d_dec = q1.double().add_(0.5).mul_(d_step).add_(d_lo)
+                d_clip = s_r * d_dec + d_s * mid1.abs()
+                d_any = d_dec + (q_r - q1).abs().double() * float(step_r)
+                norm_gap += float((d_any * (2 * recon1.double().abs()
+                                            + d_any)).sum()) / copies_n
+                allowed = {"p": torch.zeros_like(d_dec),
+                           "m": (1 - b1) * d_clip,
+                           "v": (1 - b2) * d_clip * (2 * s1 * mid1.abs()
+                                                     + d_clip),
+                           "ef": d_g + d_dec}
+                edge = dec_r.double() - 0.5 * float(step_r)
+                wrong = {"m": (1 - b1) * s_r * edge,
+                         "v": (1 - b2) * (s_r * edge).square(),
+                         "ef": g.double() - edge}
+                ys = {"p": want[n], "m": st["m"][n], "v": st["v"][n],
+                      "ef": g1 - recon1}
+                for kind, x in (("p", part["p"]), ("m", part["m"]),
+                                ("v", part["v"]), ("ef", part["ef"])):
+                    y = ys[kind].double()
+                    gap = (x.double() - y).abs()
+                    pairs = [(sq[kind], gap)]
+                    if kind in wrong:
+                        pairs.append((sq_ctl[kind], (wrong[kind] - y).abs()))
+                    for acc, d in pairs:
+                        acc[0] += float(d[keep].square().sum())
+                        acc[1] += float(allowed[kind][keep].square().sum())
+                        acc[2] += float(y[keep].square().sum())
+                    off += int((gap > 1e-6 * y.abs() + 1e-7
+                                + allowed[kind]).sum())
+                    size += x.numel()
+                near += 4 * int((~keep).sum())
+                del want, st, allowed, wrong, d_dec, d_clip, mid1, edge, d_g
+                del d_any
+                del q1, q_r, recon1, dec_r
+            for table, acc in ((worst, sq), (control, sq_ctl)):
+                for kind, (g2, a2, y2) in acc.items():
+                    excess = (g2 ** 0.5 - a2 ** 0.5) / max(y2 ** 0.5, 1e-30)
+                    table[kind] = (max if table is worst else min)(
+                        table[kind], excess)
+            del flat
+        axes = mesh_axis_names(mesh)
+        gaps = pmax(torch.tensor([gap_max[g] for g in groups],
+                                 dtype=torch.float32, device=dev), axes, mesh)
+        one = scalars["comp_grad_norm"]
+        norm_room = float(psum(torch.tensor(norm_gap, dtype=torch.float64,
+                                            device=dev), axes, mesh)) / one
+        row["grad_norm"] = {"one_process": one,
+                            "rel": abs(row["compressed_grad_norm"] / one - 1),
+                            "room_rel": norm_room / one}
+        norm_ok = (abs(row["compressed_grad_norm"] - one)
+                   <= MESH_TRAIN_TOL["loss"] * one + norm_room)
+        bound_ok = True
+        ratio = 0.0
+        for g, gap in zip(groups, gaps.tolist()):
+            for got, one in zip(bounds[g], scalars["comp_bounds"][g]):
+                # float32, as the gaps: rounding keeps the order
+                d = float((got - torch.tensor(one, device=dev)).abs())
+                bound_ok &= d <= gap
+                ratio = max(ratio, d / gap if gap else float(d > 0))
+        row["bounds"] = {"ok": bound_ok, "gap_share_max": ratio}
+        row["update"] = {"excess_rel_l2_max": worst,
+                         "control_excess_rel_l2_min": control,
+                         "near": near, "off": off, "size": size}
+        row["ef_equals_corrected_less_decoded"] = ok
+        times = {"plain": [], "compressed": []}
+        for name in ("plain", "compressed", "compressed", "plain"):
+            params, opt, step = sides[name]
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            params, opt, _ = step(params, opt, batch)
+            torch.cuda.synchronize(dev)
+            times[name].append(time.perf_counter() - t0)
+            sides[name] = [params, opt, step]
+        row["plain_step_s"] = times["plain"]
+        row["compressed_step_s"] = times["compressed"]
+    row["ok"] = (ok and bound_ok and norm_ok
+                 and max(worst.values()) <= tol
+                 and min(control.values()) > tol
+                 and off <= near and near <= 0.05 * size)
+    assert row["ok"], row
+    del params, opt, grads, initial, sides
     torch.cuda.empty_cache()
     return row
 
@@ -6991,6 +7354,10 @@ def mesh_train(dev, root, ref) -> dict:
     out["f32"] = mesh_train_f32(dev, mesh_of(MESH_TRAIN["f32"]["mesh"]),
                                 grads_ref, scalars)
     clock["f32"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["comp"] = mesh_train_comp(dev, mesh_of(MESH_TRAIN["comp"]["mesh"]),
+                                  grads_ref, scalars)
+    clock["comp"] = time.perf_counter() - t0
     out["bf16"] = []
     for shape in MESH_TRAIN["bf16"]["meshes"]:
         t0 = time.perf_counter()
@@ -7027,6 +7394,8 @@ def mesh_train_check(root, scalars) -> dict:
             assert (a["losses"], a["grad_norms"]) == (b["losses"],
                                                       b["grad_norms"])
         assert rk["resume"]["losses"] == r0["resume"]["losses"]
+        for k in ("plain_loss", "compressed_loss", "compressed_grad_norm"):
+            assert rk["comp"][k] == r0["comp"][k], k
     for rk in ranks:
         assert rk["kernel_launches"] == {"k7": 0, "k8": 0}, rk
     floor = {"loss": abs(scalars["bf16_loss"] - scalars["f32_4_loss"]),
@@ -7063,6 +7432,25 @@ def mesh_train_check(root, scalars) -> dict:
         "bf16_peak_bytes_per_rank": [[b["peak_abs"] for b in rk["bf16"]]
                                      for rk in ranks],
         "resume": r0["resume"],
+        "comp": {**r0["comp"], "update": {
+            "near": sum(rk["comp"]["update"]["near"] for rk in ranks),
+            "off": sum(rk["comp"]["update"]["off"] for rk in ranks),
+            "size": sum(rk["comp"]["update"]["size"] for rk in ranks),
+            "excess_rel_l2_max": {
+                k: max(rk["comp"]["update"]["excess_rel_l2_max"][k]
+                       for rk in ranks)
+                for k in r0["comp"]["update"]["excess_rel_l2_max"]},
+            "control_excess_rel_l2_min": {
+                k: min(rk["comp"]["update"]["control_excess_rel_l2_min"][k]
+                       for rk in ranks)
+                for k in r0["comp"]["update"]["control_excess_rel_l2_min"]}},
+            "bounds_gap_share_max": max(rk["comp"]["bounds"]["gap_share_max"]
+                                        for rk in ranks),
+            "one_process_grad_norm": scalars["comp_grad_norm"],
+            **{f"{k}_per_rank": [rk["comp"][k] for rk in ranks] for k in (
+                "plain_first_step_s", "compressed_first_step_s",
+                "plain_step_s", "compressed_step_s", "plain_peak_bytes",
+                "compressed_peak_bytes", "ef_bytes")}},
         "kernel_launches": [rk["kernel_launches"] for rk in ranks],
         "part_s": r0["part_s"],
     }

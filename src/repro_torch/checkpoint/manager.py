@@ -109,16 +109,17 @@ def _writer(state) -> bool:
 
 def _gathered_state(state):
     """A train state of shards as the whole one (``{"params": {name:
-    tensor}, "opt": {"m", "v", "step"}}``, CPU tensors) on rank 0, None
-    on the other ranks: each leaf all-gathered over its spec's axes, one
-    at a time."""
+    tensor}, "opt": {"m", "v", "step"[, "ef"]}}``, CPU tensors) on rank
+    0, None on the other ranks: each leaf all-gathered over its spec's
+    axes, one at a time (the error feedback is cut like the
+    parameters)."""
     from ..launch.shardings import gather_whole
 
     params = state["params"]
     mesh, specs = params.mesh, params.pspecs
     keep = _writer(state)
-    if set(state["opt"]) - {"m", "v", "step"}:
-        raise ValueError("a state of shards carries m, v and step only")
+    if set(state["opt"]) - {"m", "v", "step", "ef"}:
+        raise ValueError("a state of shards carries m, v, step and ef only")
 
     def whole(named):
         out = {}
@@ -129,10 +130,9 @@ def _gathered_state(state):
             del w
         return out
 
+    opt = {k: whole(t) for k, t in state["opt"].items() if k != "step"}
     out = {"params": whole(dict(params.named_parameters())),
-           "opt": {"m": whole(state["opt"]["m"]),
-                   "v": whole(state["opt"]["v"]),
-                   "step": state["opt"]["step"].cpu()}}
+           "opt": dict(opt, step=state["opt"]["step"].cpu())}
     return out if keep else None
 
 

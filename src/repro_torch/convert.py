@@ -251,17 +251,18 @@ def lm_shards_from_arrays(cfg, params, mesh, device="cuda") -> TransformerLM:
 
 def train_state_shards_from_arrays(cfg, state, mesh, device="cuda") -> dict:
     """This rank's train state of shards (``shard_train_state``) from the
-    reference's pytree ``{"params", "opt": {"m", "v", "step"}}`` (numpy
-    arrays, torch tensors, or the DTensors ``load_checkpoint(shardings=
-    ...)`` places on ``mesh``, whose local shards are taken as they
-    are)."""
+    reference's pytree ``{"params", "opt": {"m", "v", "step"[, "ef"]}}``
+    (numpy arrays, torch tensors, or the DTensors ``load_checkpoint(
+    shardings=...)`` places on ``mesh``, whose local shards are taken as
+    they are)."""
     from .launch.shardings import shard_train_state
 
-    opt = state["opt"]
+    opt = dict(state["opt"])
+    cut = {k: _block_leaves(cfg, opt.pop(k), mesh)
+           for k in ("m", "v", "ef") if k in opt}
     return shard_train_state(
         cfg, _block_leaves(cfg, state["params"], mesh), mesh, device,
-        opt={"m": _block_leaves(cfg, opt["m"], mesh),
-             "v": _block_leaves(cfg, opt["v"], mesh), "step": opt["step"]})
+        opt=dict(cut, step=opt["step"]))
 
 
 def lm_params_to_arrays(cfg, lm: TransformerLM) -> dict:

@@ -19,6 +19,10 @@
 //     src/repro/kernels/tree_predict/tree_predict.py:
 //     _tree_predict_kernel
 //     the unaggregated (T, N) leaf fit of every (tree, row) pair.
+//   K5 (tp_seg_sharded, tp_shard_fold) replaces
+//     src/repro/kernels/tree_predict/ops.py:
+//     forest_predict_agg_segmented_sharded
+//     K1 over S tree shards, then their partials summed in shard order.
 //
 // What they compute: each tree walked `max_depth` levels of its heap
 // (node i -> children 2i+1 / 2i+2); an index at or past the heap width h
@@ -54,6 +58,18 @@
 //    (no float atomics); votes: integer counts in a shared table, or
 //    integer atomics into the output and count_kernel past its budget;
 //    each element of the output is written once.
+//
+// K5 (seg_kernel over S tree shards) is K1 with the shard as the grid's
+// second dimension: one launch per device for all of that device's
+// shards, each CTA reading its shard's code, fit, tree_seg and chunk
+// ranges at an offset into stacked (S, T_pad, H), (S, T_pad) and (S, G)
+// tensors.  Sums: each shard's CTAs write their rows' partial into an
+// (S, N) scratch, and one small kernel after the walks folds the
+// partials in shard order, ((p0 + p1) + p2) + p3 (shard_fold_kernel; the
+// last CTA of each tile folding them, on a per-tile arrival counter, took
+// 10-14 % longer on an H100: PERF.md, section 6); votes: integers below
+// 2**24, so every shard's counts are added atomically into the one (N,
+// C) output, whose single memset and count_kernel serve every shard.
 //
 // K3 and K4, what bounds them: a walk is a chain of dependent loads (the
 // node decides which node comes next).  A warp runs 32 rows, which after
@@ -857,6 +873,12 @@ struct PackedNodes {
     return __ldg(fit + base + at);
   }
 
+  // The nodes of tree shard `shard`, `stride` nodes after the last's.
+  __device__ __forceinline__ void to_shard(int shard, int64_t stride) {
+    code += shard * stride;
+    fit += shard * stride;
+  }
+
   // One load a level: staging the trees' top levels saved no time, at 8
   // rows a CTA or at 128 (PERF.md, section 6).
   static constexpr bool kStaged = false;
@@ -888,6 +910,13 @@ struct SimpleNodes {
 
   __device__ __forceinline__ float leaf(int base, int at) const {
     return __ldg(fit + base + at);
+  }
+
+  __device__ __forceinline__ void to_shard(int shard, int64_t stride) {
+    feature += shard * stride;
+    threshold += shard * stride;
+    fit += shard * stride;
+    is_internal += shard * stride;
   }
 
   // Three loads a level: the top levels of a pass's trees are staged in
@@ -955,13 +984,20 @@ struct SegCfg {
   int smem;      // dynamic shared memory bytes
   int tiles;     // tiles per row block
   int resident;  // CTAs resident on the card
-  int grid;      // row blocks * tiles
+  int grid;      // row blocks * tiles (a shard's CTAs)
+  int shards;    // tree shards of one launch: the grid's second dimension
 };
 constexpr int kSegCfgInts = sizeof(SegCfg) / sizeof(int);
 
-// Shapes of one segmented launch.
+// Shapes of one segmented launch: n_trees trees a shard (t_pad), `shards`
+// shards, each one's trees and chunk ranges at a stride of n_trees and
+// of the row blocks.  votes_add: the shards add their counts into one
+// zeroed integer output.  fold: shard_fold_kernel folds the (S, N)
+// scratch the shards' sums go to into the output (else the caller,
+// with the shards on several cards).
 struct SegShape {
   int n, d, n_trees, n_chunks, h, n_classes, block_trees, block_obs;
+  int shards, votes_add, fold;
 };
 
 __host__ __device__ __forceinline__ int seg_x_bytes(const SegCfg& c) {
@@ -1029,13 +1065,15 @@ void seg_size(int n, int block_obs, int n_classes, int rows, SegCfg* c) {
 
 // Rows a CTA holds: the fewest (a power of two from kSegMinRows to
 // kSegMaxRows; from 2 * kSegMinRows for K2, whose fewer columns then stage
-// a level more) whose grid fits the resident CTAs, so a small batch spreads
-// its walks over the card and a large one runs in about one wave.
+// a level more) whose grid, over every shard, fits the resident CTAs, so a
+// small batch spreads its walks over the card and a large one runs in
+// about one wave.
 void seg_rows(int n, int block_obs, int n_classes, int resident, SegCfg* c) {
   c->resident = resident;
   int rows = c->decode == kTables ? 2 * kSegMinRows : kSegMinRows;
   seg_size(n, block_obs, n_classes, rows, c);
-  while (rows < kSegMaxRows && c->grid > resident) {
+  while (rows < kSegMaxRows &&
+         static_cast<int64_t>(c->grid) * c->shards > resident) {
     rows *= 2;
     seg_size(n, block_obs, n_classes, rows, c);
   }
@@ -1114,6 +1152,19 @@ __device__ __forceinline__ void seg_walk(
     leaf[k] = valid[k] && idx[k] <= last ? fit[k] : 0.0f;
 }
 
+// K5's fold as a kernel of its own: out[row] = the S partials of the
+// (S, N) scratch added in shard order, p0 first.
+__global__ void shard_fold_kernel(const float* __restrict__ partial,
+                                  float* __restrict__ out, int n,
+                                  int shards) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n) return;
+  float total = partial[row];
+  for (int k = 1; k < shards; ++k)
+    total += partial[static_cast<int64_t>(k) * n + row];
+  out[row] = total;
+}
+
 // One CTA: a tile of `rows` rows inside row block b, against the chunks
 // [chunk_lo[b], chunk_hi[b]) (every chunk when chunk_lo is null), cut into
 // slices: a chunk, or `walks` trees of one.  A window of up to
@@ -1128,7 +1179,9 @@ __device__ __forceinline__ void seg_walk(
 // +0.0 never becomes -0.0).  Votes: integer counts in a shared table (or
 // atomics into the output), written once.  n_trees masks trees past the
 // real ones (K2); K1 passes T_pad, whose padding trees carry segment -1.
-// Node offsets are 32-bit (the launch refuses t * h >= 2**31).
+// Node offsets are 32-bit within a shard (the launch refuses t * h >=
+// 2**31).  K5: blockIdx.y is the tree shard (module comment); `partial`
+// the (S, N) scratch of its sums.
 template <class Nodes, int kMode, bool kXSmem>
 __global__ void __launch_bounds__(kSegThreads)
     seg_kernel(Nodes nodes, const int* __restrict__ xb,
@@ -1136,8 +1189,18 @@ __global__ void __launch_bounds__(kSegThreads)
                const int* __restrict__ tree_seg,
                const int* __restrict__ chunk_lo,
                const int* __restrict__ chunk_hi, float* __restrict__ out,
-               SegShape s, SegCfg c) {
+               float* __restrict__ partial, SegShape s, SegCfg c) {
   constexpr int W = kSegWalks;
+  const int shard = blockIdx.y;
+  if (shard > 0) {
+    const int blocks = (s.n + s.block_obs - 1) / s.block_obs;
+    nodes.to_shard(shard, static_cast<int64_t>(s.n_trees) * s.h);
+    tree_seg += static_cast<int64_t>(shard) * s.n_trees;
+    if (chunk_lo != nullptr) {
+      chunk_lo += static_cast<int64_t>(shard) * blocks;
+      chunk_hi += static_cast<int64_t>(shard) * blocks;
+    }
+  }
   constexpr int kWarps = kSegThreads / 32;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int kept[kSegThreads];  // the window's kept slices, in order
@@ -1368,13 +1431,19 @@ __global__ void __launch_bounds__(kSegThreads)
     __syncthreads();  // the next window may overwrite the kept list
   }
   if (kMode == kSegSums) {
+    float* o = s.shards > 1 ? partial + static_cast<int64_t>(shard) * s.n
+                            : out;
     if (static_cast<int>(threadIdx.x) < c.rows && row_ok)
-      out[r0 + r] = total + open;
+      o[r0 + r] = total + open;
   } else if (kMode == kSegVotes) {
     __syncthreads();
-    float* o = out + static_cast<int64_t>(r0) * s.n_classes;
-    for (int e = threadIdx.x; e < nrows * s.n_classes; e += kSegThreads)
-      o[e] = static_cast<float>(counts[e]);
+    const int64_t o = static_cast<int64_t>(r0) * s.n_classes;
+    for (int e = threadIdx.x; e < nrows * s.n_classes; e += kSegThreads) {
+      if (!s.votes_add)
+        out[o + e] = static_cast<float>(counts[e]);
+      else if (counts[e] != 0)
+        atomicAdd(reinterpret_cast<int*>(out) + o + e, counts[e]);
+    }
   }
 }
 
@@ -1413,10 +1482,13 @@ int seg_occupancy(const SegCfg& c, int* per_sm) {
 // occupancy at the largest shared memory any row count would take).
 int seg_config(int n, int d, int t, int h, int max_depth, int n_classes,
                int block_trees, int block_obs, int tb2, int simple,
-               SegCfg* c) {
+               int shards, SegCfg* c) {
+  if (shards < 1 || shards > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   int err = seg_tile(n, d, t, h, max_depth, n_classes, block_trees,
                      block_obs, tb2, simple, c);
   if (err) return err;
+  c->shards = shards;
   int smem = 0;
   for (int rows = kSegMinRows; rows <= kSegMaxRows; rows *= 2) {
     seg_size(n, block_obs, n_classes, rows, c);
@@ -1439,6 +1511,12 @@ int seg_config(int n, int d, int t, int h, int max_depth, int n_classes,
   return 0;
 }
 
+int log2_of(int v) {
+  int k = 0;
+  while ((1 << k) < v) ++k;
+  return k;
+}
+
 struct SegPtrs {
   const int* xb;
   const int* obs_seg;
@@ -1446,13 +1524,19 @@ struct SegPtrs {
   const int* chunk_lo;
   const int* chunk_hi;
   float* out;
+  float* partial;  // K5's (S, N) scratch of sums
 };
 
+// One launch: a memset of the output first where votes are added into it
+// (integer atomics, or K5's shards adding their counts), the kernel over
+// grid x shards CTAs, then count_kernel turning the counts into floats,
+// or K5's fold kernel.
 template <class Nodes>
 int seg_launch(const Nodes& nodes, const SegPtrs& p, const SegShape& s,
                const SegCfg& c, cudaStream_t st) {
   const int64_t size = static_cast<int64_t>(s.n) * s.n_classes;
-  if (c.mode == kSegVoteAtomic) {
+  const bool counted = c.mode == kSegVoteAtomic || s.votes_add;
+  if (counted) {
     cudaError_t e = cudaMemsetAsync(p.out, 0, size * sizeof(float), st);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
@@ -1463,23 +1547,50 @@ int seg_launch(const Nodes& nodes, const SegPtrs& p, const SegShape& s,
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, c.smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    kernel<<<c.grid, c.threads, c.smem, st>>>(nodes, p.xb, p.obs_seg,
-                                              p.tree_seg, p.chunk_lo,
-                                              p.chunk_hi, p.out, s, c);
+    kernel<<<dim3(c.grid, s.shards), c.threads, c.smem, st>>>(
+        nodes, p.xb, p.obs_seg, p.tree_seg, p.chunk_lo, p.chunk_hi, p.out,
+        p.partial, s, c);
     return static_cast<int>(cudaGetLastError());
   });
-  if (err || c.mode != kSegVoteAtomic) return err;
-  const int64_t blocks = (size + 255) / 256;
-  count_kernel<<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0,
-                 st>>>(p.out, size);
-  return static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  if (counted) {
+    const int64_t blocks = (size + 255) / 256;
+    count_kernel<<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0,
+                   st>>>(p.out, size);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (c.mode == kSegSums && s.shards > 1 && s.fold) {
+    shard_fold_kernel<<<(s.n + 255) / 256, 256, 0, st>>>(p.partial, p.out,
+                                                         s.n, s.shards);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return 0;
 }
 
-int log2_of(int v) {
-  int k = 0;
-  while ((1 << k) < v) ++k;
-  return k;
+// K1's launch over `shards` stacked tree shards (K1 itself: one shard).
+int seg_packed_launch(const int* xb, const int* obs_seg, const float* code,
+                      const float* fit, const int* tree_seg,
+                      const int* chunk_lo, const int* chunk_hi, float* out,
+                      float* partial, int n, int d, int t_pad, int h,
+                      int max_depth, int tb2, int n_classes, int block_trees,
+                      int block_obs, int shards, int fold, void* stream) {
+  SegCfg c;
+  const int err = seg_config(n, d, t_pad, h, max_depth, n_classes,
+                             block_trees, block_obs, tb2, 0, shards, &c);
+  if (err) return err;
+  if (shards > 1 && n_classes <= 0 && partial == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const SegShape s{n, d, t_pad, t_pad / block_trees, h, n_classes,
+                   block_trees, block_obs, shards,
+                   shards > 1 && n_classes > 0, shards > 1 && fold != 0};
+  const SegPtrs p{xb, obs_seg, tree_seg, chunk_lo, chunk_hi, out, partial};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (c.decode == kShift)
+    return seg_launch(PackedNodes<true>{code, fit, h, tb2, log2_of(tb2)}, p,
+                      s, c, st);
+  return seg_launch(PackedNodes<false>{code, fit, h, tb2, 0}, p, s, c, st);
 }
+
 
 
 }  // namespace
@@ -1494,18 +1605,41 @@ int tp_seg_packed(const int* xb, const int* obs_seg, const float* code,
                   const int* chunk_hi, float* out, int n, int d, int t_pad,
                   int h, int max_depth, int tb2, int n_classes,
                   int block_trees, int block_obs, void* stream) {
-  SegCfg c;
-  const int err = seg_config(n, d, t_pad, h, max_depth, n_classes,
-                             block_trees, block_obs, tb2, 0, &c);
-  if (err) return err;
-  const SegShape s{n, d, t_pad, t_pad / block_trees, h, n_classes,
-                   block_trees, block_obs};
-  const SegPtrs p{xb, obs_seg, tree_seg, chunk_lo, chunk_hi, out};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (c.decode == kShift)
-    return seg_launch(PackedNodes<true>{code, fit, h, tb2, log2_of(tb2)}, p,
-                      s, c, st);
-  return seg_launch(PackedNodes<false>{code, fit, h, tb2, 0}, p, s, c, st);
+  return seg_packed_launch(xb, obs_seg, code, fit, tree_seg, chunk_lo,
+                           chunk_hi, out, nullptr, n, d, t_pad, h, max_depth,
+                           tb2, n_classes, block_trees, block_obs, 1, 0,
+                           stream);
+}
+
+// K5 on one device: K1 over `shards` tree shards stacked on a leading
+// axis, in one launch.  code / fit (shards, t_pad, h) f32; tree_seg
+// (shards, t_pad) i32; chunk_lo / chunk_hi (shards, ceil(n / block_obs))
+// i32; out (n, C) or (n,) f32, every element written.  Sums with shards
+// > 1: partial (shards, n) f32 scratch, folded into out in shard order by
+// a kernel after the walks (fold 1), or left to the caller (fold 0, out
+// unwritten: the shards of several cards).  Votes: the shards' counts
+// added into out.
+int tp_seg_sharded(const int* xb, const int* obs_seg, const float* code,
+                   const float* fit, const int* tree_seg, const int* chunk_lo,
+                   const int* chunk_hi, float* partial, float* out, int n,
+                   int d, int t_pad, int h, int max_depth, int tb2,
+                   int n_classes, int block_trees, int block_obs, int shards,
+                   int fold, void* stream) {
+  return seg_packed_launch(xb, obs_seg, code, fit, tree_seg, chunk_lo,
+                           chunk_hi, out, partial, n, d, t_pad, h, max_depth,
+                           tb2, n_classes, block_trees, block_obs, shards,
+                           fold, stream);
+}
+
+// K5's fold on the first device of several: out (n,) = the (shards, n)
+// partials gathered there, added in shard order.
+int tp_shard_fold(const float* partial, float* out, int n, int shards,
+                  void* stream) {
+  if (n < 1 || shards < 1) return static_cast<int>(cudaErrorInvalidValue);
+  shard_fold_kernel<<<(n + 255) / 256, 256, 0,
+                      static_cast<cudaStream_t>(stream)>>>(partial, out, n,
+                                                           shards);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K2.  feature / threshold (t, h) i32, fit (t, h) f32, is_internal (t, h)
@@ -1518,26 +1652,27 @@ int tp_seg_simple(const int* xb, const int* obs_seg, const int* tree_seg,
                   int block_trees, int block_obs, void* stream) {
   SegCfg c;
   const int err = seg_config(n, d, t, h, max_depth, n_classes, block_trees,
-                             block_obs, 0, 1, &c);
+                             block_obs, 0, 1, 1, &c);
   if (err) return err;
   const SegShape s{n, d, t, (t + block_trees - 1) / block_trees, h,
-                   n_classes, block_trees, block_obs};
-  const SegPtrs p{xb, obs_seg, tree_seg, nullptr, nullptr, out};
+                   n_classes, block_trees, block_obs, 1, 0, 0};
+  const SegPtrs p{xb, obs_seg, tree_seg, nullptr, nullptr, out, nullptr};
   return seg_launch(SimpleNodes{feature, threshold, fit, is_internal, h}, p,
                     s, c, static_cast<cudaStream_t>(stream));
 }
 
-// The configuration of a K1 (simple 0, tb2 its decode's) or K2 (simple 1,
-// tb2 ignored) launch on the current device, out[18] in SegCfg's order
-// (mode, decode, threads, rows, cols, walks, slices, values, rounds,
-// depth, staged levels, staged nodes per tree, x in shared memory, x row
-// stride, shared memory bytes, tiles per row block, resident CTAs, grid).
+// The configuration of a K1 (simple 0, tb2 its decode's; K5 with shards >
+// 1) or K2 (simple 1, tb2 ignored) launch on the current device, out[19]
+// in SegCfg's order (mode, decode, threads, rows, cols, walks, slices,
+// values, rounds, depth, staged levels, staged nodes per tree, x in shared
+// memory, x row stride, shared memory bytes, tiles per row block,
+// resident CTAs, grid, shards).
 int tp_seg_config(int n, int d, int t, int h, int max_depth, int n_classes,
                   int block_trees, int block_obs, int tb2, int simple,
-                  int* out) {
+                  int shards, int* out) {
   SegCfg c;
   const int err = seg_config(n, d, t, h, max_depth, n_classes, block_trees,
-                             block_obs, tb2, simple, &c);
+                             block_obs, tb2, simple, shards, &c);
   if (err) return err;
   const int* v = reinterpret_cast<const int*>(&c);
   for (int i = 0; i < kSegCfgInts; ++i) out[i] = v[i];

@@ -9,6 +9,8 @@ device list it shards over (``devices``) where the reference shards over
 the devices JAX sees."""
 from __future__ import annotations
 
+from collections.abc import Mapping
+
 import numpy as np
 import torch
 
@@ -127,21 +129,35 @@ def forest_predict_agg_segmented_sharded(
     """Multi-device ragged serving (K5): the tree axis is SHARDED across
     devices (shard ``s`` on ``devices[s]``, load-balanced by
     ``partition_segments_by_load``), observations are replicated, each
-    device accumulates partial votes/sums over its own trees through K1,
-    and the (N, C) partials are summed on ``devices[0]`` in shard order —
-    the reference's ``psum``, in a fixed order.
+    device accumulates partial votes/sums over its own trees, and the
+    (N, C) partials are summed on ``devices[0]`` in shard order — the
+    reference's ``psum``, in a fixed order.
 
-    ``code`` / ``fit`` are a stacked (S, T_pad, H) array or a sequence of
-    S (T_pad, H) tensors (each may already lie on its shard's device).
+    ``code`` / ``fit`` are a stacked (S, T_pad, H) array, a sequence of S
+    (T_pad, H) tensors (a device's shards may differ in ``T_pad``, and
+    are padded to one), or {device: (k, T_pad, H)}: each device's shards
+    stacked on it in shard order (the sharded engine's pack).
     ``devices`` defaults to every visible CUDA device when ``code`` lies
-    on a card, else to ``code``'s one device; it may name one device more
-    than once.  On CPU devices each shard runs K1's plain version; on
-    CUDA devices K1 launches or the call raises.
+    on a card, else to ``code``'s one device (for a mapping: each key
+    once for each of its shards); it may name one device more than once.
+    Each device's shards reach it as one stack (one copy each of
+    ``tree_seg`` and the chunk ranges).  On CPU devices each shard runs
+    K1's plain version; on CUDA devices K5 launches once a device
+    (``tree_predict._launch_seg_sharded``) or the call raises.
 
     Vote counts stay integer-exact under the reduction (float32 holds
     integers exactly below 2**24), so classification results are
     bit-exact against the single-device engines."""
-    s = len(code)
+    by_device = isinstance(code, Mapping)
+    if by_device:
+        s = sum(c.shape[0] for c in code.values())
+        t_pads = [c.shape[1] for c in code.values()]
+        if devices is None:
+            devices = [dev for dev, c in code.items()
+                       for _ in range(c.shape[0])]
+    else:
+        s = len(code)
+        t_pads = [c.shape[0] for c in code]
     if devices is None:
         devices = resolve_devices(tp._device_of(*code))
     else:
@@ -155,10 +171,10 @@ def forest_predict_agg_segmented_sharded(
         raise ValueError("n_classes >= 2**24 overflows float32 vote counts")
     arrays = {"xb": xb} if isinstance(xb, np.ndarray) else {}
     tp._validate_f32_exact(max_depth, d, **arrays)
-    for c in code:
-        if c.shape[0] % block_trees != 0 or c.shape[0] == 0:
+    for t_pad in t_pads:
+        if t_pad % block_trees != 0 or t_pad == 0:
             raise ValueError(
-                f"T_pad={c.shape[0]} must be a positive multiple of "
+                f"T_pad={t_pad} must be a positive multiple of "
                 f"block_trees={block_trees}"
             )
     devices = devices[:s]
@@ -167,27 +183,44 @@ def forest_predict_agg_segmented_sharded(
     if n == 0:
         shape = (0, n_classes) if n_classes > 0 else (0,)
         return torch.zeros(shape, dtype=torch.float32, device=devices[0])
-    replicated = {}
-    for dev in dict.fromkeys(devices):
-        replicated[dev] = (
-            tp._on(xb, torch.int32, dev),
-            tp._on(obs_seg, torch.int32, dev).reshape(-1),
-        )
+    groups: dict[torch.device, list[int]] = {}
+    for i, dev in enumerate(devices):
+        groups.setdefault(dev, []).append(i)
 
-    def shard(a, dtype):
-        return [tp._on(a[i], dtype, dev) for i, dev in enumerate(devices)]
+    def stacks(a, dtype, fill):
+        """Each device's shards of ``a`` stacked on it: (k, ...)."""
+        if isinstance(a, Mapping):
+            a = {resolve_device(dev): c for dev, c in a.items()}
+            if {dev: len(idx) for dev, idx in groups.items()} != {
+                    dev: c.shape[0] for dev, c in a.items()}:
+                raise ValueError("each device's stack must hold the shards "
+                                 "``devices`` gives it")
+            return [tp._on(a[dev], dtype, dev) for dev in groups]
+        if isinstance(a, (np.ndarray, torch.Tensor)):
+            return [tp._on(a[idx[0]:idx[-1] + 1]
+                           if idx[-1] - idx[0] == len(idx) - 1 else a[idx],
+                           dtype, dev)
+                    for dev, idx in groups.items()]
+        return [tp._stacked([tp._on(a[i], dtype, dev) for i in idx], fill)
+                for dev, idx in groups.items()]
 
     args = (
-        [replicated[dev][0] for dev in devices],
-        [replicated[dev][1] for dev in devices],
-        shard(code, torch.float32), shard(fit, torch.float32),
-        shard(tree_seg, torch.int32), shard(chunk_lo, torch.int32),
-        shard(chunk_hi, torch.int32),
+        [tp._on(xb, torch.int32, dev) for dev in groups],
+        [tp._on(obs_seg, torch.int32, dev).reshape(-1) for dev in groups],
+        stacks(code, torch.float32, 0.0), stacks(fit, torch.float32, 0.0),
+        stacks(tree_seg, torch.int32, -1), stacks(chunk_lo, torch.int32, 0),
+        stacks(chunk_hi, torch.int32, 0),
     )
-    run = (
-        tp._seg_sharded_plain if devices[0].type == "cpu"
-        else tp._launch_seg_sharded
-    )
-    return run(
-        *args, max_depth, int(tb2), n_classes, block_trees, min(block_obs, n)
-    )
+    scalars = (max_depth, int(tb2), n_classes, block_trees,
+               min(block_obs, n))
+    if devices[0].type == "cuda":
+        return tp._launch_seg_sharded(*args, *scalars,
+                                      shards=list(groups.values()))
+    # the plain version takes one tensor a shard: rows replicated, each
+    # shard a row of its device's stacks
+    per_shard = [None] * s
+    for j, idx in enumerate(groups.values()):
+        for r, i in enumerate(idx):
+            per_shard[i] = [a[j] if k < 2 else a[j][r]
+                            for k, a in enumerate(args)]
+    return tp._seg_sharded_plain(*map(list, zip(*per_shard)), *scalars)

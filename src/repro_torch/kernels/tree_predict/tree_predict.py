@@ -19,10 +19,18 @@ Two segmented engines, as in the reference (``engine=`` on the wrapper):
 * ``"simple"`` — K2, the unfused oracle over separate feature / threshold
   / is_internal tables, every tree chunk, masking ``tree_id < T`` as well.
 
-K5, the sharded engine (``ops.forest_predict_agg_segmented_sharded``),
-has no kernel of its own: K1 per tree shard on each device of a list,
-then the shards' partials summed in shard order (``_launch_seg_sharded``,
-plain version ``_seg_sharded_plain``).
+K5, the sharded engine (``ops.forest_predict_agg_segmented_sharded``):
+K1 over each tree shard of a device list, then the shards' partials
+summed in shard order.  On the card it is one launch a device for all of
+that device's shards (``_launch_seg_sharded``, C entry
+``tp_seg_sharded``): K1's kernel with the shard as one more grid
+dimension, the shards stacked (padded to one ``T_pad``), regression
+partials folded in shard order in the same launch's stream
+(``tp_shard_fold`` on the first device when the shards lie on several
+cards), vote counts added by every shard into one output.  Plain
+version ``_seg_sharded_plain``: K1's plain version per shard, then
+``_sum_shards`` (its arguments one a shard, the launch's one a
+device).
 
 Two whole-forest entries, no segments:
 
@@ -102,7 +110,9 @@ _SIGNATURES = {
     "tp_agg": ([_P] * 8 + [_I] * 8 + [_P], _I),
     "tp_per_tree": ([_P] * 7 + [_I] * 7 + [_P], _I),
     "tp_forest_config": ([_I] * 9 + [_IP], _I),
-    "tp_seg_config": ([_I] * 10 + [_IP], _I),
+    "tp_seg_config": ([_I] * 11 + [_IP], _I),
+    "tp_seg_sharded": ([_P] * 9 + [_I] * 11 + [_P], _I),
+    "tp_shard_fold": ([_P] * 2 + [_I] * 2 + [_P], _I),
     "tp_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -132,7 +142,7 @@ _MIN_GROUP, _SUM_LEVELS, _REG_CLASSES = 8, 8, 8
 SEG_CONFIG_KEYS = (
     "mode", "decode", "threads", "rows", "cols", "walks", "slices", "values",
     "rounds", "depth", "levels", "staged", "x_smem", "dpad", "smem", "tiles",
-    "resident", "grid",
+    "resident", "grid", "shards",
 )
 #: ``mode`` values: sums folded in chunk order, votes counted in shared
 #: memory, votes by integer atomics into the output (a vote table past
@@ -677,21 +687,26 @@ def _seg_size(c: dict, n: int, block_obs: int, n_classes: int,
 
 def _seg_config(n: int, d: int, t: int, h: int, max_depth: int,
                 n_classes: int, block_trees: int, block_obs: int,
-                tb2: int | None, resident: int) -> dict[str, int]:
+                tb2: int | None, resident: int,
+                shards: int = 1) -> dict[str, int]:
     """Plain twin of the library's ``seg_config``: K1's (``tb2`` its code
-    word's) or K2's (``tb2=None``) tiling over ``resident`` CTAs, which the
-    library reads from the SM count and the kernel's occupancy; keyed by
+    word's; K5's over ``shards`` tree shards of ``t`` trees each) or K2's
+    (``tb2=None``) tiling over ``resident`` CTAs, which the library reads
+    from the SM count and the kernel's occupancy; keyed by
     ``SEG_CONFIG_KEYS``.  A CTA holds ``rows`` rows of one row block (the
-    fewest, a power of two from 8 to 128, whose grid fits ``resident``)
-    and walks ``cols`` slices of their chunk range at once, a slice being
-    a chunk of up to 8 trees or 8 trees of a larger one; K2's CTAs hold at
-    least 16 rows, so their 16 columns stage a level more of their trees."""
+    fewest, a power of two from 8 to 128, whose grid, ``grid`` CTAs a
+    shard, fits ``resident``) and walks ``cols`` slices of their chunk
+    range at once, a slice being a chunk of up to 8 trees or 8 trees of a
+    larger one; K2's CTAs hold at least 16 rows, so their 16 columns stage
+    a level more of their trees."""
     if (n < 1 or d < 1 or t < 0 or h < 0 or block_trees < 1
             or block_obs < 1 or (tb2 is not None and tb2 < 1)
-            or t * h >= 1 << 31):
+            or t * h >= 1 << 31 or not 1 <= shards <= 65535):
         raise ValueError("the segmented kernels take n, d, block_trees, "
-                         "block_obs and tb2 >= 1 and t * h < 2**31")
-    c = {"threads": _SEG_THREADS, "walks": _SEG_WALKS, "resident": resident}
+                         "block_obs and tb2 >= 1, t * h < 2**31 and 1 to "
+                         "65,535 shards")
+    c = {"threads": _SEG_THREADS, "walks": _SEG_WALKS, "resident": resident,
+         "shards": shards}
     c["decode"] = (TABLES if tb2 is None else
                    SHIFT if tb2 & (tb2 - 1) == 0 else DIVIDE)
     c["slices"] = -(-block_trees // _SEG_WALKS)
@@ -700,7 +715,7 @@ def _seg_config(n: int, d: int, t: int, h: int, max_depth: int,
     c["dpad"] = d | 1
     rows = 2 * _SEG_MIN_ROWS if tb2 is None else _SEG_MIN_ROWS
     _seg_size(c, n, block_obs, n_classes, rows)
-    while rows < _SEG_MAX_ROWS and c["grid"] > resident:
+    while rows < _SEG_MAX_ROWS and c["grid"] * shards > resident:
         rows *= 2
         _seg_size(c, n, block_obs, n_classes, rows)
     return {k: c[k] for k in SEG_CONFIG_KEYS}
@@ -714,7 +729,19 @@ def _seg_work(cfg: dict, obs_seg, tree_seg, block_trees: int,
     when ``chunk_lo`` is None); of each window of ``threads`` slices it
     keeps those with a tree whose segment lies in its rows' segment range,
     and kept slice ``i`` is walked by column ``i % cols``, ``cols * rounds``
-    a pass.  Trees past the real ones are listed; the kernel masks them."""
+    a pass.  Trees past the real ones are listed; the kernel masks them.
+
+    K5's shard axis: a 2-D ``tree_seg`` (S, T_pad) (and chunk ranges (S,
+    G)) gives CTA (``b``, shard ``s``) the same tile against shard ``s``'s
+    trees, and each item is (s, rows, slices), shard by shard."""
+    if np.ndim(tree_seg) == 2:
+        for s, tseg in enumerate(np.asarray(tree_seg)):
+            for rows, slices in _seg_work(
+                    cfg, obs_seg, tseg, block_trees, block_obs,
+                    None if chunk_lo is None else chunk_lo[s],
+                    None if chunk_hi is None else chunk_hi[s]):
+                yield s, rows, slices
+        return
     obs_seg, tree_seg = np.asarray(obs_seg), np.asarray(tree_seg)
     n, t = len(obs_seg), len(tree_seg)
     n_chunks = -(-t // block_trees)
@@ -797,15 +824,15 @@ def _raise_on(err: int, fn: str) -> None:
 
 def seg_config(n: int, d: int, t: int, h: int, max_depth: int,
                n_classes: int, block_trees: int, block_obs: int,
-               tb2: int | None = None) -> dict[str, int]:
-    """K1's (``tb2`` its code word's) or K2's (``tb2=None``) configuration
-    on the current card, as the library computes it for a launch
-    (``SEG_CONFIG_KEYS``)."""
+               tb2: int | None = None, shards: int = 1) -> dict[str, int]:
+    """K1's (``tb2`` its code word's; K5's over ``shards`` shards of ``t``
+    trees) or K2's (``tb2=None``) configuration on the current card, as
+    the library computes it for a launch (``SEG_CONFIG_KEYS``)."""
     out = (_I * len(SEG_CONFIG_KEYS))()
     _raise_on(
         _library().tp_seg_config(
             n, d, t, h, max_depth, n_classes, block_trees, block_obs,
-            0 if tb2 is None else tb2, int(tb2 is None), out,
+            0 if tb2 is None else tb2, int(tb2 is None), shards, out,
         ),
         "tp_seg_config",
     )
@@ -1014,27 +1041,121 @@ def _launch_per_tree(
     return out
 
 
+def _stacked(parts, fill) -> torch.Tensor:
+    """The (k, rows, ...) stack of ``parts`` (tensors of one device and
+    type, alike past dim 0), each padded along dim 0 to the longest with
+    ``fill``."""
+    first = parts[0]
+    rows = max(p.shape[0] for p in parts)
+    out = first.new_full((len(parts), rows, *first.shape[1:]), fill)
+    for i, p in enumerate(parts):
+        out[i, :p.shape[0]] = p
+    return out
+
+
+def _seg_group(
+    xb, obs_seg, code, fit, tree_seg, chunk_lo, chunk_hi, max_depth: int,
+    tb2: int, n_classes: int, block_trees: int, block_obs: int, fold: bool,
+) -> tuple[tuple, torch.Tensor]:
+    """One device's K5 launch: (``tp_seg_sharded``'s arguments but the
+    stream, what it returns) for its stacked shards (``code`` / ``fit``
+    (S, T_pad, H), ``tree_seg`` (S, T_pad), chunk ranges (S, G)): the (N,
+    C) votes or (N,) sums over every shard, or without ``fold`` the (S,
+    N) partial sums (the (N,) sums of one shard)."""
+    dev = code.device
+    n, d = xb.shape
+    k, t_pad, h = code.shape
+    _launch_config(n, d, t_pad, h, block_trees, block_obs, tb2)
+    g = -(-n // block_obs)
+    _check("xb", xb, torch.int32, (n, d), dev)
+    _check("obs_seg", obs_seg, torch.int32, (n,), dev)
+    _check("code", code, torch.float32, (k, t_pad, h), dev)
+    _check("fit", fit, torch.float32, (k, t_pad, h), dev)
+    _check("tree_seg", tree_seg, torch.int32, (k, t_pad), dev)
+    _check("chunk_lo", chunk_lo, torch.int32, (k, g), dev)
+    _check("chunk_hi", chunk_hi, torch.int32, (k, g), dev)
+    if t_pad % block_trees:
+        raise ValueError("T_pad must be a multiple of block_trees")
+    sums = n_classes <= 0
+    partial = (torch.empty((k, n), dtype=torch.float32, device=dev)
+               if sums and k > 1 else None)
+    out = torch.empty((n, n_classes) if not sums else (n,),
+                      dtype=torch.float32, device=dev)
+    args = (xb.data_ptr(), obs_seg.data_ptr(), code.data_ptr(),
+            fit.data_ptr(), tree_seg.data_ptr(), chunk_lo.data_ptr(),
+            chunk_hi.data_ptr(),
+            None if partial is None else partial.data_ptr(),
+            out.data_ptr(), n, d, t_pad, h, max_depth, tb2, n_classes,
+            block_trees, block_obs, k, int(fold))
+    return args, partial if partial is not None and not fold else out
+
+
 def _launch_seg_sharded(
     xb, obs_seg, code, fit, tree_seg, chunk_lo, chunk_hi, max_depth: int,
     tb2: int, n_classes: int = 0, block_trees: int = 8,
-    block_obs: int = 128,
+    block_obs: int = 128, shards=None,
 ) -> torch.Tensor:
-    """K5 on the cards: K1 launched on each shard's CUDA device over that
-    shard's trees against the replicated rows, then the partials summed
-    on the first shard's device in shard order.  Arguments as in
-    ``_seg_sharded_plain``; every shard's tensors must lie on one CUDA
-    device."""
+    """K5 on the cards: one launch on each CUDA device for all of that
+    device's shards (``tp_seg_sharded``: K1's kernel with the shard as a
+    grid dimension), against the replicated rows.  Every argument but the
+    scalars is a sequence with one entry per device: its rows (N, d) and
+    their segment ids, and its shards stacked in shard order (``code`` /
+    ``fit`` (k, T_pad, H), ``tree_seg`` (k, T_pad), chunk ranges (k, G);
+    ``ops.forest_predict_agg_segmented_sharded`` stacks them).
+    ``shards``: each device's shard indices (default: the devices' shards
+    one after another).  One device: the launch folds the regression
+    partials in shard order itself, by a kernel after the walks.
+    Several: each launch runs on its device's current stream with no
+    host sync between them; the partials are copied (``non_blocking``)
+    into their shard's slot of an (S, N) scratch on the first device, and
+    ``tp_shard_fold`` adds them in shard order there (votes: the devices'
+    integer counts summed there).  A copy between cards runs on the
+    source card's stream behind its launch, and the first card's stream
+    waits on an event of it (PyTorch's device-to-device copy), so nothing
+    waits on the host."""
     for c in code:
         if c.device.type != "cuda":
             raise ValueError(f"K5 launches on CUDA devices, got {c.device}")
-    parts = [
-        _launch_seg_packed(*shard, max_depth, tb2, n_classes, block_trees,
-                           block_obs)
-        for shard in zip(xb, obs_seg, code, fit, tree_seg, chunk_lo,
-                         chunk_hi)
-    ]
-    out = _sum_shards(parts)
-    LAUNCHES["seg_sharded"] += 1
+    if shards is None:
+        ends = np.cumsum([0] + [c.shape[0] for c in code])
+        shards = [list(range(a, b)) for a, b in zip(ends, ends[1:])]
+    lib = _library()
+    parts = []
+    for j, idx in enumerate(shards):
+        args, part = _seg_group(
+            xb[j], obs_seg[j], code[j], fit[j], tree_seg[j], chunk_lo[j],
+            chunk_hi[j], max_depth, tb2, n_classes, block_trees, block_obs,
+            len(code) == 1)
+        dev = code[j].device
+        stream = torch.cuda.current_stream(dev)
+        with torch.cuda.device(dev):
+            err = lib.tp_seg_sharded(*args, stream.cuda_stream)
+        _raise_on(err, "tp_seg_sharded")
+        LAUNCHES["seg_sharded"] += 1
+        if len(code) == 1:
+            return part
+        parts.append((idx, part))
+    first = code[0].device
+    n = xb[0].shape[0]
+    n_shards = sum(len(idx) for idx in shards)
+    with torch.cuda.device(first):
+        if n_classes > 0:
+            total = torch.zeros((n, n_classes), dtype=torch.float32,
+                                device=first)
+            for _, part in parts:
+                total += part.to(first, non_blocking=True)
+            return total
+        scratch = torch.empty((n_shards, n), dtype=torch.float32,
+                              device=first)
+        for idx, part in parts:
+            part = part.reshape(len(idx), n)
+            for j, i in enumerate(idx):
+                scratch[i].copy_(part[j], non_blocking=True)
+        out = torch.empty((n,), dtype=torch.float32, device=first)
+        err = lib.tp_shard_fold(scratch.data_ptr(), out.data_ptr(), n,
+                                n_shards,
+                                torch.cuda.current_stream(first).cuda_stream)
+    _raise_on(err, "tp_shard_fold")
     return out
 
 

@@ -34,7 +34,8 @@ leaf's spec (``load_checkpoint(shardings=...)``) gives its local shard.
 shapes.  ``shard_train_state`` is a train state of shards: the
 parameters by ``shard_params``, the AdamW moments by ``opt_pspecs`` (like
 the parameters: ``init_opt_state`` of the shards, or cut from given
-moments) and the step replicated.  ``gather_whole`` is ``local_shard``'s
+moments), the step replicated, and with gradient compression its float32
+error feedback cut like the parameters.  ``gather_whole`` is ``local_shard``'s
 inverse.  Tensor-parallel serving and training run on them
 (``models.tensor_parallel``, ``launch.steps``).
 """
@@ -60,6 +61,7 @@ from ..models.sharding import (
 )
 from ..models.tensor_parallel import TPCache
 from ..optim.adamw import init_opt_state
+from ..optim.compression import init_error_feedback
 
 __all__ = [
     "NamedSharding",
@@ -379,21 +381,37 @@ def shard_params(cfg: ModelConfig, leaves, mesh,
 
 
 def shard_train_state(cfg: ModelConfig, leaves, mesh, device="cuda",
-                      opt=None) -> dict:
+                      opt=None, grad_comp=None) -> dict:
     """This rank's train state ``{"params": TransformerLM, "opt": {"m",
-    "v", "step"}}``: the parameters by ``shard_params`` from ``leaves``;
-    without ``opt`` the moments zero in the shards' shapes and types
-    (``init_opt_state`` of the shards: ``opt_pspecs``' shard shapes),
-    else cut from ``opt`` = {"m": (name, whole) pairs, "v": likewise,
-    "step": a scalar}, a leaf at a time, in each leaf's own type (DTensor
-    leaves give their local shards); the step an int32 0-d tensor."""
+    "v", "step"[, "ef"]}}``: the parameters by ``shard_params`` from
+    ``leaves``; without ``opt`` the moments zero in the shards' shapes and
+    types (``init_opt_state`` of the shards: ``opt_pspecs``' shard
+    shapes), else cut from ``opt`` = {"m": (name, whole) pairs, "v":
+    likewise, "step": a scalar[, "ef": (name, whole) pairs]}, a leaf at a
+    time, in each leaf's own type (DTensor leaves give their local
+    shards); the step an int32 0-d tensor.  The error feedback of
+    gradient compression (``grad_comp`` enabled, as
+    ``launch.train.build_state`` takes it, or an ``"ef"`` in ``opt``) is
+    cut like the gradients: each leaf float32 in its parameter's shard
+    shape, zero unless ``opt`` carries it."""
     dev = resolve_device(device)
     params = shard_params(cfg, leaves, mesh, dev)
     if opt is None:
-        return {"params": params, "opt": init_opt_state(params)}
-    specs = opt_pspecs(cfg, mesh, params.pspecs)
+        state = {"params": params, "opt": init_opt_state(params)}
+    else:
+        state = {"params": params,
+                 "opt": _cut_opt(cfg, params, mesh, dev, opt)}
+    if "ef" not in state["opt"] and grad_comp is not None \
+            and grad_comp.enabled:
+        state["opt"]["ef"] = init_error_feedback(params)
+    return state
+
+
+def _cut_opt(cfg: ModelConfig, params, mesh, dev, opt) -> dict:
+    """``shard_train_state``'s optimizer state cut from ``opt``."""
+    specs = dict(opt_pspecs(cfg, mesh, params.pspecs), ef=params.pspecs)
     new = {}
-    for key in ("m", "v"):
+    for key in ("m", "v", "ef") if "ef" in opt else ("m", "v"):
         new[key] = {}
         for name, whole in opt[key]:
             if name not in specs[key] or name in new[key]:
@@ -403,9 +421,11 @@ def shard_train_state(cfg: ModelConfig, leaves, mesh, device="cuda",
         if set(new[key]) != set(specs[key]):
             raise ValueError(f"missing {key} leaves "
                              f"{sorted(set(specs[key]) - set(new[key]))}")
+    if "ef" in new:
+        new["ef"] = {n: t.float() for n, t in new["ef"].items()}
     new["step"] = _local(opt["step"], specs["step"], mesh).to(
         dev, torch.int32).reshape(())
-    return {"params": params, "opt": new}
+    return new
 
 
 def init_cache_shards(cfg: ModelConfig, batch: int, max_len: int, mesh,

@@ -23,9 +23,11 @@ leave (``models.tensor_parallel.sum_partial_grads``), so it returns
 this rank's gradient shards (ZeRO-3: reduce-scattered over ``data``);
 AdamW clips by the global norm of the global arrays and updates the
 shards and their moments (``launch.shardings.shard_train_state``).
-Gradient compression under a mesh is refused: the mesh's compressed
-step is ``make_wire_train_step``, as in the reference.  Parameters
-require grad only inside the step.  The step
+With gradient compression on, ``compress_gradients`` quantizes the
+rank's gradient shards with each leaf's global min and max, and the
+error feedback (``opt_state["ef"]``) is kept in the gradients' cut, as
+the reference's sharded ``jit`` of the step computes them (one ``pmax``
+a step).  Parameters require grad only inside the step.  The step
 runs under deterministic algorithms (``deterministic_algorithms``): on a
 card, the one sum of the train path that PyTorch otherwise adds with
 atomics in no fixed order — the gradient of the MoE dispatch's gather
@@ -149,15 +151,10 @@ def make_train_step(
     ``"loss"``, ``"grad_norm"``, ``"lr"``.  Sharded ``params`` (and an
     ``opt_state`` of shards, ``launch.shardings.shard_train_state``)
     under ``logical_sharding``: the rank's updated shards, the metrics
-    equal on every rank; compression is refused there."""
+    equal on every rank; with compression, ``"ef"`` holds float32 shards
+    in the gradients' cut (``shard_train_state(..., grad_comp=...)``)."""
 
     def train_step(params, opt_state, batch):
-        if params.mesh is not None and grad_comp is not None \
-                and grad_comp.enabled:
-            raise NotImplementedError(
-                "gradient compression under a mesh is make_wire_train_step "
-                "(the data-parallel sum quantized on the wire), as in the "
-                "reference")
         with deterministic_algorithms():
             loss, grads = loss_and_grads(cfg, params, batch, remat=remat,
                                          use_flash=use_flash,

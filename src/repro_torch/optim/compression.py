@@ -7,13 +7,25 @@ FEEDBACK: the quantization residual is carried into the next step's
 gradient, so the scheme is unbiased in the long run.  Wire format per
 tensor per step: b-bit codes + 2 float32 scalars.
 
-The arithmetic is the reference's as written, bit for bit: the codes
-``floor((g - lo) / step)`` by a true float32 division (XLA divides here
-too, jitted or not: unlike the Pallas quantizer, ROADMAP R5, it does not
-multiply by the reciprocal of ``step``), the reconstruction
-``lo + (q + 0.5) * step`` rounded after the product and after the sum.
-Inside a jitted step XLA fuses that reconstruction into one FMA, which
-moves it by at most one float32 ulp; no code changes.
+The arithmetic is the reference's as its jitted steps compute it, bit
+for bit: the codes ``floor((g - lo) / step)`` by a true float32 division
+(XLA divides here, unlike the Pallas quantizer, ROADMAP R5: it does not
+multiply by the reciprocal of ``step``), the reconstruction ``lo + (q +
+0.5) * step`` fused by XLA into one FMA, rounded once (``_fma32``).  The
+reference's function called eagerly rounds after the product and after
+the sum, at most one float32 ulp from that; the port follows the
+jitted step, the one its ``make_train_step`` runs, with or without a
+mesh.
+
+Under a mesh (a ``DeviceMesh`` installed by ``logical_sharding``) the
+gradients and the error feedback are the rank's shards, and
+``compress_gradients`` computes what the reference's sharded ``jit`` of
+the same function computes: each leaf's lo and hi are the min and max of
+the WHOLE global leaf (the local ones stacked into one float32 vector,
+the minima negated, and one ``pmax`` over every mesh axis: min and max
+are exact, so the order of the reduction does not matter), and the
+reconstruction is that of the rank's own elements.  A leaf replicated
+over an axis is reduced over it too, harmlessly.
 
 The reference quantizes each leaf of its pytree, where the blocks of
 ``layers`` (and ``layers_dense``) are stacked on a leading L axis: one
@@ -38,7 +50,13 @@ from dataclasses import dataclass
 import torch
 
 from ..models.model import reference_path
-from ..models.sharding import axis_size, pmax, psum
+from ..models.sharding import (
+    axis_size,
+    current_mesh,
+    mesh_axis_names,
+    pmax,
+    psum,
+)
 from .adamw import named_tensors
 
 __all__ = [
@@ -71,12 +89,50 @@ def _quantize_leaf(g, bits: int):
     return _quantize_in(gf, gf.min(), gf.max(), bits)
 
 
-def _quantize_in(gf, lo, hi, bits: int):
-    """``_quantize_leaf`` of float32 ``gf`` over the bins of [lo, hi]."""
+def _codes(gf, lo, hi, bits: int):
+    """(the float32 bin of each element of ``gf`` among the 2**bits bins of
+    [lo, hi], the bins' width): ``floor((gf - lo) / step)`` clipped, by a
+    true float32 division."""
     n_levels = 1 << bits
     step = torch.clamp((hi - lo) / n_levels, min=1e-30)
-    q = (gf - lo).div_(step).floor_().clamp_(0, n_levels - 1)
-    return q.add_(0.5).mul_(step).add_(lo)  # lo + (q + 0.5) step
+    return (gf - lo).div_(step).floor_().clamp_(0, n_levels - 1), step
+
+
+def _quantize_in(gf, lo, hi, bits: int):
+    """``_quantize_leaf`` of float32 ``gf`` over the bins of [lo, hi]: the
+    midpoints ``lo + (q + 0.5) * step``, rounded once, as XLA's FMA
+    rounds them (``_fma32``)."""
+    q, step = _codes(gf, lo, hi, bits)
+    return _fma32(q.add_(0.5), step, lo)
+
+
+#: elements ``_fma32`` widens to float64 at a time
+_FMA_CHUNK = 1 << 22
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as an FMA rounds it (``b`` and
+    ``c`` 0-d), written into ``a`` (a contiguous copy of it if it is
+    not).  In float64 the product of two float32
+    numbers is exact (48 bits); the sum is rounded to odd (TwoSum's error
+    moves an even result one ulp towards the exact sum), and a float64
+    rounded to odd, rounded to nearest float32, is the exact sum rounded
+    once.  The card and the CPU compute it alike.  ``_FMA_CHUNK``
+    elements at a time, so the float64 scratch stays small."""
+    a = a.contiguous()
+    flat = a.view(-1)
+    bd, cd = b.double(), c.double()
+    for lo in range(0, flat.numel(), _FMA_CHUNK):
+        part = flat[lo:lo + _FMA_CHUNK]
+        p = part.double().mul_(bd)
+        s = p + cd
+        bv = s - p
+        err = (p - (s - bv)).add_(cd - bv)  # s + err is p + c exactly
+        even = (s.view(torch.int64) & 1) == 0
+        toward = torch.where(err > 0, torch.inf, -torch.inf).to(s)
+        s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+        part.copy_(s)
+    return a
 
 
 def _groups(names) -> dict[str, list[str]]:
@@ -88,21 +144,48 @@ def _groups(names) -> dict[str, list[str]]:
     return out
 
 
+def _device_mesh():
+    """The installed mesh when it is a ``DeviceMesh`` (its ranks hold
+    shards), else None."""
+    mesh = current_mesh()
+    return mesh if hasattr(mesh, "get_group") else None
+
+
+def _bounds(corrected: dict[str, list[torch.Tensor]], mesh=None) -> dict:
+    """{group: (lo, hi)}: the min and max over each group's tensors
+    (``corrected``: {group: its members}), 0-d float32; with ``mesh``, of
+    the global leaves the ranks' shards cut, by one ``pmax`` over every
+    mesh axis of the stacked negated minima and maxima."""
+    lows = torch.stack([torch.stack([c.min() for c in cs]).min()
+                        for cs in corrected.values()])
+    highs = torch.stack([torch.stack([c.max() for c in cs]).max()
+                         for cs in corrected.values()])
+    if mesh is not None:
+        both = pmax(torch.cat([-lows, highs]), mesh_axis_names(mesh), mesh)
+        lows, highs = -both[:len(lows)], both[len(lows):]
+    return {g: (lo, hi) for g, lo, hi in zip(corrected, lows, highs)}
+
+
 def compress_gradients(cfg: GradCompressionConfig, grads, error_feedback):
     """Returns (decoded grads as the receiver would see them, in each
     gradient's type; the new error feedback, float32), both by name.
     One (lo, step) per leaf of the reference's pytree (a weight of every
-    stacked block shares it)."""
+    stacked block shares it).  Under a ``DeviceMesh`` (module docstring)
+    ``grads`` and ``error_feedback`` are this rank's shards, lo and hi
+    those of the global leaves."""
     if not cfg.enabled:
         return grads, error_feedback
     grads = dict(grads)
-    out, new_ef = {}, {}
-    for members in _groups(grads).values():
-        corrected = {n: grads[n].float() + error_feedback[n]
+    mesh = _device_mesh()
+    corrected = {g: {n: grads[n].float() + error_feedback[n]
                      for n in members}
-        lo = torch.stack([c.min() for c in corrected.values()]).min()
-        hi = torch.stack([c.max() for c in corrected.values()]).max()
-        for n, c in corrected.items():
+                 for g, members in _groups(grads).items()}
+    bounds = _bounds({g: list(cs.values()) for g, cs in corrected.items()},
+                     mesh)
+    out, new_ef = {}, {}
+    for g, group in corrected.items():
+        lo, hi = bounds[g]
+        for n, c in group.items():
             recon = _quantize_in(c, lo, hi, cfg.bits)
             new_ef[n] = c.sub_(recon)  # corrected - recon
             out[n] = recon.to(grads[n].dtype)

@@ -9,9 +9,10 @@ Hopper kernels on a card, their plain PyTorch versions on the CPU.
 The pipelined and sharded engines split into ``build_*_pack`` (arena
 ensure + device index-gather + chunk ranges — the part ``PlanCache``
 memoizes across batches) and ``run_*`` (the kernel launches, paid per
-batch): K1 once, or K5 — K1 on each device of the session's list over
-its tree shard, then one ordered sum.  ``run_simple`` is the host-pack
-path kept as the differential oracle and the fallback (K2).
+batch): K1 once, or K5 — one launch on each device of the session's
+list over that device's tree shards, then one ordered sum.
+``run_simple`` is the host-pack path kept as the differential oracle and
+the fallback (K2).
 """
 from __future__ import annotations
 
@@ -45,11 +46,12 @@ class PipelinedPack(NamedTuple):
 
 class ShardedPack(NamedTuple):
     """Per-device gathers + ranges for the sharded engine.  Where the
-    reference stacks the shards into one (S_dev, T_pad, H) array, the port
-    keeps one tensor per shard, each on its own device."""
+    reference stacks the shards into one (S_dev, T_pad, H) array over its
+    mesh, the port stacks each device's shards, in shard order, into one
+    (k, T_pad, H) tensor there, which K5's launch reads as it is."""
 
-    code: list  # S_dev x (T_pad, H) f32, shard s on devices[s]
-    fit: list
+    code: dict  # {device: (k, T_pad, H) f32}: devices[s]'s shards s
+    fit: dict
     tree_seg: np.ndarray  # (S_dev, T_pad) int32
     chunk_lo: np.ndarray  # (S_dev, G) int32
     chunk_hi: np.ndarray
@@ -207,8 +209,8 @@ def build_sharded_pack(store, plan: ServePlan, devices) -> ShardedPack:
     before any per-shard gather (a later shard's cold admission may grow
     the arena heap width, which would leave earlier shards' gathered
     arrays at a stale narrower width), bin-pack users by tree count, then
-    gather each shard with GLOBAL segment ids and move it to its device
-    (``devices``, the session's list)."""
+    gather each shard with GLOBAL segment ids and stack each device's
+    shards (``devices``, the session's list) on it."""
     from ..kernels.tree_predict.ops import partition_segments_by_load
     from ..kernels.tree_predict.tree_predict import segment_chunk_ranges
 
@@ -230,28 +232,34 @@ def build_sharded_pack(store, plan: ServePlan, devices) -> ShardedPack:
     bo = min(plan.engine.block_obs, plan.n_rows)
     codes, fits, tsegs, los, his = [], [], [], [], []
     max_depth = 0
-    for shard, dev in zip(shards, devices):
+    for shard in shards:
         shard_users = [plan.users[s] for s in shard]
         code, fit, tseg, _, max_depth = store.arena_pack(
             shard_users, bt, pad_to=t_pad, seg_ids=shard
         )
         lo, hi = segment_chunk_ranges(plan.oseg_s, tseg, bt, bo)
-        codes.append(code.to(dev))
-        fits.append(fit.to(dev))
+        codes.append(code)
+        fits.append(fit)
         tsegs.append(tseg)
         los.append(lo)
         his.append(hi)
+
+    def by_device(tiles):
+        return {dev: torch.stack([t for t, d in zip(tiles, devices)
+                                  if d == dev]).to(dev)
+                for dev in dict.fromkeys(devices)}
+
     return ShardedPack(
-        codes, fits, np.stack(tsegs), np.stack(los), np.stack(his),
-        max_depth, bo, devices,
+        by_device(codes), by_device(fits), np.stack(tsegs), np.stack(los),
+        np.stack(his), max_depth, bo, devices,
     )
 
 
 def run_sharded(
     store, plan: ServePlan, pack: ShardedPack, xb: np.ndarray
 ) -> np.ndarray:
-    """K1 on each device over its shard, then the partials summed on the
-    first device in shard order (K5).  Returns the aggregate in request
+    """K5: one launch on each device over its shards, the partials summed
+    on the first device in shard order.  Returns the aggregate in request
     order."""
     from ..kernels.tree_predict.ops import (
         forest_predict_agg_segmented_sharded,

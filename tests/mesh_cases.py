@@ -196,10 +196,12 @@ TRAIN_CASES = {
     "internvl2": ("internvl2", (1, 4), 4, 16, None),
 }
 #: the reference's cases in three processes run side by side (its time is
-#: the sharded jits' compiles)
+#: the sharded jits' compiles); the compressed step and the compressor
+#: alone (``TRAIN_COMP_CASES``, ``COMP_CASES``) in the lightest
 TRAIN_REFERENCE_SPLIT = (("kv4_1x4", "kv4_2x2", "internvl2"),
                          ("kv1", "granite", "starcoder2"),
-                         ("vocab_odd", "seq_odd"))
+                         ("vocab_odd", "seq_odd", "kv4_2x2_comp", "comp_2x2",
+                          "comp_1x4"))
 #: the cases whose tensor-parallel first step is also held against the
 #: port's own one-process step (granite's EP routes each data shard's
 #: tokens into capacities of its own, so its one-process step is another
@@ -211,10 +213,70 @@ TRAIN_ONE_PROCESS = ("kv4_2x2", "kv1", "vocab_odd", "seq_odd", "starcoder2",
 #: step 3 of 5
 TRAIN_RESUME = {"regime": "kv4", "mesh": (2, 2), "batch": 4, "seq": 16,
                 "steps": 5, "save_every": 2, "fail_at": 3}
+#: case -> (TP_CASES regime, mesh, batch, sequence, remat): training with
+#: gradient compression (``GradCompressionConfig(bits=TRAIN_COMP_BITS)``)
+#: held against the reference's sharded jit of ``make_train_step(...,
+#: grad_comp=...)``: kv4 on (2, 2), the error feedback cut like the
+#: gradients and, after the first step, taken from the reference's state
+TRAIN_COMP_CASES = {"kv4_2x2_comp": ("kv4", (2, 2), 4, 16, None)}
+TRAIN_COMP_BITS = 4
+#: the compressor alone, ``compress_gradients`` of kv4's leaves under a
+#: jit with ``in_shardings`` = ``param_pspecs``: case -> mesh; two calls,
+#: the second on the first's error feedback (``comp_grads``' draws)
+COMP_CASES = {"comp_2x2": (2, 2), "comp_1x4": (1, 4)}
+COMP_CALLS = 2
 
 
 def train_config(get_config, case: str, cases=None):
     return tp_config(get_config, (cases or TRAIN_CASES)[case][0])
+
+
+def comp_grads(shapes: dict, call: int) -> dict:
+    """The compressor cases' seeded float32 gradients of call ``call``,
+    {path: array} for ``shapes`` ({path: shape}, taken in sorted order):
+    each leaf normal at a scale of its own, 10**U(-4, 0), about an offset
+    of up to twice that, so lo and hi are not each other's negatives."""
+    rng = np.random.default_rng(TRAIN_SEED + 100 + call)
+    out = {}
+    for path in sorted(shapes):
+        scale = 10.0 ** rng.uniform(-4.0, 0.0)
+        off = rng.uniform(-2.0, 2.0) * scale
+        out[path] = (off + scale * rng.normal(size=shapes[path])).astype(
+            np.float32)
+    return out
+
+
+def comp_bins(corrected, lo, hi, bits: int) -> np.ndarray:
+    """The bin of each element of float32 ``corrected`` among the 2**bits
+    bins of [lo, hi], as the compressor computes it (a true float32
+    division)."""
+    lo, hi = np.float32(lo), np.float32(hi)
+    q = np.floor((np.asarray(corrected, np.float32) - lo)
+                 / comp_step(lo, hi, bits))
+    return np.clip(q, 0, (1 << bits) - 1)
+
+
+def comp_step(lo, hi, bits: int) -> np.float32:
+    """The width of the 2**bits bins of [lo, hi], float32."""
+    lo, hi = np.float32(lo), np.float32(hi)
+    return np.maximum((hi - lo) / np.float32(1 << bits), np.float32(1e-30))
+
+
+def comp_decode(bins, lo, hi, bits: int) -> np.ndarray:
+    """The midpoints ``lo + (bins + 0.5) * step`` that the sharded
+    compressor decodes, rounded once to float32 as an FMA rounds them:
+    the product exact in float64, the sum rounded to odd there (its
+    TwoSum error), then to nearest float32."""
+    p = (np.asarray(bins, np.float64) + 0.5) * np.float64(
+        comp_step(lo, hi, bits))
+    c = np.float64(np.float32(lo))
+    s = p + c
+    bv = s - p
+    err = (p - (s - bv)) + (c - bv)
+    even = (s.view(np.int64) & 1) == 0
+    s = np.where((err != 0) & even,
+                 np.nextafter(s, np.where(err > 0, np.inf, -np.inf)), s)
+    return s.astype(np.float32)
 
 
 def train_batch(cfg, case: str, step: int, cases=None):
@@ -364,8 +426,12 @@ def rwkv6_draws(shapes: dict) -> dict:
 
 
 def train_cases(case: str) -> dict:
-    """The table (TRAIN_CASES or TRAIN_FAMILY_CASES) that holds ``case``."""
-    return TRAIN_CASES if case in TRAIN_CASES else TRAIN_FAMILY_CASES
+    """The table (TRAIN_CASES, TRAIN_COMP_CASES or TRAIN_FAMILY_CASES) that
+    holds ``case``."""
+    for table in (TRAIN_CASES, TRAIN_COMP_CASES):
+        if case in table:
+            return table
+    return TRAIN_FAMILY_CASES
 
 
 def mtp_labels(cfg, case: str):

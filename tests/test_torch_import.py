@@ -418,8 +418,8 @@ def test_kernel_launches_refuse_cpu_tensors():
             launch(xb, heap, heap, code, code.bool(), 1)
     with pytest.raises(ValueError, match="CUDA"):
         tp._launch_seg_sharded(
-            [xb] * 2, [seg] * 2, [code] * 2, [code] * 2, [tseg] * 2,
-            [rng_] * 2, [rng_] * 2, 1, 2, 0, 8, 4,
+            [xb], [seg], [code[None]], [code[None]], [tseg[None]],
+            [rng_[None]], [rng_[None]], 1, 2, 0, 8, 4,
         )
     assert tp.LAUNCHES == {
         "seg_packed": 0, "seg_simple": 0, "agg": 0, "per_tree": 0,

@@ -3,9 +3,11 @@ reference's sharded ``jit`` on a forced 4-device CPU mesh: the
 collectives' transposes, ``loss_and_grads`` and ``make_train_step`` on a
 sharded ``TransformerLM`` (vocab-parallel cross entropy, ZeRO-3
 gradients, the shard-aware clip, AdamW on shards), a tensor-parallel
-run preempted and resumed from a checkpoint, and gradient compression,
-which stays refused under a mesh.  The recurrent families, MLA and a
-shared expert are ``test_torch_mesh_train_families.py``'s.
+run preempted and resumed from a checkpoint, and gradient compression
+on shards (the compressor alone, bit-equal to the reference's sharded
+``jit``; the compressed step; its error feedback through a checkpoint).
+The recurrent families, MLA and a shared expert are
+``test_torch_mesh_train_families.py``'s.
 
 Both sides run once per module.  The reference runs in a process of its
 own (``torch_mesh_train_reference.py``, JAX with
@@ -323,18 +325,14 @@ def test_tp_run_preempted_and_resumed_is_bit_equal(runs):
         assert bool(out["resume/ckpt_equal"])
 
 
-def test_shared_expert_and_compression_refused_under_a_mesh():
+def test_shared_expert_cut_and_sharded_loss_needs_logical_sharding():
     """A shared expert is cut for training as for serving (its cases are
-    ``test_torch_mesh_train_families.py``'s); gradient compression on
-    sharded parameters is refused for the wire step."""
+    ``test_torch_mesh_train_families.py``'s), and the loss of sharded
+    parameters outside ``logical_sharding`` raises."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import AbstractMesh
-    from repro_torch.launch.steps import make_train_step
     from repro_torch.models import TransformerLM, loss_fn
-    from repro_torch.models.sharding import logical_sharding, single_pod_rules
     from repro_torch.models.tensor_parallel import check_cut
-    from repro_torch.optim.adamw import AdamWConfig
-    from repro_torch.optim.compression import GradCompressionConfig
 
     mesh = AbstractMesh((1, 4), ("data", "model"))
     shared = dataclasses.replace(get_config("granite-moe-3b-a800m").smoke(),
@@ -343,11 +341,169 @@ def test_shared_expert_and_compression_refused_under_a_mesh():
     cfg = dataclasses.replace(get_config("qwen3-4b").smoke(), dtype="float32")
     params = TransformerLM(cfg, "cpu")
     params.mesh = mesh
-    step = make_train_step(cfg, AdamWConfig(),
-                           grad_comp=GradCompressionConfig(enabled=True))
     tok = np.zeros((2, 8), np.int64)
-    with logical_sharding(mesh, single_pod_rules()):
-        with pytest.raises(NotImplementedError, match="make_wire_train_step"):
-            step(params, {}, {"tokens": tok, "labels": tok})
     with pytest.raises(RuntimeError, match="logical_sharding"):
         loss_fn(cfg, params, tok, tok)
+
+
+@pytest.mark.parametrize("case", sorted(mc.COMP_CASES))
+def test_sharded_compressor_is_bit_equal_to_the_reference(runs, case):
+    """``compress_gradients`` on each rank's shards under the mesh, twice
+    (the second call on the first's error feedback), against the
+    reference's ``compress_gradients`` jitted with ``in_shardings`` =
+    ``param_pspecs``: every leaf's decoded gradient and new error
+    feedback bit-equal to the reference's shard at the same place, and
+    each leaf's lo and hi (one ``pmax`` over the mesh) equal to the min
+    and max of its whole corrected gradient."""
+    ref, ranks = runs
+    for out in ranks:
+        for n in _names(out, case):
+            key = str(out[f"{case}/key/{n}"])
+            for call in range(mc.COMP_CALLS):
+                for kind in ("dec", "ef"):
+                    got = out[f"{case}/{kind}/{call}/{n}"]
+                    want = _ref_shard(ref, f"{case}/{kind}/{call}", n, key)
+                    assert got.dtype == want.dtype == np.float32
+                    np.testing.assert_array_equal(got, want,
+                                                  err_msg=str((n, kind, call)))
+        lohi = sorted(k for k in out if k.startswith(f"{case}/lohi/"))
+        assert lohi and lohi == sorted(
+            k for k in ref[0].files if k.startswith(f"{case}/lohi/"))
+        for k in lohi:
+            np.testing.assert_array_equal(out[k], ref[0][k], err_msg=k)
+
+
+def _corrected(ref, ranks, case, i):
+    """Each rank's corrected gradients of step ``i`` ({name: array}), the
+    reference's at the same places, and each reference leaf's (lo, hi)
+    on both sides (0: the port's, 1: the reference's): the min and max
+    over every rank's shards, which cover the leaf."""
+    from repro_torch.models.model import reference_path
+
+    got, want, bounds = [], [], {}
+    for out in ranks:
+        mine, theirs = {}, {}
+        for n in _names(out, case):
+            key = str(out[f"{case}/key/{n}"])
+            ef = (np.zeros_like(out[f"{case}/g/{i}/{n}"]) if i == 0 else
+                  _ref_shard(ref, f"{case}/ef/{i - 1}", n, key))
+            mine[n] = out[f"{case}/g/{i}/{n}"] + ef
+            theirs[n] = _ref_shard(ref, f"{case}/g/{i}", n, key) + ef
+            path = reference_path(n)[0]
+            for side, c in ((0, mine[n]), (1, theirs[n])):
+                lo, hi = bounds.get((path, side), (np.inf, -np.inf))
+                bounds[path, side] = (min(lo, c.min()), max(hi, c.max()))
+        got.append(mine)
+        want.append(theirs)
+    return got, want, bounds
+
+
+@pytest.mark.parametrize("case", sorted(mc.TRAIN_COMP_CASES))
+def test_compressed_step_matches_the_reference(runs, case):
+    """``make_train_step`` with gradient compression on sharded parameters
+    (a step after the first from the reference's state, its error
+    feedback included) against the reference's sharded ``jit`` of the
+    same step: the losses and grad norms within 1e-5 relative and the
+    gradient shards within 1e-4 relative L2, then the code-flip rule.
+
+    Each side's corrected gradient (its gradient plus the error feedback
+    the step starts from) falls in a bin of that side's own lo and hi
+    (the min and max over the whole leaf); an element whose two bins
+    differ is ``near``.  The port's error feedback after the step is
+    bit-equal to its corrected gradient less its bin's midpoint
+    (``mesh_cases.comp_decode``: the global bounds, XLA's FMA).  Outside
+    ``near`` both sides decode one bin q, and their midpoints differ by
+    at most d_dec = |d lo| + (q + 1/2) |d step|, the clipped ones by
+    d_clip = s d_dec + |d s| |mid| (s the clip scales, mid the
+    reference's midpoint): all from the sides' scalars, none from their
+    decoded values.  So outside ``near`` the updated parameters are held
+    to 1e-5 relative L2, and ``m``, ``v`` and the error feedback to 1e-5
+    relative L2 plus the L2 of (1 - beta1) d_clip, (1 - beta2) d_clip (2
+    |s mid| + d_clip) and |d corrected| + d_dec; an element is off when
+    its gap passes that much plus 1e-6 relative plus 1e-7, and the
+    elements off are bounded as ``_bound_flips`` does, a near element
+    counting once for each of the four kinds.  The control: the port's
+    ``m`` and error feedback as a decode at each bin's lower edge would
+    make them fail the same rule in every leaf.  (The reference's own
+    error feedback is not held to the corrected gradient less the
+    midpoint bit for bit: inside the jitted step XLA fuses its
+    arithmetic otherwise, and it is an ulp of lo off that in a few
+    elements.)"""
+    from repro_torch.models.model import reference_path
+
+    ref, ranks = runs
+    bits = mc.TRAIN_COMP_BITS
+    b1, b2 = mc.TRAIN_OPT_CFG["beta1"], mc.TRAIN_OPT_CFG["beta2"]
+    for out in ranks:
+        for i in range(mc.TRAIN_STEPS):
+            for key in ("loss", "step_loss", "grad_norm"):
+                np.testing.assert_allclose(out[f"{case}/{key}/{i}"],
+                                           ref[0][f"{case}/{key}/{i}"],
+                                           rtol=1e-5, err_msg=key)
+    for i in range(mc.TRAIN_STEPS):
+        got, want, bounds = _corrected(ref, ranks, case, i)
+        sa, sb = (min(1.0, 1.0 / max(float(out[f"{case}/grad_norm/{i}"]),
+                                     1e-9))
+                  for out in (ranks[0], ref[0]))
+        near = off = size = 0
+        for out, mine, theirs in zip(ranks, got, want):
+            for n in _names(out, case):
+                key = str(out[f"{case}/key/{n}"])
+                path = reference_path(n)[0]
+                assert _rel(out[f"{case}/g/{i}/{n}"], _ref_shard(
+                    ref, f"{case}/g/{i}", n, key)) <= 1e-4, (n, i)
+                ca, cb = mine[n], theirs[n]
+                (la, ha), (lb, hb) = bounds[path, 0], bounds[path, 1]
+                qa = mc.comp_bins(ca, la, ha, bits)
+                qb = mc.comp_bins(cb, lb, hb, bits)
+                da = mc.comp_decode(qa, la, ha, bits)
+                np.testing.assert_array_equal(out[f"{case}/ef/{i}/{n}"],
+                                              ca - da, err_msg=str((n, i)))
+                keep = qa == qb
+                step_a = np.float64(mc.comp_step(la, ha, bits))
+                step_b = np.float64(mc.comp_step(lb, hb, bits))
+                half = qb.astype(np.float64) + 0.5
+                mid = np.float64(np.float32(lb)) + half * step_b
+                d_dec = (abs(np.float64(np.float32(la)) - np.float32(lb))
+                         + half * abs(step_a - step_b))
+                d_clip = sa * d_dec + abs(sa - sb) * np.abs(mid)
+                allowed = {"p": np.zeros_like(d_dec),
+                           "m": (1 - b1) * d_clip,
+                           "v": (1 - b2) * d_clip * (2 * sb * np.abs(mid)
+                                                     + d_clip),
+                           "ef": np.abs(ca.astype(np.float64) - cb) + d_dec}
+                edge = (-(1 - b1) * 0.5 * step_a * sa, 0.5 * step_a)
+                for kind in ("p", "m", "v", "ef"):
+                    a = out[f"{case}/{kind}/{i}/{n}"]
+                    b = _ref_shard(ref, f"{case}/{kind}/{i}", n, key)
+                    assert a.dtype == b.dtype, (n, kind)
+                    b64 = b.astype(np.float64)
+                    gap = np.abs(a - b64)
+                    room = (1e-5 * np.linalg.norm(b64[keep])
+                            + np.linalg.norm(allowed[kind][keep]))
+                    assert np.linalg.norm(gap[keep]) <= room, (
+                        n, kind, i, np.linalg.norm(gap[keep]), room)
+                    if kind in ("m", "ef") and keep.any():
+                        wrong = a + edge[kind == "ef"]
+                        assert np.linalg.norm((wrong - b64)[keep]) > room, (
+                            "control", n, kind, i)
+                    off += int((gap > 1e-6 * np.abs(b) + 1e-7
+                                + allowed[kind]).sum())
+                    size += a.size
+                near += 4 * int((~keep).sum())
+        _bound_flips(near, off, size, (case, i))
+
+
+def test_ef_shards_survive_a_checkpoint(runs):
+    """A (2, 2) train state of shards carrying gradient compression's error
+    feedback (``shard_train_state(..., grad_comp=...)``, nonzero after two
+    compressed steps) saved through ``CheckpointManager`` and restored
+    with ``shardings=``: every shard, the float32 error feedback's
+    included, bit-equal after the restore."""
+    _, ranks = runs
+    for out in ranks:
+        assert int(out["efckpt/step"]) == 2
+        assert out["efckpt/keys"].tolist() == ["ef", "m", "step", "v"]
+        assert out["efckpt/ef_dtypes"].tolist() == ["torch.float32"]
+        assert bool(out["efckpt/ef_nonzero"])
+        assert bool(out["efckpt/bit_equal"])

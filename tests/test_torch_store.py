@@ -268,8 +268,9 @@ def test_engines_match_reference_session_and_oracle(task, engine, shards):
     assert server.engine_counts[engine] == 1
     if engine == "sharded":
         pack = server._gathered_pack(server.plan(reqs, engine=engine))
-        assert len(pack.code) == shards
-        assert len({c.shape for c in pack.code}) == 1  # one T_pad, one width
+        assert list(pack.code) == [torch.device(CPU)]  # one stack a device
+        assert only(pack.code).shape[0] == shards
+        assert only(pack.fit).shape == only(pack.code).shape
 
 
 @pytest.mark.parametrize("task", TASKS)
@@ -391,6 +392,13 @@ def test_bin_pack_matches_reference(n_shards):
 # K5
 # ---------------------------------------------------------------------------
 
+def only(tiles):
+    """The one device's stack of a pack's shards (``ShardedPack.code`` or
+    ``.fit``)."""
+    (stack,) = tiles.values()
+    return stack
+
+
 def sharded_inputs(task, n_shards, seed=5):
     """K5's inputs from a real pack: the store's users bin-packed onto
     ``n_shards`` shards, rows sorted by segment."""
@@ -418,8 +426,8 @@ def test_sharded_kernel_matches_reference_and_single_device(task):
         pack.chunk_hi, pack.max_depth, port.arena.tb2, devices=[CPU], **kw,
     ).numpy()
     want = np.asarray(ref_ops.forest_predict_agg_segmented_sharded(
-        xb, plan.oseg_s, np.stack([a.numpy() for a in pack.code]),
-        np.stack([a.numpy() for a in pack.fit]), pack.tree_seg,
+        xb, plan.oseg_s, only(pack.code).numpy(),
+        only(pack.fit).numpy(), pack.tree_seg,
         pack.chunk_lo, pack.chunk_hi, pack.max_depth, port.arena.tb2,
         interpret=True, **kw,
     ))
@@ -431,8 +439,8 @@ def test_sharded_kernel_matches_reference_and_single_device(task):
     for n_shards in (2, 4):
         _p, plan_s, pack_s, xb_s, _c = sharded_inputs(task, n_shards)
         got = ops.forest_predict_agg_segmented_sharded(
-            xb_s, plan_s.oseg_s, torch.stack(pack_s.code),
-            torch.stack(pack_s.fit), pack_s.tree_seg, pack_s.chunk_lo,
+            xb_s, plan_s.oseg_s, only(pack_s.code),
+            only(pack_s.fit), pack_s.tree_seg, pack_s.chunk_lo,
             pack_s.chunk_hi, pack_s.max_depth, port.arena.tb2,
             devices=[CPU] * n_shards, **kw,
         ).numpy()
@@ -448,7 +456,7 @@ def test_sharded_kernel_sums_shards_in_order():
     port, plan, pack, xb, c = sharded_inputs("regression", 3)
     args = [
         [torch.as_tensor(xb)] * 3, [torch.as_tensor(plan.oseg_s)] * 3,
-        list(pack.code), list(pack.fit),
+        list(only(pack.code)), list(only(pack.fit)),
         [torch.as_tensor(a) for a in pack.tree_seg],
         [torch.as_tensor(a) for a in pack.chunk_lo],
         [torch.as_tensor(a) for a in pack.chunk_hi],
@@ -462,7 +470,7 @@ def test_sharded_kernel_sums_shards_in_order():
 
 def test_sharded_kernel_guards():
     port, plan, pack, xb, c = sharded_inputs("classification", 2)
-    base = (plan.oseg_s, torch.stack(pack.code), torch.stack(pack.fit),
+    base = (plan.oseg_s, only(pack.code), only(pack.fit),
             pack.tree_seg, pack.chunk_lo, pack.chunk_hi, pack.max_depth,
             port.arena.tb2)
     with pytest.raises(ValueError, match="2 tree shards but only 1 devices"):
@@ -491,6 +499,36 @@ def test_sharded_kernel_guards():
     assert empty.shape == (0, c)
 
 
+def test_sharded_pack_stacks_a_devices_shards_for_one_launch():
+    """K5 launches once a device over that device's shards stacked: the
+    sharded engine's pack holds each device's shards as one (k, T_pad, H)
+    stack there, in shard order, and the entry's other forms (one stacked
+    array, a sequence of shards) give the same answer; shards of unequal
+    ``T_pad`` are stacked each padded to the longest with the fill (code
+    and fit 0, tree_seg -1)."""
+    port, plan, pack, xb, c = sharded_inputs("regression", 4)
+    assert list(pack.code) == list(pack.fit) == [torch.device(CPU)]
+    assert only(pack.code).shape[0] == 4
+    scalars = (pack.max_depth, port.arena.tb2)
+    kw = dict(n_classes=c, block_trees=plan.engine.block_trees,
+              block_obs=pack.block_obs, devices=[CPU] * 4)
+    rest = (pack.tree_seg, pack.chunk_lo, pack.chunk_hi, *scalars)
+    want = ops.forest_predict_agg_segmented_sharded(
+        xb, plan.oseg_s, pack.code, pack.fit, *rest, **kw)
+    for code, fit in ((only(pack.code).numpy(), only(pack.fit).numpy()),
+                      (list(only(pack.code)), list(only(pack.fit)))):
+        got = ops.forest_predict_agg_segmented_sharded(
+            xb, plan.oseg_s, code, fit, *rest, **kw)
+        assert torch.equal(got, want)
+    tseg = [torch.as_tensor(a) for a in pack.tree_seg]
+    short = [t[:8] for t in tseg[:2]] + tseg[2:]
+    padded = tp._stacked(short, -1)
+    assert padded.shape == (4, len(tseg[0]))
+    assert torch.equal(padded[0, :8], tseg[0][:8])
+    assert (padded[0, 8:] == -1).all() and (padded[1, 8:] == -1).all()
+    assert torch.equal(padded[3], tseg[3])
+
+
 def test_sharded_launch_refuses_cpu_tensors():
     """K5's CUDA launch never runs CPU tensors and counts nothing when it
     refuses."""
@@ -498,11 +536,11 @@ def test_sharded_launch_refuses_cpu_tensors():
     tp.reset_launches()
     with pytest.raises(ValueError, match="CUDA"):
         tp._launch_seg_sharded(
-            [torch.as_tensor(xb)] * 2, [torch.as_tensor(plan.oseg_s)] * 2,
-            list(pack.code), list(pack.fit),
-            [torch.as_tensor(a) for a in pack.tree_seg],
-            [torch.as_tensor(a) for a in pack.chunk_lo],
-            [torch.as_tensor(a) for a in pack.chunk_hi],
+            [torch.as_tensor(xb)], [torch.as_tensor(plan.oseg_s)],
+            [only(pack.code)], [only(pack.fit)],
+            [torch.as_tensor(pack.tree_seg)],
+            [torch.as_tensor(pack.chunk_lo)],
+            [torch.as_tensor(pack.chunk_hi)],
             pack.max_depth, port.arena.tb2, c, 8, pack.block_obs,
         )
     assert all(v == 0 for v in tp.LAUNCHES.values())

@@ -801,9 +801,39 @@ def seg_layout(name):
     return oseg, tseg, bt, bo, (lo, hi)
 
 
+def shard_layout(name):
+    """K5's shape of a K1 layout ``<layout>-s<S>``: the layout's users
+    bin-packed onto S tree shards by tree count (``partition_segments_by
+    _load``, as the sharded engine does), each shard's trees in user order
+    and every shard padded with segment -1 to one ``T_pad`` (a multiple
+    of the 8-tree chunk): the shards hold unequal tree counts, and a
+    shard may hold none.  (obs_seg, tree_seg (S, T_pad), block_trees,
+    block_obs, (chunk_lo, chunk_hi) each (S, G))."""
+    from repro_torch.kernels.tree_predict.ops import (
+        partition_segments_by_load,
+    )
+
+    base, shards = name.rsplit("-s", 1)
+    oseg, tseg, bt, bo, _ = seg_layout(base)
+    tseg = tseg[tseg >= 0]
+    users = np.bincount(tseg)
+    parts = [np.concatenate([np.flatnonzero(tseg == u) for u in sorted(us)]
+                            or [np.zeros(0, int)]).astype(int)
+             for us in partition_segments_by_load(users, int(shards))]
+    t_pad = max(-(-max(len(p) for p in parts) // bt) * bt, bt)
+    tsegs = np.full((len(parts), t_pad), -1, np.int32)
+    for s, p in enumerate(parts):
+        tsegs[s, :len(p)] = tseg[p]
+    ranges = [tp.segment_chunk_ranges(oseg, t, bt, bo) for t in tsegs]
+    return oseg, tsegs, bt, bo, tuple(np.stack(r) for r in zip(*ranges))
+
+
 SEG_LAYOUTS = ["k1-main", "k1-fleet", "k1-large", "k1-long", "k1-n1000",
                "k1-n1", "k2-main", "k2-fleet", "k2-large", "k2-long",
-               "k2-dead"]
+               "k2-dead",
+               # K5: K1's layouts over S tree shards (``shard_layout``)
+               "k1-fleet-s1", "k1-fleet-s2", "k1-fleet-s4", "k1-main-s4",
+               "k1-long-s2", "k1-n1000-s2", "k1-n1-s4"]
 
 
 @pytest.mark.parametrize("resident", [132, 528, 1056])
@@ -814,13 +844,22 @@ def test_seg_work_covers_every_pair_once(name, resident):
     slices each keeps, walked against its rows, cover every (tree, row)
     pair whose segments match and whose chunk lies in the row block's
     range exactly once; the rows a CTA holds are the fewest (from 8, or
-    16 for K2) whose grid fits the resident CTAs."""
-    oseg, tseg, bt, bo, ranges = seg_layout(name)
-    n, t = len(oseg), len(tseg)
+    16 for K2) whose grid fits the resident CTAs.  K5's layouts (``-s``
+    S shards): the same over the shard axis, every (shard, tree, row)
+    pair covered once by that shard's CTAs, and the grid of every shard
+    together fitting the resident CTAs."""
+    sharded = "-s" in name
+    oseg, tseg, bt, bo, ranges = (shard_layout if sharded
+                                  else seg_layout)(name)
+    tsegs = tseg if sharded else tseg[None]
+    shards, t = tsegs.shape
+    n = len(oseg)
     tb2 = 64 if ranges is not None else None
-    cfg = tp._seg_config(n, 8, t, 511, 8, 2, bt, bo, tb2, resident)
+    cfg = tp._seg_config(n, 8, t, 511, 8, 2, bt, bo, tb2, resident,
+                         shards=shards)
     assert cfg["rows"] * cfg["cols"] == cfg["threads"] == 256
-    assert cfg["grid"] <= resident or cfg["rows"] == 128
+    assert cfg["shards"] == shards
+    assert cfg["grid"] * shards <= resident or cfg["rows"] == 128
     # dynamic shared memory beside the static (the kept list, K2's staged
     # trees' table, the warps' ranges) fits a Hopper CTA; only K2 stages
     assert cfg["smem"] + 2 * 4 * 256 + 3 * 4 * 8 <= 232448
@@ -829,35 +868,46 @@ def test_seg_work_covers_every_pair_once(name, resident):
     fewest = 8 if tb2 else 16  # K2's CTAs hold 16 rows or more
     assert cfg["rows"] >= fewest
     if cfg["rows"] > fewest:  # half the rows would not have fit the card
-        half = tp._seg_config(n, 8, t, 511, 8, 2, bt, bo, tb2, resident)
+        half = tp._seg_config(n, 8, t, 511, 8, 2, bt, bo, tb2, resident,
+                              shards=shards)
         tp._seg_size(half, n, bo, 2, cfg["rows"] // 2)
-        assert half["grid"] > resident
+        assert half["grid"] * shards > resident
     lo, hi = ranges if ranges is not None else (None, None)
+    los = lo if sharded or lo is None else lo[None]
+    his = hi if sharded or hi is None else hi[None]
     n_chunks = -(-t // bt)
     blocks = np.arange(n) // bo
     chunk_of = np.arange(t) // bt
-    if ranges is None:
-        in_range = np.ones((len(np.unique(blocks)), n_chunks), bool)
-    else:
-        c = np.arange(n_chunks)
-        in_range = (c[None] >= lo[:, None]) & (c[None] < hi[:, None])
+    c = np.arange(n_chunks)
+    in_range = [np.ones((len(np.unique(blocks)), n_chunks), bool)
+                if los is None else
+                (c[None] >= los[s][:, None]) & (c[None] < his[s][:, None])
+                for s in range(shards)]
+    work = tp._seg_work(cfg, oseg, tseg, bt, bo, lo, hi)
+    if not sharded:
+        work = ((0, rows, slices) for rows, slices in work)
     covered = 0
-    rows_seen = np.zeros(n, np.int64)
-    for rows, slices in tp._seg_work(cfg, oseg, tseg, bt, bo, lo, hi):
+    rows_seen = np.zeros((shards, n), np.int64)
+    for s, rows, slices in work:
         assert len({blocks[r] for r in (rows.start, rows.stop - 1)}) == 1
-        rows_seen[rows.start:rows.stop] += 1
-        trees = np.concatenate([np.arange(s.start, min(s.stop, t))
-                                for s in slices] or [np.zeros(0, int)])
+        rows_seen[s, rows.start:rows.stop] += 1
+        trees = np.concatenate([np.arange(sl.start, min(sl.stop, t))
+                                for sl in slices] or [np.zeros(0, int)])
         assert len(set(trees.tolist())) == len(trees)  # no tree twice
-        ok = in_range[blocks[rows.start], chunk_of[trees]]
-        covered += int((tseg[trees][ok, None]
+        ok = in_range[s][blocks[rows.start], chunk_of[trees]]
+        covered += int((tsegs[s][trees][ok, None]
                         == oseg[None, rows.start:rows.stop]).sum())
     assert (rows_seen == 1).all()
     want = 0
-    for tree in range(t):
-        rows = np.flatnonzero(oseg == tseg[tree])
-        want += int(in_range[blocks[rows], chunk_of[tree]].sum())
+    for s in range(shards):
+        for tree in range(t):
+            rows = np.flatnonzero(oseg == tsegs[s][tree])
+            want += int(in_range[s][blocks[rows], chunk_of[tree]].sum())
     assert covered == want
+    if sharded:  # the shards together hold every real tree once
+        base = seg_layout(name.rsplit("-s", 1)[0])[1]
+        assert sorted(tseg[tseg >= 0].tolist()) == sorted(
+            base[base >= 0].tolist())
 
 
 def seg_kernel_order_plain(leaf, oseg, tseg, n_classes, bt, bo, cfg,

@@ -2,9 +2,10 @@
 ``tests/test_torch_mesh_train_families.py``: one function run by each of
 4 CPU ranks (``torch.multiprocessing.spawn``, gloo through a ``file://``
 rendezvous, each collective under a timeout).  Each rank runs every case
-of its suite (``"base"``: ``mesh_cases.TRAIN_CASES``; ``"families"``:
-``TRAIN_FAMILY_CASES``) and writes what it got to ``rank<r>.npz``; the
-test asserts.  Imports no JAX."""
+of its suite (``"base"``: ``mesh_cases.TRAIN_CASES``, the compressed
+``TRAIN_COMP_CASES`` and the compressor alone, ``COMP_CASES``;
+``"families"``: ``TRAIN_FAMILY_CASES``) and writes what it got to
+``rank<r>.npz``; the test asserts.  Imports no JAX."""
 import contextlib
 import dataclasses
 import datetime
@@ -58,7 +59,13 @@ from repro_torch.models.sharding import (
     psum_scatter,
     single_pod_rules,
 )
+from repro_torch.optim import compression
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+from repro_torch.optim.compression import (
+    GradCompressionConfig,
+    compress_gradients,
+    init_error_feedback,
+)
 from repro_torch.runtime.fault_tolerance import PreemptionSchedule, TrainLoop
 
 #: a rank stuck in a collective (ranks issuing different collectives)
@@ -146,15 +153,17 @@ def _witness(cfg, name, i, params, opt, mesh, cases, remat, out):
 @torch.no_grad()
 def _anchor(ref, index, name, i, params, opt, mesh):
     """This rank's state set to the reference's after step ``i``: each
-    parameter, ``m`` and ``v`` shard from its shard at the same place, so
-    the next step is held from the same state (Adam's normalized first
-    step amplifies the last bits of a near-zero gradient; compounded over
-    steps they would spread through the whole model)."""
+    parameter, ``m``, ``v`` (and error feedback) shard from its shard at
+    the same place, so the next step is held from the same state (Adam's
+    normalized first step amplifies the last bits of a near-zero
+    gradient; compounded over steps they would spread through the whole
+    model)."""
+    kinds = [k for k in ("m", "v", "ef") if k in opt]
     for n, p in params.named_parameters():
         path, block = reference_path(n)
         key = mc.shard_key(_bounds(_whole_shape(params.cfg, n),
                                    params.pspecs[n], mesh))
-        for kind, t in (("p", p), ("m", opt["m"][n]), ("v", opt["v"][n])):
+        for kind, t in [("p", p)] + [(k, opt[k][n]) for k in kinds]:
             a = mc.ref_shard(ref, index, f"{name}/{kind}/{i}", path, block,
                              key)
             if kind != "p" and t.dtype != torch.float32:
@@ -183,8 +192,12 @@ def train_case(ref, index, out, name, one_process):
                              for k in ref.files if k.startswith(pre)})
     params = lm_shards_from_arrays(cfg, init, mesh, device="cpu")
     opt = init_opt_state(params)
+    grad_comp = None
+    if cases is mc.TRAIN_COMP_CASES:
+        grad_comp = GradCompressionConfig(bits=mc.TRAIN_COMP_BITS)
+        opt["ef"] = init_error_feedback(params)
     step = steps.make_train_step(cfg, AdamWConfig(**mc.TRAIN_OPT),
-                                 remat=remat)
+                                 remat=remat, grad_comp=grad_comp)
     out[f"{name}/coord"] = np.array([mesh.get_local_rank("data"),
                                      mesh.get_local_rank("model")])
     with logical_sharding(mesh, single_pod_rules()):
@@ -212,8 +225,10 @@ def train_case(ref, index, out, name, one_process):
             out[f"{name}/lr/{i}"] = met["lr"].numpy()
             for n, p in params.named_parameters():
                 out[f"{name}/p/{i}/{n}"] = p.numpy().copy()
-                out[f"{name}/m/{i}/{n}"] = opt["m"][n].numpy().copy()
-                out[f"{name}/v/{i}/{n}"] = opt["v"][n].numpy().copy()
+                for kind in ("m", "v", "ef"):
+                    if kind in opt:
+                        out[f"{name}/{kind}/{i}/{n}"] = (
+                            opt[kind][n].numpy().copy())
     for n, p in params.named_parameters():
         out[f"{name}/key/{n}"] = np.array(mc.shard_key(
             _bounds(_whole_shape(cfg, n), params.pspecs[n], mesh)))
@@ -227,6 +242,45 @@ def train_case(ref, index, out, name, one_process):
                             ("v", v[n])):
                 out[f"{name}/onep/{kind}/{n}"] = local_shard(
                     t, params.pspecs[n], mesh).numpy()
+
+
+def comp_case(ref, out, name):
+    """The compressor alone on the case's mesh: ``compress_gradients`` under
+    ``logical_sharding`` on this rank's shards of the reference's draws
+    for kv4's leaves, twice (the second call on the first's error
+    feedback); the decoded gradients, the error feedback and each leaf's
+    place, and each reference leaf's lo and hi (``_bounds``' one
+    ``pmax``)."""
+    cfg = mc.tp_config(get_config, "kv4")
+    mesh = make_host_mesh(*mc.COMP_CASES[name], device="cpu")
+    specs = param_pspecs(cfg, mesh)
+    comp = GradCompressionConfig(bits=mc.TRAIN_COMP_BITS)
+    ef = None
+    with logical_sharding(mesh, single_pod_rules()):
+        for call in range(mc.COMP_CALLS):
+            grads = {}
+            for n in specs:
+                path, block = reference_path(n)
+                whole = ref[f"{name}/in/{call}/{path}"]
+                whole = whole if block is None else whole[block]
+                grads[n] = local_shard(torch.from_numpy(np.array(whole)),
+                                       specs[n], mesh).contiguous()
+            if ef is None:
+                ef = {n: torch.zeros_like(g) for n, g in grads.items()}
+            groups = compression._groups(grads)
+            bounds = compression._bounds(
+                {g: [grads[n] + ef[n] for n in members]
+                 for g, members in groups.items()}, compression._device_mesh())
+            for g, (lo, hi) in bounds.items():
+                out[f"{name}/lohi/{call}/{reference_path(groups[g][0])[0]}"] \
+                    = torch.stack([lo, hi]).numpy()
+            dec, ef = compress_gradients(comp, grads, ef)
+            for n in specs:
+                out[f"{name}/dec/{call}/{n}"] = dec[n].numpy()
+                out[f"{name}/ef/{call}/{n}"] = ef[n].numpy().copy()
+    for n in specs:
+        out[f"{name}/key/{n}"] = np.array(mc.shard_key(
+            _bounds(_whole_shape(cfg, n), specs[n], mesh)))
 
 
 _META: dict = {}
@@ -392,15 +446,62 @@ def family_flash_case(out):
             setattr(owner, attr, real)
 
 
-def _specs_tree(cfg, mesh):
-    """The shardings of a train state's checkpoint tree."""
+def _specs_tree(cfg, mesh, ef=False):
+    """The shardings of a train state's checkpoint tree (with ``ef``, its
+    error feedback's too, placed like the parameters)."""
     pspecs = param_pspecs(cfg, mesh)
     opt = opt_pspecs(cfg, mesh, pspecs)
-    return to_named(mesh, {
+    tree = {
         "params": reference_pspecs(pspecs),
         "opt": {"m": reference_pspecs(opt["m"]),
                 "v": reference_pspecs(opt["v"]), "step": PartitionSpec()},
-    })
+    }
+    if ef:
+        tree["opt"]["ef"] = reference_pspecs(pspecs)
+    return to_named(mesh, tree)
+
+
+def ef_checkpoint_case(out, root, t=mc.TRAIN_RESUME):
+    """A train state of shards on (2, 2) that carries gradient compression's
+    error feedback (``shard_train_state(..., grad_comp=...)``), two
+    compressed steps, saved through ``CheckpointManager`` (gathered whole,
+    written by rank 0) and restored with ``shardings=`` onto the mesh,
+    cut into shards again: whether every shard (the error feedback's
+    included) is bit-equal after the restore, and whether the error
+    feedback was not zero."""
+    cfg = mc.tp_config(get_config, t["regime"])
+    mesh = make_host_mesh(*t["mesh"], device="cpu")
+    comp = GradCompressionConfig(bits=mc.TRAIN_COMP_BITS)
+    state = shard_train_state(cfg, init_leaves(cfg, mc.TRAIN_SEED, "cpu"),
+                              mesh, device="cpu", grad_comp=comp)
+    step = steps.make_train_step(cfg, AdamWConfig(**mc.TRAIN_OPT),
+                                 remat="full", grad_comp=comp)
+    cases = {"efckpt": (t["regime"], t["mesh"], t["batch"], t["seq"],
+                        "full")}
+    with logical_sharding(mesh, single_pod_rules()):
+        for i in range(2):
+            params, opt, _ = step(state["params"], state["opt"],
+                                  mc.train_batch(cfg, "efckpt", i, cases))
+            state = {"params": params, "opt": opt}
+    mgr = CheckpointManager(CheckpointConfig(os.path.join(root, "efckpt")),
+                            device="cpu")
+    mgr.save(2, state)
+    restored, saved = mgr.restore_or_none(_specs_tree(cfg, mesh, ef=True))
+    again = train_state_shards_from_arrays(cfg, restored, mesh, device="cpu")
+    pairs = [(p, q) for (_, p), (_, q) in zip(
+        state["params"].named_parameters(),
+        again["params"].named_parameters())]
+    for key in ("m", "v", "ef"):
+        pairs += [(state["opt"][key][n], again["opt"][key][n])
+                  for n in state["opt"][key]]
+    out["efckpt/step"] = np.array(saved)
+    out["efckpt/keys"] = np.array(sorted(again["opt"]))
+    out["efckpt/ef_dtypes"] = np.array(sorted(
+        {str(t.dtype) for t in again["opt"]["ef"].values()}))
+    out["efckpt/bit_equal"] = np.array(all(torch.equal(a, b)
+                                           for a, b in pairs))
+    out["efckpt/ef_nonzero"] = np.array(all(
+        bool(t.any()) for t in state["opt"]["ef"].values()))
 
 
 def resume_case(out, root, t=mc.TRAIN_RESUME):
@@ -484,12 +585,15 @@ def run(rank, init_file, ref_paths, out_dir, suite="base"):
             resume_case(out, out_dir, mc.TRAIN_FAMILY_RESUME)
         else:
             collective_grads(out, rank)
-            for name in mc.TRAIN_CASES:
+            for name in (*mc.TRAIN_CASES, *mc.TRAIN_COMP_CASES):
                 train_case(ref, index, out, name,
                            one_process=name in mc.TRAIN_ONE_PROCESS)
+            for name in mc.COMP_CASES:
+                comp_case(ref, out, name)
             flash_case(out)
             threaded_backward(out)
             resume_case(out, out_dir)
+            ef_checkpoint_case(out, out_dir)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
         dist.barrier()
     finally:

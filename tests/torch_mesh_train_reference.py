@@ -4,8 +4,9 @@ process of its own on a forced 4-device CPU mesh:
     XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu \\
         python tests/torch_mesh_train_reference.py OUT.npz [CASE ...]
 
-For each case named (of ``mesh_cases.TRAIN_CASES`` or
-``TRAIN_FAMILY_CASES``; every case of ``TRAIN_CASES`` when none is): the
+For each case named (of ``mesh_cases.TRAIN_CASES``,
+``TRAIN_COMP_CASES`` or ``TRAIN_FAMILY_CASES``; every case of
+``TRAIN_CASES`` when none is): the
 seeded parameters (the RWKV6 family cases' decay leaves drawn,
 ``mesh_cases.rwkv6_draws``), then
 ``mesh_cases.TRAIN_STEPS`` steps, each ``jax.value_and_grad(loss_fn)``
@@ -17,7 +18,16 @@ distinct addressable shard of the gradients and of the updated
 parameters, ``m`` and ``v`` after each step, keyed by its place in the
 global array (``mesh_cases.shard_key``).  A case of
 ``mesh_cases.TRAIN_FAMILY_MTP`` also writes ``mtp_loss``'s value and
-gradient shards at the seeded parameters.
+gradient shards at the seeded parameters.  A case of
+``TRAIN_COMP_CASES`` steps with gradient compression, its error feedback
+placed like the parameters, and writes its shards after each step too.
+
+A case of ``mesh_cases.COMP_CASES`` is the compressor alone:
+``compress_gradients`` jitted with ``in_shardings`` = ``param_pspecs``
+on the case's mesh, called twice on ``mesh_cases.comp_grads``' draws for
+kv4's leaves (the second call on the first's error feedback); it writes
+the draws, the decoded gradients' and the error feedback's shards and
+each leaf's lo and hi.
 """
 import os
 import sys
@@ -45,6 +55,11 @@ from repro.optim.adamw import (  # noqa: E402
     AdamWConfig,
     adamw_update,
     init_opt_state,
+)
+from repro.optim.compression import (  # noqa: E402
+    GradCompressionConfig,
+    compress_gradients,
+    init_error_feedback,
 )
 
 
@@ -104,16 +119,23 @@ def train_case(out, name):
         out[f"{name}/init/{k}"] = v
     opt = jax.jit(init_opt_state)(params)
     opt_cfg = AdamWConfig(**mc.TRAIN_OPT)
+    grad_comp = None
+    if cases is mc.TRAIN_COMP_CASES:
+        grad_comp = GradCompressionConfig(bits=mc.TRAIN_COMP_BITS)
+        opt["ef"] = jax.jit(init_error_feedback)(params)
     m = mesh(*shape)
     with logical_sharding(m, single_pod_rules()):
         pspecs = param_pspecs(cfg, m)
         p_sh = to_named(m, pspecs)
         o_sh = to_named(m, opt_pspecs(cfg, m, pspecs))
+        if grad_comp is not None:
+            o_sh["ef"] = p_sh
         b_sh = {"tokens": NamedSharding(m, batch_spec(m, b, 2)),
                 "labels": NamedSharding(m, batch_spec(m, b, 2))}
         if cfg.frontend is not None:
             b_sh["frontend_embeds"] = NamedSharding(m, batch_spec(m, b, 3))
-        step = make_train_step(cfg, opt_cfg, remat=remat)
+        step = make_train_step(cfg, opt_cfg, remat=remat,
+                               grad_comp=grad_comp)
 
         def both(p, o, batch):
             def lf(q):
@@ -140,11 +162,46 @@ def train_case(out, name):
             out[f"{name}/loss/{i}"] = np.asarray(loss)
             out[f"{name}/step_loss/{i}"] = np.asarray(met["loss"])
             out[f"{name}/grad_norm/{i}"] = np.asarray(met["grad_norm"])
-            for kind, tree in (("g", jax.device_put(grads, p_sh)),
-                               ("p", params), ("m", opt["m"]),
-                               ("v", opt["v"])):
+            kinds = [("g", jax.device_put(grads, p_sh)), ("p", params),
+                     ("m", opt["m"]), ("v", opt["v"])]
+            if grad_comp is not None:
+                kinds.append(("ef", opt["ef"]))
+            for kind, tree in kinds:
                 for k, v in leaves(tree).items():
                     put_shards(out, f"{name}/{kind}/{i}/{k}", v)
+
+
+def comp_case(out, name):
+    """``compress_gradients`` of kv4's leaves jitted with ``in_shardings``
+    = ``param_pspecs`` on the case's mesh, twice: the draws, the decoded
+    gradients' and the new error feedback's shards, and each leaf's lo
+    and hi (the min and max of its whole corrected gradient)."""
+    cfg = mc.tp_config(get_config, "kv4")
+    shapes = jax.eval_shape(lambda k: init_params(cfg, k),
+                            jax.random.PRNGKey(0))
+    paths = {k: v.shape for k, v in leaves(shapes).items()}
+    comp = GradCompressionConfig(bits=mc.TRAIN_COMP_BITS)
+    m = mesh(*mc.COMP_CASES[name])
+    with logical_sharding(m, single_pod_rules()):
+        p_sh = to_named(m, param_pspecs(cfg, m))
+        f = jax.jit(lambda g, e: compress_gradients(comp, g, e),
+                    in_shardings=(p_sh, p_sh))
+        ef = jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes)
+        for call in range(mc.COMP_CALLS):
+            draws = mc.comp_grads(paths, call)
+            grads = jax.tree.unflatten(
+                jax.tree.structure(shapes),
+                [draws[k] for k in leaves(shapes)])
+            for k, v in draws.items():
+                out[f"{name}/in/{call}/{k}"] = v
+            for k, v in leaves(ef).items():
+                corrected = draws[k] + np.asarray(v)
+                out[f"{name}/lohi/{call}/{k}"] = np.array(
+                    [corrected.min(), corrected.max()], np.float32)
+            dec, ef = f(grads, ef)
+            for kind, tree in (("dec", dec), ("ef", ef)):
+                for k, v in leaves(tree).items():
+                    put_shards(out, f"{name}/{kind}/{call}/{k}", v)
 
 
 def main():
@@ -152,7 +209,7 @@ def main():
     assert jax.device_count() == 4, jax.devices()
     out = {}
     for name in names:
-        train_case(out, name)
+        (comp_case if name in mc.COMP_CASES else train_case)(out, name)
     np.savez(path, **out)
 
 
